@@ -1,0 +1,426 @@
+// Fused ViT block for NVIDIA Hopper (sm_90a), bf16, as three hand-written
+// kernels behind a plain C interface (built with nvcc into a shared library
+// and loaded with ctypes by hands_tpu_torch/ops/vit_block.py).
+//
+// Replaces: hands_tpu/ops/vit_block_pallas.py:382 vit_block_fused
+// (pl.pallas_call at :414, kernel body _vit_block_kernel at :138), which keeps
+// one whole pre-LN block resident in TPU VMEM. A Hopper SM has 227 KB of
+// shared memory against ~39 MB of bf16 weights per ViT-H block, so the block
+// is split into three kernels, launched seven times per block:
+//   vit_layernorm  x2   LN1, LN2: f32 statistics (flax fast variance), bf16 out
+//   vit_gemm       x4   qkv, proj(+residual), MLP1(+GELU), MLP2(+residual)
+//   vit_attention  x1   one thread block per (crop, head), K/V in shared memory
+// The rounding points are those of block_math / _vit_block_kernel: every
+// product is accumulated in f32 and rounded to bf16, the bias is added in
+// bf16 after that rounding, attention logits are rounded to bf16 before an
+// f32 softmax, p.v runs in f32, and the residual adds are bf16.
+//
+// What bounds it on this card: per ViT-H block the four GEMMs do 2*M*19.7M
+// FLOPs over 39 MB of weights, i.e. M FLOPs per weight byte for M token rows.
+// The H100's bf16 ridge is ~295 FLOPs/byte, so the weight stream from HBM
+// bounds a block only below ~300 rows (under two 192-token crops); at the
+// serving batches (8 images = 16 crops = 3072 rows) and above, the GEMMs are
+// compute-bound on the tensor cores. Attention at N=192, D=80 is ~3% of the
+// FLOPs and runs on the f32 CUDA cores.
+// What this simple design does about it: little yet. The GEMM is a plain
+// nvcuda::wmma 16x16x16 bf16 kernel over 128x128x32 shared-memory tiles,
+// fed by cp.async through a 4-stage ring so that global-memory latency
+// hides behind three tiles of MMAs; no TMA, no wgmma, no warp
+// specialisation, no persistent scheduling. Its epilogue finishes 8
+// adjacent outputs per lane with 16-byte loads and stores. Attention is a
+// plain per-row loop on the f32 CUDA cores. Those come in later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <mma.h>
+#include <stdint.h>
+
+using namespace nvcuda;
+typedef __nv_bfloat16 bf16;
+
+namespace {
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Exact GELU 0.5x * erfc(-x/sqrt2) with the bf16 rounding points of
+// _gelu_mosaic (vit_block_pallas.py:60): each op rounds to bf16, and the
+// 2^-0.5 constant is itself the bf16 value 0.70703125. x is bf16-exact.
+__device__ __forceinline__ float gelu_bf16(float x) {
+  const float half_x = round_bf16(0.5f * x);
+  const float d = round_bf16(-x * 0.70703125f);
+  const float e = round_bf16(erfcf(d));
+  return round_bf16(half_x * e);
+}
+
+// 16-byte global -> shared copy that bypasses registers; pred == false
+// writes 16 zero bytes instead (the masked edge of a tile).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool pred) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int src_bytes = pred ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// ------------------------------------------------------------- LayerNorm
+// One block per row. flax LayerNorm to its f32 rounding order: fast variance
+// var = max(E[x^2] - E[x]^2, 0), mul = rsqrt(var + eps) * scale applied as
+// one multiplier, y = (x - mu) * mul + bias, rounded to bf16.
+constexpr int LN_THREADS = 256;
+
+__global__ void __launch_bounds__(LN_THREADS) layernorm_kernel(
+    const bf16* __restrict__ x, const float* __restrict__ scale,
+    const float* __restrict__ bias, bf16* __restrict__ out, int C,
+    float eps) {
+  __shared__ float red_s[LN_THREADS / 32];
+  __shared__ float red_ss[LN_THREADS / 32];
+  const bf16* xr = x + (size_t)blockIdx.x * C;
+  bf16* outr = out + (size_t)blockIdx.x * C;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  float s = 0.f, ss = 0.f;
+  for (int c = threadIdx.x; c < C; c += LN_THREADS) {
+    const float v = __bfloat162float(xr[c]);
+    s += v;
+    ss += v * v;
+  }
+  s = warp_sum(s);
+  ss = warp_sum(ss);
+  if (lane == 0) {
+    red_s[warp] = s;
+    red_ss[warp] = ss;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    s = lane < LN_THREADS / 32 ? red_s[lane] : 0.f;
+    ss = lane < LN_THREADS / 32 ? red_ss[lane] : 0.f;
+    s = warp_sum(s);
+    ss = warp_sum(ss);
+    if (lane == 0) {
+      red_s[0] = s;
+      red_ss[0] = ss;
+    }
+  }
+  __syncthreads();
+  const float mu = red_s[0] / (float)C;
+  const float var = fmaxf(red_ss[0] / (float)C - mu * mu, 0.f);
+  const float r = rsqrtf(var + eps);
+  for (int c = threadIdx.x; c < C; c += LN_THREADS) {
+    const float v = __bfloat162float(xr[c]);
+    outr[c] = __float2bfloat16_rn((v - mu) * (r * scale[c]) + bias[c]);
+  }
+}
+
+// ------------------------------------------------------------------ GEMM
+// out[M, N] = epilogue(A[M, K] . W[N, K]^T): A row-major, W in nn.Linear's
+// (out, in) layout, f32 accumulation. Epilogue on the accumulator:
+// round to bf16 -> + bias (bf16 add) -> {nothing | GELU | + residual (bf16)}.
+// Requires K % 8 == 0 and 16-byte aligned A and W (checked by the wrapper);
+// M and N edges are masked (zero-filled copies, guarded stores); bias,
+// residual and out must be 16-byte aligned too (the wrapper checks).
+constexpr int BM = 128, BN = 128, BK = 32, SKEW = 8, STAGES = 4;
+constexpr int LDS = BK + SKEW;  // 80-byte rows: 16-byte chunks stay aligned
+constexpr int GEMM_THREADS = 256;  // 8 warps as 2 (M) x 4 (N), 64x32 each
+constexpr size_t GEMM_SMEM =
+    (size_t)STAGES * (BM + BN) * LDS * sizeof(bf16) +
+    (size_t)(GEMM_THREADS / 32) * 16 * 16 * sizeof(float);  // 90,112 B
+enum { EPI_BIAS = 0, EPI_BIAS_GELU = 1, EPI_BIAS_RESIDUAL = 2 };
+
+__global__ void __launch_bounds__(GEMM_THREADS) gemm_bf16_kernel(
+    const bf16* __restrict__ A, const bf16* __restrict__ W,
+    const bf16* __restrict__ bias, const bf16* __restrict__ residual,
+    bf16* __restrict__ out, int M, int N, int K, int epilogue) {
+  extern __shared__ __align__(128) unsigned char gemm_smem[];
+  bf16* As = reinterpret_cast<bf16*>(gemm_smem);  // STAGES x BM x LDS
+  bf16* Bs = As + STAGES * BM * LDS;              // STAGES x BN x LDS
+  float* Cs = reinterpret_cast<float*>(Bs + STAGES * BN * LDS);
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int warp_m = warp / 4, warp_n = warp % 4;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+
+  // a stage is 128 rows x 4 chunks of 8 bf16 (16 bytes) per operand:
+  // 2 chunks of A and 2 of W per thread
+  auto load_stage = [&](int stage, int k0) {
+    bf16* as = As + stage * BM * LDS;
+    bf16* bs = Bs + stage * BN * LDS;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int c = tid + i * GEMM_THREADS;
+      const int r = c >> 2, kc = (c & 3) * 8;
+      const int gk = k0 + kc;
+      const bool a_ok = m0 + r < M && gk < K;
+      const bool b_ok = n0 + r < N && gk < K;
+      cp_async16(as + r * LDS + kc,
+                 a_ok ? A + (size_t)(m0 + r) * K + gk : A, a_ok);
+      cp_async16(bs + r * LDS + kc,
+                 b_ok ? W + (size_t)(n0 + r) * K + gk : W, b_ok);
+    }
+  };
+
+  const int KT = (K + BK - 1) / BK;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < KT) load_stage(s, s * BK);
+    cp_async_commit();  // one group per stage, empty ones included
+  }
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<STAGES - 2>();  // this thread's copies of tile kt landed
+    __syncthreads();  // everyone's landed; everyone is done with tile kt-1
+    const int nk = kt + STAGES - 1;
+    if (nk < KT) load_stage(nk % STAGES, nk * BK);  // into tile kt-1's slot
+    cp_async_commit();
+    const bf16* as = As + (kt % STAGES) * BM * LDS;
+    const bf16* bs = Bs + (kt % STAGES) * BN * LDS;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[4];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bfr[2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        wmma::load_matrix_sync(af[i], as + (warp_m * 64 + i * 16) * LDS + kk,
+                               LDS);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::load_matrix_sync(bfr[j], bs + (warp_n * 32 + j * 16) * LDS + kk,
+                               LDS);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          wmma::mma_sync(acc[i][j], af[i], bfr[j], acc[i][j]);
+    }
+  }
+  cp_async_wait<0>();  // only empty groups remain; drain before exit
+
+  // epilogue: stage one 16x16 accumulator at a time in the warp's own
+  // shared-memory slot; each lane then finishes 8 adjacent outputs of it
+  // (row lane/2, columns (lane%2)*8 ..+8) through the rounding chain
+  float* stage = Cs + warp * 16 * 16;
+  const int r = lane >> 1, c0 = (lane & 1) * 8;
+  const bool vec_ok = (N % 8) == 0;  // 16-byte aligned rows of out/residual
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      wmma::store_matrix_sync(stage, acc[i][j], 16, wmma::mem_row_major);
+      __syncwarp();
+      const int gm = m0 + warp_m * 64 + i * 16 + r;
+      const int gn = n0 + warp_n * 32 + j * 16 + c0;
+      if (gm < M) {
+        float v[8];
+        const float4 lo = *reinterpret_cast<const float4*>(stage + r * 16 + c0);
+        const float4 hi =
+            *reinterpret_cast<const float4*>(stage + r * 16 + c0 + 4);
+        v[0] = lo.x, v[1] = lo.y, v[2] = lo.z, v[3] = lo.w;
+        v[4] = hi.x, v[5] = hi.y, v[6] = hi.z, v[7] = hi.w;
+        const size_t row = (size_t)gm * N;
+        if (vec_ok && gn + 8 <= N) {
+          const uint4 braw = *reinterpret_cast<const uint4*>(bias + gn);
+          const bf16* b8 = reinterpret_cast<const bf16*>(&braw);
+          uint4 rraw = make_uint4(0u, 0u, 0u, 0u);
+          if (epilogue == EPI_BIAS_RESIDUAL)
+            rraw = *reinterpret_cast<const uint4*>(residual + row + gn);
+          const bf16* r8 = reinterpret_cast<const bf16*>(&rraw);
+          uint4 oraw;
+          bf16* o8 = reinterpret_cast<bf16*>(&oraw);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            float x = round_bf16(v[e]);
+            x = round_bf16(x + __bfloat162float(b8[e]));
+            if (epilogue == EPI_BIAS_GELU) {
+              x = gelu_bf16(x);
+            } else if (epilogue == EPI_BIAS_RESIDUAL) {
+              x = __bfloat162float(r8[e]) + x;
+            }
+            o8[e] = __float2bfloat16_rn(x);
+          }
+          *reinterpret_cast<uint4*>(out + row + gn) = oraw;
+        } else {
+          for (int e = 0; e < 8 && gn + e < N; ++e) {
+            float x = round_bf16(v[e]);
+            x = round_bf16(x + __bfloat162float(bias[gn + e]));
+            if (epilogue == EPI_BIAS_GELU) {
+              x = gelu_bf16(x);
+            } else if (epilogue == EPI_BIAS_RESIDUAL) {
+              x = __bfloat162float(residual[row + gn + e]) + x;
+            }
+            out[row + gn + e] = __float2bfloat16_rn(x);
+          }
+        }
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// ------------------------------------------------------------- attention
+// One thread block per (crop, head). qkv is (B*N, 3C) with column
+// s*C + h*D + d (s = q, k, v), out is (B*N, C). K and V of the head sit in
+// dynamic shared memory (K rows padded to D+2 so that lanes reading
+// different rows hit different banks). Each warp takes one query row at a
+// time: q*scale rounded to bf16, f32 logits rounded to bf16, f32 softmax,
+// f32 p.v, bf16 store into the head's column slice.
+constexpr int ATTN_THREADS = 256;
+
+__global__ void __launch_bounds__(ATTN_THREADS) attention_kernel(
+    const bf16* __restrict__ qkv, bf16* __restrict__ out, int N, int H,
+    int D, float q_scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int C = H * D;
+  const int KD = D + 2;
+  const int nwarps = ATTN_THREADS / 32;
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // N x KD
+  bf16* Vs = Ks + (size_t)N * KD;                // N x D
+  float* qbuf = reinterpret_cast<float*>(Vs + (size_t)N * D);  // nwarps x D
+  float* pbuf = qbuf + nwarps * D;                             // nwarps x N
+
+  const int h = blockIdx.x;
+  const size_t row0 = (size_t)blockIdx.y * N;
+  const size_t ld = 3 * (size_t)C;
+  const int D2 = D / 2;
+
+  for (int idx = threadIdx.x; idx < N * D2; idx += ATTN_THREADS) {
+    const int m = idx / D2, d2 = idx % D2;
+    const __nv_bfloat162* src = reinterpret_cast<const __nv_bfloat162*>(
+        qkv + (row0 + m) * ld + C + (size_t)h * D);
+    reinterpret_cast<__nv_bfloat162*>(Ks + (size_t)m * KD)[d2] = src[d2];
+    reinterpret_cast<__nv_bfloat162*>(Vs + (size_t)m * D)[d2] = src[C / 2 + d2];
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* q = qbuf + warp * D;
+  float* p = pbuf + warp * N;
+  for (int n = warp; n < N; n += nwarps) {
+    const bf16* qrow = qkv + (row0 + n) * ld + (size_t)h * D;
+    for (int d = lane; d < D; d += 32)
+      q[d] = round_bf16(__bfloat162float(qrow[d]) * q_scale);
+    __syncwarp();
+
+    float mx = -INFINITY;
+    for (int m = lane; m < N; m += 32) {
+      const __nv_bfloat162* krow =
+          reinterpret_cast<const __nv_bfloat162*>(Ks + (size_t)m * KD);
+      float s = 0.f;
+      for (int d2 = 0; d2 < D2; ++d2) {
+        const float2 kv = __bfloat1622float2(krow[d2]);
+        s = fmaf(q[2 * d2], kv.x, s);
+        s = fmaf(q[2 * d2 + 1], kv.y, s);
+      }
+      s = round_bf16(s);
+      p[m] = s;
+      mx = fmaxf(mx, s);
+    }
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int m = lane; m < N; m += 32) {
+      const float e = expf(p[m] - mx);
+      p[m] = e;
+      sum += e;
+    }
+    sum = warp_sum(sum);
+    for (int m = lane; m < N; m += 32) p[m] = p[m] / sum;
+    __syncwarp();
+
+    bf16* orow = out + (row0 + n) * C + (size_t)h * D;
+    for (int d = lane; d < D; d += 32) {
+      float o = 0.f;
+      for (int m = 0; m < N; ++m)
+        o = fmaf(p[m], __bfloat162float(Vs[(size_t)m * D + d]), o);
+      orow[d] = __float2bfloat16_rn(o);
+    }
+    __syncwarp();
+  }
+}
+
+size_t attention_smem_bytes(int N, int D) {
+  return (size_t)N * (D + 2) * sizeof(bf16) + (size_t)N * D * sizeof(bf16) +
+         (size_t)(ATTN_THREADS / 32) * (D + N) * sizeof(float);
+}
+
+}  // namespace
+
+// --------------------------------------------------------- C interface
+// Pointers and the stream come from PyTorch as integers; every entry returns
+// the launch's cudaGetLastError() (0 = success) and never synchronises.
+extern "C" {
+
+int vit_layernorm(int device, const void* x, const void* scale,
+                  const void* bias, void* out, int rows, int C, float eps,
+                  void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  layernorm_kernel<<<rows, LN_THREADS, 0, (cudaStream_t)stream>>>(
+      (const bf16*)x, (const float*)scale, (const float*)bias, (bf16*)out, C,
+      eps);
+  return (int)cudaGetLastError();
+}
+
+int vit_gemm(int device, const void* a, const void* w, const void* bias,
+             const void* residual, void* out, int M, int N, int K,
+             int epilogue, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(gemm_bf16_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)GEMM_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  gemm_bf16_kernel<<<grid, GEMM_THREADS, GEMM_SMEM, (cudaStream_t)stream>>>(
+      (const bf16*)a, (const bf16*)w, (const bf16*)bias,
+      (const bf16*)residual, (bf16*)out, M, N, K, epilogue);
+  return (int)cudaGetLastError();
+}
+
+int vit_attention(int device, const void* qkv, void* out, int B, int N,
+                  int H, int D, float q_scale, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = attention_smem_bytes(N, D);
+  err = cudaFuncSetAttribute(attention_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  attention_kernel<<<dim3(H, B), ATTN_THREADS, smem, (cudaStream_t)stream>>>(
+      (const bf16*)qkv, (bf16*)out, N, H, D, q_scale);
+  return (int)cudaGetLastError();
+}
+
+const char* vit_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+}  // extern "C"

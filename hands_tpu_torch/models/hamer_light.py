@@ -1,0 +1,158 @@
+"""HaMeR (``hamer_light``): ViT backbone + transformer-decoder MANO head
+(port of ``hands_tpu/models/hamer_light.py``).
+
+Right and left crops are stacked along the batch and run through the ViT
+once (the 224^2 crop resized to 256^2, then centre-cropped to 256x192); the
+center+corner KPE embeddings are MLP-encoded and added both to the patch
+tokens and to the conditioning features; a single-query cross-attention
+decoder reads out MANO parameters, decoded per side with that side's MANO.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from hands_tpu.config import Config
+from hands_tpu_torch.core.xdict import XDict
+from hands_tpu_torch.models import kpe
+from hands_tpu_torch.models.backbones.vit import VIT_CONFIGS, Dense, ViTBackbone
+from hands_tpu_torch.models.heads.hamer_head import ManoTransformerDecoderHead
+from hands_tpu_torch.models.heads.mano_head import mano_head
+from hands_tpu_torch.ops import mano as manolib
+
+
+class KpeTokenEmbed(nn.Module):
+    """center+corner angles -> one embedding broadcast over the tokens
+    (2-layer ReLU MLP over the sinusoidal encodings)."""
+
+    def __init__(self, feat_dim: int, n_freq: int, n_tokens: int, device=None):
+        super().__init__()
+        self.n_freq = n_freq
+        self.n_tokens = n_tokens
+        self.fc1 = Dense(4 * n_freq + 16 * n_freq, feat_dim, device=device)
+        self.fc2 = Dense(feat_dim, feat_dim, device=device)
+
+    def forward(self, center_angle, corner_angle):
+        enc = torch.cat([kpe.center_pos_enc(center_angle, self.n_freq),
+                         kpe.corner_pos_enc(corner_angle, self.n_freq)], -1)
+        x = F.relu(self.fc2(F.relu(self.fc1(enc))))
+        return x[:, None, :].expand(x.shape[0], self.n_tokens, x.shape[-1])
+
+
+def to_vit_input(img: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, C) -> (B, 256, 192, C): bilinear resize to 256^2 (half-pixel
+    centres, no antialiasing: the JAX resize when upsampling), then crop 32
+    px off each side of the width."""
+    x = F.interpolate(img.permute(0, 3, 1, 2), size=(256, 256),
+                      mode="bilinear", align_corners=False, antialias=False)
+    return x.permute(0, 2, 3, 1)[:, :, 32:-32, :]
+
+
+class HamerNet(nn.Module):
+    def __init__(self, cfg: Config, vit_variant: str = "h", device=None):
+        super().__init__()
+        if cfg.pos_enc not in (None, "center+corner_latent"):
+            raise NotImplementedError(
+                f"pos_enc={cfg.pos_enc!r} is ROADMAP queue 1 item 1")
+        if cfg.use_grasp_loss:
+            raise NotImplementedError(
+                "the grasp classifier is ROADMAP queue 1 item 1 "
+                "(serve with use_grasp_loss=False)")
+        if cfg.get("quant_int8", False) or cfg.get("fast_gelu", False):
+            raise NotImplementedError(
+                "int8 and fast-GELU serving are ROADMAP queue 1 item 5")
+        self.cfg = cfg
+        self.dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
+                      else torch.float32)
+        embed_dim = VIT_CONFIGS[vit_variant]["embed_dim"]
+        self.kpe = None
+        if cfg.pos_enc is not None:
+            self.kpe = KpeTokenEmbed(embed_dim, cfg.n_freq_pos_enc,
+                                     n_tokens=(256 // 16) * (192 // 16),
+                                     device=device)
+        self.backbone = ViTBackbone(
+            variant=vit_variant, dtype=self.dtype,
+            fused_block=bool(cfg.get("fused_block", False)), device=device)
+        self.mano_head = ManoTransformerDecoderHead(context_dim=embed_dim,
+                                                    device=device)
+
+    def forward(self, inputs: dict) -> dict:
+        r_img = inputs["r_img"].to(self.dtype)
+        l_img = inputs["l_img"].to(self.dtype)
+        B = r_img.shape[0]
+        x = torch.cat([to_vit_input(r_img), to_vit_input(l_img)], dim=0)
+
+        kpe_emb = None
+        if self.kpe is not None:
+            kpe_emb = torch.cat([
+                self.kpe(inputs["r_center_angle"], inputs["r_corner_angle"]),
+                self.kpe(inputs["l_center_angle"], inputs["l_corner_angle"]),
+            ], dim=0)
+
+        feat = self.backbone(x, kpe_emb=kpe_emb).float()  # (2B, 16, 12, C)
+        if kpe_emb is not None:
+            # KPE is added again to the conditioning features
+            h, w = feat.shape[1:3]
+            feat = feat + kpe_emb.reshape(2 * B, h, w, -1)
+        out = self.mano_head(feat)
+        return {
+            side: {
+                "pose": out["pose"][sl],
+                "shape": out["shape"][sl],
+                "cam_t.wp": out["cam_t.wp"][sl],
+                "cam_t.wp.init": out["cam_t.wp"][sl],
+            }
+            for side, sl in (("hmr_r", slice(None, B)),
+                             ("hmr_l", slice(B, None)))
+        }
+
+
+class ManoBuffers(nn.Module):
+    """A MANO model's arrays as non-persistent buffers, so that they move
+    with the module (``.to(device)``) and stay out of the state dict."""
+
+    def __init__(self, model: manolib.ManoModel):
+        super().__init__()
+        for k, v in model._asdict().items():
+            self.register_buffer(k, v, persistent=False)
+
+    @property
+    def model(self) -> manolib.ManoModel:
+        return manolib.ManoModel(
+            **{k: getattr(self, k) for k in manolib.ManoModel._fields})
+
+
+class HamerLightModel(nn.Module):
+    """HaMeR with MANO decoding: ``model(inputs, meta_info)`` -> the
+    ``mano.*`` prediction XDict of the JAX ``HamerLightModel``."""
+
+    def __init__(self, cfg: Config, vit_variant: str = "h", device=None):
+        super().__init__()
+        if cfg.use_render_seg_loss:
+            raise NotImplementedError(
+                "the silhouette render is ROADMAP queue 1 item 3 "
+                "(serve with use_render_seg_loss=False)")
+        self.cfg = cfg
+        self.net = HamerNet(cfg, vit_variant=vit_variant, device=device)
+        dev = device or "cpu"
+        self.mano_r = ManoBuffers(manolib.load_mano(is_rhand=True, device=dev))
+        self.mano_l = ManoBuffers(manolib.load_mano(is_rhand=False, device=dev))
+
+    def forward(self, inputs: dict, meta_info: dict) -> XDict:
+        cfg = self.cfg
+        net_out = self.net(inputs)
+        K = meta_info["intrinsics"]
+        hmr_r, hmr_l = net_out["hmr_r"], net_out["hmr_l"]
+        mano_out_r = mano_head(self.mano_r.model, hmr_r["pose"], hmr_r["shape"],
+                               hmr_r["cam_t.wp"], K, cfg.img_res, is_rhand=True)
+        mano_out_l = mano_head(self.mano_l.model, hmr_l["pose"], hmr_l["shape"],
+                               hmr_l["cam_t.wp"], K, cfg.img_res,
+                               is_rhand=False)
+        mano_out_r["cam_t.wp.init.r"] = hmr_r["cam_t.wp.init"]
+        mano_out_l["cam_t.wp.init.l"] = hmr_l["cam_t.wp.init"]
+        pred = XDict()
+        pred.merge(mano_out_r.prefix("mano."))
+        pred.merge(mano_out_l.prefix("mano."))
+        return pred

@@ -1,0 +1,147 @@
+"""Batched on-device preprocessing (port of ``hands_tpu/ops/preprocess.py``,
+the eval subset).
+
+Crops are axis-aligned resamples written as two interpolation-weight
+products (float32, TF32 off); keypoints, intrinsics and KPE angles follow the
+JAX module's math exactly. Train-time augmentation (rotation, blur, jitter,
+random draws) is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from hands_tpu_torch.core import rot as rotlib
+from hands_tpu_torch.core.precision import f32_matmuls
+
+
+def crop_transform(cx, cy, src_size, rot_deg, out_res: int) -> torch.Tensor:
+    """Batched dst->src affine maps (B, 2, 3) for square crops: a source
+    square of side ``src_size`` centred at (cx, cy), rotated by ``rot_deg``,
+    onto the (out_res x out_res) patch."""
+    rot_rad = torch.deg2rad(rot_deg)
+    cs, sn = torch.cos(rot_rad), torch.sin(rot_rad)
+    s = src_size / out_res
+    half = out_res / 2.0
+    a00 = cs * s
+    a01 = -sn * s
+    a10 = sn * s
+    a11 = cs * s
+    tx = cx - (a00 * half + a01 * half)
+    ty = cy - (a10 * half + a11 * half)
+    return torch.stack(
+        [torch.stack([a00, a01, tx], -1), torch.stack([a10, a11, ty], -1)],
+        dim=-2)
+
+
+def _interp_weights(src: torch.Tensor, in_size: int) -> torch.Tensor:
+    """Bilinear interpolation weight matrix W (..., out, in): out = W @
+    signal. Rows are the bilinear hat at the fractional source coordinate;
+    coordinates outside [0, in) give zero rows (the gather path's zero
+    border)."""
+    idx = torch.arange(in_size, dtype=src.dtype, device=src.device)
+    d = src[..., None] - idx
+    return torch.clamp(1.0 - torch.abs(d), min=0.0)
+
+
+@f32_matmuls
+def separable_resample(images: torch.Tensor, y_src: torch.Tensor,
+                       x_src: torch.Tensor) -> torch.Tensor:
+    """Axis-aligned bilinear resample of (B, H, W, C) as two batched
+    products: ``y_src`` (B, outH) and ``x_src`` (B, outW) are source
+    coordinates."""
+    Wy = _interp_weights(y_src, images.shape[1])  # (B, oh, H)
+    Wx = _interp_weights(x_src, images.shape[2])  # (B, ow, W)
+    tmp = torch.einsum("boh,bhwc->bowc", Wy, images)
+    return torch.einsum("bpw,bowc->bopc", Wx, tmp)
+
+
+def crop_resize_separable(images, cx, cy, src_size,
+                          out_res: int) -> torch.Tensor:
+    """Axis-aligned square crop+resize (the rot=0 case of ``crop_transform``)."""
+    s = src_size / out_res
+    half = out_res / 2.0
+    grid = torch.arange(out_res, dtype=torch.float32, device=images.device)
+    x_src = s[:, None] * grid[None, :] + (cx - s * half)[:, None]
+    y_src = s[:, None] * grid[None, :] + (cy - s * half)[:, None]
+    return separable_resample(images, y_src, x_src)
+
+
+def augm_params(batch: int, device=None) -> Dict[str, torch.Tensor]:
+    """Eval-mode augmentation parameters (none): (B,)-tensors flip, rot
+    (deg), sc and (B, 3) channel gains pn. Train-time draws are ROADMAP
+    queue 1 item 4."""
+    return {
+        "flip": torch.zeros(batch, device=device),
+        "pn": torch.ones((batch, 3), device=device),
+        "rot": torch.zeros(batch, device=device),
+        "sc": torch.ones(batch, device=device),
+    }
+
+
+def rgb_crop_augment(images, center, bbox_dim, augm: dict,
+                     img_res: int) -> torch.Tensor:
+    """Batched ``rgb_processing`` in its eval form (``antialias=False``,
+    ``apply_rot=False``: no blur, no rotation pass): square crop of side
+    ``sc * bbox_dim * 200`` -> channel gains -> [0, 1] NHWC float."""
+    imgs = images.to(torch.float32)
+    crop_dim = augm["sc"] * bbox_dim * 200.0
+    patch = crop_resize_separable(
+        imgs, center[:, 0], center[:, 1], crop_dim, img_res)
+    patch = torch.clamp(patch * augm["pn"][:, None, None, :], 0.0, 255.0)
+    return patch / 255.0
+
+
+@f32_matmuls
+def j2d_crop_transform(kp2d, center, bbox_dim, augm: dict,
+                       img_res: int) -> torch.Tensor:
+    """Batched ``j2d_processing``: keypoints (B, J, 2+) through the crop+rot
+    transform, normalised to [-1, 1]."""
+    crop_dim = augm["sc"] * bbox_dim * 200.0
+    M = crop_transform(center[:, 0], center[:, 1], crop_dim, augm["rot"],
+                       img_res)
+    A = M[:, :, :2]
+    t = M[:, :, 2]
+    A_inv = torch.linalg.inv(A)
+    xy = torch.einsum("bij,bnj->bni", A_inv, kp2d[..., :2] - t[:, None, :])
+    xy_norm = 2.0 * xy / img_res - 1.0
+    return torch.cat([xy_norm, kp2d[..., 2:]], dim=-1)
+
+
+def pose_aug_rotate(pose: torch.Tensor, rot_deg: torch.Tensor) -> torch.Tensor:
+    """Rotate the global-orient entry of flattened MANO poses (B, 48)."""
+    glob = rotlib.rot_aa(pose[:, :3], rot_deg)
+    return torch.cat([glob, pose[:, 3:]], dim=-1)
+
+
+def kpe_center_angles(bbox_xyxy: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
+    """(B, 2) ray angles of the crop centre: arctan2(c - pp, f)."""
+    center = (bbox_xyxy[:, :2] + bbox_xyxy[:, 2:]) / 2.0
+    ax = torch.atan2(center[:, 0] - K[:, 0, 2], K[:, 0, 0])
+    ay = torch.atan2(center[:, 1] - K[:, 1, 2], K[:, 1, 1])
+    return torch.stack([ax, ay], dim=-1)
+
+
+def kpe_corner_angles(bbox_xyxy: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
+    """(B, 8) ray angles of the 4 crop corners, corner-major [x, y] pairs."""
+    x0, y0, x1, y1 = (bbox_xyxy[:, i] for i in range(4))
+    corners = torch.stack(
+        [
+            torch.stack([x0, y0], -1), torch.stack([x0, y1], -1),
+            torch.stack([x1, y0], -1), torch.stack([x1, y1], -1),
+        ],
+        dim=1,
+    )  # (B, 4, 2)
+    pp = torch.stack([K[:, 0, 2], K[:, 1, 2]], -1)[:, None, :]
+    f = torch.stack([K[:, 0, 0], K[:, 1, 1]], -1)[:, None, :]
+    return torch.atan2(corners - pp, f).reshape(-1, 8)
+
+
+def normalize_imagenet(images: torch.Tensor, mean, std) -> torch.Tensor:
+    """[0,1] NHWC -> ImageNet-normalised."""
+    mean = torch.as_tensor(mean, dtype=images.dtype, device=images.device)
+    std = torch.as_tensor(std, dtype=images.dtype, device=images.device)
+    return (images - mean) / std
+

@@ -1,0 +1,323 @@
+"""Fused ViT block: hand-written CUDA kernels plus their plain PyTorch twin
+(port of ``hands_tpu/ops/vit_block_pallas.py:vit_block_fused``).
+
+One pre-LN block in bf16 — LN1 -> qkv -> attention -> proj + residual ->
+LN2 -> MLP1 + GELU -> MLP2 + residual — with the rounding points of the JAX
+package's ``block_math`` / ``_vit_block_kernel``. On Hopper the block's ~39
+MB of ViT-H weights cannot stay on-chip, so ``csrc/vit_block.cu`` splits it
+into three kernels (LayerNorm, bf16 GEMM with epilogues, per-head attention),
+launched seven times per block; see the note at the top of that file.
+
+Each wrapper (:func:`layernorm`, :func:`gemm`, :func:`attention`) launches
+its kernel for CUDA tensors and counts the launch in :data:`launches`; for
+CPU tensors it runs its ``*_plain`` twin. Nothing falls back silently: a
+tensor on any other device, or one the kernel does not take, raises.
+
+The shared library is built with ``nvcc`` at first use into
+``hands_tpu_torch/csrc/_build/``, keyed by a hash of the source and flags.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict
+
+import numpy as np
+import torch
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc" / "vit_block.cu"
+_BUILD_DIR = _CSRC.parent / "_build"
+_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_EPILOGUES = {None: 0, "gelu": 1, "residual": 2}
+_BF16 = torch.bfloat16
+
+# kernel launches per wrapper since the last reset (CPU twin runs not counted)
+launches: Dict[str, int] = {"layernorm": 0, "gemm": 0, "attention": 0}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+# --------------------------------------------------------------- build/load
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    found = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin)")
+    return found
+
+
+def _so_path() -> Path:
+    key = hashlib.sha256(
+        _CSRC.read_bytes() + " ".join(_NVCC_FLAGS).encode()).hexdigest()
+    return _BUILD_DIR / f"vit_block_{key[:16]}.so"
+
+
+def build() -> str:
+    """Compile ``csrc/vit_block.cu`` unless a library for this exact source
+    and flag set exists. Returns the compiler's report (registers, shared
+    memory and spills per kernel from ``-Xptxas -v``), empty if cached."""
+    so = _so_path()
+    if so.exists():
+        return ""
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_CSRC)],
+        capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {_CSRC}:\n{proc.stderr}")
+    os.replace(tmp, so)
+    return proc.stderr
+
+
+@functools.lru_cache(maxsize=1)
+def _lib() -> ctypes.CDLL:
+    build()
+    lib = ctypes.CDLL(str(_so_path()))
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.vit_layernorm.argtypes = [i, p, p, p, p, i, i, f, p]
+    lib.vit_gemm.argtypes = [i, p, p, p, p, p, i, i, i, i, p]
+    lib.vit_attention.argtypes = [i, p, p, i, i, i, i, f, p]
+    for fn in (lib.vit_layernorm, lib.vit_gemm, lib.vit_attention):
+        fn.restype = ctypes.c_int
+    lib.vit_error_string.argtypes = [i]
+    lib.vit_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch(fn, device: torch.device, *args) -> None:
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = fn(device.index, *args, stream)
+    if err != 0:
+        msg = _lib().vit_error_string(err).decode()
+        raise RuntimeError(f"{fn.__name__} launch failed: {msg} ({err})")
+
+
+def _on_cpu(x: torch.Tensor) -> bool:
+    """True for CPU tensors (twin path), False for CUDA (kernel path)."""
+    if x.device.type == "cpu":
+        return True
+    if x.device.type == "cuda":
+        return False
+    raise ValueError(f"no vit_block implementation for device {x.device}")
+
+
+def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
+    if (t.device != device or t.dtype != dtype or tuple(t.shape) != shape
+            or not t.is_contiguous() or t.data_ptr() % 16):
+        raise ValueError(
+            f"{name}: want a contiguous 16-byte-aligned {dtype} {shape} on "
+            f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device} "
+            f"(contiguous={t.is_contiguous()})")
+
+
+def _bf16_const(v: float) -> float:
+    """``v`` rounded to bf16, as JAX rounds a weak-typed scalar that meets a
+    bf16 array."""
+    return float(torch.tensor(v, dtype=_BF16))
+
+
+# ------------------------------------------------------------- plain twins
+def layernorm_f32(x32: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                  eps: float = 1e-6) -> torch.Tensor:
+    """flax ``nn.LayerNorm`` in f32 to its rounding order (port of
+    ``_layernorm_f32``): fast variance ``max(E[x^2] - E[x]^2, 0)`` and
+    ``mul = rsqrt(var + eps) * scale`` applied as one multiplier."""
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.clamp(
+        torch.mean(x32 * x32, dim=-1, keepdim=True) - mu * mu, min=0.0)
+    mul = torch.rsqrt(var + eps) * scale
+    return (x32 - mu) * mul + bias
+
+
+def gelu_erfc(x: torch.Tensor) -> torch.Tensor:
+    """Exact GELU ``0.5x * erfc(-x/sqrt2)`` with every op rounded to
+    ``x.dtype`` and the constant rounded first (jax.nn.gelu's exact form;
+    in bf16 the rounding points of ``_gelu_mosaic``)."""
+    sqrt_half = float(torch.tensor(2.0**-0.5, dtype=x.dtype))
+    half_x = x * 0.5
+    d = (-x) * sqrt_half
+    e = torch.special.erfc(d.float()).to(x.dtype)
+    return half_x * e
+
+
+def layernorm_plain(x, scale, bias, eps: float = 1e-6) -> torch.Tensor:
+    """(R, C) bf16 -> bf16 LayerNorm with f32 statistics."""
+    return layernorm_f32(x.float(), scale, bias, eps).to(_BF16)
+
+
+def gemm_plain(a, w, bias, epilogue=None, residual=None) -> torch.Tensor:
+    """bf16 ``a (M, K) . w (N, K)^T`` rounded to bf16, + bias in bf16, then
+    GELU or + residual in bf16."""
+    y = torch.matmul(a, w.t()) + bias
+    if epilogue == "gelu":
+        return gelu_erfc(y)
+    if epilogue == "residual":
+        return residual + y
+    return y
+
+
+def attention_plain(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(B, N, 3C) bf16 fused qkv -> (B, N, C) bf16: bf16 logits of
+    ``bf16(q * scale) . k``, f32 softmax, f32 ``p . v``."""
+    B, N, C3 = qkv.shape
+    C = C3 // 3
+    D = C // num_heads
+    t = qkv.view(B, N, 3, num_heads, D).permute(2, 0, 3, 1, 4)  # (3,B,H,N,D)
+    q = t[0] * _bf16_const(D**-0.5)
+    s = torch.matmul(q, t[1].transpose(-1, -2))  # bf16 logits
+    p = torch.softmax(s.float(), dim=-1)
+    o = torch.matmul(p, t[2].float())  # (B, H, N, D) f32
+    return o.permute(0, 2, 1, 3).reshape(B, N, C).to(_BF16)
+
+
+# ------------------------------------------------------- kernel wrappers
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-6) -> torch.Tensor:
+    """(R, C) bf16 -> (R, C) bf16; scale/bias f32 (C,)."""
+    if _on_cpu(x):
+        return layernorm_plain(x, scale, bias, eps)
+    R, C = x.shape
+    dev = x.device
+    _check(x, "x", _BF16, (R, C), dev)
+    _check(scale, "scale", torch.float32, (C,), dev)
+    _check(bias, "bias", torch.float32, (C,), dev)
+    out = torch.empty_like(x)
+    _launch(_lib().vit_layernorm, dev, x.data_ptr(), scale.data_ptr(),
+            bias.data_ptr(), out.data_ptr(), R, C, eps)
+    launches["layernorm"] += 1
+    return out
+
+
+def gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+         epilogue=None, residual=None) -> torch.Tensor:
+    """bf16 (M, K) x (N, K)^T -> (M, N) with the bias/GELU/residual
+    epilogue; ``epilogue`` is None, ``"gelu"`` or ``"residual"``."""
+    if (residual is not None) != (epilogue == "residual"):
+        raise ValueError("residual must be given exactly for "
+                         "epilogue='residual'")
+    if _on_cpu(a):
+        return gemm_plain(a, w, bias, epilogue, residual)
+    M, K = a.shape
+    N = w.shape[0]
+    dev = a.device
+    if K % 8:
+        raise ValueError(f"gemm kernel needs K % 8 == 0, got K={K}")
+    _check(a, "a", _BF16, (M, K), dev)
+    _check(w, "w", _BF16, (N, K), dev)
+    _check(bias, "bias", _BF16, (N,), dev)
+    if residual is not None:
+        _check(residual, "residual", _BF16, (M, N), dev)
+    out = torch.empty((M, N), dtype=_BF16, device=dev)
+    _launch(_lib().vit_gemm, dev, a.data_ptr(), w.data_ptr(),
+            bias.data_ptr(),
+            None if residual is None else residual.data_ptr(),
+            out.data_ptr(), M, N, K, _EPILOGUES[epilogue])
+    launches["gemm"] += 1
+    return out
+
+
+def attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(B, N, 3C) bf16 fused qkv -> (B, N, C) bf16 attention output."""
+    if _on_cpu(qkv):
+        return attention_plain(qkv, num_heads)
+    B, N, C3 = qkv.shape
+    C = C3 // 3
+    D = C // num_heads
+    dev = qkv.device
+    if C3 % 3 or C % num_heads or D % 2:
+        raise ValueError(f"attention kernel needs 3C columns and an even "
+                         f"head dim, got {C3} columns, {num_heads} heads")
+    _check(qkv, "qkv", _BF16, (B, N, C3), dev)
+    out = torch.empty((B, N, C), dtype=_BF16, device=dev)
+    _launch(_lib().vit_attention, dev, qkv.data_ptr(), out.data_ptr(),
+            B, N, num_heads, D, _bf16_const(D**-0.5))
+    launches["attention"] += 1
+    return out
+
+
+# ------------------------------------------------------------------ block
+def _block(x, p, num_heads, ln, mm, attn):
+    B, N, C = x.shape
+    x2 = x.reshape(B * N, C)
+    y = ln(x2, p["ln1_scale"], p["ln1_bias"])
+    qkv = mm(y, p["wqkv"], p["bqkv"])
+    o = attn(qkv.view(B, N, 3 * C), num_heads).view(B * N, C)
+    x1 = mm(o, p["wproj"], p["bproj"], "residual", x2)
+    y2 = ln(x1, p["ln2_scale"], p["ln2_bias"])
+    h = mm(y2, p["w1"], p["b1"], "gelu")
+    return mm(h, p["w2"], p["b2"], "residual", x1).view(B, N, C)
+
+
+def vit_block_plain(x: torch.Tensor, params: dict, num_heads: int
+                    ) -> torch.Tensor:
+    """The plain PyTorch twin of the whole block (port of ``block_math``
+    with the kernel's rounding points)."""
+    return _block(x, params, num_heads, layernorm_plain, gemm_plain,
+                  attention_plain)
+
+
+def vit_block_fused(x: torch.Tensor, params: dict, *, num_heads: int,
+                    fast_gelu: bool = False) -> torch.Tensor:
+    """One ViT block: (B, N, C) bf16 tokens -> (B, N, C) bf16. ``params`` is
+    the flat dict of :func:`block_params` (matmul weights bf16 in (out, in)
+    layout, biases bf16, LayerNorm scale/bias f32). CUDA tensors run the
+    kernels (7 launches), CPU tensors the twin."""
+    if fast_gelu:
+        raise NotImplementedError(
+            "tanh-approximate GELU in the block kernel is not ported "
+            "(ROADMAP queue 1 item 5)")
+    return _block(x.to(_BF16), params, num_heads, layernorm, gemm, attention)
+
+
+def block_params(block) -> dict:
+    """Flat operand dict of a port ``Block`` module (models/backbones/vit.py)
+    — the counterpart of ``block_params_from_flax`` for the port's own
+    parameters."""
+    return {
+        "ln1_scale": block.norm1.scale, "ln1_bias": block.norm1.bias,
+        "wqkv": block.attn.qkv.weight, "bqkv": block.attn.qkv.bias,
+        "wproj": block.attn.proj.weight, "bproj": block.attn.proj.bias,
+        "ln2_scale": block.norm2.scale, "ln2_bias": block.norm2.bias,
+        "w1": block.mlp.fc1.weight, "b1": block.mlp.fc1.bias,
+        "w2": block.mlp.fc2.weight, "b2": block.mlp.fc2.bias,
+    }
+
+
+def block_params_from_flax(flax_block: dict, device="cpu") -> dict:
+    """A Flax ``Block`` param subtree (numpy leaves, models/backbones/vit.py
+    naming) -> the flat dict :func:`vit_block_fused` takes: Dense kernels
+    (in, out) transposed to (out, in) and cast to bf16 with their biases,
+    LayerNorm scale/bias kept f32."""
+    def dense(d):
+        w = torch.from_numpy(np.ascontiguousarray(np.asarray(d["kernel"]).T))
+        b = torch.from_numpy(np.asarray(d["bias"]))
+        return (w.to(device=device, dtype=_BF16),
+                b.to(device=device, dtype=_BF16))
+
+    def f32(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device)
+
+    wqkv, bqkv = dense(flax_block["attn"]["qkv"])
+    wproj, bproj = dense(flax_block["attn"]["proj"])
+    w1, b1 = dense(flax_block["mlp"]["Dense_0"])
+    w2, b2 = dense(flax_block["mlp"]["Dense_1"])
+    return {
+        "ln1_scale": f32(flax_block["norm1"]["scale"]),
+        "ln1_bias": f32(flax_block["norm1"]["bias"]),
+        "wqkv": wqkv, "bqkv": bqkv, "wproj": wproj, "bproj": bproj,
+        "ln2_scale": f32(flax_block["norm2"]["scale"]),
+        "ln2_bias": f32(flax_block["norm2"]["bias"]),
+        "w1": w1, "b1": b1, "w2": w2, "b2": b2,
+    }

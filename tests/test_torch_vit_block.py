@@ -1,0 +1,163 @@
+"""Port parity: the fused ViT block's plain twin (``hands_tpu_torch.ops.
+vit_block``) against the JAX package's ``block_math`` compiled by XLA on the
+CPU, and against the Pallas kernel in interpret mode.
+
+The CUDA kernels themselves run only on the card; ``chip_smoke.py`` holds
+them against this twin there. Here the wrappers take the twin because the
+tensors lie on the CPU.
+
+The JAX side is compiled with ``xla_allow_excess_precision=False``: by
+default XLA:CPU fuses chains of bf16 elementwise ops and skips their
+intermediate roundings, which moves the compiled ``block_math`` away from
+its own op-by-op result by a mean 3.6e-3 at (2, 24, 160). With the option
+off, the compiled function keeps every bf16 rounding point it names.
+
+Tolerance (bf16): max |a-b| / max(|a|, 1) <= 3e-2 and mean |a-b| <= 1e-3 —
+the two frameworks sum the f32 products in another order, so a bf16
+rounding (2^-8 relative) may land on the other side.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from hands_tpu.models.backbones.vit import Block as JaxBlock
+from hands_tpu.ops import vit_block_pallas as jvb
+from hands_tpu_torch.models.backbones.vit import Block
+from hands_tpu_torch.ops import vit_block as tvb
+
+NO_EXCESS = {"xla_allow_excess_precision": False}
+
+
+def _flax_block(B, N, C, heads, dtype=jnp.bfloat16, seed=0):
+    """Inputs and perturbed Flax Block params (LN scale/bias moved off
+    their 1/0 init, which would hide a swapped or dropped operand)."""
+    rng = np.random.RandomState(seed)
+    x = (rng.randn(B, N, C) * 0.5).astype(np.float32)
+    block = JaxBlock(num_heads=heads, mlp_ratio=2.0, dtype=dtype)
+    variables = block.init(jax.random.PRNGKey(seed), jnp.asarray(x, dtype))
+    noise = np.random.RandomState(seed + 1)
+    params = jax.tree.map(
+        lambda p: np.asarray(p) + noise.randn(*p.shape).astype(np.float32)
+        * 0.05, variables["params"])
+    return x, block, params
+
+
+def _jax_block_math(x, params, heads):
+    flat = {k: (jnp.asarray(v, jnp.float32) if k.startswith("ln")
+                else jnp.asarray(v, jnp.bfloat16))
+            for k, v in jvb.block_params_from_flax(params).items()}
+    fn = jax.jit(lambda x, p: jvb.block_math(
+        x, p["ln1_scale"], p["ln1_bias"], p["wqkv"], p["bqkv"], p["wproj"],
+        p["bproj"], p["ln2_scale"], p["ln2_bias"], p["w1"], p["b1"], p["w2"],
+        p["b2"], num_heads=heads, fast_gelu=False))
+    xb = jnp.asarray(x, jnp.bfloat16)
+    return np.asarray(fn.lower(xb, flat).compile(NO_EXCESS)(xb, flat),
+                      np.float32)
+
+
+def _assert_bf16_close(got, ref):
+    err = np.abs(got - ref)
+    assert np.max(err / np.maximum(np.abs(ref), 1.0)) <= 3e-2, err.max()
+    assert np.mean(err) <= 1e-3, err.mean()
+
+
+# (2, 24, 160, 2): head dim 80, as in ViT-H
+@pytest.mark.parametrize("B,N,C,heads", [(2, 16, 128, 2), (2, 24, 160, 2)])
+def test_twin_matches_jax_block_math(B, N, C, heads):
+    x, _, params = _flax_block(B, N, C, heads)
+    ref = _jax_block_math(x, params, heads)
+    p = tvb.block_params_from_flax(params)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    got = tvb.vit_block_plain(xt, p, heads)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, N, C)
+    _assert_bf16_close(got.float().numpy(), ref)
+
+
+def test_wrapper_takes_twin_on_cpu_without_launching():
+    x, _, params = _flax_block(2, 24, 160, 2, seed=3)
+    p = tvb.block_params_from_flax(params)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    before = dict(tvb.launches)
+    got = tvb.vit_block_fused(xt, p, num_heads=2)
+    assert tvb.launches == before  # CPU runs are the twin, never counted
+    torch.testing.assert_close(got, tvb.vit_block_plain(xt, p, 2),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("B,N,C,heads", [(2, 16, 128, 2)])
+def test_twin_matches_pallas_kernel_interpret(B, N, C, heads):
+    """The Pallas kernel itself, run the way the JAX tests reach it on the
+    CPU (interpret mode). The twin keeps the kernel body's rounding points;
+    besides holding the stated tolerance it agrees bit for bit here."""
+    x, _, params = _flax_block(B, N, C, heads, seed=5)
+    flat = {k: jnp.asarray(v) for k, v in
+            jvb.block_params_from_flax(params).items()}
+    xb = jnp.asarray(x, jnp.bfloat16)
+    kernel = jvb.vit_block_fused.lower(
+        xb, flat, num_heads=heads, interpret=True).compile(NO_EXCESS)
+    ref = np.asarray(kernel(xb, flat), np.float32)
+    got = tvb.vit_block_plain(torch.from_numpy(x).to(torch.bfloat16),
+                              tvb.block_params_from_flax(params), heads)
+    _assert_bf16_close(got.float().numpy(), ref)
+    np.testing.assert_array_equal(got.float().numpy(), ref)
+
+
+def _port_block(params, C, heads, dtype, fused):
+    blk = Block(C, heads, 2.0, dtype, fused_block=fused)
+    sd = {}
+    for (port, flax) in (("norm1", "norm1"), ("norm2", "norm2")):
+        sd[f"{port}.scale"] = params[flax]["scale"]
+        sd[f"{port}.bias"] = params[flax]["bias"]
+    for port, (a, b) in (("attn.qkv", ("attn", "qkv")),
+                         ("attn.proj", ("attn", "proj")),
+                         ("mlp.fc1", ("mlp", "Dense_0")),
+                         ("mlp.fc2", ("mlp", "Dense_1"))):
+        sd[f"{port}.weight"] = params[a][b]["kernel"].T
+        sd[f"{port}.bias"] = params[a][b]["bias"]
+    blk.load_state_dict({k: torch.from_numpy(np.ascontiguousarray(v))
+                         for k, v in sd.items()})
+    return blk
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_port_block_module_bf16(fused):
+    """The Block module's plain bf16 path and its kernel dispatch both track
+    the Flax Block."""
+    B, N, C, heads = 2, 24, 160, 2
+    x, block, params = _flax_block(B, N, C, heads, seed=7)
+    ref = np.asarray(block.apply({"params": params},
+                                 jnp.asarray(x, jnp.bfloat16)), np.float32)
+    blk = _port_block(params, C, heads, torch.bfloat16, fused)
+    with torch.no_grad():
+        got = blk(torch.from_numpy(x).to(torch.bfloat16))
+    _assert_bf16_close(got.float().numpy(), ref)
+
+
+def test_port_block_module_f32():
+    """In f32 the fused flag is ignored (kernel path is bf16 only), as in
+    the JAX package; f32 tolerance 1e-5 relative to max(|ref|, 1)."""
+    B, N, C, heads = 2, 16, 128, 2
+    x, block, params = _flax_block(B, N, C, heads, dtype=jnp.float32, seed=9)
+    ref = np.asarray(block.apply({"params": params}, jnp.asarray(x)))
+    blk = _port_block(params, C, heads, torch.float32, fused=True)
+    assert not blk.fused
+    with torch.no_grad():
+        got = blk(torch.from_numpy(x)).numpy()
+    assert np.max(np.abs(got - ref) / np.maximum(np.abs(ref), 1.0)) < 1e-5
+
+
+def test_wrappers_refuse_what_they_do_not_take():
+    x = torch.zeros(4, 8, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError):
+        tvb.layernorm(x, torch.ones(8), torch.zeros(8))
+    a = torch.zeros(4, 8, dtype=torch.bfloat16)
+    w = torch.zeros(16, 8, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        tvb.gemm(a, w, torch.zeros(16, dtype=torch.bfloat16), "residual")
+    with pytest.raises(NotImplementedError):
+        tvb.vit_block_fused(torch.zeros(1, 4, 8, dtype=torch.bfloat16), {},
+                            num_heads=2, fast_gelu=True)
