@@ -2,14 +2,23 @@
 path of ``hands_tpu/cli/demo.py:run_demo``).
 
     python -m hands_tpu_torch.cli.demo --dir photos/ --batch_size 8 \\
-        --method hamer_light --dtype bfloat16 --fused_block --device cuda
+        --method hamer_light --dtype bfloat16 --fused_block
+    python -m hands_tpu_torch.cli.demo --dir photos/ --dtype bfloat16 \\
+        --int8 --fast_gelu
+
+It runs on the card (``--device cuda``) unless ``--device cpu`` is given.
+``--int8`` serves W8A8 through the dynamic int8 block kernels (it implies
+``--fused_block``). The static-calibrated variant is served from Python:
+``serving_config(..., quant_int8_static=True)``, ``fetch_model``, then
+``ops.calibration.inject_scales`` with the scales of
+``python -m hands_tpu_torch.cli.calibrate``, then :func:`serve`.
 
 Flow: decoded images -> ``Record`` -> ``stack_records`` -> on-device
 ``DevicePreprocessor`` -> ``fetch_model`` -> ``inference_pose``; writes
 ``<stem>_pred.npz`` per image (MANO pose/betas, 3D joints and vertices,
 camera). :func:`serve` is the same flow on in-memory records, without files.
 Weights are random from ``--seed`` (trained weights: ``load_state_dict``).
-Visualisation is not ported yet.
+Visualisation is not ported yet (ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -22,17 +31,22 @@ from typing import List
 
 import numpy as np
 
-from hands_tpu.config import Config, default_config
-from hands_tpu.data.records import Record, default_flags
+from hands_tpu_torch.config import Config, default_config
+from hands_tpu_torch.data.records import Record, default_flags
 
 
 def serving_config(method: str = "hamer_light", dtype: str = "float32",
-                   fused_block: bool = False) -> Config:
+                   fused_block: bool = False, quant_int8: bool = False,
+                   quant_int8_static: bool = False,
+                   fast_gelu: bool = False) -> Config:
     """The demo's config: render and grasp heads off (the ``hamer_light``
-    defaults turn both on)."""
+    defaults turn both on). ``quant_int8_static`` implies ``quant_int8``,
+    which implies ``fused_block`` (``default_config``)."""
     return default_config(method, use_render_seg_loss=False,
                           use_grasp_loss=False, compute_dtype=dtype,
-                          fused_block=fused_block)
+                          fused_block=fused_block, quant_int8=quant_int8,
+                          quant_int8_static=quant_int8_static,
+                          fast_gelu=fast_gelu)
 
 
 def make_record(path: str, img: np.ndarray, r_box=None, l_box=None,
@@ -78,9 +92,7 @@ def serve(records: List[Record], cfg: Config, model, device):
 def run_demo(argv=None) -> int:
     import glob
 
-    import torch
-
-    from hands_tpu.data.datasets import _read_image
+    from hands_tpu_torch.data.datasets import _read_image
     from hands_tpu_torch.models.registry import fetch_model
 
     p = argparse.ArgumentParser(description=__doc__)
@@ -92,8 +104,13 @@ def run_demo(argv=None) -> int:
                    help="fused ViT-block CUDA kernels (bf16 only)")
     p.add_argument("--dtype", default="float32",
                    choices=["float32", "bfloat16"])
-    p.add_argument("--device", default="cuda" if torch.cuda.is_available()
-                   else "cpu")
+    p.add_argument("--int8", action="store_true",
+                   help="W8A8 int8 serving through the int8 block kernels "
+                        "(lossy; implies --fused_block, bf16 only)")
+    p.add_argument("--fast_gelu", action="store_true",
+                   help="tanh-approximate GELU (lossy serving knob)")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; fails without a card) or cpu")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out", default="demo_out")
     p.add_argument("--r_bbox", default=None, help="x0,y0,x1,y1")
@@ -109,7 +126,8 @@ def run_demo(argv=None) -> int:
             raise ValueError(f"bbox must be x0,y0,x1,y1 — got '{s}'")
         return np.asarray(vals, np.float32)
 
-    cfg = serving_config(args.method, args.dtype, args.fused_block)
+    cfg = serving_config(args.method, args.dtype, args.fused_block,
+                         quant_int8=args.int8, fast_gelu=args.fast_gelu)
     paths = list(args.img)
     if args.dir:
         for ext in ("jpg", "jpeg", "png", "JPG", "JPEG", "PNG"):

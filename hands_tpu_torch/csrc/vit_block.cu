@@ -8,7 +8,8 @@
 // shared memory against ~39 MB of bf16 weights per ViT-H block, so the block
 // is split into three kernels, launched seven times per block:
 //   vit_layernorm  x2   LN1, LN2: f32 statistics (flax fast variance), bf16 out
-//   vit_gemm       x4   qkv, proj(+residual), MLP1(+GELU), MLP2(+residual)
+//   vit_gemm       x4   qkv, proj(+residual), MLP1(+GELU, exact or tanh),
+//                       MLP2(+residual)
 //   vit_attention  x1   one thread block per (crop, head), K/V in shared memory
 // The rounding points are those of block_math / _vit_block_kernel: every
 // product is accumulated in f32 and rounded to bf16, the bias is added in
@@ -66,6 +67,22 @@ __device__ __forceinline__ float gelu_bf16(float x) {
   const float d = round_bf16(-x * 0.70703125f);
   const float e = round_bf16(erfcf(d));
   return round_bf16(half_x * e);
+}
+
+// tanh-approximate GELU x * 0.5 * (1 + tanh(c * (x + k x^3))) with the bf16
+// rounding points of jax.nn.gelu(approximate=True) on a bf16 array (the fast
+// form of _gelu_mosaic): each op rounds to bf16, and the constants are the
+// bf16 values of sqrt(2/pi) (0.796875) and 0.044715 (0.044677734375).
+__device__ __forceinline__ float gelu_tanh_bf16(float x) {
+  const float x2 = round_bf16(x * x);
+  const float x3 = round_bf16(x * x2);
+  const float kx3 = round_bf16(0.044677734375f * x3);
+  const float u = round_bf16(x + kx3);
+  const float w = round_bf16(0.796875f * u);
+  const float t = round_bf16(tanhf(w));
+  const float a = round_bf16(1.0f + t);
+  const float cdf = round_bf16(0.5f * a);
+  return round_bf16(x * cdf);
 }
 
 // 16-byte global -> shared copy that bypasses registers; pred == false
@@ -139,7 +156,8 @@ __global__ void __launch_bounds__(LN_THREADS) layernorm_kernel(
 // ------------------------------------------------------------------ GEMM
 // out[M, N] = epilogue(A[M, K] . W[N, K]^T): A row-major, W in nn.Linear's
 // (out, in) layout, f32 accumulation. Epilogue on the accumulator:
-// round to bf16 -> + bias (bf16 add) -> {nothing | GELU | + residual (bf16)}.
+// round to bf16 -> + bias (bf16 add) -> {nothing | exact GELU | tanh GELU |
+// + residual (bf16)}.
 // Requires K % 8 == 0 and 16-byte aligned A and W (checked by the wrapper);
 // M and N edges are masked (zero-filled copies, guarded stores); bias,
 // residual and out must be 16-byte aligned too (the wrapper checks).
@@ -149,7 +167,12 @@ constexpr int GEMM_THREADS = 256;  // 8 warps as 2 (M) x 4 (N), 64x32 each
 constexpr size_t GEMM_SMEM =
     (size_t)STAGES * (BM + BN) * LDS * sizeof(bf16) +
     (size_t)(GEMM_THREADS / 32) * 16 * 16 * sizeof(float);  // 90,112 B
-enum { EPI_BIAS = 0, EPI_BIAS_GELU = 1, EPI_BIAS_RESIDUAL = 2 };
+enum {
+  EPI_BIAS = 0,
+  EPI_BIAS_GELU = 1,
+  EPI_BIAS_RESIDUAL = 2,
+  EPI_BIAS_GELU_TANH = 3
+};
 
 __global__ void __launch_bounds__(GEMM_THREADS) gemm_bf16_kernel(
     const bf16* __restrict__ A, const bf16* __restrict__ W,
@@ -262,6 +285,8 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_bf16_kernel(
             x = round_bf16(x + __bfloat162float(b8[e]));
             if (epilogue == EPI_BIAS_GELU) {
               x = gelu_bf16(x);
+            } else if (epilogue == EPI_BIAS_GELU_TANH) {
+              x = gelu_tanh_bf16(x);
             } else if (epilogue == EPI_BIAS_RESIDUAL) {
               x = __bfloat162float(r8[e]) + x;
             }
@@ -274,6 +299,8 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_bf16_kernel(
             x = round_bf16(x + __bfloat162float(bias[gn + e]));
             if (epilogue == EPI_BIAS_GELU) {
               x = gelu_bf16(x);
+            } else if (epilogue == EPI_BIAS_GELU_TANH) {
+              x = gelu_tanh_bf16(x);
             } else if (epilogue == EPI_BIAS_RESIDUAL) {
               x = __bfloat162float(residual[row + gn + e]) + x;
             }

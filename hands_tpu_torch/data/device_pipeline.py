@@ -18,8 +18,8 @@ from typing import List
 import numpy as np
 import torch
 
-from hands_tpu.config import Config
-from hands_tpu.data.records import LOSS_FLAGS, Record
+from hands_tpu_torch.config import Config
+from hands_tpu_torch.data.records import LOSS_FLAGS, Record
 from hands_tpu_torch.core import camera as camlib
 from hands_tpu_torch.core.precision import f32_exact
 from hands_tpu_torch.core.xdict import XDict
@@ -104,18 +104,21 @@ def stack_records(records: List[Record]) -> dict:
 
 
 class DevicePreprocessor:
-    """Record batch -> (inputs, targets, meta_info) on ``device``, eval mode."""
+    """Record batch -> (inputs, targets, meta_info) on ``device``, eval mode.
+    ``device`` is the card unless the caller names the CPU."""
 
-    def __init__(self, cfg: Config, is_train: bool, device="cpu"):
+    def __init__(self, cfg: Config, is_train: bool, device="cuda"):
         if is_train:
             raise NotImplementedError(
-                "train-mode preprocessing is ROADMAP queue 1 item 4")
+                "train-mode preprocessing is not ported: ROADMAP queue 1 "
+                "item 4")
         if cfg.pos_enc not in (None, "center+corner_latent"):
             raise NotImplementedError(
-                f"pos_enc={cfg.pos_enc!r} is ROADMAP queue 1 item 1")
+                f"pos_enc={cfg.pos_enc!r} is not ported: the other KPE "
+                f"modes come with WildHands, ROADMAP queue 1 item 1")
         if cfg.use_render_seg_loss or cfg.use_depth_loss:
             raise NotImplementedError(
-                "mask/depth targets are ROADMAP queue 1 item 3")
+                "mask/depth targets are not ported: ROADMAP queue 1 item 3")
         self.cfg = cfg
         self.device = torch.device(device)
 

@@ -9,19 +9,25 @@ biases are stored in bf16 (the values Flax's per-call cast produces),
 LayerNorms compute and return f32, and every dense product is rounded to the
 compute dtype before its bias is added (Flax ``nn.Dense``'s rounding point).
 With ``fused_block`` and bf16 a block runs the hand-written kernels of
-``ops/vit_block.py``; otherwise the plain modules below.
+``ops/vit_block.py`` (bf16) or ``ops/vit_block_int8.py`` (``quant_int8``,
+``quant_static``); with ``fused_attn`` the plain block's attention runs the
+kernel of ``ops/attention.py``; otherwise the plain modules below.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from hands_tpu_torch.ops.vit_block import (block_params, gelu_erfc,
-                                           layernorm_f32, vit_block_fused)
+from hands_tpu_torch.ops import quant
+from hands_tpu_torch.ops.attention import mha_fused
+from hands_tpu_torch.ops.vit_block import (block_params, gelu, layernorm_f32,
+                                           vit_block_fused)
+from hands_tpu_torch.ops.vit_block_int8 import (vit_block_fused_int8,
+                                                vit_block_fused_int8_static)
 
 PATCH = 16
 IMG_HW = (256, 192)  # HaMeR's ViT input: 16 x 12 patches
@@ -30,6 +36,7 @@ VIT_CONFIGS = {
     # a small variant for tests
     "tiny": dict(embed_dim=128, depth=2, num_heads=2, mlp_ratio=2.0),
 }
+QUANT_POINTS = ("qkv", "proj", "mlp1", "mlp2")
 
 
 class LayerNorm(nn.Module):
@@ -47,74 +54,217 @@ class LayerNorm(nn.Module):
 
 class Dense(nn.Module):
     """flax ``nn.Dense(dtype=...)``: ``x . W`` in ``dtype``, rounded, then
-    ``+ b`` in ``dtype``. The weight is stored (out, in), as ``nn.Linear``."""
+    ``+ b`` in ``dtype``. The weight is stored (out, in), as ``nn.Linear``,
+    in ``param_dtype`` (``dtype`` unless given; the int8 blocks keep f32
+    values to quantise from) and cast to ``dtype`` per call, as Flax does."""
 
     def __init__(self, in_f: int, out_f: int, dtype=torch.float32,
-                 use_bias: bool = True, device=None):
+                 use_bias: bool = True, device=None, param_dtype=None):
         super().__init__()
         self.dtype = dtype
+        pd = param_dtype or dtype
         self.weight = nn.Parameter(
-            torch.empty(out_f, in_f, dtype=dtype, device=device))
-        self.bias = (nn.Parameter(torch.zeros(out_f, dtype=dtype, device=device))
+            torch.empty(out_f, in_f, dtype=pd, device=device))
+        self.bias = (nn.Parameter(torch.zeros(out_f, dtype=pd, device=device))
                      if use_bias else None)
 
     def forward(self, x):
-        y = F.linear(x.to(self.dtype), self.weight)
-        return y if self.bias is None else y + self.bias
+        y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+        return y if self.bias is None else y + self.bias.to(self.dtype)
+
+
+class Int8Dense(nn.Module):
+    """Drop-in ``Dense`` with W8A8 dynamic quantisation for inference (port
+    of the Flax ``Int8Dense``; plain PyTorch, it is no kernel). Weights:
+    symmetric per-output-channel int8, quantised from the f32 parameters on
+    every call; activations: symmetric per-tensor dynamic int8. Same
+    parameter names and shapes as ``Dense``."""
+
+    def __init__(self, in_f: int, out_f: int, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self.dtype = dtype  # output dtype (the block compute dtype)
+        self.weight = nn.Parameter(torch.empty(out_f, in_f, device=device))
+        self.bias = nn.Parameter(torch.zeros(out_f, device=device))
+
+    def forward(self, x):
+        w_q, w_scale = quant.quantize_weight_int8(self.weight)
+        xf = x.float()
+        x_scale = quant.scale_from_amax(torch.amax(torch.abs(xf)))
+        x_q = torch.clamp(torch.round(xf / x_scale), -127, 127).to(torch.int8)
+        y = quant.int_matmul(x_q.reshape(-1, x_q.shape[-1]), w_q)
+        y = y.reshape(*x.shape[:-1], -1)
+        return (y.float() * (x_scale * w_scale) + self.bias).to(self.dtype)
+
+
+def _dense(in_f, out_f, dtype, quant_int8: bool, device, param_dtype=None):
+    if quant_int8:
+        return Int8Dense(in_f, out_f, dtype, device=device)
+    return Dense(in_f, out_f, dtype, device=device, param_dtype=param_dtype)
 
 
 class MlpBlock(nn.Module):
-    def __init__(self, dim: int, hidden: int, dtype, device=None):
+    def __init__(self, dim: int, hidden: int, dtype, device=None,
+                 fast_gelu: bool = False, quant_int8: bool = False,
+                 param_dtype=None):
         super().__init__()
-        self.fc1 = Dense(dim, hidden, dtype, device=device)
-        self.fc2 = Dense(hidden, dim, dtype, device=device)
+        self.fast_gelu = fast_gelu
+        self.fc1 = _dense(dim, hidden, dtype, quant_int8, device, param_dtype)
+        self.fc2 = _dense(hidden, dim, dtype, quant_int8, device, param_dtype)
 
-    def forward(self, x):
-        return self.fc2(gelu_erfc(self.fc1(x)))
+    def forward(self, x, tap: Optional[Callable] = None):
+        x = gelu(self.fc1(x), self.fast_gelu)
+        if tap is not None:  # calibration point: MLP second-dense input
+            tap(x)
+        return self.fc2(x)
 
 
 class Attention(nn.Module):
-    def __init__(self, dim: int, num_heads: int, dtype, device=None):
+    def __init__(self, dim: int, num_heads: int, dtype, device=None,
+                 quant_int8: bool = False, fused_attn: bool = False,
+                 param_dtype=None):
         super().__init__()
         self.num_heads = num_heads
-        self.qkv = Dense(dim, 3 * dim, dtype, device=device)
-        self.proj = Dense(dim, dim, dtype, device=device)
+        self.fused_attn = fused_attn
+        self.qkv = _dense(dim, 3 * dim, dtype, quant_int8, device, param_dtype)
+        self.proj = _dense(dim, dim, dtype, quant_int8, device, param_dtype)
 
-    def forward(self, x):
+    def forward(self, x, tap: Optional[Callable] = None):
         # x: the f32 LayerNorm output. As in the Flax module, logits come
         # out of the product in the compute dtype, the softmax runs in f32
         # and the probabilities keep x's dtype, so p.v promotes v to f32.
         B, N, C = x.shape
         H = self.num_heads
         D = C // H
-        qkv = self.qkv(x).view(B, N, 3, H, D).permute(2, 0, 3, 1, 4)
-        q, k, v = qkv[0], qkv[1], qkv[2]  # (B, H, N, D)
-        scale = torch.tensor(D**-0.5, dtype=q.dtype, device=q.device)
-        attn = torch.matmul(q * scale, k.transpose(-1, -2))
-        attn = torch.softmax(attn.float(), dim=-1).to(x.dtype)
-        out = torch.matmul(attn, v.to(attn.dtype))
-        return self.proj(out.permute(0, 2, 1, 3).reshape(B, N, C))
+        qkv = self.qkv(x).view(B, N, 3, H, D)
+        if self.fused_attn:
+            # one kernel per forward: no (B, H, N, N) tensor in device memory
+            out = mha_fused(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], D**-0.5)
+            out = out.reshape(B, N, C)
+        else:
+            q, k, v = qkv.permute(2, 0, 3, 1, 4)  # (B, H, N, D) each
+            scale = torch.tensor(D**-0.5, dtype=q.dtype, device=q.device)
+            attn = torch.matmul(q * scale, k.transpose(-1, -2))
+            attn = torch.softmax(attn.float(), dim=-1).to(x.dtype)
+            out = torch.matmul(attn, v.to(attn.dtype))
+            out = out.permute(0, 2, 1, 3).reshape(B, N, C)
+        if tap is not None:  # calibration point: proj input
+            tap(out)
+        return self.proj(out)
 
 
 class Block(nn.Module):
+    """One pre-LN transformer block, routed as the Flax ``Block``:
+
+    - ``fused_block`` and bf16 (and not calibrating): the hand-written
+      kernels: the static W8A8 block with ``quant_int8`` and ``quant_static``,
+      the dynamic W8A8 block with ``quant_int8``, else the bf16 block;
+    - otherwise the plain modules, with ``Int8Dense`` under ``quant_int8``.
+
+    ``quant_static`` adds the four ``act_scale_*`` parameters (ones until
+    ``ops/calibration.py`` fills them). ``quant_calibrate`` runs the plain
+    path (int8 forced off) and keeps the running per-channel maxima of the
+    four quantisation points in the ``amax_*`` buffers.
+
+    The int8 kernels' operands (int8 weights, f32 scale vectors, folded
+    LayerNorm parameters) are prepared once from the f32 parameters at the
+    first forward and kept; :meth:`invalidate_prepared` drops them after the
+    parameters change (``load_state_dict`` does so by itself).
+    """
+
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float, dtype,
-                 fused_block: bool = False, device=None):
+                 fused_block: bool = False, device=None,
+                 fast_gelu: bool = False, quant_int8: bool = False,
+                 fused_attn: bool = False, quant_static: bool = False,
+                 quant_calibrate: bool = False):
         super().__init__()
+        hidden = int(dim * mlp_ratio)
         self.num_heads = num_heads
         self.dtype = dtype
+        self.fast_gelu = fast_gelu
+        self.quant_int8 = quant_int8
+        self.quant_static = quant_static
+        self.quant_calibrate = quant_calibrate
         # the kernel path is bf16 only, as in the JAX package
-        self.fused = fused_block and dtype == torch.bfloat16
+        self.fused = (fused_block and dtype == torch.bfloat16
+                      and not quant_calibrate)
+        int8_dense = quant_int8 and not quant_calibrate and not self.fused
+        # the int8 kernels quantise from f32 values, never from a bf16 copy
+        pd = torch.float32 if (quant_int8 and self.fused) else None
         self.norm1 = LayerNorm(dim, device=device)
-        self.attn = Attention(dim, num_heads, dtype, device=device)
+        self.attn = Attention(dim, num_heads, dtype, device=device,
+                              quant_int8=int8_dense, fused_attn=fused_attn,
+                              param_dtype=pd)
         self.norm2 = LayerNorm(dim, device=device)
-        self.mlp = MlpBlock(dim, int(dim * mlp_ratio), dtype, device=device)
+        self.mlp = MlpBlock(dim, hidden, dtype, device=device,
+                            fast_gelu=fast_gelu, quant_int8=int8_dense,
+                            param_dtype=pd)
+        if quant_static:
+            for point, ch in zip(QUANT_POINTS, (dim, dim, dim, hidden)):
+                setattr(self, f"act_scale_{point}",
+                        nn.Parameter(torch.ones(ch, device=device)))
+        if quant_calibrate:
+            for point, ch in zip(QUANT_POINTS, (dim, dim, dim, hidden)):
+                self.register_buffer(f"amax_{point}",
+                                     torch.zeros(ch, device=device),
+                                     persistent=False)
+        self._prepared: Optional[Dict[str, torch.Tensor]] = None
+        self.register_load_state_dict_post_hook(
+            lambda module, _keys: module.invalidate_prepared())
+
+    def invalidate_prepared(self) -> None:
+        self._prepared = None
+
+    def _apply(self, fn, *args, **kwargs):
+        self._prepared = None  # a move or a cast: prepare again there
+        return super()._apply(fn, *args, **kwargs)
+
+    @torch.no_grad()
+    def prepared(self) -> Dict[str, torch.Tensor]:
+        """The operand dict of this block's int8 kernel."""
+        if self._prepared is None:
+            flat = block_params(self)
+            if self.quant_static:
+                scales = {p: getattr(self, f"act_scale_{p}")
+                          for p in QUANT_POINTS}
+                self._prepared = quant.fold_static_scales(flat, scales)
+            else:
+                self._prepared = quant.prepare_int8(flat)
+        return self._prepared
+
+    def _tap(self, point: str) -> Callable:
+        """Record the per-channel max-abs of an activation (running max)."""
+        buf = getattr(self, f"amax_{point}")
+
+        def tap(x):
+            amax = torch.amax(torch.abs(x.detach().float()).reshape(
+                -1, x.shape[-1]), dim=0)
+            buf.copy_(torch.maximum(buf, amax))
+        return tap
 
     def forward(self, x):
         if self.fused:
+            if self.quant_int8 and self.quant_static:
+                return vit_block_fused_int8_static(
+                    x, self.prepared(), num_heads=self.num_heads,
+                    fast_gelu=self.fast_gelu).to(x.dtype)
+            if self.quant_int8:
+                return vit_block_fused_int8(
+                    x, self.prepared(), num_heads=self.num_heads,
+                    fast_gelu=self.fast_gelu).to(x.dtype)
             return vit_block_fused(x, block_params(self),
-                                   num_heads=self.num_heads)
-        x = x + self.attn(self.norm1(x)).to(x.dtype)
-        return x + self.mlp(self.norm2(x)).to(x.dtype)
+                                   num_heads=self.num_heads,
+                                   fast_gelu=self.fast_gelu)
+        calib = self.quant_calibrate
+        y = self.norm1(x)
+        if calib:
+            self._tap("qkv")(y)
+        x = x + self.attn(y, self._tap("proj") if calib else None).to(x.dtype)
+        y = self.norm2(x)
+        if calib:
+            self._tap("mlp1")(y)
+        return x + self.mlp(y, self._tap("mlp2") if calib else None).to(
+            x.dtype)
 
 
 class ViTBackbone(nn.Module):
@@ -125,8 +275,15 @@ class ViTBackbone(nn.Module):
     """
 
     def __init__(self, variant: str = "h", dtype=torch.float32,
-                 fused_block: bool = False, device=None):
+                 fused_block: bool = False, device=None,
+                 fast_gelu: bool = False, quant_int8: bool = False,
+                 fused_attn: bool = False, quant_static: bool = False,
+                 quant_calibrate: bool = False):
         super().__init__()
+        if variant not in VIT_CONFIGS:
+            raise NotImplementedError(
+                f"ViT variant {variant!r} is not ported (b16 and "
+                f"VitB16Spatial: ROADMAP queue 1 item 9)")
         cfg = VIT_CONFIGS[variant]
         C = cfg["embed_dim"]
         self.dtype = dtype
@@ -143,7 +300,10 @@ class ViTBackbone(nn.Module):
             torch.zeros(1, n_tok, C, dtype=dtype, device=device))
         self.blocks = nn.ModuleList([
             Block(C, cfg["num_heads"], cfg["mlp_ratio"], dtype,
-                  fused_block=fused_block, device=device)
+                  fused_block=fused_block, device=device,
+                  fast_gelu=fast_gelu, quant_int8=quant_int8,
+                  fused_attn=fused_attn, quant_static=quant_static,
+                  quant_calibrate=quant_calibrate)
             for _ in range(cfg["depth"])
         ])
         self.last_norm = LayerNorm(C, device=device)

@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from hands_tpu.config import Config
+from hands_tpu_torch.config import Config
 from hands_tpu_torch.core.xdict import XDict
 from hands_tpu_torch.models import kpe
 from hands_tpu_torch.models.backbones.vit import VIT_CONFIGS, Dense, ViTBackbone
@@ -55,14 +55,12 @@ class HamerNet(nn.Module):
         super().__init__()
         if cfg.pos_enc not in (None, "center+corner_latent"):
             raise NotImplementedError(
-                f"pos_enc={cfg.pos_enc!r} is ROADMAP queue 1 item 1")
+                f"pos_enc={cfg.pos_enc!r} is not ported: the other KPE "
+                f"modes come with WildHands, ROADMAP queue 1 item 1")
         if cfg.use_grasp_loss:
             raise NotImplementedError(
-                "the grasp classifier is ROADMAP queue 1 item 1 "
+                "the grasp classifier is not ported: ROADMAP queue 1 item 1 "
                 "(serve with use_grasp_loss=False)")
-        if cfg.get("quant_int8", False) or cfg.get("fast_gelu", False):
-            raise NotImplementedError(
-                "int8 and fast-GELU serving are ROADMAP queue 1 item 5")
         self.cfg = cfg
         self.dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
                       else torch.float32)
@@ -72,9 +70,14 @@ class HamerNet(nn.Module):
             self.kpe = KpeTokenEmbed(embed_dim, cfg.n_freq_pos_enc,
                                      n_tokens=(256 // 16) * (192 // 16),
                                      device=device)
+        # the int8 sub-paths are inference only; this port has no train mode
         self.backbone = ViTBackbone(
             variant=vit_variant, dtype=self.dtype,
-            fused_block=bool(cfg.get("fused_block", False)), device=device)
+            fused_block=bool(cfg.get("fused_block", False)), device=device,
+            fast_gelu=bool(cfg.get("fast_gelu", False)),
+            quant_int8=bool(cfg.get("quant_int8", False)),
+            quant_static=bool(cfg.get("quant_int8_static", False)),
+            quant_calibrate=bool(cfg.get("quant_calibrate", False)))
         self.mano_head = ManoTransformerDecoderHead(context_dim=embed_dim,
                                                     device=device)
 
@@ -132,11 +135,11 @@ class HamerLightModel(nn.Module):
         super().__init__()
         if cfg.use_render_seg_loss:
             raise NotImplementedError(
-                "the silhouette render is ROADMAP queue 1 item 3 "
+                "the silhouette render is not ported: ROADMAP queue 1 item 3 "
                 "(serve with use_render_seg_loss=False)")
         self.cfg = cfg
         self.net = HamerNet(cfg, vit_variant=vit_variant, device=device)
-        dev = device or "cpu"
+        dev = device or "cpu"  # nn.Module's own default for device=None
         self.mano_r = ManoBuffers(manolib.load_mano(is_rhand=True, device=dev))
         self.mano_l = ManoBuffers(manolib.load_mano(is_rhand=False, device=dev))
 

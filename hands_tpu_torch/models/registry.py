@@ -8,7 +8,7 @@ import math
 import torch
 from torch import nn
 
-from hands_tpu.config import Config
+from hands_tpu_torch.config import Config
 from hands_tpu_torch.core.xdict import XDict
 
 _NOT_PORTED = {
@@ -25,13 +25,14 @@ _NOT_PORTED = {
 def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded random weights, drawn as Flax's initialisers draw them:
     lecun-normal dense and conv kernels, zero biases, unit LayerNorm scales,
-    N(0, 0.02) ViT position embeddings, N(0, 1) decoder query embedding."""
+    N(0, 0.02) ViT position embeddings, N(0, 1) decoder query embedding,
+    unit static activation scales."""
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if leaf in ("bias", "patch_bias"):
             p.zero_()
-        elif leaf == "scale":
-            p.fill_(1.0)
+        elif leaf == "scale" or leaf.startswith("act_scale_"):
+            p.fill_(1.0)  # act_scale_*: until calibration fills them
         else:
             if leaf == "pos_embed":
                 std = 0.02
@@ -45,9 +46,10 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     return model
 
 
-def fetch_model(cfg: Config, device="cpu", seed: int = 0,
+def fetch_model(cfg: Config, device="cuda", seed: int = 0,
                 vit_variant: str = "h") -> nn.Module:
-    """Build the model for ``cfg.method`` on ``device`` with random weights
+    """Build the model for ``cfg.method`` on ``device`` (the card unless the
+    caller names the CPU; without a card that raises) with random weights
     from ``seed`` (load trained weights with ``load_state_dict``, e.g. from
     ``hands_tpu_torch.utils.from_jax``)."""
     method = cfg.method

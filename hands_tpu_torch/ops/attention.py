@@ -1,0 +1,160 @@
+"""Fused multi-head attention: a hand-written CUDA kernel and its plain
+PyTorch twins (port of ``hands_tpu/ops/attention_pallas.py:mha_fused`` and of
+the attention legs of the two int8 block kernels of
+``hands_tpu/ops/vit_block_pallas.py``).
+
+:func:`mha_fused` is the ``ViTBackbone(fused_attn=True)`` path:
+``softmax(q k^T * scale) v`` per (batch row, head) on (B, N, H, D) tensors,
+f32 logits with the scale applied in f32 after the dot, probabilities cast to
+``v.dtype``, f32 accumulation, output in ``q.dtype``. :func:`qkv_attention`
+is the attention of the int8 blocks on a fused bf16 (B, N, 3C) qkv tensor:
+``q * bf16(D^-0.5)`` rounded to bf16, f32 logits that are *not* rounded to
+bf16, an f32 softmax; the dynamic block keeps f32 probabilities and returns
+bf16, the static block rounds the probabilities to bf16 and returns the
+output times ``inv_out`` quantised to int8.
+
+CUDA tensors launch the kernel of ``csrc/attention.cu`` (one launch, counted
+in :data:`launches`); CPU tensors run the ``*_plain`` twin; anything else
+raises. q, k and v are read in place through their strides, so the slices of
+a fused qkv tensor are not copied.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional
+
+import torch
+
+from hands_tpu_torch.ops.cuda_build import CudaLibrary, check, on_cpu
+from hands_tpu_torch.ops.vit_block import bf16_const
+
+_BF16 = torch.bfloat16
+_MODE_MHA, _MODE_DYNAMIC, _MODE_STATIC = 0, 1, 2
+
+# kernel launches per wrapper since the last reset (CPU twin runs not counted)
+launches: Dict[str, int] = {"mha_fused": 0, "qkv_attention_dynamic": 0,
+                            "qkv_attention_static": 0}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i, f, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                   ctypes.c_longlong)
+    lib.attn_fused.argtypes = [i, p, p, p, p, p, i, i, i, i, ll, ll, f, i, i,
+                               p]
+    lib.attn_fused.restype = ctypes.c_int
+
+
+LIBRARY = CudaLibrary("attention", _bind, "attn_error_string")
+
+
+# ------------------------------------------------------------- plain twins
+def mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              scale: float) -> torch.Tensor:
+    """(B, N, H, D) q, k, v -> (B, N, H, D): the arithmetic of
+    ``_mha_kernel``."""
+    qh, kh, vh = (t.permute(0, 2, 1, 3) for t in (q, k, v))  # (B, H, N, D)
+    logits = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) * scale
+    p = torch.exp(logits - torch.amax(logits, dim=-1, keepdim=True))
+    attn = (p / torch.sum(p, dim=-1, keepdim=True)).to(v.dtype)
+    out = torch.matmul(attn.float(), vh.float())
+    return out.to(q.dtype).permute(0, 2, 1, 3)
+
+
+def qkv_attention_plain(qkv: torch.Tensor, num_heads: int,
+                        inv_out: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """(B, N, 3C) bf16 fused qkv -> (B, N, C): bf16 (dynamic int8 block) or,
+    with ``inv_out`` (C,), int8 (static int8 block)."""
+    B, N, C3 = qkv.shape
+    C = C3 // 3
+    D = C // num_heads
+    t = qkv.view(B, N, 3, num_heads, D).permute(2, 0, 3, 1, 4)  # (3,B,H,N,D)
+    q = t[0] * bf16_const(D**-0.5)
+    s = torch.matmul(q.float(), t[1].float().transpose(-1, -2))
+    p = torch.softmax(s, dim=-1)
+    if inv_out is not None:
+        p = p.to(_BF16).float()
+    o = torch.matmul(p, t[2].float())  # (B, H, N, D) f32
+    o = o.permute(0, 2, 1, 3).reshape(B, N, C)
+    if inv_out is None:
+        return o.to(_BF16)
+    return torch.clamp(torch.round(o * inv_out), -127.0, 127.0).to(torch.int8)
+
+
+# ------------------------------------------------------- kernel wrappers
+def _strides(t: torch.Tensor, B: int, N: int, H: int, D: int):
+    """(batch stride, row stride) in elements of a (B, N, H, D) tensor whose
+    heads lie side by side; raises on a layout the kernel cannot read."""
+    sb, sn, sh, sd = t.stride()
+    if sd != 1 or (H > 1 and sh != D) or t.shape != (B, N, H, D):
+        raise ValueError(
+            f"attention kernel needs (B, N, H, D) with unit channel stride "
+            f"and adjacent heads, got shape {tuple(t.shape)} strides "
+            f"{t.stride()}")
+    return (sb if B > 1 else N * sn), sn
+
+
+def _launch(q, k, v, out, inv_out, B, N, H, D, scale, mode) -> None:
+    dev = q.device
+    qs = _strides(q, B, N, H, D)
+    for name, t in (("k", k), ("v", v)):
+        if (t.device != dev or t.dtype != q.dtype
+                or _strides(t, B, N, H, D) != qs):
+            raise ValueError(f"{name}: want q's device, dtype and strides")
+    if q.dtype == _BF16 and (D % 2 or qs[0] % 2 or qs[1] % 2):
+        raise ValueError("bf16 attention needs an even head dim and strides")
+    if any(t.data_ptr() % 4 for t in (q, k, v)):
+        raise ValueError("attention kernel needs 4-byte aligned q, k, v")
+    LIBRARY.launch(
+        "attn_fused", dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), None if inv_out is None else inv_out.data_ptr(),
+        B, N, H, D, qs[0], qs[1], scale, int(q.dtype == torch.float32), mode)
+
+
+def mha_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              scale: float) -> torch.Tensor:
+    """Softmax(q k^T * scale) v; (B, N, H, D) in and out (the layout of the
+    reshaped fused qkv projection), f32 or bf16."""
+    if on_cpu(q):
+        return mha_plain(q, k, v, scale)
+    if q.dtype not in (_BF16, torch.float32):
+        raise ValueError(f"mha_fused takes bf16 or f32, got {q.dtype}")
+    B, N, H, D = q.shape
+    out = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
+    _launch(q, k, v, out, None, B, N, H, D, float(scale), _MODE_MHA)
+    launches["mha_fused"] += 1
+    return out
+
+
+def qkv_attention(qkv: torch.Tensor, num_heads: int,
+                  inv_out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Attention of the int8 blocks on a fused (B, N, 3C) bf16 qkv tensor ->
+    (B, N, C) bf16, or int8 when ``inv_out`` (C,) f32 is given."""
+    if on_cpu(qkv):
+        return qkv_attention_plain(qkv, num_heads, inv_out)
+    B, N, C3 = qkv.shape
+    C = C3 // 3
+    D = C // num_heads
+    dev = qkv.device
+    if C3 % 3 or C % num_heads:
+        raise ValueError(f"attention kernel needs 3C columns, got {C3} "
+                         f"columns, {num_heads} heads")
+    check(qkv, "qkv", _BF16, (B, N, C3), dev)
+    t = qkv.view(B, N, 3, num_heads, D)
+    static = inv_out is not None
+    if static:
+        check(inv_out, "inv_out", torch.float32, (C,), dev)
+    out = torch.empty((B, N, C), device=dev,
+                      dtype=torch.int8 if static else _BF16)
+    _launch(t[:, :, 0], t[:, :, 1], t[:, :, 2], out, inv_out, B, N,
+            num_heads, D, bf16_const(D**-0.5),
+            _MODE_STATIC if static else _MODE_DYNAMIC)
+    launches["qkv_attention_static" if static
+             else "qkv_attention_dynamic"] += 1
+    return out

@@ -1,0 +1,133 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each ``csrc/*.cu`` file has a plain C interface. It is compiled with ``nvcc``
+for ``sm_90a`` at first use into ``hands_tpu_torch/csrc/_build/`` (keyed by a
+hash of the source and flags) and loaded with ``ctypes``; no PyTorch header
+is involved, so a build takes seconds. Every C entry takes the device index
+first and the stream last, launches on that stream without synchronising,
+and returns the launch's ``cudaGetLastError()``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Callable, Iterable, Optional, Sequence
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = CSRC / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    found = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin)")
+    return found
+
+
+class CudaLibrary:
+    """One ``csrc/<name>.cu`` -> one shared library. ``bind(lib)`` declares
+    the argument types of its entries; ``error_string`` names the entry that
+    maps an error code to text."""
+
+    def __init__(self, name: str, bind: Callable[[ctypes.CDLL], None],
+                 error_string: str, extra_flags: Sequence[str] = ()):
+        self.name = name
+        self.source = CSRC / f"{name}.cu"
+        self.flags = NVCC_FLAGS + tuple(extra_flags)
+        self._bind = bind
+        self._error_string = error_string
+        self._lib: Optional[ctypes.CDLL] = None
+        self._proc: Optional[subprocess.Popen] = None
+        self._tmp: Optional[Path] = None
+
+    def so_path(self) -> Path:
+        key = hashlib.sha256(
+            self.source.read_bytes() + " ".join(self.flags).encode()).hexdigest()
+        return BUILD_DIR / f"{self.name}_{key[:16]}.so"
+
+    def start_build(self) -> None:
+        """Start ``nvcc`` unless a library for this exact source and flag
+        set exists (or a build is already running); :meth:`build` waits."""
+        so = self.so_path()
+        if so.exists() or self._proc is not None:
+            return
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        self._tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        self._proc = subprocess.Popen(
+            [_nvcc(), *self.flags, "-o", str(self._tmp), str(self.source)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def build(self) -> str:
+        """Compile if needed. Returns the compiler's report (registers,
+        shared memory and spills per kernel from ``-Xptxas -v``), empty if
+        the library was cached."""
+        self.start_build()
+        if self._proc is None:
+            return ""
+        proc, self._proc = self._proc, None
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {self.source}:\n{err}")
+        os.replace(self._tmp, self.so_path())
+        return err
+
+    def lib(self) -> ctypes.CDLL:
+        if self._lib is None:
+            self.build()
+            lib = ctypes.CDLL(str(self.so_path()))
+            self._bind(lib)
+            err = getattr(lib, self._error_string)
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            self._lib = lib
+        return self._lib
+
+    def launch(self, entry: str, device: torch.device, *args) -> None:
+        """Call ``entry(device index, *args, stream)`` on PyTorch's current
+        stream; raises if the launch was refused."""
+        lib = self.lib()
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, entry)(device.index, *args, stream)
+        if err != 0:
+            msg = getattr(lib, self._error_string)(err).decode()
+            raise RuntimeError(f"{entry} launch failed: {msg} ({err})")
+
+
+def build_all(libraries: Iterable[CudaLibrary]) -> dict:
+    """Build several libraries side by side (one ``nvcc`` each, all started
+    together). Returns {name: compiler report}."""
+    libraries = list(libraries)
+    for lib in libraries:
+        lib.start_build()
+    return {lib.name: lib.build() for lib in libraries}
+
+
+def on_cpu(x: torch.Tensor) -> bool:
+    """True for CPU tensors (plain-twin path), False for CUDA tensors (kernel
+    path); any other device raises: nothing falls back silently."""
+    if x.device.type == "cpu":
+        return True
+    if x.device.type == "cuda":
+        return False
+    raise ValueError(f"no kernel or twin for device {x.device}")
+
+
+def check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
+    """Raise unless ``t`` is a contiguous, 16-byte aligned ``dtype`` tensor of
+    ``shape`` on ``device``: what the kernels take."""
+    if (t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape)
+            or not t.is_contiguous() or t.data_ptr() % 16):
+        raise ValueError(
+            f"{name}: want a contiguous 16-byte-aligned {dtype} {tuple(shape)} "
+            f"on {device}, got {t.dtype} {tuple(t.shape)} on {t.device} "
+            f"(contiguous={t.is_contiguous()})")

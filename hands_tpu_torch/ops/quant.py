@@ -1,0 +1,160 @@
+"""W8A8 int8 quantisation primitives for serving (port of the helpers of
+``hands_tpu/ops/vit_block_pallas.py`` and of ``quantize_int8`` from
+``hands_tpu/ops/quant.py``).
+
+Scheme: symmetric int8, weights with per-output-channel scales, activations
+per token (dynamic) or per channel (static, calibrated offline and folded
+into the LayerNorm parameters and the weights by :func:`fold_static_scales`).
+``torch.round`` rounds half to even, as ``jnp.round`` does.
+
+Layout: the port keeps matmul weights as ``nn.Linear`` does, (out, in); the
+JAX package keeps (in, out). Every function here takes and returns the
+port's layout, so ``quantize_weight_int8(w)[0]`` is the transpose of the JAX
+function's int8 matrix.
+
+A scale ``amax / 127.0 + 1e-12`` is computed as one fused multiply-add,
+``fma(amax, float32(1 / 127), 1e-12)``: XLA turns the division by a constant
+into a multiplication and contracts it with the addition inside the jitted
+JAX block functions. Against the op-by-op value this moves one scale in ten
+by an f32 ulp when the scales are small (folded weights), and with it now
+and then an int8 weight, which is visible in a block's output.
+
+``int8_conv`` / ``Int8Conv`` belong to the ResNet backbone and are not
+ported yet (ROADMAP queue 1 item 1).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+_INV127 = float(np.float32(1.0) / np.float32(127.0))
+_EPS = float(np.float32(1e-12))
+
+
+def scale_from_amax(amax: torch.Tensor) -> torch.Tensor:
+    """``fma(amax, 1/127, 1e-12)`` in f32: the f32 product is exact in f64,
+    so one f64 multiply-add rounded to f32 is the fused result."""
+    return (amax.double() * _INV127 + _EPS).float()
+
+
+def quantize_weight_int8(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, in) weight -> (int8 (out, in), f32 (out,)) symmetric
+    per-output-channel scales: ``s = max|w| / 127 + 1e-12``,
+    ``q = round(w / s)``."""
+    w32 = w.float()
+    s = scale_from_amax(torch.amax(torch.abs(w32), dim=1))
+    return torch.round(w32 / s[:, None]).to(torch.int8), s
+
+
+def quant_rows_f32(a32: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row (per-token) dynamic int8 quantisation of a 2-D f32
+    tensor (port of ``_quant_rows_f32``): (int8 (R, K), f32 (R, 1))."""
+    s = scale_from_amax(torch.amax(torch.abs(a32), dim=-1, keepdim=True))
+    q = torch.clamp(torch.round(a32 / s), -127.0, 127.0).to(torch.int8)
+    return q, s
+
+
+def quant_static(a32: torch.Tensor) -> torch.Tensor:
+    """Quantise an f32 tensor already expressed in the quantised domain (the
+    static 1/scale is folded into the producing op): round, clip, cast."""
+    return torch.clamp(torch.round(a32), -127.0, 127.0).to(torch.int8)
+
+
+def quantize_int8(x: torch.Tensor, axes: Optional[Sequence[int]] = None,
+                  eps: float = 1e-8) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 quantisation. Returns (q, scale) with
+    ``x ~= q * scale``; ``axes`` are the reduction axes of the max-abs
+    (None -> per tensor)."""
+    x32 = x.float()
+    if axes is None:
+        amax = torch.amax(torch.abs(x32))
+        shape = [1] * x.ndim
+    else:
+        amax = torch.amax(torch.abs(x32), dim=tuple(axes))
+        shape = [1 if i in axes else x.shape[i] for i in range(x.ndim)]
+    scale = torch.clamp(amax, min=eps) * _INV127
+    q = torch.clamp(torch.round(x32 / scale.reshape(shape)), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def int_matmul(a_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """Exact int8 ``a_q (M, K) . w_q (N, K)^T`` -> int32 (M, N) for the plain
+    twins. The CPU has no int8 product and f32 is not exact at K = 5120, so
+    it runs in int32 there; on CUDA it is one ``torch._int_mm`` where that
+    call takes the shape, else an f64 product (exact below 2^53)."""
+    if a_q.device.type == "cpu":
+        return torch.matmul(a_q.to(torch.int32), w_q.to(torch.int32).t())
+    M, K = a_q.shape
+    N = w_q.shape[0]
+    if M > 16 and K % 8 == 0 and N % 8 == 0:
+        return torch._int_mm(a_q, w_q.t())
+    return torch.matmul(a_q.double(), w_q.double().t()).to(torch.int32)
+
+
+def prepare_int8(params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The flat block dict (``ops.vit_block.block_params`` naming, f32
+    values) -> the operands of ``vit_block_fused_int8``: the four weights
+    quantised per output channel (what the JAX wrapper does on every call,
+    done once here), biases and LayerNorm parameters in f32."""
+    wqkv_q, sqkv = quantize_weight_int8(params["wqkv"])
+    wproj_q, sproj = quantize_weight_int8(params["wproj"])
+    w1_q, s1 = quantize_weight_int8(params["w1"])
+    w2_q, s2 = quantize_weight_int8(params["w2"])
+    return {
+        "ln1_s": params["ln1_scale"].float(), "ln1_b": params["ln1_bias"].float(),
+        "wqkv_q": wqkv_q, "sqkv": sqkv, "bqkv": params["bqkv"].float(),
+        "wproj_q": wproj_q, "sproj": sproj, "bproj": params["bproj"].float(),
+        "ln2_s": params["ln2_scale"].float(), "ln2_b": params["ln2_bias"].float(),
+        "w1_q": w1_q, "s1": s1, "b1": params["b1"].float(),
+        "w2_q": w2_q, "s2": s2, "b2": params["b2"].float(),
+    }
+
+
+def fold_static_scales(params: Dict[str, torch.Tensor],
+                       act_scales: Dict[str, torch.Tensor]
+                       ) -> Dict[str, torch.Tensor]:
+    """Fold per-channel static activation scales into the block operands
+    (port of ``fold_static_scales``).
+
+    ``act_scales``: ``qkv`` (C,), ``proj`` (C,), ``mlp1`` (C,), ``mlp2``
+    (hidden,) f32 scales (quantised value = x / s) from
+    ``ops/calibration.py``. Returns the operands of
+    ``vit_block_fused_int8_static``:
+
+    - LayerNorm scale/bias divided by the consumer's activation scale (the
+      LayerNorm output lands in the quantised domain),
+    - weights premultiplied by diag(s_act) along the contraction axis, then
+      quantised per output channel (the activation scales ride the
+      per-column dequantisation multiply),
+    - 1/s vectors for the two points whose producer is not a LayerNorm
+      (attention output, GELU output).
+
+    Weight-sized elementwise work: do it once per set of weights and scales.
+    """
+    s_qkv = act_scales["qkv"].float()
+    s_proj = act_scales["proj"].float()
+    s_mlp1 = act_scales["mlp1"].float()
+    s_mlp2 = act_scales["mlp2"].float()
+
+    def absorb(w, s_in):
+        return quantize_weight_int8(w.float() * s_in[None, :])
+
+    wqkv_q, dqkv = absorb(params["wqkv"], s_qkv)
+    wproj_q, dproj = absorb(params["wproj"], s_proj)
+    w1_q, d1 = absorb(params["w1"], s_mlp1)
+    w2_q, d2 = absorb(params["w2"], s_mlp2)
+    return {
+        "ln1_s": params["ln1_scale"].float() / s_qkv,
+        "ln1_b": params["ln1_bias"].float() / s_qkv,
+        "wqkv_q": wqkv_q, "dqkv": dqkv, "bqkv": params["bqkv"].float(),
+        "inv_proj": 1.0 / s_proj,
+        "wproj_q": wproj_q, "dproj": dproj, "bproj": params["bproj"].float(),
+        "ln2_s": params["ln2_scale"].float() / s_mlp1,
+        "ln2_b": params["ln2_bias"].float() / s_mlp1,
+        "w1_q": w1_q, "d1": d1, "b1": params["b1"].float(),
+        "inv_mlp2": 1.0 / s_mlp2,
+        "w2_q": w2_q, "d2": d2, "b2": params["b2"].float(),
+    }

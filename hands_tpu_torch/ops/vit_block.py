@@ -13,30 +13,23 @@ its kernel for CUDA tensors and counts the launch in :data:`launches`; for
 CPU tensors it runs its ``*_plain`` twin. Nothing falls back silently: a
 tensor on any other device, or one the kernel does not take, raises.
 
-The shared library is built with ``nvcc`` at first use into
-``hands_tpu_torch/csrc/_build/``, keyed by a hash of the source and flags.
+The shared library is built with ``nvcc`` at first use
+(:mod:`hands_tpu_torch.ops.cuda_build`).
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import Dict
 
 import numpy as np
 import torch
 
-_CSRC = Path(__file__).resolve().parent.parent / "csrc" / "vit_block.cu"
-_BUILD_DIR = _CSRC.parent / "_build"
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from hands_tpu_torch.ops.cuda_build import CudaLibrary
+from hands_tpu_torch.ops.cuda_build import check as _check
+from hands_tpu_torch.ops.cuda_build import on_cpu as _on_cpu
 
-_EPILOGUES = {None: 0, "gelu": 1, "residual": 2}
+_EPILOGUES = {None: 0, "gelu": 1, "residual": 2, "gelu_tanh": 3}
 _BF16 = torch.bfloat16
 
 # kernel launches per wrapper since the last reset (CPU twin runs not counted)
@@ -48,81 +41,19 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-# --------------------------------------------------------------- build/load
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    found = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
-    if not os.path.exists(found):
-        raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin)")
-    return found
-
-
-def _so_path() -> Path:
-    key = hashlib.sha256(
-        _CSRC.read_bytes() + " ".join(_NVCC_FLAGS).encode()).hexdigest()
-    return _BUILD_DIR / f"vit_block_{key[:16]}.so"
-
-
-def build() -> str:
-    """Compile ``csrc/vit_block.cu`` unless a library for this exact source
-    and flag set exists. Returns the compiler's report (registers, shared
-    memory and spills per kernel from ``-Xptxas -v``), empty if cached."""
-    so = _so_path()
-    if so.exists():
-        return ""
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_CSRC)],
-        capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {_CSRC}:\n{proc.stderr}")
-    os.replace(tmp, so)
-    return proc.stderr
-
-
-@functools.lru_cache(maxsize=1)
-def _lib() -> ctypes.CDLL:
-    build()
-    lib = ctypes.CDLL(str(_so_path()))
+def _bind(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.vit_layernorm.argtypes = [i, p, p, p, p, i, i, f, p]
     lib.vit_gemm.argtypes = [i, p, p, p, p, p, i, i, i, i, p]
     lib.vit_attention.argtypes = [i, p, p, i, i, i, i, f, p]
     for fn in (lib.vit_layernorm, lib.vit_gemm, lib.vit_attention):
         fn.restype = ctypes.c_int
-    lib.vit_error_string.argtypes = [i]
-    lib.vit_error_string.restype = ctypes.c_char_p
-    return lib
 
 
-def _launch(fn, device: torch.device, *args) -> None:
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = fn(device.index, *args, stream)
-    if err != 0:
-        msg = _lib().vit_error_string(err).decode()
-        raise RuntimeError(f"{fn.__name__} launch failed: {msg} ({err})")
+LIBRARY = CudaLibrary("vit_block", _bind, "vit_error_string")
 
 
-def _on_cpu(x: torch.Tensor) -> bool:
-    """True for CPU tensors (twin path), False for CUDA (kernel path)."""
-    if x.device.type == "cpu":
-        return True
-    if x.device.type == "cuda":
-        return False
-    raise ValueError(f"no vit_block implementation for device {x.device}")
-
-
-def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
-    if (t.device != device or t.dtype != dtype or tuple(t.shape) != shape
-            or not t.is_contiguous() or t.data_ptr() % 16):
-        raise ValueError(
-            f"{name}: want a contiguous 16-byte-aligned {dtype} {shape} on "
-            f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device} "
-            f"(contiguous={t.is_contiguous()})")
-
-
-def _bf16_const(v: float) -> float:
+def bf16_const(v: float) -> float:
     """``v`` rounded to bf16, as JAX rounds a weak-typed scalar that meets a
     bf16 array."""
     return float(torch.tensor(v, dtype=_BF16))
@@ -152,6 +83,22 @@ def gelu_erfc(x: torch.Tensor) -> torch.Tensor:
     return half_x * e
 
 
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """tanh-approximate GELU ``x * 0.5 * (1 + tanh(c * (x + 0.044715 x^3)))``
+    with every op rounded to ``x.dtype`` and the constants rounded first
+    (``jax.nn.gelu(approximate=True)``, the fast form of ``_gelu_mosaic``)."""
+    c = float(torch.tensor((2.0 / np.pi) ** 0.5, dtype=x.dtype))
+    k = float(torch.tensor(0.044715, dtype=x.dtype))
+    x3 = x * (x * x)
+    inner = c * (x + k * x3)
+    t = torch.tanh(inner.float()).to(x.dtype)
+    return x * (0.5 * (1.0 + t))
+
+
+def gelu(x: torch.Tensor, fast: bool) -> torch.Tensor:
+    return gelu_tanh(x) if fast else gelu_erfc(x)
+
+
 def layernorm_plain(x, scale, bias, eps: float = 1e-6) -> torch.Tensor:
     """(R, C) bf16 -> bf16 LayerNorm with f32 statistics."""
     return layernorm_f32(x.float(), scale, bias, eps).to(_BF16)
@@ -159,10 +106,10 @@ def layernorm_plain(x, scale, bias, eps: float = 1e-6) -> torch.Tensor:
 
 def gemm_plain(a, w, bias, epilogue=None, residual=None) -> torch.Tensor:
     """bf16 ``a (M, K) . w (N, K)^T`` rounded to bf16, + bias in bf16, then
-    GELU or + residual in bf16."""
+    GELU (exact or tanh) or + residual in bf16."""
     y = torch.matmul(a, w.t()) + bias
-    if epilogue == "gelu":
-        return gelu_erfc(y)
+    if epilogue in ("gelu", "gelu_tanh"):
+        return gelu(y, fast=epilogue == "gelu_tanh")
     if epilogue == "residual":
         return residual + y
     return y
@@ -175,7 +122,7 @@ def attention_plain(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     C = C3 // 3
     D = C // num_heads
     t = qkv.view(B, N, 3, num_heads, D).permute(2, 0, 3, 1, 4)  # (3,B,H,N,D)
-    q = t[0] * _bf16_const(D**-0.5)
+    q = t[0] * bf16_const(D**-0.5)
     s = torch.matmul(q, t[1].transpose(-1, -2))  # bf16 logits
     p = torch.softmax(s.float(), dim=-1)
     o = torch.matmul(p, t[2].float())  # (B, H, N, D) f32
@@ -194,7 +141,7 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     _check(scale, "scale", torch.float32, (C,), dev)
     _check(bias, "bias", torch.float32, (C,), dev)
     out = torch.empty_like(x)
-    _launch(_lib().vit_layernorm, dev, x.data_ptr(), scale.data_ptr(),
+    LIBRARY.launch("vit_layernorm", dev, x.data_ptr(), scale.data_ptr(),
             bias.data_ptr(), out.data_ptr(), R, C, eps)
     launches["layernorm"] += 1
     return out
@@ -203,7 +150,10 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 def gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
          epilogue=None, residual=None) -> torch.Tensor:
     """bf16 (M, K) x (N, K)^T -> (M, N) with the bias/GELU/residual
-    epilogue; ``epilogue`` is None, ``"gelu"`` or ``"residual"``."""
+    epilogue; ``epilogue`` is None, ``"gelu"`` (exact), ``"gelu_tanh"`` or
+    ``"residual"``."""
+    if epilogue not in _EPILOGUES:
+        raise ValueError(f"unknown epilogue {epilogue!r}")
     if (residual is not None) != (epilogue == "residual"):
         raise ValueError("residual must be given exactly for "
                          "epilogue='residual'")
@@ -220,7 +170,7 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     if residual is not None:
         _check(residual, "residual", _BF16, (M, N), dev)
     out = torch.empty((M, N), dtype=_BF16, device=dev)
-    _launch(_lib().vit_gemm, dev, a.data_ptr(), w.data_ptr(),
+    LIBRARY.launch("vit_gemm", dev, a.data_ptr(), w.data_ptr(),
             bias.data_ptr(),
             None if residual is None else residual.data_ptr(),
             out.data_ptr(), M, N, K, _EPILOGUES[epilogue])
@@ -241,14 +191,14 @@ def attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
                          f"head dim, got {C3} columns, {num_heads} heads")
     _check(qkv, "qkv", _BF16, (B, N, C3), dev)
     out = torch.empty((B, N, C), dtype=_BF16, device=dev)
-    _launch(_lib().vit_attention, dev, qkv.data_ptr(), out.data_ptr(),
-            B, N, num_heads, D, _bf16_const(D**-0.5))
+    LIBRARY.launch("vit_attention", dev, qkv.data_ptr(), out.data_ptr(),
+            B, N, num_heads, D, bf16_const(D**-0.5))
     launches["attention"] += 1
     return out
 
 
 # ------------------------------------------------------------------ block
-def _block(x, p, num_heads, ln, mm, attn):
+def _block(x, p, num_heads, fast_gelu, ln, mm, attn):
     B, N, C = x.shape
     x2 = x.reshape(B * N, C)
     y = ln(x2, p["ln1_scale"], p["ln1_bias"])
@@ -256,16 +206,16 @@ def _block(x, p, num_heads, ln, mm, attn):
     o = attn(qkv.view(B, N, 3 * C), num_heads).view(B * N, C)
     x1 = mm(o, p["wproj"], p["bproj"], "residual", x2)
     y2 = ln(x1, p["ln2_scale"], p["ln2_bias"])
-    h = mm(y2, p["w1"], p["b1"], "gelu")
+    h = mm(y2, p["w1"], p["b1"], "gelu_tanh" if fast_gelu else "gelu")
     return mm(h, p["w2"], p["b2"], "residual", x1).view(B, N, C)
 
 
-def vit_block_plain(x: torch.Tensor, params: dict, num_heads: int
-                    ) -> torch.Tensor:
+def vit_block_plain(x: torch.Tensor, params: dict, num_heads: int,
+                    fast_gelu: bool = False) -> torch.Tensor:
     """The plain PyTorch twin of the whole block (port of ``block_math``
     with the kernel's rounding points)."""
-    return _block(x, params, num_heads, layernorm_plain, gemm_plain,
-                  attention_plain)
+    return _block(x, params, num_heads, fast_gelu, layernorm_plain,
+                  gemm_plain, attention_plain)
 
 
 def vit_block_fused(x: torch.Tensor, params: dict, *, num_heads: int,
@@ -273,12 +223,10 @@ def vit_block_fused(x: torch.Tensor, params: dict, *, num_heads: int,
     """One ViT block: (B, N, C) bf16 tokens -> (B, N, C) bf16. ``params`` is
     the flat dict of :func:`block_params` (matmul weights bf16 in (out, in)
     layout, biases bf16, LayerNorm scale/bias f32). CUDA tensors run the
-    kernels (7 launches), CPU tensors the twin."""
-    if fast_gelu:
-        raise NotImplementedError(
-            "tanh-approximate GELU in the block kernel is not ported "
-            "(ROADMAP queue 1 item 5)")
-    return _block(x.to(_BF16), params, num_heads, layernorm, gemm, attention)
+    kernels (7 launches), CPU tensors the twin. ``fast_gelu`` takes the
+    tanh-approximate GELU in the MLP epilogue."""
+    return _block(x.to(_BF16), params, num_heads, fast_gelu, layernorm, gemm,
+                  attention)
 
 
 def block_params(block) -> dict:
@@ -295,19 +243,22 @@ def block_params(block) -> dict:
     }
 
 
-def block_params_from_flax(flax_block: dict, device="cpu") -> dict:
+def block_params_from_flax(flax_block: dict, device="cpu",
+                           dtype=_BF16) -> dict:
     """A Flax ``Block`` param subtree (numpy leaves, models/backbones/vit.py
     naming) -> the flat dict :func:`vit_block_fused` takes: Dense kernels
-    (in, out) transposed to (out, in) and cast to bf16 with their biases,
-    LayerNorm scale/bias kept f32."""
+    (in, out) transposed to (out, in) and cast to ``dtype`` with their biases
+    (bf16 for the bf16 block; float32 for the int8 blocks, which quantise
+    from the f32 values), LayerNorm scale/bias kept f32."""
     def dense(d):
-        w = torch.from_numpy(np.ascontiguousarray(np.asarray(d["kernel"]).T))
-        b = torch.from_numpy(np.asarray(d["bias"]))
-        return (w.to(device=device, dtype=_BF16),
-                b.to(device=device, dtype=_BF16))
+        w = torch.from_numpy(np.ascontiguousarray(
+            np.asarray(d["kernel"], np.float32).T))
+        b = torch.from_numpy(np.array(d["bias"], np.float32))
+        return (w.to(device=device, dtype=dtype),
+                b.to(device=device, dtype=dtype))
 
     def f32(a):
-        return torch.from_numpy(np.asarray(a, np.float32)).to(device)
+        return torch.from_numpy(np.array(a, np.float32)).to(device)
 
     wqkv, bqkv = dense(flax_block["attn"]["qkv"])
     wproj, bproj = dense(flax_block["attn"]["proj"])

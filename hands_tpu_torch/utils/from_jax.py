@@ -5,8 +5,12 @@ numpy arrays and returns a ``state_dict`` for the port's
 ``models.hamer_light.HamerLightModel``. It transposes Flax ``Dense`` kernels
 (in, out) to (out, in), turns HWIO conv kernels into OIHW, splits the
 scan-stacked ViT blocks along their leading depth axis, and maps Flax's
-auto-named modules (``Dense_0``, ``LayerNorm_0`` ...) one-to-one. It asserts
-that every JAX leaf is consumed and every port parameter is filled.
+auto-named modules (``Dense_0``, ``LayerNorm_0`` ...) one-to-one. For a
+``quant_int8_static`` model it also carries the calibrated ``act_scale_*``
+vectors. Each tensor lands in the dtype of the parameter it fills: bf16
+matmul weights in a bf16 backbone, f32 in the int8 configurations, whose
+kernels quantise from the f32 values. It asserts that every JAX leaf is
+consumed and every port parameter is filled.
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ def _layernorm(jax_path: str, port_path: str):
             (f"{port_path}.bias", f"{jax_path}/bias", None)]
 
 
-def _rules(depth: int, head_depth: int):
+def _rules(depth: int, head_depth: int, quant_static: bool):
     """(port key, JAX path, transform, depth index or None) for every leaf."""
     rules = []
 
@@ -66,6 +70,9 @@ def _rules(depth: int, head_depth: int):
             + _dense(f"{jb}/attn/proj", f"{pb}.attn.proj")
             + _dense(f"{jb}/mlp/Dense_0", f"{pb}.mlp.fc1")
             + _dense(f"{jb}/mlp/Dense_1", f"{pb}.mlp.fc2"), index=i)
+        if quant_static:  # calibrated activation scales, stacked (depth, C)
+            add([(f"{pb}.act_scale_{p}", f"{jb}/act_scale_{p}", None)
+                 for p in ("qkv", "proj", "mlp1", "mlp2")], index=i)
     mh = "net.mano_head"
     add(_dense("mano_head/token_proj", f"{mh}.token_proj")
         + [(f"{mh}.pos_embedding", "mano_head/pos_embedding", None)]
@@ -96,7 +103,9 @@ def state_dict_from_jax(variables: dict, model: nn.Module
     depth = len(model.net.backbone.blocks)
     head_depth = len(model.net.mano_head.layers)
     out, used = {}, set()
-    for port_key, jax_path, fn, index in _rules(depth, head_depth):
+    quant_static = bool(model.net.backbone.blocks[0].quant_static)
+    for port_key, jax_path, fn, index in _rules(depth, head_depth,
+                                                quant_static):
         a = flat[jax_path]
         used.add(jax_path)
         if index is not None:

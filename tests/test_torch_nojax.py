@@ -1,11 +1,15 @@
-"""The port never imports JAX: the machine with the card has none.
+"""The port never imports JAX, nor anything of the JAX package: the machine
+with the card has neither.
 
 In a fresh interpreter (the test process itself has JAX loaded), import
-``hands_tpu_torch``, build tiny HaMeR on the CPU, serve one batch, and check
-that neither ``jax`` nor ``flax`` was imported along the way.
+every module of ``hands_tpu_torch``, build tiny HaMeR on the CPU, serve one
+bf16 and one int8 request, and check that neither ``jax``, ``flax`` nor
+``hands_tpu`` was imported along the way. A second test reads the sources:
+no import line of the port or of ``chip_smoke.py`` names them.
 """
 
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -16,7 +20,11 @@ SCRIPT = r"""
 import sys
 import numpy as np
 import torch
+import importlib
+import pkgutil
 import hands_tpu_torch
+for m in pkgutil.walk_packages(hands_tpu_torch.__path__, "hands_tpu_torch."):
+    importlib.import_module(m.name)
 from hands_tpu_torch.cli.demo import make_record, serve, serving_config
 from hands_tpu_torch.models.registry import fetch_model
 
@@ -29,8 +37,14 @@ out = serve(recs, cfg, fetch_model(cfg, "cpu", seed=0, vit_variant="tiny"),
             "cpu")
 assert out["pred.mano.vertices.r"].shape == (2, 778, 3)
 assert torch.isfinite(out["pred.mano.j3d.cam.l"]).all()
+cfg8 = serving_config("hamer_light", "bfloat16", quant_int8=True)
+out8 = serve(recs, cfg8, fetch_model(cfg8, "cpu", seed=0, vit_variant="tiny"),
+             "cpu")
+assert torch.isfinite(out8["pred.mano.vertices.r"]).all()
+drift = (out8["pred.mano.vertices.r"] - out["pred.mano.vertices.r"]).abs()
+assert 0 < float(drift.max()) < 0.1, float(drift.max())
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "hands_tpu"))
 assert not bad, bad
 print("NOJAX_OK")
 """
@@ -44,3 +58,18 @@ def test_port_serves_without_importing_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "NOJAX_OK" in proc.stdout
+
+
+def test_port_sources_name_no_jax_import():
+    """No ``import``/``from`` line of the port or of ``chip_smoke.py`` names
+    ``hands_tpu``, ``jax`` or ``flax`` (docstrings may mention them)."""
+    pattern = re.compile(r"^\s*(from|import)\s+(hands_tpu|jax|jaxlib|flax)"
+                         r"(\.|\s|$)")
+    files = sorted((REPO / "hands_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 20
+    bad = [f"{f.relative_to(REPO)}:{n}: {line.strip()}"
+           for f in files
+           for n, line in enumerate(f.read_text().splitlines(), 1)
+           if pattern.match(line)]
+    assert not bad, bad

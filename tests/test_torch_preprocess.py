@@ -82,7 +82,8 @@ def test_device_preprocessor_matches_jax(which):
     recs = _demo_records(rng) if which == "demo" else _gt_joint_records(rng)
     cfg = serving_config("hamer_light", "float32", False)
     ref = JaxPre(cfg, is_train=False)(jax_stack(recs), jax.random.PRNGKey(0))
-    got = DevicePreprocessor(cfg, is_train=False)(stack_records(recs))
+    got = DevicePreprocessor(cfg, is_train=False, device="cpu")(
+        stack_records(recs))
     for r, g in zip(ref, got):
         assert set(r) == set(g), set(r) ^ set(g)
         for k in r:
