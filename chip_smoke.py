@@ -173,25 +173,25 @@ class Case:
         return t_bytes, t_ops
 
 
-def block_inputs(gen, dev):
+def block_inputs(gen, dev, batch, n_tok, c, hidden):
     def randn(*shape, std=1.0, dtype=torch.bfloat16):
         return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
 
     def f32(*shape, base=0.0):
         return base + 0.1 * torch.randn(shape, generator=gen, device=dev)
 
-    x = randn(BATCH, N_TOK, C)
+    x = randn(batch, n_tok, c)
     p32 = {
-        "ln1_scale": f32(C, base=1.0), "ln1_bias": f32(C),
-        "wqkv": randn(3 * C, C, std=C**-0.5, dtype=torch.float32),
-        "bqkv": randn(3 * C, std=0.1, dtype=torch.float32),
-        "wproj": randn(C, C, std=C**-0.5, dtype=torch.float32),
-        "bproj": randn(C, std=0.1, dtype=torch.float32),
-        "ln2_scale": f32(C, base=1.0), "ln2_bias": f32(C),
-        "w1": randn(HIDDEN, C, std=C**-0.5, dtype=torch.float32),
-        "b1": randn(HIDDEN, std=0.1, dtype=torch.float32),
-        "w2": randn(C, HIDDEN, std=HIDDEN**-0.5, dtype=torch.float32),
-        "b2": randn(C, std=0.1, dtype=torch.float32),
+        "ln1_scale": f32(c, base=1.0), "ln1_bias": f32(c),
+        "wqkv": randn(3 * c, c, std=c**-0.5, dtype=torch.float32),
+        "bqkv": randn(3 * c, std=0.1, dtype=torch.float32),
+        "wproj": randn(c, c, std=c**-0.5, dtype=torch.float32),
+        "bproj": randn(c, std=0.1, dtype=torch.float32),
+        "ln2_scale": f32(c, base=1.0), "ln2_bias": f32(c),
+        "w1": randn(hidden, c, std=c**-0.5, dtype=torch.float32),
+        "b1": randn(hidden, std=0.1, dtype=torch.float32),
+        "w2": randn(c, hidden, std=hidden**-0.5, dtype=torch.float32),
+        "b2": randn(c, std=0.1, dtype=torch.float32),
     }
     p = {k: v if k.startswith("ln") else v.to(torch.bfloat16)
          for k, v in p32.items()}
@@ -542,7 +542,7 @@ def main() -> int:
     print(f"phase 2: kernels vs twins, rows={ROWS} C={C} hidden={HIDDEN} "
           f"heads={HEADS} D={HEAD_DIM}")
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    x, p, p32 = block_inputs(gen, dev)
+    x, p, p32 = block_inputs(gen, dev, BATCH, N_TOK, C, HIDDEN)
     groups, sources, extra, operands = kernel_cases(x, p, p32)
     rows = {}  # kernel name -> its line of the kernels JSON
     for replaces, source, kernels in groups:
@@ -584,6 +584,44 @@ def main() -> int:
                 x, operands["static"], HEADS, f))
     for name, (kern, twin) in blocks.items():
         compare(f"whole {name}", kern(), twin(), rel=BLOCK_REL)
+    torch.cuda.synchronize()
+
+    # shapes that are no multiples of the GEMM tiles (128 x 128 x 64) or of
+    # the row kernels' 256 threads: 72 rows, C 160 (head dim 80), hidden 320
+    from hands_tpu_torch.ops import quant
+    rb, rn, rc, rh, rheads = 3, 24, 160, 320, 2
+    rx, rp, rp32 = block_inputs(gen, dev, rb, rn, rc, rh)
+
+    def uniform(n, lo, hi):
+        return lo + (hi - lo) * torch.rand(n, generator=gen, device=dev)
+
+    r_dyn = quant.prepare_int8(rp32)
+    r_sta = quant.fold_static_scales(rp32, {
+        "qkv": uniform(rc, 0.02, 0.05), "proj": uniform(rc, 0.005, 0.02),
+        "mlp1": uniform(rc, 0.02, 0.05), "mlp2": uniform(rh, 0.005, 0.03)})
+    for fast in (False, True):
+        tail = f"(72 rows, C 160{', fast_gelu' if fast else ''})"
+        compare(f"bf16 block {tail}",
+                vb.vit_block_fused(rx, rp, num_heads=rheads, fast_gelu=fast),
+                vb.vit_block_plain(rx, rp, rheads, fast), rel=BLOCK_REL)
+        compare(f"dynamic int8 block {tail}",
+                v8.vit_block_fused_int8(rx, r_dyn, num_heads=rheads,
+                                        fast_gelu=fast),
+                v8.vit_block_int8_plain(rx, r_dyn, rheads, fast),
+                rel=BLOCK_REL)
+        compare(f"static int8 block {tail}",
+                v8.vit_block_fused_int8_static(rx, r_sta, num_heads=rheads,
+                                               fast_gelu=fast),
+                v8.vit_block_int8_static_plain(rx, r_sta, rheads, fast),
+                rel=BLOCK_REL)
+    for dtype, rel, mean in ((torch.bfloat16, MAX_REL, MAX_MEAN),
+                             (torch.float32, 2e-5, 2e-6)):
+        # separate contiguous q, k, v (phase 2 read the slices of a qkv)
+        q, k, v = (torch.randn((rb, rn, rheads, 80), generator=gen,
+                               device=dev).to(dtype) for _ in range(3))
+        compare(f"mha_fused {str(dtype)[6:]} (3, 24, 2, 80)",
+                at.mha_fused(q, k, v, 80**-0.5),
+                at.mha_plain(q, k, v, 80**-0.5), rel=rel, mean=mean)
     torch.cuda.synchronize()
 
     # ---- 3. serve requests through full-width ViT-H, kernels on
