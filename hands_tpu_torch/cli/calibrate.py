@@ -13,7 +13,7 @@ built with ``Config.quant_int8_static``:
         [--batches 8] [--batch_size 32] [--margin 1.0] [--device cuda] \\
         -o scales.npz
 
-Weights are random from ``--seed``: a plumbing smoke run. Calibrate trained
+Weights are random (seed 0): a plumbing smoke run. Calibrate trained
 weights for real serving by passing their ``state_dict`` to
 :func:`calibrate_scales`; loading a checkpoint from the command line is
 ROADMAP queue 1 item 8.
@@ -107,7 +107,6 @@ def main(argv=None):
     p.add_argument("--batch_size", type=int, default=32)
     p.add_argument("--margin", type=float, default=1.0,
                    help=">1 leaves clip headroom for unseen data")
-    p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="cuda (default; fails without a card) or cpu")
     p.add_argument("-o", "--out", default="scales.npz")
@@ -116,7 +115,7 @@ def main(argv=None):
     from hands_tpu_torch.models.registry import fetch_model
 
     cfg = serving_config(args.method)
-    model = fetch_model(cfg, device=args.device, seed=args.seed,
+    model = fetch_model(cfg, device=args.device, seed=0,
                         vit_variant=args.vit_variant)
     batches = synthetic_batches(cfg, args.batch_size, args.batches,
                                 device=args.device)
