@@ -1,10 +1,15 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: builds the port's CUDA
-kernels (the bf16 ViT block, the two W8A8 ViT blocks, the fused attention),
-holds each against its plain PyTorch twin at ViT-H shapes, serves requests
-through HaMeR at full ViT-H width and depth in its bf16, dynamic-int8 and
-calibrated static-int8 configurations (and one backbone forward with the
-fused attention), checks the launch counts of each path, and times kernels,
-blocks and serving with CUDA events.
+kernels (the bf16 ViT block, the two W8A8 ViT blocks, the fused attention,
+the fused skinning, the splat silhouette forward and backward), holds each
+against its plain PyTorch twin at the shapes its path gives it, serves
+requests through HaMeR at full ViT-H width and depth in its bf16,
+dynamic-int8 and calibrated static-int8 configurations (and one backbone
+forward with the fused attention), serves and evaluates WildHands at full
+width (two ResNet-50s, 224^2 crops, requests of 8 and 64 images; f32, bf16
+and int8-convolution serving; the evaluation forward with the silhouette
+render and the grasp classifier on, without and with gradients), checks the
+launch counts of each path, and times kernels, blocks, forwards and serving
+with CUDA events.
 
     python3 chip_smoke.py
 
@@ -18,6 +23,7 @@ twin, one PyTorch library call where there is one) and roofline bound.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import subprocess
@@ -55,10 +61,28 @@ K7 = "hands_tpu/ops/attention_pallas.py:52"
 SRC_K3 = "hands_tpu_torch/csrc/vit_block.cu"
 SRC_I8 = "hands_tpu_torch/csrc/vit_block_int8.cu"
 SRC_ATTN = "hands_tpu_torch/csrc/attention.cu"
+K1 = "hands_tpu/ops/mano_pallas.py:64"
+K2 = "hands_tpu/ops/rasterizer_pallas.py:96"
+SRC_LBS = "hands_tpu_torch/csrc/lbs.cu"
+SRC_SPLAT = "hands_tpu_torch/csrc/splat.cu"
+WH_BACKBONE = "resnet50"  # the shipped WildHands width
+WH_BATCHES = ((8, 3), (64, 2))  # (images per request, requests)
+WH_GRAD_BATCH = 8  # images of the forward that is differentiated
+N_VERTS, RENDER_RES, RENDER_SIGMA = 778, 112, 1.5  # the 224^2 half-res render
+LBS_ABS = 1e-5  # K1 vs twin: f32 sums of 16 and 4 terms in another order
+MASK_ABS = 2e-5  # K2 forward vs twin (the sum over vertices runs in order)
+# K2 backward vs the twin's autograd under a mean L1 mask loss. The kernel is
+# also held to the twin evaluated in f64, relative to the largest entry: in
+# f32 the distance |p|^2 + |v|^2 - 2 p.v cancels to ~1e-3 px^2 at coordinates
+# near 112, 2e-4 of a gaussian, and both the kernel and the f32 twin carry it
+GRAD_ATOL, GRAD_RTOL, GRAD_F64_REL = 1e-6, 1e-3, 2e-3
 # published dense peaks of one H100 SXM: bytes/s of HBM3, operations/s by
 # operand type (bf16 and int8 on the tensor cores, f32 on the CUDA cores)
 HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+# "sfu": results of the special-function units (exp, log, reciprocal): 16 a
+# clock on each SM against 128 f32 FMAs, 1/16 of the f32 FLOP rate
+PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12,
+              "sfu": 67e12 / 16}
 
 
 def card_line() -> str:
@@ -83,6 +107,20 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int = 50, replays: int = 20) -> float:
+    """Mean device time of ``fn`` for launches of a few microseconds:
+    ``iters`` calls captured into one CUDA graph and replayed, so that the
+    host's per-launch cost does not hide the device's."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    return cuda_ms(graph.replay, iters=replays) / iters
+
+
 def require(ok: bool, what: str) -> None:
     """A check that also holds under ``python -O``."""
     if not ok:
@@ -97,6 +135,19 @@ def compare(name, got, ref, rel=MAX_REL, mean=MAX_MEAN) -> float:
     ok = bool(torch.isfinite(g).all()) and worst <= rel and avg <= mean
     print(f"  {name:<34s} max|d|/max(|ref|,1) {worst:.3e} (<= {rel:g})  "
           f"mean|d| {avg:.3e} (<= {mean:g})  {'ok' if ok else 'FAIL'}")
+    require(ok, f"{name}: kernel disagrees with its twin")
+    return float(err.max())
+
+
+def compare_abs(name, got, ref, atol, rtol=0.0) -> float:
+    """|got - ref| <= atol + rtol |ref| on every element."""
+    g, r = got.float(), ref.float()
+    err = (g - r).abs()
+    excess = float((err - rtol * r.abs()).max())
+    ok = bool(torch.isfinite(g).all()) and excess <= atol
+    print(f"  {name:<34s} max|d| {float(err.max()):.3e}, max(|d| - {rtol:g}"
+          f"|ref|) {excess:.3e} (<= {atol:g})  max|ref| "
+          f"{float(r.abs().max()):.3e}  {'ok' if ok else 'FAIL'}")
     require(ok, f"{name}: kernel disagrees with its twin")
     return float(err.max())
 
@@ -162,13 +213,16 @@ class Case:
     input once, each output once) and the operations it does."""
 
     def __init__(self, label, call, inputs, ops, kind, library=None,
-                 check=compare):
+                 check=compare, timer=cuda_ms, saved_bytes=0):
         self.label, self.call, self.library = label, call, library
         self.inputs, self.ops, self.kind, self.check = inputs, ops, kind, check
+        self.timer = timer  # graph_ms for launches of a few microseconds
+        self.saved_bytes = saved_bytes  # written for a backward, not returned
 
     def bound(self, out) -> tuple:
         outs = out if isinstance(out, tuple) else (out,)
-        t_bytes = (nbytes(*self.inputs) + nbytes(*outs)) / HBM_BYTES_S * 1e3
+        t_bytes = (nbytes(*self.inputs) + nbytes(*outs)
+                   + self.saved_bytes) / HBM_BYTES_S * 1e3
         t_ops = self.ops / PEAK_OPS_S[self.kind] * 1e3
         return t_bytes, t_ops
 
@@ -463,23 +517,168 @@ def kernel_cases(x, p, p32):
     return groups, sources, extra, operands
 
 
-def launch_counts() -> dict:
+def skinning_inputs(gen, dev, batch):
+    """Posed-template vertices and skinning transforms of ``batch`` hands:
+    small rotations and translations, as the heads emit them."""
+    from hands_tpu_torch.core import rot as rotlib
+
+    def randn(*shape, std):
+        return torch.randn(shape, generator=gen, device=dev) * std
+
+    v_posed = randn(batch, N_VERTS, 3, std=0.1)
+    A = torch.zeros((batch, 16, 4, 4), device=dev)
+    A[:, :, :3, :3] = rotlib.axis_angle_to_matrix(randn(batch, 16, 3, std=0.3))
+    A[:, :, :3, 3] = randn(batch, 16, 3, std=0.05)
+    A[:, :, 3, 3] = 1.0
+    return v_posed, A
+
+
+def projected_vertices(gen, dev, batch, n_verts, res):
+    """Projected vertices of ``batch`` hands in render pixels: a blob of
+    0.08 res around a centre inside the image."""
+    centre = (0.25 + 0.5 * torch.rand((batch, 1, 2), generator=gen,
+                                      device=dev)) * res
+    return (centre + torch.randn((batch, n_verts, 2), generator=gen,
+                                 device=dev) * (0.08 * res)).contiguous()
+
+
+class SplatGrad:
+    """The gradient of the splat under a fixed upstream ``gmask``: builds the
+    forward graph of ``fn`` once and differentiates it on every call, so that
+    a timed call is the backward alone."""
+
+    def __init__(self, v2d, res, sigma, gmask):
+        self.v2d, self.res, self.sigma, self.gmask = v2d, res, sigma, gmask
+        self._graphs = {}
+
+    def __call__(self, fn):
+        if fn not in self._graphs:
+            v = self.v2d.detach().clone().requires_grad_(True)
+            self._graphs[fn] = (v, fn(v, self.res, self.sigma))
+        v, mask = self._graphs[fn]
+        return torch.autograd.grad(mask, v, self.gmask, retain_graph=True)[0]
+
+    def release(self):
+        self._graphs.clear()
+
+
+def geometry_cases(gen, dev, batch):
+    """K1 and K2 at the shapes the WildHands paths give them (``batch``
+    hands per MANO decode and per render), in the format of
+    :func:`kernel_cases`; plus the shapes that are no multiple of any tile.
+    Returns (groups, extra, the SplatGrad objects to release)."""
+    from hands_tpu_torch.ops import mano as manolib
+    from hands_tpu_torch.ops import mano_lbs as ml
+    from hands_tpu_torch.ops import rasterizer as ras
+
+    W = manolib.load_mano(True, device=dev).lbs_weights
+
+    def lbs_case(b):
+        v_posed, A = skinning_inputs(gen, dev, b)
+        return Case(
+            f"lbs_apply B={b}", lambda f: f(v_posed, W, A), [v_posed, W, A],
+            b * N_VERTS * (2 * 16 * 12 + 2 * 9), "f32",
+            lambda: ml.lbs_apply_plain(v_posed, W, A),
+            lambda n, g, r: compare_abs(n, g, r, LBS_ABS), timer=graph_ms)
+
+    def mask_check(n, g, r):
+        return compare_abs(n, g, r, MASK_ABS)
+
+    def grad_check(n, g, r):
+        return compare_abs(n, g, r, GRAD_ATOL, GRAD_RTOL)
+
+    def splat_cases(b, n_verts, res, sigma):
+        v2d = projected_vertices(gen, dev, b, n_verts, res)
+        pairs = b * res * res * n_verts
+        # the gradient of a mean L1 mask loss against a random binary target
+        target = (torch.rand((b, res, res), generator=gen, device=dev)
+                  > 0.5).float()
+        gmask = (torch.sign(ras.splat_silhouette_plain(v2d, res, sigma)
+                            - target) / target.numel()).contiguous()
+        grad = SplatGrad(v2d, res, sigma, gmask)
+        tail = f"B={b} res={res} V={n_verts}"
+        fwd = Case(f"splat forward {tail}", lambda f: f(v2d, res, sigma),
+                   [v2d], 2 * pairs, "sfu", None, mask_check,
+                   saved_bytes=4 * b * res * res)  # the log-miss map
+        bwd = Case(f"splat backward {tail}", grad, [v2d, gmask, gmask],
+                   2 * pairs, "sfu", None, grad_check)
+        return fwd, bwd, grad
+
+    fwd, bwd, grad = splat_cases(batch, N_VERTS, RENDER_RES, RENDER_SIGMA)
+    fwd_s, bwd_s, grad_s = splat_cases(3, 50, 20, 2.0)
+    fused, plain = ras.splat_silhouette_fused, ras.splat_silhouette_plain
+    groups = [
+        (K1, SRC_LBS, {"lbs_apply": (ml.lbs_apply, ml.lbs_apply_plain,
+                                     [lbs_case(batch)])}),
+        (K2, SRC_SPLAT, {"splat_fwd": (fused, plain, [fwd]),
+                         "splat_bwd": (fused, plain, [bwd])}),
+    ]
+    extra = [(lbs_case(512), ml.lbs_apply, ml.lbs_apply_plain),
+             (lbs_case(3), ml.lbs_apply, ml.lbs_apply_plain),
+             (fwd_s, fused, plain), (bwd_s, fused, plain)]
+
+    # K2's gradient against the twin in f64, at 8 hands (the f64 pair tensors
+    # of 64 would take 30 GB)
+    for b, n_verts, res, sigma in ((8, N_VERTS, RENDER_RES, RENDER_SIGMA),
+                                   (3, 50, 20, 2.0)):
+        _, case, g32 = splat_cases(b, n_verts, res, sigma)
+        g64 = SplatGrad(g32.v2d.double(), res, sigma, g32.gmask.double())
+        want = g64(plain)
+        scale = float(want.abs().max())
+        for label, fn in (("kernel", fused), ("f32 twin", plain)):
+            err = float((g32(fn).double() - want).abs().max()) / scale
+            print(f"  splat backward B={b} res={res} V={n_verts} {label} vs "
+                  f"f64 twin: max|d| / max|ref| {err:.3e}"
+                  + (f" (<= {GRAD_F64_REL:g})" if fn is fused else ""))
+            require(fn is plain or err <= GRAD_F64_REL,
+                    "splat backward kernel disagrees with the f64 twin")
+        g32.release()
+        g64.release()
+
+    # K1's gradient: the kernel forward, the twin recomputed in the backward
+    v_posed, A = skinning_inputs(gen, dev, 3)
+    g_out = torch.randn(v_posed.shape, generator=gen, device=dev)
+    grads = []
+    for fn in (ml.lbs_apply, ml.lbs_apply_plain):
+        v, a = (t.clone().requires_grad_(True) for t in (v_posed, A))
+        grads.append(torch.autograd.grad(fn(v, W, a), (v, a), g_out))
+    for name, got, ref in zip(("d v_posed", "d A"), *grads):
+        compare_abs(f"lbs_apply gradient {name}", got, ref, 1e-5, 1e-5)
+    return groups, extra, (grad, grad_s)
+
+
+def twin_memory(fn) -> float:
+    """Peak device memory (GB) that one call of ``fn`` adds."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del out
+    return (peak - base) / 1e9
+
+
+def counted_modules():
     from hands_tpu_torch.ops import attention as at
+    from hands_tpu_torch.ops import mano_lbs
+    from hands_tpu_torch.ops import rasterizer
     from hands_tpu_torch.ops import vit_block as vb
     from hands_tpu_torch.ops import vit_block_int8 as v8
 
+    return vb, v8, at, mano_lbs, rasterizer
+
+
+def launch_counts() -> dict:
+    vb, *others = counted_modules()
     out = {f"vit_{k}": v for k, v in vb.launches.items()}
-    out.update(v8.launches)
-    out.update(at.launches)
+    for mod in others:
+        out.update(mod.launches)
     return out
 
 
 def reset_launch_counts() -> None:
-    from hands_tpu_torch.ops import attention as at
-    from hands_tpu_torch.ops import vit_block as vb
-    from hands_tpu_torch.ops import vit_block_int8 as v8
-
-    for mod in (vb, v8, at):
+    for mod in counted_modules():
         mod.reset_launches()
 
 
@@ -504,6 +703,283 @@ def check_outputs(outs, batch) -> None:
                     "non-finite vertices or joints")
 
 
+def geometry_twins():
+    """Every geometry kernel of the models swapped for its plain twin."""
+    from hands_tpu_torch.ops import mano as manolib
+    from hands_tpu_torch.ops import mano_lbs
+    from hands_tpu_torch.ops import rasterizer
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(
+        manolib, "lbs_apply", mano_lbs.lbs_apply_plain))
+    stack.enter_context(mock.patch.object(
+        rasterizer, "splat_silhouette_fused",
+        rasterizer.splat_silhouette_plain))
+    return stack
+
+
+def serve_rate(batches, cfg, model, dev):
+    """(crops/s, ms/request) of one pass over ``batches`` after a warm-up
+    pass, on the host's clock around a synchronise."""
+    from hands_tpu_torch.cli.demo import serve
+
+    def run():
+        for recs in batches:
+            serve(recs, cfg, model, dev)
+        torch.cuda.synchronize()
+    run()
+    t = time.perf_counter()
+    run()
+    dt = time.perf_counter() - t
+    n = sum(len(r) for r in batches)
+    return 2 * n / dt, dt / len(batches) * 1e3
+
+
+def wildhands_phases(rows, dev, tag) -> None:
+    """WildHands (``hands_light``) at full width through the entry points:
+    serving (f32, bf16, int8 convolutions), the evaluation forward with the
+    render and the grasp classifier on, and that forward differentiated."""
+    from hands_tpu_torch.cli.demo import serve, serving_config
+    from hands_tpu_torch.config import default_config
+    from hands_tpu_torch.data.device_pipeline import (DevicePreprocessor,
+                                                      stack_records)
+    from hands_tpu_torch.models.registry import fetch_model, inference_pose
+    from hands_tpu_torch.ops import quant
+    from hands_tpu_torch.ops import rasterizer
+
+    print(f"phase 5: WildHands, {WH_BACKBONE} x 2, 224^2 crops {tag}")
+    requests = {bs: make_requests(n, bs, SEED + 100 + bs)
+                for bs, n in WH_BATCHES}
+    big = WH_BATCHES[-1][0]
+
+    # ---- serving: render and grasp off, K1 twice per request
+    t0 = time.time()
+    configs = {}
+    for name, kw in (("f32", dict(dtype="float32")),
+                     ("bf16", dict(dtype="bfloat16")),
+                     ("bf16 quant_int8", dict(dtype="bfloat16",
+                                              quant_int8=True))):
+        cfg = serving_config("hands_light", **kw).replace(backbone=WH_BACKBONE)
+        configs[name] = (cfg, fetch_model(cfg, device=dev, seed=SEED))
+    print(f"  three hands_light models built in {time.time() - t0:.1f} s")
+    served = {}
+    for name, (cfg, model) in configs.items():
+        for bs, n in WH_BATCHES:
+            if "int8" in name and bs != big:
+                continue
+            batches = requests[bs]
+            serve(batches[0], cfg, model, dev)  # warm-up
+            reset_launch_counts()
+            outs = [serve(recs, cfg, model, dev) for recs in batches]
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            check_launches(f"hands_light serve {name} bs{bs}", counts,
+                           {"lbs_apply": 2}, n)
+            rows["lbs_apply"]["launches"] = counts["lbs_apply"]
+            check_outputs(outs, bs)
+            with geometry_twins():
+                ref = serve(batches[0], cfg, model, dev)
+            for side in ("r", "l"):
+                key = f"pred.mano.vertices.{side}"
+                compare_abs(f"serve {name} bs{bs} vertices.{side}",
+                            outs[0][key], ref[key], LBS_ABS)
+            served[name, bs] = outs[0]
+            k_rate, k_ms = serve_rate(batches, cfg, model, dev)
+            with geometry_twins():
+                t_rate, t_ms = serve_rate(batches, cfg, model, dev)
+            k_rate2, k_ms2 = serve_rate(batches, cfg, model, dev)
+            print(f"  hands_light {name}: serve bs{bs} ({2 * bs} crops/"
+                  f"request): kernels {max(k_rate, k_rate2):.1f} crops/s "
+                  f"({min(k_ms, k_ms2):.2f} ms/request), twin {t_rate:.1f} "
+                  f"crops/s ({t_ms:.2f} ms/request) {tag}")
+    # the model forward alone, on a preprocessed batch already on the card
+    for name, (cfg, model) in configs.items():
+        for bs, _ in WH_BATCHES:
+            pre = DevicePreprocessor(cfg, is_train=False, device=dev)
+            inputs, _, meta = pre(stack_records(requests[bs][0]))
+            with torch.inference_mode():
+                ms = min(cuda_ms(lambda: model(inputs, meta), iters=5)
+                         for _ in range(2))
+            print(f"  hands_light {name}: model forward bs{bs} ({2 * bs} "
+                  f"crops + {bs} images): {ms:.3f} ms {tag}")
+    base = served["f32", big]["pred.mano.vertices.r"]
+    for name in ("bf16", "bf16 quant_int8"):
+        d = (served[name, big]["pred.mano.vertices.r"] - base).abs()
+        print(f"  drift of {name} serving against f32, vertices.r: max "
+              f"{float(d.max()):.3e} mean {float(d.mean()):.3e} m (random "
+              f"weights: a sanity number)")
+
+    # the int8 convolution's integer sums on the card against the CPU's
+    gen = torch.Generator().manual_seed(SEED)
+    for k, stride, pad in ((3, 2, 1), (1, 2, 0), (3, 1, 1)):
+        xq = torch.randint(-127, 128, (3, 24, 9, 9), generator=gen,
+                           dtype=torch.int8)
+        wq = torch.randint(-127, 128, (20, 24, k, k), generator=gen,
+                           dtype=torch.int8)
+        got = quant._int_conv(xq.to(dev), wq.to(dev), stride, pad).cpu()
+        want = quant._int_conv(xq, wq, stride, pad)
+        require(bool((got.double() == want).all()),
+                f"int8 convolution {k}x{k} stride {stride}: sums differ")
+    print("  int8 convolution sums (unfold + _int_mm) equal the CPU's: ok")
+
+    # ---- evaluation forward: the config's defaults, render and grasp on
+    cfg = default_config("hands_light", backbone=WH_BACKBONE)
+    require(cfg.use_render_seg_loss and cfg.use_grasp_loss,
+            "the evaluation config renders and classifies grasps")
+    model = fetch_model(cfg, device=dev, seed=SEED)
+    pre = DevicePreprocessor(cfg, is_train=False, device=dev)
+    inputs, _, meta = pre(stack_records(requests[big][0]))
+    inference_pose(model, inputs, meta)  # warm-up
+    reset_launch_counts()
+    out = inference_pose(model, inputs, meta)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check_launches(f"hands_light evaluation forward bs{big}", counts,
+                   {"lbs_apply": 2, "splat_fwd": 2}, 1)
+    rows["splat_fwd"]["launches"] = counts["splat_fwd"]
+    check_outputs([out], big)
+    for key, shape in (("pred.render.r", (big, 224, 224)),
+                       ("pred.render.l", (big, 224, 224)),
+                       ("pred.grasp.r", (big, 9)), ("pred.grasp.l", (big, 9))):
+        require(out[key].shape == shape
+                and bool(torch.isfinite(out[key]).all()), f"{key} output")
+    cover = float(out["pred.render.r"].mean())
+    require(0.0 <= cover < 1.0, f"render.r covers {cover} of the image")
+    with mock.patch.object(rasterizer, "splat_silhouette_fused",
+                           rasterizer.splat_silhouette_plain):
+        ref = inference_pose(model, inputs, meta)
+    with geometry_twins():
+        ref_all = inference_pose(model, inputs, meta)
+    for side in ("r", "l"):
+        key = f"pred.render.{side}"
+        compare_abs(f"evaluation render.{side} (K2 vs twin)", out[key],
+                    ref[key], MASK_ABS)
+        # with K1's twin too the vertices move by f32 ulps, and the splat's
+        # cancelling distance carries that into the mask
+        compare_abs(f"evaluation render.{side} (K1, K2 vs twins)", out[key],
+                    ref_all[key], 2e-3)
+    print(f"  render.r covers {cover:.4f} of the image (random weights put "
+          f"the hand far from the camera)")
+    # the model's render call on hands at arm's length: 4 cm blobs at 0.5 m
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    verts = torch.randn((big, N_VERTS, 3), generator=gen, device=dev) * 0.02
+    verts[..., 2] += 0.5
+    K = meta["intrinsics"]
+    reset_launch_counts()
+    with torch.inference_mode():
+        mask = rasterizer.render_silhouette(verts, None, K, cfg.img_res)
+        with geometry_twins():
+            mask_ref = rasterizer.render_silhouette(verts, None, K,
+                                                    cfg.img_res)
+    check_launches("render_silhouette", launch_counts(), {"splat_fwd": 1}, 1)
+    compare_abs(f"render_silhouette bs{big} at 0.5 m (K2 vs twin)", mask,
+                mask_ref, MASK_ABS)
+    require(0.01 < float(mask.mean()) < 0.9,
+            f"the blobs cover {float(mask.mean())} of the image")
+
+    def timed(fn):
+        """(ms, GB that the call adds at its peak to what is allocated)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ms = cuda_ms(fn, iters=5)
+        return ms, (torch.cuda.max_memory_allocated() - base) / 1e9
+
+    def forward():
+        return inference_pose(model, inputs, meta)
+
+    k_ms, k_gb = timed(forward)
+    with geometry_twins():
+        t_ms, t_gb = timed(forward)
+        t_ms2, _ = timed(forward)
+    k_ms2, _ = timed(forward)
+    print(f"  hands_light evaluation forward bs{big} ({2 * big} crops, render "
+          f"and grasp on): kernels {min(k_ms, k_ms2):.2f} ms, peak +{k_gb:.2f} "
+          f"GB; twins {min(t_ms, t_ms2):.2f} ms, peak +{t_gb:.2f} GB {tag}")
+
+    # ---- the same forward differentiated: an L1 mask loss against the
+    # pipeline's zero targets, back through K2, K1 and the network
+    gpre = DevicePreprocessor(cfg, is_train=False, device=dev)
+    ginputs, gtargets, gmeta = gpre(stack_records(requests[WH_BATCHES[0][0]][0]))
+    watch = ["net.head_r.hmr_layer.dec.pose_6d.bias",
+             "net.head_l.hmr_layer.dec.cam_t_wp.bias",
+             "net.head_r.hmr_layer.dec.shape.bias"]
+    params = dict(model.named_parameters())
+
+    def mask_loss_grads():
+        pred = model(ginputs, gmeta)
+        loss = sum((pred[f"render.{s}"] - gtargets[f"render.{s}"]).abs().mean()
+                   for s in ("r", "l"))
+        return torch.autograd.grad(loss, [params[k] for k in watch])
+
+    mask_loss_grads()  # warm-up
+    reset_launch_counts()
+    got = mask_loss_grads()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check_launches(f"hands_light mask-loss gradient bs{WH_GRAD_BATCH}", counts,
+                   {"lbs_apply": 2, "splat_fwd": 2, "splat_bwd": 2}, 1)
+    rows["splat_bwd"]["launches"] = counts["splat_bwd"]
+    with geometry_twins():
+        want = mask_loss_grads()
+    for k, g, w in zip(watch, got, want):
+        require(float(w.abs().max()) > 0.0, f"{k}: zero gradient")
+        # each vertex gradient agrees to GRAD_RTOL; summed over 778
+        # vertices and carried through MANO and the heads: 1e-2 of the
+        # largest entry
+        compare_abs(f"grad {k[4:]}", g, w, 1e-2 * float(w.abs().max()))
+    del model
+
+    # ---- one HaMeR forward with the render and the grasp classifier on
+    hcfg = default_config("hamer_light", compute_dtype="bfloat16",
+                          fused_block=True)
+    require(hcfg.use_render_seg_loss and hcfg.use_grasp_loss, "HaMeR heads")
+    hmodel = fetch_model(hcfg, device=dev, seed=SEED, vit_variant=VIT)
+    depth = len(hmodel.net.backbone.blocks)
+    hpre = DevicePreprocessor(hcfg, is_train=False, device=dev)
+    hinputs, _, hmeta = hpre(stack_records(requests[WH_BATCHES[0][0]][0]))
+    inference_pose(hmodel, hinputs, hmeta)  # warm-up
+    reset_launch_counts()
+    hout = inference_pose(hmodel, hinputs, hmeta)
+    torch.cuda.synchronize()
+    check_launches("hamer_light evaluation forward", launch_counts(), {
+        "vit_layernorm": 2 * depth, "vit_gemm": 4 * depth,
+        "vit_attention": depth, "lbs_apply": 2, "splat_fwd": 2}, 1)
+    with mock.patch.object(rasterizer, "splat_silhouette_fused",
+                           rasterizer.splat_silhouette_plain):
+        href = inference_pose(hmodel, hinputs, hmeta)
+    for side in ("r", "l"):
+        require(hout[f"pred.grasp.{side}"].shape == (WH_BATCHES[0][0], 9),
+                "HaMeR grasp output")
+        compare_abs(f"hamer_light render.{side} (K2 vs twin)",
+                    hout[f"pred.render.{side}"], href[f"pred.render.{side}"],
+                    MASK_ABS)
+    del hmodel
+
+    # ---- the same paths at a small size against the CPU twins
+    small_req = make_requests(1, 2, SEED + 1)[0]
+    for name, kw in (("serve f32", dict(use_render_seg_loss=False,
+                                        use_grasp_loss=False)),
+                     ("evaluation f32", dict())):
+        scfg = default_config("hands_light", backbone="resnet18",
+                              compute_dtype="float32", **kw)
+        small_cpu = fetch_model(scfg, device="cpu", seed=SEED)
+        small_gpu = copy.deepcopy(small_cpu).to(dev)
+        got = serve(small_req, scfg, small_gpu, dev)
+        want = serve(small_req, scfg, small_cpu, "cpu")
+        keys = ["pred.mano.vertices.r", "pred.mano.j3d.cam.l"]
+        if "evaluation" in name:
+            keys += ["pred.grasp.r"]
+        for key in keys:
+            compare(f"resnet18 {name} GPU vs CPU {key[5:]}", got[key].cpu(),
+                    want[key], rel=1e-4, mean=1e-4)
+        if "evaluation" in name:
+            # the splat amplifies f32 ulps of the vertices (see above)
+            compare_abs(f"resnet18 {name} GPU vs CPU render.r",
+                        got["pred.render.r"].cpu(), want["pred.render.r"],
+                        2e-3)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -515,6 +991,8 @@ def main() -> int:
     from hands_tpu_torch.models.backbones import vit as vit_mod
     from hands_tpu_torch.models.registry import fetch_model, init_weights_
     from hands_tpu_torch.ops import attention as at
+    from hands_tpu_torch.ops import mano_lbs
+    from hands_tpu_torch.ops import rasterizer
     from hands_tpu_torch.ops import vit_block as vb
     from hands_tpu_torch.ops import vit_block_int8 as v8
     from hands_tpu_torch.ops.calibration import inject_scales
@@ -528,11 +1006,13 @@ def main() -> int:
 
     # ---- 1. build: one nvcc per source, all started together
     t0 = time.time()
-    reports = build_all([vb.LIBRARY, v8.LIBRARY, at.LIBRARY])
-    for lib in (vb.LIBRARY, v8.LIBRARY, at.LIBRARY):
+    libraries = [vb.LIBRARY, v8.LIBRARY, at.LIBRARY, mano_lbs.LIBRARY,
+                 rasterizer.LIBRARY]
+    reports = build_all(libraries)
+    for lib in libraries:
         lib.lib()
-    print(f"phase 1: built {SRC_K3}, {SRC_I8}, {SRC_ATTN} side by side in "
-          f"{time.time() - t0:.1f} s")
+    print(f"phase 1: built {SRC_K3}, {SRC_I8}, {SRC_ATTN}, {SRC_LBS}, "
+          f"{SRC_SPLAT} side by side in {time.time() - t0:.1f} s")
     for name, report in reports.items():
         for line in report.splitlines():
             if "Used" in line or "spill" in line:
@@ -544,6 +1024,12 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     x, p, p32 = block_inputs(gen, dev, BATCH, N_TOK, C, HIDDEN)
     groups, sources, extra, operands = kernel_cases(x, p, p32)
+    wh_batch = WH_BATCHES[-1][0]  # hands per MANO decode and per render
+    print(f"  K1 and K2 at {wh_batch} hands, {N_VERTS} vertices, render "
+          f"{RENDER_RES}^2, sigma {RENDER_SIGMA} px")
+    geo_groups, geo_extra, splat_grads = geometry_cases(gen, dev, wh_batch)
+    groups += geo_groups
+    extra += geo_extra
     rows = {}  # kernel name -> its line of the kernels JSON
     for replaces, source, kernels in groups:
         for kname, (kfn, pfn, cases) in kernels.items():
@@ -564,6 +1050,8 @@ def main() -> int:
     for case, kfn, pfn in extra:
         case.check(case.label, case.call(kfn), case.call(pfn))
     torch.cuda.synchronize()
+    for grad in splat_grads:
+        grad.release()  # the twin's graph holds the (B, P, V) pair tensors
 
     blocks = {}  # name -> (kernel path, twin path) closures, for phase 4
     for fast in (False, True):
@@ -646,17 +1134,19 @@ def main() -> int:
     cfg = serving_config("hamer_light", "bfloat16", fused_block=True)
     model = fetch_model(cfg, device=dev, seed=SEED, vit_variant=VIT)
     depth = len(model.net.backbone.blocks)
-    # per block: LN1, LN2; qkv, proj, MLP1, MLP2; attention (224 for ViT-H)
+    # per block: LN1, LN2; qkv, proj, MLP1, MLP2; attention (224 for ViT-H);
+    # per forward: the skinning of the right and of the left hand
     configs["bf16 fused_block (K3)"] = (cfg, model, {
         "vit_layernorm": 2 * depth, "vit_gemm": 4 * depth,
-        "vit_attention": depth})
+        "vit_attention": depth, "lbs_apply": 2})
     cfg8 = serving_config("hamer_light", "bfloat16", quant_int8=True)
     require(cfg8.fused_block and cfg8.quant_int8, "quant_int8 implies fused")
     model8 = fetch_model(cfg8, device=dev, seed=SEED, vit_variant=VIT)
     # per block: 2 LN+quant, 2 row quants, 4 GEMMs, attention (288)
     configs["quant_int8 (K5)"] = (cfg8, model8, {
         "ln_quant_dynamic": 2 * depth, "quant_rows": 2 * depth,
-        "gemm_i8_dynamic": 4 * depth, "qkv_attention_dynamic": depth})
+        "gemm_i8_dynamic": 4 * depth, "qkv_attention_dynamic": depth,
+        "lbs_apply": 2})
     cfgs = serving_config("hamer_light", "bfloat16", quant_int8_static=True,
                           fast_gelu=True)
     require(cfgs.quant_int8 and cfgs.fused_block, "static implies int8")
@@ -677,7 +1167,7 @@ def main() -> int:
     # per block: 2 LN+quant, 4 GEMMs, attention (224)
     configs["quant_int8_static + fast_gelu (K6)"] = (cfgs, models, {
         "ln_quant_static": 2 * depth, "gemm_i8_static": 4 * depth,
-        "qkv_attention_static": depth})
+        "qkv_attention_static": depth, "lbs_apply": 2})
 
     served = {}
     for name, (c, m, per_forward) in configs.items():
@@ -766,14 +1256,15 @@ def main() -> int:
     for replaces, source, kernels in groups:
         for kname, (kfn, pfn, cases) in kernels.items():
             def each(fn):
-                return [cuda_ms(lambda c=case: c.call(fn)) for case in cases]
+                return [case.timer(lambda c=case: c.call(fn))
+                        for case in cases]
 
             # plain, kernel, kernel, plain; the better of each pair of reads
             a, b, b2, a2 = each(pfn), each(kfn), each(kfn), each(pfn)
             k_ms = [min(u, v) for u, v in zip(b, b2)]
             p_ms = [min(u, v) for u, v in zip(a, a2)]
             l_ms = [None if c.library is None else
-                    min(cuda_ms(c.library), cuda_ms(c.library)) for c in cases]
+                    min(c.timer(c.library), c.timer(c.library)) for c in cases]
             for case, km, pm, lm in zip(cases, k_ms, p_ms, l_ms):
                 bound = max(*case.bound(case.call(pfn)))
                 lib = "none" if lm is None else f"{lm:.4f} ms"
@@ -786,16 +1277,31 @@ def main() -> int:
                                  else sum(l_ms))
             lib = ("none" if row["library_ms"] is None
                    else f"{row['library_ms']:.4f} ms")
-            print(f"  {kname:<22s} per block: kernel {row['ms']:.4f} ms, "
+            print(f"  {kname:<22s} per block or call: kernel {row['ms']:.4f} ms, "
                   f"plain {row['plain_ms']:.4f} ms, library {lib}, bound "
                   f"{row['bound_ms']:.4f} ms ({row['bound_by']}) {tag}")
     for case, kfn, pfn in extra:
-        km = min(cuda_ms(lambda: case.call(kfn)) for _ in range(2))
-        pm = min(cuda_ms(lambda: case.call(pfn)) for _ in range(2))
-        lm = min(cuda_ms(case.library) for _ in range(2))
+        km = min(case.timer(lambda: case.call(kfn)) for _ in range(2))
+        pm = min(case.timer(lambda: case.call(pfn)) for _ in range(2))
+        lib = ("none" if case.library is None else
+               f"{min(case.timer(case.library) for _ in range(2)):.4f} ms")
         print(f"    {case.label:<34s} kernel {km:.4f} ms, plain {pm:.4f} ms, "
-              f"library {lm:.4f} ms, bound "
+              f"library {lib}, bound "
               f"{max(*case.bound(case.call(pfn))):.4f} ms {tag}")
+    # what the twin of K2 costs in memory: it stores the (B, P, V) tensors
+    from hands_tpu_torch.ops import rasterizer as ras
+    fwd_case = groups[-1][2]["splat_fwd"][2][0]
+    bwd_case = groups[-1][2]["splat_bwd"][2][0]
+    for grad in splat_grads:
+        grad.release()
+    for label, fn in (("kernels", ras.splat_silhouette_fused),
+                      ("twin", ras.splat_silhouette_plain)):
+        f_gb = twin_memory(lambda: fwd_case.call(fn))
+        b_gb = twin_memory(lambda: bwd_case.call(fn))
+        splat_grads[0].release()
+        print(f"  splat {label}: peak memory of a forward {f_gb:.3f} GB, of a "
+              f"forward kept for its backward plus the backward {b_gb:.3f} "
+              f"GB {tag}")
     for name, (kern, twin) in blocks.items():
         t = [cuda_ms(twin), cuda_ms(kern), cuda_ms(kern), cuda_ms(twin)]
         print(f"  whole {name} (rows {ROWS}): kernels {min(t[1], t[2]):.4f} "
@@ -815,29 +1321,19 @@ def main() -> int:
               f"{min(fwd[0], fwd[3]):.3f} ms, twin {min(fwd[1], fwd[2]):.3f} "
               f"ms {tag}")
 
-    def serve_rate(batches, c, m):
-        def run():
-            for recs in batches:
-                serve(recs, c, m, dev)
-            torch.cuda.synchronize()
-        run()  # warm-up
-        t = time.perf_counter()
-        run()
-        dt = time.perf_counter() - t
-        n = sum(len(r) for r in batches)
-        return 2 * n / dt, dt / len(batches) * 1e3  # crops/s, ms/request
-
     for bs, nb in ((8, 4), (64, 2)):
         batches = make_requests(nb, bs, SEED + bs)
         for name, (c, m, _) in configs.items():
-            k_rate, k_ms = serve_rate(batches, c, m)
+            k_rate, k_ms = serve_rate(batches, c, m, dev)
             with twin_path():
-                t_rate, t_ms = serve_rate(batches, c, m)
-            k_rate2, k_ms2 = serve_rate(batches, c, m)
+                t_rate, t_ms = serve_rate(batches, c, m, dev)
+            k_rate2, k_ms2 = serve_rate(batches, c, m, dev)
             print(f"  {name}: serve bs{bs} ({2 * bs} crops/request): kernels "
                   f"{max(k_rate, k_rate2):.1f} crops/s "
                   f"({min(k_ms, k_ms2):.2f} ms/request), twin {t_rate:.1f} "
                   f"crops/s ({t_ms:.2f} ms/request) {tag}")
+
+    wildhands_phases(rows, dev, tag)
 
     print(card)
     print(json.dumps({"kernels": list(rows.values())}))

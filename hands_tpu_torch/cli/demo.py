@@ -1,14 +1,17 @@
 """Batch hand-pose serving with the PyTorch port (port of the batch-serving
 path of ``hands_tpu/cli/demo.py:run_demo``).
 
+    python -m hands_tpu_torch.cli.demo --dir photos/ --batch_size 8
     python -m hands_tpu_torch.cli.demo --dir photos/ --batch_size 8 \\
         --method hamer_light --dtype bfloat16 --fused_block
-    python -m hands_tpu_torch.cli.demo --dir photos/ --dtype bfloat16 \\
-        --int8 --fast_gelu
+    python -m hands_tpu_torch.cli.demo --dir photos/ --method hamer_light \\
+        --dtype bfloat16 --int8 --fast_gelu
 
-It runs on the card (``--device cuda``) unless ``--device cpu`` is given.
-``--int8`` serves W8A8 through the dynamic int8 block kernels (it implies
-``--fused_block``). The static-calibrated variant is served from Python:
+The default method is WildHands (``hands_light``), as in the JAX demo. It
+runs on the card (``--device cuda``) unless ``--device cpu`` is given.
+``--int8`` serves W8A8: HaMeR through the dynamic int8 block kernels (it
+implies ``--fused_block``), WildHands through the int8 serving convolution
+of its ResNets. The static-calibrated variant is served from Python:
 ``serving_config(..., quant_int8_static=True)``, ``fetch_model``, then
 ``ops.calibration.inject_scales`` with the scales of
 ``python -m hands_tpu_torch.cli.calibrate``, then :func:`serve`.
@@ -39,8 +42,8 @@ def serving_config(method: str = "hamer_light", dtype: str = "float32",
                    fused_block: bool = False, quant_int8: bool = False,
                    quant_int8_static: bool = False,
                    fast_gelu: bool = False) -> Config:
-    """The demo's config: render and grasp heads off (the ``hamer_light``
-    defaults turn both on). ``quant_int8_static`` implies ``quant_int8``,
+    """The demo's config: render and grasp heads off (the methods' defaults
+    turn both on). ``quant_int8_static`` implies ``quant_int8``,
     which implies ``fused_block`` (``default_config``)."""
     return default_config(method, use_render_seg_loss=False,
                           use_grasp_loss=False, compute_dtype=dtype,
@@ -99,9 +102,10 @@ def run_demo(argv=None) -> int:
     p.add_argument("--img", nargs="+", default=[], help="image path(s)")
     p.add_argument("--dir", default="", help="directory of jpg/png images")
     p.add_argument("--batch_size", type=int, default=8)
-    p.add_argument("--method", default="hamer_light", choices=["hamer_light"])
+    p.add_argument("--method", default="hands_light",
+                   choices=["hands_light", "hamer_light"])
     p.add_argument("--fused_block", action="store_true",
-                   help="fused ViT-block CUDA kernels (bf16 only)")
+                   help="hamer_light: fused ViT-block CUDA kernels (bf16 only)")
     p.add_argument("--dtype", default="float32",
                    choices=["float32", "bfloat16"])
     p.add_argument("--int8", action="store_true",
@@ -157,7 +161,8 @@ def run_demo(argv=None) -> int:
             pad.left_valid = 0.0
             chunk.append(pad)
         out = serve(chunk, cfg, model, args.device).to_np()
-        keep = [k for k in out if k.startswith("pred.mano.")]
+        keep = [k for k in out if k.startswith("pred.mano.")
+                or k == "pred.feat_vec"]
         for i in range(n_real):
             stem = os.path.splitext(os.path.basename(chunk[i].imgname))[0]
             np.savez(os.path.join(args.out, f"{stem}_pred.npz"),

@@ -1,9 +1,10 @@
-"""Rotation conversions (port of ``hands_tpu/core/rot.py``, the subset the
-HaMeR serving path runs).
+"""Rotation conversions (port of ``hands_tpu/core/rot.py``, what the serving
+and evaluation forwards run).
 
 Same conventions as the JAX module: quaternions real-part first, pytorch3d's
-four-branch matrix -> quaternion construction, HaMeR's 6D layout. Shape
-polymorphic over leading batch dims; float32 with TF32 off.
+four-branch matrix -> quaternion construction, the pytorch3d row-major 6D
+layout and HaMeR's column layout. Shape polymorphic over leading batch dims;
+float32 with TF32 off.
 """
 
 from __future__ import annotations
@@ -137,6 +138,12 @@ def rot6d_to_matrix(d6: torch.Tensor) -> torch.Tensor:
     return torch.stack([b1, b2, b3], dim=-2)
 
 
+def matrix_to_rot6d(matrix: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) -> continuous 6D (..., 6): the first two
+    rows."""
+    return matrix[..., :2, :].reshape(matrix.shape[:-2] + (6,))
+
+
 def rot6d_to_matrix_hamer(d6: torch.Tensor) -> torch.Tensor:
     """HaMeR's 6D convention: the Gram-Schmidt frame forms the matrix
     *columns* (the transpose of the pytorch3d row decode)."""
@@ -146,6 +153,30 @@ def rot6d_to_matrix_hamer(d6: torch.Tensor) -> torch.Tensor:
 def standardize_quaternion(quat: torch.Tensor) -> torch.Tensor:
     """Flip sign so the real part is non-negative."""
     return torch.where(quat[..., :1] < 0, -quat, quat)
+
+
+@f32_matmuls
+def euler_angles_to_matrix(euler: torch.Tensor,
+                           convention: str = "XYZ") -> torch.Tensor:
+    """Euler angles (..., 3) -> rotation matrix, ``R = Rx @ Ry @ Rz`` for
+    convention 'XYZ' (pytorch3d ``euler_angles_to_matrix``)."""
+
+    def axis_rot(axis: str, angle: torch.Tensor) -> torch.Tensor:
+        c, s = torch.cos(angle), torch.sin(angle)
+        one, zero = torch.ones_like(angle), torch.zeros_like(angle)
+        if axis == "X":
+            flat = [one, zero, zero, zero, c, -s, zero, s, c]
+        elif axis == "Y":
+            flat = [c, zero, s, zero, one, zero, -s, zero, c]
+        elif axis == "Z":
+            flat = [c, -s, zero, s, c, zero, zero, zero, one]
+        else:
+            raise ValueError(axis)
+        return torch.stack(flat, dim=-1).reshape(angle.shape + (3, 3))
+
+    mats = [axis_rot(ax, euler[..., i])
+            for i, ax in enumerate(convention.upper())]
+    return mats[0] @ mats[1] @ mats[2]
 
 
 @f32_matmuls
@@ -160,3 +191,12 @@ def rot_aa(aa: torch.Tensor, rot_deg: torch.Tensor) -> torch.Tensor:
     per_sample = axis_angle_to_matrix(aa)
     quat = standardize_quaternion(matrix_to_quaternion(R @ per_sample))
     return quaternion_to_axis_angle(quat)
+
+
+def flip_axis_angle(aa_flat: torch.Tensor) -> torch.Tensor:
+    """Mirror a flattened axis-angle pose (..., 3J): negate the y and z
+    components (the left/right flip-swap of the model)."""
+    shape = aa_flat.shape
+    aa = aa_flat.reshape(shape[:-1] + (-1, 3))
+    sign = torch.tensor([1.0, -1.0, -1.0], dtype=aa.dtype, device=aa.device)
+    return (aa * sign).reshape(shape)

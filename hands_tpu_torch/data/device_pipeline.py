@@ -112,13 +112,10 @@ class DevicePreprocessor:
             raise NotImplementedError(
                 "train-mode preprocessing is not ported: ROADMAP queue 1 "
                 "item 4")
-        if cfg.pos_enc not in (None, "center+corner_latent"):
+        if cfg.pos_enc == "pcl":
             raise NotImplementedError(
-                f"pos_enc={cfg.pos_enc!r} is not ported: the other KPE "
-                f"modes come with WildHands, ROADMAP queue 1 item 1")
-        if cfg.use_render_seg_loss or cfg.use_depth_loss:
-            raise NotImplementedError(
-                "mask/depth targets are not ported: ROADMAP queue 1 item 3")
+                "pcl preprocessing (pcl_crop, warp_homography) is not "
+                "ported: ROADMAP queue 1 item 4")
         self.cfg = cfg
         self.device = torch.device(device)
 
@@ -127,6 +124,11 @@ class DevicePreprocessor:
         B = batch["image"].shape[0]
         res = cfg.img_res
         dev = self.device
+        if (cfg.use_render_seg_loss and "mask" in batch) or (
+                cfg.use_depth_loss and "depth" in batch):
+            raise NotImplementedError(
+                "mask and depth targets from the records (mask_crop) are not "
+                "ported: ROADMAP queue 1 item 3")
         augm = pp.augm_params(B, device=dev)
         augm["sc"] = torch.where(batch["is_egocam"] > 0, 1.0, augm["sc"])
 
@@ -239,10 +241,24 @@ class DevicePreprocessor:
             "l_bbox_og": l_bbox_og,
         })
         if cfg.pos_enc is not None:
-            inputs["r_center_angle"] = pp.kpe_center_angles(r_bbox, K_patch)
-            inputs["l_center_angle"] = pp.kpe_center_angles(l_bbox, K_patch)
-            inputs["r_corner_angle"] = pp.kpe_corner_angles(r_bbox, K_patch)
-            inputs["l_corner_angle"] = pp.kpe_corner_angles(l_bbox, K_patch)
+            for side, box in (("r", r_bbox), ("l", l_bbox)):
+                if cfg.pos_enc == "sinusoidal_cc":
+                    # normalised crop coordinates, not intrinsics rays
+                    center_enc = pp.kpe_center_coords(box, res)
+                    corner_enc = pp.kpe_corner_coords(box, res)
+                else:
+                    center_enc = pp.kpe_center_angles(box, K_patch)
+                    corner_enc = pp.kpe_corner_angles(box, K_patch)
+                inputs[f"{side}_center_angle"] = center_enc
+                inputs[f"{side}_corner_angle"] = corner_enc
+                dense = None
+                if "cam_conv" in cfg.pos_enc:
+                    dense = pp.kpe_camconv_dense(box, K_patch, res)
+                elif "dense" in cfg.pos_enc:
+                    dense = pp.kpe_dense_angles(box, K_patch, res)
+                if dense is not None:
+                    inputs[f"{side}_dense_angle"] = dense[0]
+                    inputs[f"{side}_dense_mask"] = dense[1]
 
         # no in-plane rotation in eval: GT 3D joints pass through; the pose
         # still takes the rot_aa round trip, as in the JAX pipeline
@@ -277,6 +293,15 @@ class DevicePreprocessor:
             targets["grasp.l"] = batch["grasp_l"]
             targets["grasp_valid_r"] = batch["grasp_valid_r"]
             targets["grasp_valid_l"] = batch["grasp_valid_l"]
+        # records without masks or depth maps: zero targets
+        if cfg.use_render_seg_loss:
+            targets["render.r"] = torch.zeros((B, res, res), device=dev)
+            targets["render.l"] = torch.zeros((B, res, res), device=dev)
+            targets["render_valid_r"] = batch["mask_valid_r"]
+            targets["render_valid_l"] = batch["mask_valid_l"]
+        if cfg.use_depth_loss:
+            targets["depth.r"] = torch.zeros((B, res, res), device=dev)
+            targets["depth.l"] = torch.zeros((B, res, res), device=dev)
 
         meta_info = XDict({
             "intrinsics": K_patch,

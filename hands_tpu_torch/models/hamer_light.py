@@ -18,9 +18,11 @@ from hands_tpu_torch.config import Config
 from hands_tpu_torch.core.xdict import XDict
 from hands_tpu_torch.models import kpe
 from hands_tpu_torch.models.backbones.vit import VIT_CONFIGS, Dense, ViTBackbone
+from hands_tpu_torch.models.hands_light import GraspClassifier
 from hands_tpu_torch.models.heads.hamer_head import ManoTransformerDecoderHead
-from hands_tpu_torch.models.heads.mano_head import mano_head
+from hands_tpu_torch.models.heads.mano_head import ManoBuffers, mano_head
 from hands_tpu_torch.ops import mano as manolib
+from hands_tpu_torch.ops.rasterizer import render_silhouette
 
 
 class KpeTokenEmbed(nn.Module):
@@ -55,12 +57,8 @@ class HamerNet(nn.Module):
         super().__init__()
         if cfg.pos_enc not in (None, "center+corner_latent"):
             raise NotImplementedError(
-                f"pos_enc={cfg.pos_enc!r} is not ported: the other KPE "
-                f"modes come with WildHands, ROADMAP queue 1 item 1")
-        if cfg.use_grasp_loss:
-            raise NotImplementedError(
-                "the grasp classifier is not ported: ROADMAP queue 1 item 1 "
-                "(serve with use_grasp_loss=False)")
+                f"pos_enc={cfg.pos_enc!r} is not ported for HaMeR (the dense "
+                f"token embedding): ROADMAP queue 1 item 9")
         self.cfg = cfg
         self.dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
                       else torch.float32)
@@ -80,6 +78,9 @@ class HamerNet(nn.Module):
             quant_calibrate=bool(cfg.get("quant_calibrate", False)))
         self.mano_head = ManoTransformerDecoderHead(context_dim=embed_dim,
                                                     device=device)
+        self.grasp_classifier = (
+            GraspClassifier(10 + 16 * 9, device=device)
+            if cfg.use_grasp_loss else None)
 
     def forward(self, inputs: dict) -> dict:
         r_img = inputs["r_img"].to(self.dtype)
@@ -100,7 +101,7 @@ class HamerNet(nn.Module):
             h, w = feat.shape[1:3]
             feat = feat + kpe_emb.reshape(2 * B, h, w, -1)
         out = self.mano_head(feat)
-        return {
+        result = {
             side: {
                 "pose": out["pose"][sl],
                 "shape": out["shape"][sl],
@@ -110,21 +111,12 @@ class HamerNet(nn.Module):
             for side, sl in (("hmr_r", slice(None, B)),
                              ("hmr_l", slice(B, None)))
         }
-
-
-class ManoBuffers(nn.Module):
-    """A MANO model's arrays as non-persistent buffers, so that they move
-    with the module (``.to(device)``) and stay out of the state dict."""
-
-    def __init__(self, model: manolib.ManoModel):
-        super().__init__()
-        for k, v in model._asdict().items():
-            self.register_buffer(k, v, persistent=False)
-
-    @property
-    def model(self) -> manolib.ManoModel:
-        return manolib.ManoModel(
-            **{k: getattr(self, k) for k in manolib.ManoModel._fields})
+        if self.grasp_classifier is not None:
+            for side in ("r", "l"):
+                h = result[f"hmr_{side}"]
+                result[f"grasp_{side}"] = self.grasp_classifier(torch.cat(
+                    [h["shape"], h["pose"].reshape(B, -1)], dim=-1))
+        return result
 
 
 class HamerLightModel(nn.Module):
@@ -133,10 +125,6 @@ class HamerLightModel(nn.Module):
 
     def __init__(self, cfg: Config, vit_variant: str = "h", device=None):
         super().__init__()
-        if cfg.use_render_seg_loss:
-            raise NotImplementedError(
-                "the silhouette render is not ported: ROADMAP queue 1 item 3 "
-                "(serve with use_render_seg_loss=False)")
         self.cfg = cfg
         self.net = HamerNet(cfg, vit_variant=vit_variant, device=device)
         dev = device or "cpu"  # nn.Module's own default for device=None
@@ -158,4 +146,12 @@ class HamerLightModel(nn.Module):
         pred = XDict()
         pred.merge(mano_out_r.prefix("mano."))
         pred.merge(mano_out_l.prefix("mano."))
+        if cfg.use_grasp_loss:
+            pred["grasp.r"] = net_out["grasp_r"]
+            pred["grasp.l"] = net_out["grasp_l"]
+        if cfg.use_render_seg_loss:
+            pred["render.r"] = render_silhouette(
+                pred["mano.v3d.cam.r"], self.mano_r.faces, K, cfg.img_res)
+            pred["render.l"] = render_silhouette(
+                pred["mano.v3d.cam.l"], self.mano_l.faces, K, cfg.img_res)
         return pred

@@ -5,11 +5,27 @@ keypoints, under the ``mano.*{.r|.l}`` prediction keys."""
 from __future__ import annotations
 
 import torch
+from torch import nn
 
 from hands_tpu_torch.core import camera as camlib
 from hands_tpu_torch.core import rot as rotlib
 from hands_tpu_torch.core.xdict import XDict
 from hands_tpu_torch.ops import mano as manolib
+
+
+class ManoBuffers(nn.Module):
+    """A MANO model's arrays as non-persistent buffers, so that they move
+    with the module (``.to(device)``) and stay out of the state dict."""
+
+    def __init__(self, model: manolib.ManoModel):
+        super().__init__()
+        for k, v in model._asdict().items():
+            self.register_buffer(k, v, persistent=False)
+
+    @property
+    def model(self) -> manolib.ManoModel:
+        return manolib.ManoModel(
+            **{k: getattr(self, k) for k in manolib.ManoModel._fields})
 
 
 def mano_head(

@@ -4,7 +4,8 @@ Shape blend, pose blend and linear blend skinning in float32 with TF32 off.
 The model arrays come from the licensed ``MANO_{RIGHT,LEFT}.pkl`` under
 ``MANO_DIR`` when set, else from the same deterministic synthetic model as
 the JAX package (bit-identical numpy arrays from the same seeds). The skinning
-stays a plain product, as in the JAX package's production path.
+goes through :func:`hands_tpu_torch.ops.mano_lbs.lbs_apply`: the fused CUDA
+kernel for CUDA tensors, the two plain products for CPU tensors.
 
 Joint convention (smplx): 16 kinematic joints followed by 5 fingertip
 vertices, 21 in all; joint 0 is the wrist.
@@ -21,6 +22,7 @@ import torch
 
 from hands_tpu_torch.core import rot as rotlib
 from hands_tpu_torch.core.precision import f32_matmuls
+from hands_tpu_torch.ops.mano_lbs import lbs_apply
 
 NUM_VERTS = 778
 NUM_FACES = 1538
@@ -249,12 +251,8 @@ def mano_forward(model: ManoModel, betas: torch.Tensor,
 
     posed_joints, A = _rigid_transform_chain(rot_mats, j_rest)
 
-    # LBS: per-vertex transform = weights . A, a plain product
-    T = torch.einsum("vj,bjrc->bvrc", model.lbs_weights, A)  # (B, 778, 4, 4)
-    v_homo = torch.cat(
-        [v_posed, torch.ones((B, NUM_VERTS, 1), dtype=dtype,
-                             device=betas.device)], dim=-1)
-    verts = torch.einsum("bvrc,bvc->bvr", T, v_homo)[..., :3]
+    # LBS: per-vertex transform = weights . A, applied to [v_posed, 1]
+    verts = lbs_apply(v_posed.contiguous(), model.lbs_weights, A.contiguous())
 
     tips = verts[:, list(TIP_VERTEX_IDS), :]
     joints = torch.cat([posed_joints, tips], dim=1)  # (B, 21, 3)
@@ -263,3 +261,54 @@ def mano_forward(model: ManoModel, betas: torch.Tensor,
         verts = verts + transl[:, None, :]
         joints = joints + transl[:, None, :]
     return ManoOutput(vertices=verts, joints=joints)
+
+
+# Wrist sealing (the wrist-ring centroid vertex + 16 closing faces) for
+# watertight rendering.
+SEAL_CIRCLE_V_ID = (108, 79, 78, 121, 214, 215, 279, 239, 234, 92, 38, 122,
+                    118, 117, 119, 120)
+_SEAL_FACES_R = np.array(
+    [[a, b, NUM_VERTS] for a, b in zip(
+        (SEAL_CIRCLE_V_ID[-1],) + SEAL_CIRCLE_V_ID[:-1], SEAL_CIRCLE_V_ID)],
+    dtype=np.int64)
+
+
+@functools.lru_cache(maxsize=2)
+def _decimator_array(is_rhand: bool, data_dir: str) -> np.ndarray:
+    path = os.path.join(
+        data_dir, "arctic/data/arctic_data/data/meta/mano_decimator_195.npy")
+    if data_dir and os.path.exists(path):
+        data = np.load(path, allow_pickle=True).item()
+        return np.asarray(data["D_right" if is_rhand else "D_left"],
+                          np.float32)
+    D = np.zeros((195, NUM_VERTS), np.float32)
+    idx = np.linspace(0, NUM_VERTS - 1, 195).astype(np.int64)
+    D[np.arange(195), idx] = 1.0
+    return D
+
+
+def load_decimator(is_rhand: bool, device="cpu") -> torch.Tensor:
+    """195-vertex downsample matrix D (195, 778): ``verts_sub = D @ verts``.
+    ARCTIC's ``mano_decimator_195.npy`` under ``DATA_DIR`` when present, else
+    a uniform-pooling matrix of the same shape and normalisation."""
+    return torch.from_numpy(
+        _decimator_array(is_rhand, os.environ.get("DATA_DIR", ""))).to(device)
+
+
+@f32_matmuls
+def decimate_verts(verts: torch.Tensor, is_rhand: bool) -> torch.Tensor:
+    """(B, 778, 3) -> (B, 195, 3) through the decimation matrix."""
+    D = load_decimator(is_rhand, device=verts.device)
+    return torch.einsum("sv,bvc->bsc", D, verts)
+
+
+def seal_mano_mesh(v3d: torch.Tensor, faces: torch.Tensor, is_rhand: bool):
+    """Append the wrist-ring centroid vertex and the 16 sealing faces:
+    v3d (B, 778, 3), faces (1538, 3) -> (B, 779, 3), (1554, 3)."""
+    seal_faces = _SEAL_FACES_R if is_rhand else _SEAL_FACES_R[:, [1, 0, 2]]
+    centers = v3d[:, list(SEAL_CIRCLE_V_ID)].mean(dim=1, keepdim=True)
+    sealed = torch.cat([v3d, centers], dim=1)
+    all_faces = torch.cat(
+        [faces, torch.as_tensor(seal_faces, dtype=faces.dtype,
+                                device=faces.device)], dim=0)
+    return sealed, all_faces

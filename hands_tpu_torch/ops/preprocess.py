@@ -4,12 +4,13 @@ the eval subset).
 Crops are axis-aligned resamples written as two interpolation-weight
 products (float32, TF32 off); keypoints, intrinsics and KPE angles follow the
 JAX module's math exactly. Train-time augmentation (rotation, blur, jitter,
-random draws) is not ported yet.
+random draws), ``mask_crop`` and the ``pcl`` resampler (``pcl_crop``,
+``warp_homography``) are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -137,6 +138,72 @@ def kpe_corner_angles(bbox_xyxy: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
     pp = torch.stack([K[:, 0, 2], K[:, 1, 2]], -1)[:, None, :]
     f = torch.stack([K[:, 0, 0], K[:, 1, 1]], -1)[:, None, :]
     return torch.atan2(corners - pp, f).reshape(-1, 8)
+
+
+def _crop_lattice(bbox_xyxy: torch.Tensor, img_res: int):
+    """A fixed (img_res x img_res) lattice across each box: x (B, W) and
+    y (B, H) sample coordinates (static shapes, mask all ones)."""
+    t = torch.linspace(0.0, 1.0, img_res, device=bbox_xyxy.device)
+    x0, y0, x1, y1 = (bbox_xyxy[:, i] for i in range(4))
+    gx = x0[:, None] + (x1 - x0)[:, None] * t[None, :]
+    gy = y0[:, None] + (y1 - y0)[:, None] * t[None, :]
+    return gx, gy
+
+
+def kpe_dense_angles(bbox_xyxy: torch.Tensor, K: torch.Tensor,
+                     img_res: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dense per-pixel ray angles over each crop: angles (B, H, W, 2) NHWC
+    and a validity mask (B, H, W) of ones."""
+    B = bbox_xyxy.shape[0]
+    gx, gy = _crop_lattice(bbox_xyxy, img_res)
+    ax = torch.atan2(gx[:, None, :] - K[:, 0, 2, None, None],
+                     K[:, 0, 0, None, None])
+    ay = torch.atan2(gy[:, :, None] - K[:, 1, 2, None, None],
+                     K[:, 1, 1, None, None])
+    angles = torch.stack([ax.expand(B, img_res, img_res),
+                          ay.expand(B, img_res, img_res)], dim=-1)
+    return angles, torch.ones((B, img_res, img_res), device=bbox_xyxy.device)
+
+
+def kpe_center_coords(bbox_xyxy: torch.Tensor, img_res: int) -> torch.Tensor:
+    """``sinusoidal_cc`` centre "angles": normalised crop coordinates
+    ``2 c / img_res - 1``."""
+    center = (bbox_xyxy[:, :2] + bbox_xyxy[:, 2:]) / 2.0
+    return 2.0 * center / img_res - 1.0
+
+
+def kpe_corner_coords(bbox_xyxy: torch.Tensor, img_res: int) -> torch.Tensor:
+    """``sinusoidal_cc`` corner "angles": (B, 8) normalised crop
+    coordinates, corner-major [x, y] pairs."""
+    x0, y0, x1, y1 = (bbox_xyxy[:, i] for i in range(4))
+    corners = torch.stack(
+        [
+            torch.stack([x0, y0], -1), torch.stack([x0, y1], -1),
+            torch.stack([x1, y0], -1), torch.stack([x1, y1], -1),
+        ],
+        dim=1,
+    )  # (B, 4, 2)
+    return (2.0 * corners / img_res - 1.0).reshape(-1, 8)
+
+
+def kpe_camconv_dense(bbox_xyxy: torch.Tensor, K: torch.Tensor,
+                      img_res: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``cam_conv`` 6-channel dense encoding: per pixel [ray angle x/y, pixel
+    offset from the principal point x/y, centred coordinate x/y], on the
+    lattice of :func:`kpe_dense_angles`: (B, H, W, 6) NHWC and a mask of
+    ones (B, H, W)."""
+    B = bbox_xyxy.shape[0]
+    gx, gy = _crop_lattice(bbox_xyxy, img_res)
+    gx = gx[:, None, :].expand(B, img_res, img_res)
+    gy = gy[:, :, None].expand(B, img_res, img_res)
+    dx = gx - K[:, 0, 2, None, None]
+    dy = gy - K[:, 1, 2, None, None]
+    ax = torch.atan2(dx, K[:, 0, 0, None, None])
+    ay = torch.atan2(dy, K[:, 1, 1, None, None])
+    cxn = 2.0 * gx / img_res - 1.0
+    cyn = 2.0 * gy / img_res - 1.0
+    enc = torch.stack([ax, ay, dx, dy, cxn, cyn], dim=-1)
+    return enc, torch.ones((B, img_res, img_res), device=bbox_xyxy.device)
 
 
 def normalize_imagenet(images: torch.Tensor, mean, std) -> torch.Tensor:

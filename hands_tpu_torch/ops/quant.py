@@ -1,6 +1,5 @@
 """W8A8 int8 quantisation primitives for serving (port of the helpers of
-``hands_tpu/ops/vit_block_pallas.py`` and of ``quantize_int8`` from
-``hands_tpu/ops/quant.py``).
+``hands_tpu/ops/vit_block_pallas.py`` and of ``hands_tpu/ops/quant.py``).
 
 Scheme: symmetric int8, weights with per-output-channel scales, activations
 per token (dynamic) or per channel (static, calibrated offline and folded
@@ -19,8 +18,14 @@ JAX block functions. Against the op-by-op value this moves one scale in ten
 by an f32 ulp when the scales are small (folded weights), and with it now
 and then an int8 weight, which is visible in a block's output.
 
-``int8_conv`` / ``Int8Conv`` belong to the ResNet backbone and are not
-ported yet (ROADMAP queue 1 item 1).
+:func:`int8_conv` / :class:`Int8Conv` are the W8A8 serving convolution of the
+ResNet backbones: per-sample dynamic activation scales, per-output-channel
+weight scales, exact int32 accumulation, dequantisation by their product. In
+the JAX package this product is XLA's, outside any Pallas kernel, so a library
+product computes it here: ``torch._int_mm`` on the unfolded patches on the
+card, an f64 convolution of the integer values on the CPU (exact:
+127^2 * 4608 < 2^53; f32 is not). Tensors are NCHW and kernels OIHW, the
+port's layout.
 """
 
 from __future__ import annotations
@@ -29,6 +34,8 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch import nn
 
 _INV127 = float(np.float32(1.0) / np.float32(127.0))
 _EPS = float(np.float32(1e-12))
@@ -158,3 +165,72 @@ def fold_static_scales(params: Dict[str, torch.Tensor],
         "inv_mlp2": 1.0 / s_mlp2,
         "w2_q": w2_q, "d2": d2, "b2": params["b2"].float(),
     }
+
+
+def _int_conv(xq: torch.Tensor, wq: torch.Tensor, stride: int,
+              padding: int) -> torch.Tensor:
+    """Exact convolution of int8 NCHW ``xq`` with int8 OIHW ``wq`` -> int32
+    values (returned as f32 on the CPU, where they come from an f64
+    convolution, and as int32 on the card)."""
+    if xq.device.type == "cpu":
+        return F.conv2d(xq.double(), wq.double(), stride=stride,
+                        padding=padding)
+    N, C, H, W = xq.shape
+    O, _, kh, kw = wq.shape
+    oh = (H + 2 * padding - kh) // stride + 1
+    ow = (W + 2 * padding - kw) // stride + 1
+    if kh == 1 and kw == 1 and padding == 0:
+        rows = xq[:, :, ::stride, ::stride].permute(0, 2, 3, 1).reshape(-1, C)
+    else:
+        # im2col; int8 values are exact in bf16, which unfold takes
+        cols = F.unfold(xq.to(torch.bfloat16), (kh, kw), padding=padding,
+                        stride=stride)  # (N, C*kh*kw, L)
+        rows = cols.transpose(1, 2).reshape(N * oh * ow, C * kh * kw).to(
+            torch.int8)
+    w2 = wq.reshape(O, -1)
+    # torch._int_mm takes M > 16 and K, N multiples of 8: zero-pad to that
+    M, K = rows.shape
+    pm, pk, po = max(17 - M, 0), -K % 8, -O % 8
+    rows = F.pad(rows, (0, pk, 0, pm)).contiguous()
+    w2 = F.pad(w2, (0, pk, 0, po))
+    out = torch._int_mm(rows, w2.t())[:M, :O]
+    return out.reshape(N, oh, ow, O).permute(0, 3, 1, 2)
+
+
+def int8_conv(x: torch.Tensor, kernel: torch.Tensor, stride: int,
+              padding: int, out_dtype=torch.float32) -> torch.Tensor:
+    """W8A8 convolution of NCHW ``x`` with the f32 OIHW ``kernel``: both
+    quantised here (activations per sample, weights per output channel),
+    int32 accumulation, dequantised by ``act_scale[n] * w_scale[o]``."""
+    xq, sx = quantize_int8(x, axes=(1, 2, 3))
+    wq, sw = quantize_int8(kernel, axes=(1, 2, 3))
+    acc = _int_conv(xq, wq, stride, padding)
+    scale = sx[:, None, None, None] * sw[None, :, None, None]
+    return (acc.to(torch.float32) * scale).to(out_dtype)
+
+
+class Int8Conv(nn.Module):
+    """Drop-in W8A8 serving twin of the bias-free ``Conv`` of
+    ``models/backbones/resnet.py``: same parameter name and shape, so the same
+    weights load into either."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
+                 padding: int = 0, dtype=torch.float32, device=None):
+        super().__init__()
+        self.stride, self.padding, self.dtype = stride, padding, dtype
+        self.weight = nn.Parameter(
+            torch.empty(out_ch, in_ch, kernel, kernel, device=device))
+
+    def forward(self, x):
+        return int8_conv(x, self.weight, self.stride, self.padding,
+                         out_dtype=self.dtype)
+
+
+def serving_conv_cls(quant_int8: bool):
+    """The convolution class of a serving config: :class:`Int8Conv` under
+    ``Config.quant_int8``, the plain ``Conv`` otherwise."""
+    if quant_int8:
+        return Int8Conv
+    from hands_tpu_torch.models.backbones.resnet import Conv
+
+    return Conv

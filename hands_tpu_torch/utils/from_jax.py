@@ -1,16 +1,21 @@
-"""Carry weights of the JAX ``HamerLightModel`` into the port.
+"""Carry weights of the JAX ``HamerLightModel`` and ``HandsLightModel`` into
+the port.
 
 :func:`state_dict_from_jax` takes the Flax variables as a nested dict of
 numpy arrays and returns a ``state_dict`` for the port's
-``models.hamer_light.HamerLightModel``. It transposes Flax ``Dense`` kernels
+``models.hamer_light.HamerLightModel`` or
+``models.hands_light.HandsLightModel``. It transposes Flax ``Dense`` kernels
 (in, out) to (out, in), turns HWIO conv kernels into OIHW, splits the
 scan-stacked ViT blocks along their leading depth axis, and maps Flax's
-auto-named modules (``Dense_0``, ``LayerNorm_0`` ...) one-to-one. For a
-``quant_int8_static`` model it also carries the calibrated ``act_scale_*``
-vectors. Each tensor lands in the dtype of the parameter it fills: bf16
-matmul weights in a bf16 backbone, f32 in the int8 configurations, whose
-kernels quantise from the f32 values. It asserts that every JAX leaf is
-consumed and every port parameter is filled.
+auto-named modules (``Dense_0``, ``Conv_0``, ``BatchNorm_0`` ..., the
+shortcut of a residual block last) one-to-one. For WildHands it carries the
+``batch_stats`` collection (running mean and variance) beside ``params``; for
+a ``quant_int8_static`` HaMeR also the calibrated ``act_scale_*`` vectors.
+The port flattens maps in the JAX order (H, W, C), so no dense kernel needs
+its rows permuted. Each tensor lands in the dtype of the parameter it fills:
+bf16 matmul weights in a bf16 ViT, f32 in the int8 configurations and in the
+ResNets, which cast per call. It asserts that every JAX leaf is consumed and
+every port parameter (for WildHands also every buffer) is filled.
 """
 
 from __future__ import annotations
@@ -46,8 +51,106 @@ def _layernorm(jax_path: str, port_path: str):
             (f"{port_path}.bias", f"{jax_path}/bias", None)]
 
 
-def _rules(depth: int, head_depth: int, quant_static: bool):
-    """(port key, JAX path, transform, depth index or None) for every leaf."""
+def _conv(jax_path: str, port_path: str, use_bias: bool = False):
+    rules = [(f"{port_path}.weight", f"{jax_path}/kernel",
+              lambda a: a.transpose(3, 2, 0, 1))]  # HWIO -> OIHW
+    if use_bias:
+        rules.append((f"{port_path}.bias", f"{jax_path}/bias", None))
+    return rules
+
+
+def _batchnorm(jax_path: str, port_path: str):
+    return [(f"{port_path}.weight", f"{jax_path}/scale", None),
+            (f"{port_path}.bias", f"{jax_path}/bias", None),
+            (f"{port_path}.running_mean", f"batch_stats/{jax_path}/mean", None),
+            (f"{port_path}.running_var", f"batch_stats/{jax_path}/var", None)]
+
+
+def _dense_stack(jax_path: str, port_path: str, n: int):
+    """Flax ``Dense_0 .. Dense_{n-1}`` -> ``port_path.0 .. .{n-1}``."""
+    return [r for i in range(n)
+            for r in _dense(f"{jax_path}/Dense_{i}", f"{port_path}.{i}")]
+
+
+def _resnet(jax_scope: str, port_path: str, backbone: nn.Module):
+    rules = (_conv(f"{jax_scope}/conv_stem", f"{port_path}.conv_stem")
+             + _batchnorm(f"{jax_scope}/bn_stem", f"{port_path}.bn_stem"))
+    for i, blocks in enumerate(backbone.stages):
+        for j, block in enumerate(blocks):
+            jb = f"{jax_scope}/stage{i + 1}_block{j}"
+            pb = f"{port_path}.stages.{i}.{j}"
+            n = 3 if hasattr(block, "conv3") else 2
+            names = [(f"conv{k + 1}", f"bn{k + 1}") for k in range(n)]
+            if block.down_conv is not None:  # the shortcut comes last
+                names.append(("down_conv", "down_bn"))
+            for k, (conv, bn) in enumerate(names):
+                rules += _conv(f"{jb}/Conv_{k}", f"{pb}.{conv}")
+                rules += _batchnorm(f"{jb}/BatchNorm_{k}", f"{pb}.{bn}")
+    return rules
+
+
+def _mha(jax_path: str, port_path: str):
+    return ([(f"{port_path}.in_proj_weight", f"{jax_path}/in_proj_kernel",
+              lambda a: a.swapaxes(-1, -2)),
+             (f"{port_path}.in_proj_bias", f"{jax_path}/in_proj_bias", None)]
+            + _dense(f"{jax_path}/out_proj", f"{port_path}.out_proj"))
+
+
+def _hand_hmr(jax_path: str, port_path: str, head: nn.Module):
+    rules = _dense_stack(jax_path, f"{port_path}.cam_init", 3)
+    if head.tf_decoder:
+        rules += _dense(f"{jax_path}/Dense_3", f"{port_path}.cam_init_pre")
+        jl, pl, layer = (f"{jax_path}/tf_hmr_layer",
+                         f"{port_path}.tf_hmr_layer", head.tf_hmr_layer)
+        for name in ("feat_mlp_dense", "vector_mlp_dense", "dec_linear1",
+                     "dec_linear2", "enc_linear1", "enc_linear2"):
+            rules += _dense(f"{jl}/{name}", f"{pl}.{name}")
+        for name in ("dec_self_attn", "dec_cross_attn", "enc_self_attn"):
+            rules += _mha(f"{jl}/{name}", f"{pl}.{name}")
+    else:
+        jl, pl, layer = (f"{jax_path}/hmr_layer", f"{port_path}.hmr_layer",
+                         head.hmr_layer)
+        rules += (_dense(f"{jl}/refine0", f"{pl}.refine0")
+                  + _dense(f"{jl}/refine1", f"{pl}.refine1"))
+    for key, _ in layer.specs:
+        rules += _dense(f"{jl}/dec_{key}", f"{pl}.dec.{key}")
+    return rules
+
+
+def _hands_light_rules(model: nn.Module):
+    """(port key, JAX path, transform, None) for every leaf of a port
+    ``HandsLightModel``; ``batch_stats/...`` paths name that collection."""
+    net = model.net
+    rules = []
+    for scope in ("glb_backbone", "hand_backbone", "backbone_r", "backbone_l"):
+        if getattr(net, scope, None) is not None:
+            rules += _resnet(scope, f"net.{scope}", getattr(net, scope))
+    rules += _hand_hmr("head_r", "net.head_r", net.head_r)
+    rules += _hand_hmr("head_l", "net.head_l", net.head_l)
+    if net.grasp_classifier is not None:
+        rules += _dense_stack("grasp_classifier",
+                              "net.grasp_classifier.layers", 4)
+    if getattr(net, "feature_conv", None) is not None:
+        for k in range(3):
+            rules += _conv(f"feature_conv/Conv_{k}",
+                           f"net.feature_conv.conv{k}")
+        rules += _dense("feature_conv/Dense_0", "net.feature_conv.dense")
+    if getattr(net, "depth_head", None) is not None:
+        for k in range(len(net.depth_head.convs)):
+            rules += _conv(f"depth_head/Conv_{k}", f"net.depth_head.convs.{k}",
+                           use_bias=True)
+    for name in ("center_head", "corner_head"):
+        if getattr(net, name, None) is not None:
+            rules += _dense_stack(name, f"net.{name}.layers", 3)
+    return [(p, j, f, None) for p, j, f in rules]
+
+
+def _hamer_rules(model: nn.Module):
+    """(port key, JAX path, transform, depth index or None) for every leaf
+    of a port ``HamerLightModel``."""
+    depth = len(model.net.backbone.blocks)
+    head_depth = len(model.net.mano_head.layers)
+    quant_static = bool(model.net.backbone.blocks[0].quant_static)
     rules = []
 
     def add(items, index=None):
@@ -90,22 +193,24 @@ def _rules(depth: int, head_depth: int, quant_static: bool):
                 + _dense(f"{jatt}/to_out", f"{patt}.to_out"))
         add(_dense(f"{jl}/Dense_0", f"{pl}.fc1")
             + _dense(f"{jl}/Dense_1", f"{pl}.fc2"))
+    if model.net.grasp_classifier is not None:
+        add(_dense_stack("grasp_classifier", "net.grasp_classifier.layers", 4))
     return rules
 
 
 def state_dict_from_jax(variables: dict, model: nn.Module
                         ) -> Dict[str, torch.Tensor]:
-    """Flax ``HamerLightModel`` variables ({"params": ...}, numpy leaves) ->
-    a ``state_dict`` for ``model`` (a port ``HamerLightModel``), with each
-    tensor in the dtype and on the device of the parameter it fills."""
+    """Flax ``HamerLightModel`` or ``HandsLightModel`` variables ({"params":
+    ..., "batch_stats": ...}, numpy leaves) -> a ``state_dict`` for ``model``
+    (the port's model of the same family), with each tensor in the dtype and
+    on the device of the parameter or buffer it fills."""
     flat = _flatten(variables["params"])
+    flat.update(_flatten(variables.get("batch_stats", {}), "batch_stats"))
     target = model.state_dict()
-    depth = len(model.net.backbone.blocks)
-    head_depth = len(model.net.mano_head.layers)
+    is_hamer = hasattr(model.net, "mano_head")
+    rules = _hamer_rules(model) if is_hamer else _hands_light_rules(model)
     out, used = {}, set()
-    quant_static = bool(model.net.backbone.blocks[0].quant_static)
-    for port_key, jax_path, fn, index in _rules(depth, head_depth,
-                                                quant_static):
+    for port_key, jax_path, fn, index in rules:
         a = flat[jax_path]
         used.add(jax_path)
         if index is not None:
@@ -125,7 +230,10 @@ def state_dict_from_jax(variables: dict, model: nn.Module
     missing = sorted(params - set(out))
     if missing:
         raise ValueError(f"port parameters not filled: {missing}")
-    # buffers (mean params) are not parameters; keep the model's own
-    for k in set(target) - set(out):
+    rest = sorted(set(target) - set(out))
+    if rest and not is_hamer:
+        raise ValueError(f"port buffers not filled: {rest}")
+    # HaMeR's head keeps its mean parameters as buffers: the model's own
+    for k in rest:
         out[k] = target[k]
     return out

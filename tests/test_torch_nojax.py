@@ -3,7 +3,8 @@ with the card has neither.
 
 In a fresh interpreter (the test process itself has JAX loaded), import
 every module of ``hands_tpu_torch``, build tiny HaMeR on the CPU, serve one
-bf16 and one int8 request, and check that neither ``jax``, ``flax`` nor
+bf16 and one int8 request, run the WildHands evaluation forward (ResNet-18,
+render and grasp on) and its int8 serving, and check that neither ``jax``, ``flax`` nor
 ``hands_tpu`` was imported along the way. A second test reads the sources:
 no import line of the port or of ``chip_smoke.py`` names them.
 """
@@ -43,6 +44,21 @@ out8 = serve(recs, cfg8, fetch_model(cfg8, "cpu", seed=0, vit_variant="tiny"),
 assert torch.isfinite(out8["pred.mano.vertices.r"]).all()
 drift = (out8["pred.mano.vertices.r"] - out["pred.mano.vertices.r"]).abs()
 assert 0 < float(drift.max()) < 0.1, float(drift.max())
+from hands_tpu_torch.config import default_config
+for name in ("core.transforms", "core.thing", "models.backbones.resnet",
+             "models.heads.hmr", "models.hands_light", "ops.mano_lbs",
+             "ops.rasterizer"):
+    assert f"hands_tpu_torch.{name}" in sys.modules, name
+cfgw = default_config("hands_light", backbone="resnet18")
+assert cfgw.use_render_seg_loss and cfgw.use_grasp_loss
+outw = serve(recs, cfgw, fetch_model(cfgw, "cpu", seed=0), "cpu")
+assert outw["pred.render.r"].shape == (2, 224, 224)
+assert outw["pred.grasp.l"].shape == (2, 9)
+assert torch.isfinite(outw["pred.mano.vertices.r"]).all()
+cfgq = serving_config("hands_light", "float32", quant_int8=True).replace(
+    backbone="resnet18")
+outq = serve(recs, cfgq, fetch_model(cfgq, "cpu", seed=0), "cpu")
+assert torch.isfinite(outq["pred.mano.vertices.l"]).all()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "hands_tpu"))
 assert not bad, bad
