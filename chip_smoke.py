@@ -7,9 +7,13 @@ dynamic-int8 and calibrated static-int8 configurations (and one backbone
 forward with the fused attention), serves and evaluates WildHands at full
 width (two ResNet-50s, 224^2 crops, requests of 8 and 64 images; f32, bf16
 and int8-convolution serving; the evaluation forward with the silhouette
-render and the grasp classifier on, without and with gradients), checks the
-launch counts of each path, and times kernels, blocks, forwards and serving
-with CUDA events.
+render and the grasp classifier on, without and with gradients), holds the
+trainable ViT block (the bf16 block's kernels forward, a backward that keeps
+only the block's input and parameters) against autograd of its twin, takes
+optimiser steps with HaMeR ViT-H (64 crops a step) and with WildHands (two
+ResNet-50s, 64 images a step) on synthetic batches and runs one eval step
+with its metrics, checks the launch counts of each path, and times kernels,
+blocks, forwards, serving and train steps with CUDA events.
 
     python3 chip_smoke.py
 
@@ -57,6 +61,7 @@ DEV = torch.device("cuda", 0)
 K3 = "hands_tpu/ops/vit_block_pallas.py:382"
 K5 = "hands_tpu/ops/vit_block_pallas.py:501"
 K6 = "hands_tpu/ops/vit_block_pallas.py:627"
+K4 = "hands_tpu/ops/vit_block_pallas.py:461"
 K7 = "hands_tpu/ops/attention_pallas.py:52"
 SRC_K3 = "hands_tpu_torch/csrc/vit_block.cu"
 SRC_I8 = "hands_tpu_torch/csrc/vit_block_int8.cu"
@@ -69,6 +74,14 @@ WH_BACKBONE = "resnet50"  # the shipped WildHands width
 WH_BATCHES = ((8, 3), (64, 2))  # (images per request, requests)
 WH_GRAD_BATCH = 8  # images of the forward that is differentiated
 N_VERTS, RENDER_RES, RENDER_SIGMA = 778, 112, 1.5  # the 224^2 half-res render
+TRAIN_VIT_BATCH = 32  # images of a HaMeR train step: 64 crops
+TRAIN_WH_BATCH = 64  # images of a WildHands train step: 128 crops + 64 images
+TRAIN_STEPS = 3
+TINY_TRAIN = dict(img_res=160, img_res_ds=160)  # the CPU comparison's size
+# K4's gradients against autograd of the twin: the backward IS that
+# computation on the same inputs, so only the order of a library's sums may
+# differ from run to run; relative to each leaf's largest entry
+K4_GRAD_REL = 1e-3
 LBS_ABS = 1e-5  # K1 vs twin: f32 sums of 16 and 4 terms in another order
 MASK_ABS = 2e-5  # K2 forward vs twin (the sum over vertices runs in order)
 # K2 backward vs the twin's autograd under a mean L1 mask loss. The kernel is
@@ -877,22 +890,14 @@ def wildhands_phases(rows, dev, tag) -> None:
     require(0.01 < float(mask.mean()) < 0.9,
             f"the blobs cover {float(mask.mean())} of the image")
 
-    def timed(fn):
-        """(ms, GB that the call adds at its peak to what is allocated)."""
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        ms = cuda_ms(fn, iters=5)
-        return ms, (torch.cuda.max_memory_allocated() - base) / 1e9
-
     def forward():
         return inference_pose(model, inputs, meta)
 
-    k_ms, k_gb = timed(forward)
+    k_ms, k_gb = peak_ms(forward, warmup=3)
     with geometry_twins():
-        t_ms, t_gb = timed(forward)
-        t_ms2, _ = timed(forward)
-    k_ms2, _ = timed(forward)
+        t_ms, t_gb = peak_ms(forward, warmup=3)
+        t_ms2, _ = peak_ms(forward, warmup=3)
+    k_ms2, _ = peak_ms(forward, warmup=3)
     print(f"  hands_light evaluation forward bs{big} ({2 * big} crops, render "
           f"and grasp on): kernels {min(k_ms, k_ms2):.2f} ms, peak +{k_gb:.2f} "
           f"GB; twins {min(t_ms, t_ms2):.2f} ms, peak +{t_gb:.2f} GB {tag}")
@@ -978,6 +983,390 @@ def wildhands_phases(rows, dev, tag) -> None:
             compare_abs(f"resnet18 {name} GPU vs CPU render.r",
                         got["pred.render.r"].cpu(), want["pred.render.r"],
                         2e-3)
+
+
+def peak_ms(fn, iters: int = 5, warmup: int = 1):
+    """(ms per call, GB that a call adds at its peak to what is allocated)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ms = cuda_ms(fn, iters=iters, warmup=warmup)
+    return ms, (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
+def trainable_block_phase(rows, x, p32, tag) -> None:
+    """K4, ``vit_block_fused_trainable``, at ViT-H shapes: the forward (the
+    bf16 block's kernels) against the twin, the gradients of the Function
+    against autograd of the twin for x and each of the twelve f32 master
+    parameters, and the time and peak memory of forward and backward beside
+    the plain block's."""
+    from hands_tpu_torch.ops import vit_block as vb
+
+    print(f"phase 6: K4 vit_block_fused_trainable, rows={ROWS} C={C} "
+          f"hidden={HIDDEN}, f32 master parameters {tag}")
+    gen = torch.Generator(device=x.device).manual_seed(SEED + 4)
+    g = (torch.randn(x.shape, generator=gen, device=x.device) * 0.1).to(
+        torch.bfloat16)
+    names = ["x"] + list(vb.PARAM_ORDER)
+
+    def leaves():
+        xs = x.detach().clone().requires_grad_(True)
+        ps = {k: v.detach().clone().requires_grad_(True)
+              for k, v in p32.items()}
+        return xs, ps, [xs] + [ps[k] for k in vb.PARAM_ORDER]
+
+    def k4(xs, ps):
+        return vb.vit_block_fused_trainable(xs, ps, HEADS)
+
+    def plain(xs, ps):
+        return vb.vit_block_plain(xs, vb._cast_params(ps), HEADS)
+
+    reset_launch_counts()
+    xs, ps, lv = leaves()
+    out = k4(xs, ps)
+    counts = launch_counts()
+    check_launches("K4 forward", counts, {
+        "vit_layernorm": 2, "vit_gemm": 4, "vit_attention": 1}, 1)
+    saved = out.grad_fn.saved_tensors
+    require(len(saved) == 13 and saved[0].data_ptr() == xs.data_ptr()
+            and all(t.data_ptr() == ps[k].data_ptr()
+                    for t, k in zip(saved[1:], vb.PARAM_ORDER)),
+            "K4 saves only x and the parameters")
+    xt, pt, lt = leaves()
+    ref = plain(xt, pt)
+    fwd_err = compare("K4 forward vs twin", out.detach(), ref.detach(),
+                      rel=BLOCK_REL)
+    got = torch.autograd.grad(out, lv, g)
+    want = torch.autograd.grad(ref, lt, g)
+    require(launch_counts() == counts, "K4's backward launched a block kernel")
+    worst = 0.0
+    for name, a, b in zip(names, got, want):
+        require(a.dtype == b.dtype and a.shape == b.shape
+                and (name == "x" or a.dtype == torch.float32),
+                f"K4 gradient of {name}: dtype or shape")
+        scale = float(b.float().abs().max())
+        err = float((a.float() - b.float()).abs().max()) / scale
+        require(scale > 0 and err <= K4_GRAD_REL,
+                f"K4 gradient of {name} differs from the twin's by {err}")
+        worst = max(worst, err)
+    print(f"  K4 gradients of x and 12 parameters vs autograd of the twin: "
+          f"max|d| / max|ref| {worst:.3e} (<= {K4_GRAD_REL:g}), f32 masters "
+          f"get f32 gradients, 13 tensors saved: ok")
+    del out, ref, got, want, saved
+
+    # times: forward without a graph, forward kept for backward + backward
+    def fwd_bwd(fn):
+        xs, ps, lv = leaves()
+        torch.autograd.grad(fn(xs, ps), lv, g)
+
+    def bwd_only(fn):
+        xs, ps, lv = leaves()
+        out = fn(xs, ps)
+        return lambda: torch.autograd.grad(out, lv, g, retain_graph=True)
+
+    with torch.no_grad():
+        f_plain = min(cuda_ms(lambda: plain(x, p32)) for _ in range(2))
+        f_k4 = min(cuda_ms(lambda: k4(x, p32)) for _ in range(2))
+    fb_plain, gb_plain = peak_ms(lambda: fwd_bwd(plain))
+    fb_k4, gb_k4 = peak_ms(lambda: fwd_bwd(k4))
+    b_k4 = min(cuda_ms(bwd_only(k4), iters=5) for _ in range(2))
+    b_plain = min(cuda_ms(bwd_only(plain), iters=5) for _ in range(2))
+
+    def kept(fn):
+        """GB a forward holds for its backward, beyond leaves and output."""
+        xs, ps, _ = leaves()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        out = fn(xs, ps)
+        torch.cuda.synchronize()
+        return (torch.cuda.memory_allocated() - base
+                - out.numel() * out.element_size()) / 1e9
+
+    kept_k4, kept_plain = kept(k4), kept(plain)
+    prod_ops = 2 * ROWS * C * (3 * C + C + 2 * HIDDEN)
+    attn_ops = 4 * BATCH * HEADS * N_TOK * N_TOK * HEAD_DIM
+    n_param = sum(v.numel() for v in p32.values())
+    # backward: x, g and the f32 parameters read, dx and f32 gradients
+    # written; the recompute and the two products of each backward GEMM
+    b_bytes = (3 * x.numel() * 2 + 2 * 4 * n_param) / HBM_BYTES_S * 1e3
+    b_ops = 3 * (prod_ops + attn_ops) / PEAK_OPS_S["bf16"] * 1e3
+    f_bound = sum(rows[k]["bound_ms"] for k in
+                  ("vit_layernorm", "vit_gemm", "vit_attention"))
+    print(f"  K4 forward {f_k4:.4f} ms (twin forward {f_plain:.4f} ms, bound "
+          f"{f_bound:.4f} ms); K4 backward {b_k4:.4f} ms (the twin's backward "
+          f"alone {b_plain:.4f} ms, bound {max(b_bytes, b_ops):.4f} ms by "
+          f"{'operations' if b_ops > b_bytes else 'bytes'}) {tag}")
+    print(f"  forward + backward: K4 {fb_k4:.4f} ms, peak +{gb_k4:.3f} GB; "
+          f"plain block {fb_plain:.4f} ms, peak +{gb_plain:.3f} GB; held "
+          f"between forward and backward beyond leaves and output: K4 "
+          f"{kept_k4:.3f} GB, plain block {kept_plain:.3f} GB {tag}")
+    require(kept_k4 < 0.25 * kept_plain,
+            "K4 holds activations between forward and backward")
+    rows["vit_block_fused_trainable"] = {
+        "name": "vit_block_fused_trainable", "route": "cuda",
+        "source": SRC_K3, "replaces": K4, "launches": 0,
+        "max_abs_err": fwd_err, "ms": f_k4, "plain_ms": f_plain,
+        "bound_ms": f_bound, "bound_by": "operations", "library_ms": None,
+        # the backward has no kernel (the TPU kernel has none): autograd of
+        # the twin, timed beside the twin's own backward
+        "grad_max_rel_err": worst, "backward_ms": b_k4,
+        "backward_plain_ms": b_plain, "backward_library_ms": None,
+        "backward_bound_ms": max(b_bytes, b_ops),
+        "backward_bound_by": "operations" if b_ops > b_bytes else "bytes"}
+
+
+def run_steps(step, state, batch, n, per_step, path, gen=None):
+    """``n`` train steps on one batch, each with the launch counts set to 0
+    before it and checked after it. Returns (losses, ms of each step, the
+    summed counts)."""
+    losses, times, total = [], [], {}
+    for i in range(n):
+        reset_launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, logs = step(state, batch, gen)
+        end.record()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        check_launches(f"{path} step {i + 1}", counts, per_step, 1)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        require(all(bool(torch.isfinite(v)) for v in logs.values()),
+                f"{path}: non-finite loss term in step {i + 1}")
+        losses.append(float(logs["loss"]))
+        times.append(start.elapsed_time(end))
+    return losses, times, total
+
+
+def steps_ms(step, state, batch, n=2, gen=None):
+    """(best ms per step, peak GB a step adds) over ``n`` steps."""
+    best, peak = float("inf"), 0.0
+    for _ in range(n):
+        ms, gb = peak_ms(lambda: step(state, batch, gen), iters=1, warmup=0)
+        best, peak = min(best, ms), max(peak, gb)
+    return best, peak
+
+
+def tiny_train_check(method, cfg_kw, model_kw, dev, rel, steps=2) -> None:
+    """The train step at a small size on the card (kernels) against the CPU
+    (twins): the same weights and batch, the dropout rate set to 0 (a mask
+    cannot be shared between the two devices' generators)."""
+    from hands_tpu_torch.config import default_config
+    from hands_tpu_torch.data.synthetic import make_batch
+    from hands_tpu_torch.models.registry import fetch_model
+    from hands_tpu_torch.train.state import create_train_state
+    from hands_tpu_torch.train.step import make_train_step
+
+    cfg = default_config(method, lr=1e-6, **TINY_TRAIN, **cfg_kw)
+    cpu = fetch_model(cfg, "cpu", seed=SEED, **model_kw)
+    for mod in cpu.modules():
+        if hasattr(mod, "dropout_rate"):
+            mod.dropout_rate = 0.0
+    gpu = copy.deepcopy(cpu).to(dev)
+    logs = {}
+    for name, model, where in (("cpu", cpu, "cpu"), ("gpu", gpu, dev)):
+        batch = make_batch(cfg, 2, seed=SEED, device=where)
+        state = create_train_state(cfg, model)
+        step = make_train_step(model, cfg)
+        gen = torch.Generator(device=where).manual_seed(SEED)
+        for _ in range(steps):
+            state, out = step(state, batch, gen)
+        logs[name] = {k: float(v) for k, v in out.items()}
+    for k in ("loss", "grad_norm"):
+        a, b = logs["cpu"][k], logs["gpu"][k]
+        err = abs(a - b) / max(abs(a), 1e-3)
+        print(f"  tiny {method} train step {steps} GPU vs CPU {k}: {b:.6g} vs "
+              f"{a:.6g}, relative {err:.3e} (<= {rel:g})")
+        require(err <= rel, f"tiny {method} train step: {k} differs")
+
+
+def hamer_train_phase(rows, dev, tag) -> None:
+    """HaMeR ViT-H, full width and depth, bf16 with f32 masters, the fused
+    block (K4), grasp loss on: optimiser steps on one synthetic batch of 32
+    images (64 crops), one more with the mask loss on, and the same steps
+    with the plain block under per-block checkpointing and without."""
+    from hands_tpu_torch.config import default_config
+    from hands_tpu_torch.data.synthetic import make_batch
+    from hands_tpu_torch.models.registry import fetch_model
+    from hands_tpu_torch.train.state import create_train_state
+    from hands_tpu_torch.train.step import make_train_step
+
+    bs = TRAIN_VIT_BATCH
+    print(f"phase 7: HaMeR ViT-{VIT} train steps, {bs} images ({2 * bs} "
+          f"crops) a step, bf16 compute, f32 masters, fused_block {tag}")
+    # lr: from random weights the first Adam steps at 1e-4 (every weight
+    # moved by lr at once) overshoot the weak-perspective scale and the 2D
+    # loss explodes, in the JAX package alike; 1e-6 descends
+    cfg = default_config("hamer_light", compute_dtype="bfloat16",
+                         fused_block=True, use_render_seg_loss=False, lr=1e-6)
+    cfg_mask = cfg.replace(use_render_seg_loss=True)
+    require(cfg.use_grasp_loss, "the HaMeR train config classifies grasps")
+    t0 = time.time()
+    model = fetch_model(cfg_mask, device=dev, seed=SEED, vit_variant=VIT,
+                        param_dtype=torch.float32)
+    batch = make_batch(cfg_mask, bs, seed=SEED, device=dev)
+    state = create_train_state(cfg, model)
+    n_param = sum(p.numel() for p in state.params)
+    torch.cuda.synchronize()
+    print(f"  model ({n_param / 1e6:.1f} M parameters), optimiser state and "
+          f"batch made in {time.time() - t0:.1f} s; allocated "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    depth = len(model.net.backbone.blocks)
+    per_step = {"vit_layernorm": 2 * depth, "vit_gemm": 4 * depth,
+                "vit_attention": depth, "lbs_apply": 4}
+
+    model.cfg = cfg
+    step = make_train_step(model, cfg)
+    losses, times, total = run_steps(step, state, batch, TRAIN_STEPS, per_step,
+                                     "hamer_light train")
+    print(f"  losses of {TRAIN_STEPS} steps on one batch at lr {cfg.lr:g}: "
+          + ", ".join(f"{v:.4f}" for v in losses)
+          + "; ms: " + ", ".join(f"{t:.1f}" for t in times))
+    require(losses[-1] < losses[0], "the loss did not fall on a repeated batch")
+    require(state.step == TRAIN_STEPS and state.tx.count == TRAIN_STEPS,
+            "step counters")
+    rows["vit_block_fused_trainable"]["launches"] = sum(
+        total[k] for k in ("vit_layernorm", "vit_gemm", "vit_attention"))
+
+    # one more step with the mask loss on: K2 forward and backward twice
+    model.cfg = cfg_mask
+    step_mask = make_train_step(model, cfg_mask)
+    losses_m, _, _ = run_steps(
+        step_mask, state, batch, 1,
+        dict(per_step, splat_fwd=2, splat_bwd=2), "hamer_light train + mask")
+    print(f"  with the mask loss on: loss {losses_m[0]:.4f}")
+    model.cfg = cfg
+
+    # ms and memory: K4, then the plain block with and without checkpoints
+    results = {}
+    results["K4 (fused_block)"] = steps_ms(step, state, batch)
+    blocks = model.net.backbone.blocks
+    for name, ckpt in (("plain block + checkpoint", True),
+                       ("plain block", False)):
+        for blk in blocks:
+            blk.fused = blk.fused_train = False
+        model.net.backbone.use_checkpoint = ckpt
+        reset_launch_counts()
+        results[name] = steps_ms(step, state, batch)
+        check_launches(f"hamer_light train, {name}", launch_counts(),
+                       {"lbs_apply": 4}, 2)
+    for blk in blocks:
+        blk.fused = blk.fused_train = True
+    model.net.backbone.use_checkpoint = False
+    again = steps_ms(step, state, batch)
+    results["K4 (fused_block)"] = (min(again[0], results["K4 (fused_block)"][0]),
+                                   results["K4 (fused_block)"][1])
+    for name, (ms, gb) in results.items():
+        print(f"  hamer_light train step bs{bs}, {name}: {ms:.1f} ms "
+              f"({2 * bs / ms * 1e3:.1f} crops/s), peak +{gb:.2f} GB over "
+              f"{torch.cuda.memory_allocated() / 1e9:.2f} GB held {tag}")
+    del model, state, step, step_mask, batch
+    torch.cuda.empty_cache()
+    tiny_train_check("hamer_light",
+                     dict(compute_dtype="bfloat16", fused_block=True),
+                     dict(vit_variant="tiny", param_dtype=torch.float32), dev,
+                     rel=SERVE_REL)
+
+
+def wildhands_train_phase(rows, dev, tag) -> None:
+    """WildHands, two ResNet-50s, the default config (bf16, grasp and mask
+    loss on): optimiser steps on one synthetic batch of 64 images in train
+    mode (batch statistics, dropout), then one eval step with its metrics."""
+    from hands_tpu_torch.config import default_config
+    from hands_tpu_torch.data.synthetic import make_batch
+    from hands_tpu_torch.models.registry import fetch_model
+    from hands_tpu_torch.ops.procrustes import similarity_align
+    from hands_tpu_torch.train.state import create_train_state
+    from hands_tpu_torch.train.step import make_eval_step, make_train_step
+
+    bs = TRAIN_WH_BATCH
+    print(f"phase 8: WildHands train steps, {WH_BACKBONE} x 2, {bs} images "
+          f"({2 * bs} crops) a step, default config {tag}")
+    cfg = default_config("hands_light", backbone=WH_BACKBONE)
+    require(cfg.use_render_seg_loss and cfg.use_grasp_loss
+            and cfg.compute_dtype == "bfloat16", "the default train config")
+    cfg_nomask = cfg.replace(use_render_seg_loss=False)
+    model = fetch_model(cfg, device=dev, seed=SEED)
+    batch = make_batch(cfg, bs, seed=SEED, device=dev)
+    state = create_train_state(cfg, model)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    step = make_train_step(model, cfg)
+    bn = model.net.hand_backbone.bn_stem
+    mean0, var0 = bn.running_mean.clone(), bn.running_var.clone()
+    per_step = {"lbs_apply": 4, "splat_fwd": 2, "splat_bwd": 2}
+    losses, times, total = run_steps(step, state, batch, TRAIN_STEPS, per_step,
+                                     "hands_light train", gen)
+    print(f"  losses of {TRAIN_STEPS} steps on one batch at lr {cfg.lr:g}: "
+          + ", ".join(f"{v:.4f}" for v in losses)
+          + "; ms: " + ", ".join(f"{t:.1f}" for t in times))
+    for k in per_step:
+        rows[k]["launches"] = total[k]
+    moved = float((bn.running_mean - mean0).abs().max())
+    require(moved > 0 and not torch.equal(bn.running_var, var0)
+            and bool(torch.isfinite(bn.running_var).all()),
+            "BatchNorm's running statistics did not move")
+    print(f"  the stem's running mean moved by up to {moved:.3e}; training "
+          f"mode {model.training}")
+
+    step_nomask = make_train_step(model, cfg_nomask)
+
+    def nomask():
+        model.cfg = cfg_nomask
+        out = steps_ms(step_nomask, state, batch, gen=gen)
+        model.cfg = cfg
+        return out
+
+    # kernels, no mask, twins, no mask, kernels: the better of each pair
+    k_ms, k_gb = steps_ms(step, state, batch, gen=gen)
+    n_ms, n_gb = nomask()
+    with geometry_twins():
+        t_ms, t_gb = steps_ms(step, state, batch, gen=gen)
+    n_ms = min(n_ms, nomask()[0])
+    k_ms2, _ = steps_ms(step, state, batch, gen=gen)
+    held = torch.cuda.memory_allocated() / 1e9
+    print(f"  hands_light train step bs{bs}: kernels {min(k_ms, k_ms2):.1f} ms "
+          f"({bs / min(k_ms, k_ms2) * 1e3:.1f} images/s), peak +{k_gb:.2f} GB; "
+          f"K1 and K2 as twins {t_ms:.1f} ms, peak +{t_gb:.2f} GB; without "
+          f"the mask loss {n_ms:.1f} ms, peak +{n_gb:.2f} GB; over {held:.2f} "
+          f"GB held {tag}")
+
+    # ---- one eval step: forward, losses, denormalised 2D, metrics
+    eval_step = make_eval_step(model, cfg)
+    eval_step(state, batch)  # warm-up (cuSOLVER's handle)
+    reset_launch_counts()
+    metrics, logs = eval_step(state, batch)
+    torch.cuda.synchronize()
+    check_launches("hands_light eval step", launch_counts(),
+                   {"lbs_apply": 4, "splat_fwd": 2}, 1)
+    require(not model.training, "the eval step left the model in train mode")
+    for key in ("mrrpe/r/l", "mpjpe/ra/h", "mpjpe/pa/ra/h", "pix_err/h"):
+        v = metrics[key]
+        require(v.shape[0] == bs and bool(torch.isfinite(v).all()),
+                f"metric {key}: every hand of the batch is valid")
+    require(bool(torch.isfinite(logs["loss"])), "eval loss")
+    e_ms = min(cuda_ms(lambda: eval_step(state, batch), iters=3)
+               for _ in range(2))
+    pts = torch.randn((2 * bs, 21, 3), generator=gen, device=dev) * 0.05
+    tgt = torch.randn((2 * bs, 21, 3), generator=gen, device=dev) * 0.05
+    svd_ms = min(cuda_ms(lambda: similarity_align(pts, tgt), iters=5)
+                 for _ in range(2))
+    cpu_pts, cpu_tgt = pts.cpu(), tgt.cpu()
+    t = time.perf_counter()
+    ref = similarity_align(cpu_pts, cpu_tgt)
+    cpu_ms = (time.perf_counter() - t) * 1e3
+    compare_abs("similarity_align on the card vs the CPU",
+                similarity_align(pts, tgt).cpu(), ref, 1e-5)
+    print(f"  eval step bs{bs}: {e_ms:.2f} ms; mpjpe/ra/h "
+          f"{float(metrics['mpjpe/ra/h'].mean()):.1f} mm, mpjpe/pa/ra/h "
+          f"{float(metrics['mpjpe/pa/ra/h'].mean()):.1f} mm (random "
+          f"weights); Procrustes of {2 * bs} hands (one batched 3x3 SVD) "
+          f"{svd_ms:.3f} ms of it, {cpu_ms:.3f} ms on the host's CPU {tag}")
+    del model, state, step, batch
+    torch.cuda.empty_cache()
+    tiny_train_check("hands_light",
+                     dict(backbone="resnet18", compute_dtype="float32"), {},
+                     dev, rel=1e-3, steps=1)
 
 
 def main() -> int:
@@ -1116,8 +1505,10 @@ def main() -> int:
     requests = make_requests(3, 8, SEED)
     forwards = len(requests)
     twins = {
-        "vit_block_fused": lambda x, params, num_heads, fast_gelu=False:
-            vb.vit_block_plain(x, params, num_heads, fast_gelu),
+        "vit_block_fused_trainable":
+            lambda x, params, num_heads, fast_gelu=False:
+            vb.vit_block_plain(x.to(torch.bfloat16), vb._cast_params(params),
+                               num_heads, fast_gelu),
         "vit_block_fused_int8": lambda x, op, num_heads, fast_gelu=False:
             v8.vit_block_int8_plain(x, op, num_heads, fast_gelu),
         "vit_block_fused_int8_static":
@@ -1334,6 +1725,12 @@ def main() -> int:
                   f"crops/s ({t_ms:.2f} ms/request) {tag}")
 
     wildhands_phases(rows, dev, tag)
+    # the serving models go before the train steps read the memory they add
+    del configs, served, model, model8, models, c, m
+    torch.cuda.empty_cache()
+    trainable_block_phase(rows, x, p32, tag)
+    hamer_train_phase(rows, dev, tag)
+    wildhands_train_phase(rows, dev, tag)
 
     print(card)
     print(json.dumps({"kernels": list(rows.values())}))

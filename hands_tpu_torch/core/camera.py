@@ -1,4 +1,5 @@
-"""Camera models (port of ``hands_tpu/core/camera.py``, the serving subset).
+"""Camera models (port of ``hands_tpu/core/camera.py``, the subset serving
+and the train step use).
 
 The weak-perspective triple is ``[s, tx, ty]`` with ``s = 2f / (res * tz)``.
 Batched, float32, TF32 off where a product is taken.
@@ -11,6 +12,15 @@ import torch
 from hands_tpu_torch.core.precision import f32_matmuls
 
 _EPS = 1e-9
+
+
+def perspective_to_weak_perspective(
+    cam_t: torch.Tensor, focal_length: torch.Tensor, img_res: float
+) -> torch.Tensor:
+    """Camera translation (B, 3) [tx, ty, tz] -> weak-persp (B, 3) [s, tx, ty]."""
+    tx, ty, tz = cam_t[:, 0], cam_t[:, 1], cam_t[:, 2]
+    s = 2.0 * focal_length / (img_res * tz + _EPS)
+    return torch.stack([s, tx, ty], dim=-1)
 
 
 def weak_perspective_to_perspective(

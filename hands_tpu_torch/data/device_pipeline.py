@@ -7,7 +7,9 @@ intrinsics transforms, KPE angles, ImageNet normalisation — runs there in
 float32 with TF32 off (the JAX module's float32 matmul pin).
 
 Eval mode draws no augmentation: no flip, no rotation, no box jitter, unit
-scale and channel gains. Train mode is ROADMAP queue 1 item 4.
+scale and channel gains. Records that carry a hand mask or a depth map get
+their mask and depth targets through a nearest-neighbour crop. Train mode is
+ROADMAP queue 1 item 4.
 """
 
 from __future__ import annotations
@@ -124,11 +126,6 @@ class DevicePreprocessor:
         B = batch["image"].shape[0]
         res = cfg.img_res
         dev = self.device
-        if (cfg.use_render_seg_loss and "mask" in batch) or (
-                cfg.use_depth_loss and "depth" in batch):
-            raise NotImplementedError(
-                "mask and depth targets from the records (mask_crop) are not "
-                "ported: ROADMAP queue 1 item 3")
         augm = pp.augm_params(B, device=dev)
         augm["sc"] = torch.where(batch["is_egocam"] > 0, 1.0, augm["sc"])
 
@@ -295,13 +292,36 @@ class DevicePreprocessor:
             targets["grasp_valid_l"] = batch["grasp_valid_l"]
         # records without masks or depth maps: zero targets
         if cfg.use_render_seg_loss:
-            targets["render.r"] = torch.zeros((B, res, res), device=dev)
-            targets["render.l"] = torch.zeros((B, res, res), device=dev)
+            if "mask" in batch:
+                m = pp.mask_crop(batch["mask"], center, bbox_dim, augm,
+                                 res)[..., 0]
+                # mask coding: right hand 255, left hand 127
+                targets["render.r"] = (torch.abs(m - 255.0) < 32).float()
+                targets["render.l"] = (torch.abs(m - 127.0) < 32).float()
+            else:
+                targets["render.r"] = torch.zeros((B, res, res), device=dev)
+                targets["render.l"] = torch.zeros((B, res, res), device=dev)
             targets["render_valid_r"] = batch["mask_valid_r"]
             targets["render_valid_l"] = batch["mask_valid_l"]
         if cfg.use_depth_loss:
-            targets["depth.r"] = torch.zeros((B, res, res), device=dev)
-            targets["depth.l"] = torch.zeros((B, res, res), device=dev)
+            if "depth" in batch:
+                d = pp.mask_crop(batch["depth"], center, bbox_dim, augm,
+                                 res)[..., 0]
+                # per-hand depth: the patch's depth inside the hand's crop box
+                xs = torch.arange(res, dtype=torch.float32, device=dev)
+
+                def region(box):
+                    in_x = ((xs[None, None, :] >= box[:, 0, None, None])
+                            & (xs[None, None, :] < box[:, 2, None, None]))
+                    in_y = ((xs[None, :, None] >= box[:, 1, None, None])
+                            & (xs[None, :, None] < box[:, 3, None, None]))
+                    return (in_x & in_y).to(d.dtype)
+
+                targets["depth.r"] = d * region(r_bbox)
+                targets["depth.l"] = d * region(l_bbox)
+            else:
+                targets["depth.r"] = torch.zeros((B, res, res), device=dev)
+                targets["depth.l"] = torch.zeros((B, res, res), device=dev)
 
         meta_info = XDict({
             "intrinsics": K_patch,

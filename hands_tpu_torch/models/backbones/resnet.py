@@ -5,10 +5,11 @@ removed, stopping before global pooling at the 7x7 stage-5 map.
 The public layout is the JAX module's, NHWC in and out; inside, the
 convolutions see the same memory as NCHW views in ``channels_last`` format,
 so neither permute copies. Parameters are f32; the compute dtype (bf16 or
-f32) is applied per call, as Flax does. BatchNorm runs on its running
-statistics (inference only; train mode is not ported) in f32 and rounds to
-the compute dtype. ``quant_int8`` swaps the convolutions of every residual
-block for the W8A8 serving convolution of ``ops/quant.py``; the 7x7 stem
+f32) is applied per call, as Flax does. BatchNorm computes in f32 and rounds
+to the compute dtype: in eval mode on its running statistics, in train mode
+(``module.train()``) on the batch's, moving the running statistics as Flax
+does. ``quant_int8`` swaps the convolutions of every residual block for the
+W8A8 serving convolution of ``ops/quant.py`` (inference only); the 7x7 stem
 stays in the compute dtype.
 """
 
@@ -44,8 +45,15 @@ class Conv(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Flax ``nn.BatchNorm(use_running_average=True, dtype=...)``: f32
-    statistics and affine parameters, result rounded to ``dtype``."""
+    """Flax ``nn.BatchNorm(dtype=...)``: f32 statistics and affine
+    parameters, result rounded to ``dtype``. Eval mode normalises with the
+    running statistics. Train mode normalises with the batch's mean and
+    biased variance and moves the running statistics by Flax's rule,
+    ``new = 0.99 old + 0.01 batch``, with the biased variance
+    (``nn.BatchNorm2d`` would store the unbiased one). A new module is in
+    eval mode, the Flax module's ``train=False`` default."""
+
+    momentum = 0.99  # Flax's default: the share of the old statistics kept
 
     def __init__(self, ch: int, dtype=torch.float32, device=None,
                  eps: float = 1e-5):
@@ -55,11 +63,23 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(ch, device=device))
         self.register_buffer("running_mean", torch.zeros(ch, device=device))
         self.register_buffer("running_var", torch.ones(ch, device=device))
+        self.eval()
 
     def forward(self, x):
-        return F.batch_norm(x.to(self.dtype), self.running_mean,
-                            self.running_var, self.weight, self.bias, False,
-                            0.0, self.eps)
+        x = x.to(self.dtype)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        # one pass over x: the op hands back the mean and 1/sqrt(var + eps)
+        # it normalised with, and the running update is made from those
+        y, mean, invstd = torch.native_batch_norm(
+            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        with torch.no_grad():
+            var = torch.clamp(1.0 / (invstd * invstd) - self.eps, min=0.0)
+            keep = self.momentum
+            self.running_mean.mul_(keep).add_(mean, alpha=1.0 - keep)
+            self.running_var.mul_(keep).add_(var, alpha=1.0 - keep)
+        return y
 
 
 class BasicBlock(nn.Module):

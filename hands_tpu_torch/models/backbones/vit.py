@@ -4,14 +4,22 @@ ViTPose-style, no class token: patchify -> + pos -> [+ KPE tokens] -> blocks
 -> LayerNorm -> (B, H/16, W/16, C) NHWC feature map. The JAX package's
 scan-stacked blocks become an ``nn.ModuleList``.
 
-Dtypes follow the Flax modules: in a bf16 backbone the matmul weights and
-biases are stored in bf16 (the values Flax's per-call cast produces),
-LayerNorms compute and return f32, and every dense product is rounded to the
-compute dtype before its bias is added (Flax ``nn.Dense``'s rounding point).
+Dtypes follow the Flax modules: LayerNorms compute and return f32, and every
+dense product is rounded to the compute dtype before its bias is added (Flax
+``nn.Dense``'s rounding point). Parameters are cast to the compute dtype per
+call, as Flax casts them. A serving backbone stores its matmul weights and
+biases in the compute dtype already (in bf16 the values that cast produces);
+``param_dtype=torch.float32`` keeps f32 master parameters under bf16 compute,
+which is what an optimiser needs.
 With ``fused_block`` and bf16 a block runs the hand-written kernels of
-``ops/vit_block.py`` (bf16) or ``ops/vit_block_int8.py`` (``quant_int8``,
-``quant_static``); with ``fused_attn`` the plain block's attention runs the
-kernel of ``ops/attention.py``; otherwise the plain modules below.
+``ops/vit_block.py`` (bf16, through ``vit_block_fused_trainable``, so it can
+be trained) or ``ops/vit_block_int8.py`` (``quant_int8``, ``quant_static``);
+with ``fused_attn`` the plain block's attention runs the kernel of
+``ops/attention.py``; otherwise the plain modules below. Modules start in
+eval mode (the JAX modules' ``train=False`` default). In train mode
+(``module.train()``) the int8 and calibration sub-paths are off, as the JAX
+model turns them off under ``train=True``, and ``use_checkpoint`` recomputes
+each plain block in the backward pass.
 """
 
 from __future__ import annotations
@@ -21,11 +29,12 @@ from typing import Callable, Dict, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from hands_tpu_torch.ops import quant
 from hands_tpu_torch.ops.attention import mha_fused
 from hands_tpu_torch.ops.vit_block import (block_params, gelu, layernorm_f32,
-                                           vit_block_fused)
+                                           vit_block_fused_trainable)
 from hands_tpu_torch.ops.vit_block_int8 import (vit_block_fused_int8,
                                                 vit_block_fused_int8_static)
 
@@ -86,8 +95,12 @@ class Int8Dense(nn.Module):
         self.dtype = dtype  # output dtype (the block compute dtype)
         self.weight = nn.Parameter(torch.empty(out_f, in_f, device=device))
         self.bias = nn.Parameter(torch.zeros(out_f, device=device))
+        self.eval()
 
     def forward(self, x):
+        if self.training:  # int8 is inference only: the plain Dense
+            y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+            return y + self.bias.to(self.dtype)
         w_q, w_scale = quant.quantize_weight_int8(self.weight)
         xf = x.float()
         x_scale = quant.scale_from_amax(torch.amax(torch.abs(xf)))
@@ -164,7 +177,9 @@ class Block(nn.Module):
     ``quant_static`` adds the four ``act_scale_*`` parameters (ones until
     ``ops/calibration.py`` fills them). ``quant_calibrate`` runs the plain
     path (int8 forced off) and keeps the running per-channel maxima of the
-    four quantisation points in the ``amax_*`` buffers.
+    four quantisation points in the ``amax_*`` buffers. In train mode int8
+    and calibration are off: a ``fused_block`` bf16 block runs the bf16
+    kernels whatever the int8 flags say.
 
     The int8 kernels' operands (int8 weights, f32 scale vectors, folded
     LayerNorm parameters) are prepared once from the f32 parameters at the
@@ -176,7 +191,7 @@ class Block(nn.Module):
                  fused_block: bool = False, device=None,
                  fast_gelu: bool = False, quant_int8: bool = False,
                  fused_attn: bool = False, quant_static: bool = False,
-                 quant_calibrate: bool = False):
+                 quant_calibrate: bool = False, param_dtype=None):
         super().__init__()
         hidden = int(dim * mlp_ratio)
         self.num_heads = num_heads
@@ -186,11 +201,12 @@ class Block(nn.Module):
         self.quant_static = quant_static
         self.quant_calibrate = quant_calibrate
         # the kernel path is bf16 only, as in the JAX package
-        self.fused = (fused_block and dtype == torch.bfloat16
-                      and not quant_calibrate)
+        self.fused_train = fused_block and dtype == torch.bfloat16
+        self.fused = self.fused_train and not quant_calibrate
         int8_dense = quant_int8 and not quant_calibrate and not self.fused
         # the int8 kernels quantise from f32 values, never from a bf16 copy
-        pd = torch.float32 if (quant_int8 and self.fused) else None
+        pd = (torch.float32 if (quant_int8 and self.fused_train)
+              else param_dtype)
         self.norm1 = LayerNorm(dim, device=device)
         self.attn = Attention(dim, num_heads, dtype, device=device,
                               quant_int8=int8_dense, fused_attn=fused_attn,
@@ -211,6 +227,7 @@ class Block(nn.Module):
         self._prepared: Optional[Dict[str, torch.Tensor]] = None
         self.register_load_state_dict_post_hook(
             lambda module, _keys: module.invalidate_prepared())
+        self.eval()
 
     def invalidate_prepared(self) -> None:
         self._prepared = None
@@ -243,19 +260,20 @@ class Block(nn.Module):
         return tap
 
     def forward(self, x):
-        if self.fused:
-            if self.quant_int8 and self.quant_static:
+        train = self.training
+        if self.fused_train if train else self.fused:
+            if train or not self.quant_int8:
+                return vit_block_fused_trainable(
+                    x, block_params(self), self.num_heads,
+                    self.fast_gelu).to(x.dtype)
+            if self.quant_static:
                 return vit_block_fused_int8_static(
                     x, self.prepared(), num_heads=self.num_heads,
                     fast_gelu=self.fast_gelu).to(x.dtype)
-            if self.quant_int8:
-                return vit_block_fused_int8(
-                    x, self.prepared(), num_heads=self.num_heads,
-                    fast_gelu=self.fast_gelu).to(x.dtype)
-            return vit_block_fused(x, block_params(self),
-                                   num_heads=self.num_heads,
-                                   fast_gelu=self.fast_gelu)
-        calib = self.quant_calibrate
+            return vit_block_fused_int8(
+                x, self.prepared(), num_heads=self.num_heads,
+                fast_gelu=self.fast_gelu).to(x.dtype)
+        calib = self.quant_calibrate and not train
         y = self.norm1(x)
         if calib:
             self._tap("qkv")(y)
@@ -278,7 +296,8 @@ class ViTBackbone(nn.Module):
                  fused_block: bool = False, device=None,
                  fast_gelu: bool = False, quant_int8: bool = False,
                  fused_attn: bool = False, quant_static: bool = False,
-                 quant_calibrate: bool = False):
+                 quant_calibrate: bool = False, param_dtype=None,
+                 use_checkpoint: bool = False):
         super().__init__()
         if variant not in VIT_CONFIGS:
             raise NotImplementedError(
@@ -287,37 +306,47 @@ class ViTBackbone(nn.Module):
         cfg = VIT_CONFIGS[variant]
         C = cfg["embed_dim"]
         self.dtype = dtype
+        self.use_checkpoint = use_checkpoint
+        pd = param_dtype or dtype
         self.embed_dim = C
         self.grid_hw = (IMG_HW[0] // PATCH, IMG_HW[1] // PATCH)
         # explicit 2-px zero padding (ViTPose's PatchEmbed); the bias is
         # added after the product is rounded, as flax nn.Conv does
         self.patch_embed = nn.Conv2d(3, C, PATCH, stride=PATCH, padding=2,
-                                     bias=False, dtype=dtype, device=device)
-        self.patch_bias = nn.Parameter(torch.zeros(C, dtype=dtype,
+                                     bias=False, dtype=pd, device=device)
+        self.patch_bias = nn.Parameter(torch.zeros(C, dtype=pd,
                                                    device=device))
         n_tok = self.grid_hw[0] * self.grid_hw[1]
         self.pos_embed = nn.Parameter(
-            torch.zeros(1, n_tok, C, dtype=dtype, device=device))
+            torch.zeros(1, n_tok, C, dtype=pd, device=device))
         self.blocks = nn.ModuleList([
             Block(C, cfg["num_heads"], cfg["mlp_ratio"], dtype,
                   fused_block=fused_block, device=device,
                   fast_gelu=fast_gelu, quant_int8=quant_int8,
                   fused_attn=fused_attn, quant_static=quant_static,
-                  quant_calibrate=quant_calibrate)
+                  quant_calibrate=quant_calibrate, param_dtype=param_dtype)
             for _ in range(cfg["depth"])
         ])
         self.last_norm = LayerNorm(C, device=device)
+        self.eval()
 
     def forward(self, x, kpe_emb: Optional[torch.Tensor] = None):
         B = x.shape[0]
         hp, wp = self.grid_hw
-        y = self.patch_embed(x.to(self.dtype).permute(0, 3, 1, 2))
+        y = F.conv2d(x.to(self.dtype).permute(0, 3, 1, 2),
+                     self.patch_embed.weight.to(self.dtype), None,
+                     stride=PATCH, padding=2)
         y = y.permute(0, 2, 3, 1).reshape(B, hp * wp, self.embed_dim)
-        y = y + self.patch_bias
-        y = y + self.pos_embed
+        y = y + self.patch_bias.to(self.dtype)
+        y = y + self.pos_embed.to(self.dtype)
         if kpe_emb is not None:
             y = y + kpe_emb.to(self.dtype)
         for block in self.blocks:
-            y = block(y)
+            # a fused block keeps only its input already: no checkpoint on top
+            if (self.use_checkpoint and self.training
+                    and not block.fused_train):
+                y = checkpoint(block, y, use_reentrant=False)
+            else:
+                y = block(y)
         y = self.last_norm(y)
         return y.reshape(B, hp, wp, self.embed_dim)

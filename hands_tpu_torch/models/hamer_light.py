@@ -6,6 +6,13 @@ once (the 224^2 crop resized to 256^2, then centre-cropped to 256x192); the
 center+corner KPE embeddings are MLP-encoded and added both to the patch
 tokens and to the conditioning features; a single-query cross-attention
 decoder reads out MANO parameters, decoded per side with that side's MANO.
+
+Train mode is ``model.train()``: the int8 and calibration sub-paths of the
+backbone go off, and a ViT-H without the fused block recomputes each block in
+the backward pass. The model has neither BatchNorm nor dropout, so nothing
+else changes. ``param_dtype=torch.float32`` keeps f32 master parameters under
+bf16 compute (what ``train/state.py`` asks for); without it a bf16 model
+stores its backbone weights in bf16, for serving.
 """
 
 from __future__ import annotations
@@ -53,7 +60,8 @@ def to_vit_input(img: torch.Tensor) -> torch.Tensor:
 
 
 class HamerNet(nn.Module):
-    def __init__(self, cfg: Config, vit_variant: str = "h", device=None):
+    def __init__(self, cfg: Config, vit_variant: str = "h", device=None,
+                 param_dtype=None):
         super().__init__()
         if cfg.pos_enc not in (None, "center+corner_latent"):
             raise NotImplementedError(
@@ -68,10 +76,15 @@ class HamerNet(nn.Module):
             self.kpe = KpeTokenEmbed(embed_dim, cfg.n_freq_pos_enc,
                                      n_tokens=(256 // 16) * (192 // 16),
                                      device=device)
-        # the int8 sub-paths are inference only; this port has no train mode
+        # int8 and calibration are inference only: the backbone turns them
+        # off in train mode. The fused block rematerialises by construction,
+        # so only the plain ViT-H checkpoints its blocks.
+        fused_block = (bool(cfg.get("fused_block", False))
+                       and self.dtype == torch.bfloat16)
         self.backbone = ViTBackbone(
-            variant=vit_variant, dtype=self.dtype,
-            fused_block=bool(cfg.get("fused_block", False)), device=device,
+            variant=vit_variant, dtype=self.dtype, param_dtype=param_dtype,
+            use_checkpoint=vit_variant == "h" and not fused_block,
+            fused_block=fused_block, device=device,
             fast_gelu=bool(cfg.get("fast_gelu", False)),
             quant_int8=bool(cfg.get("quant_int8", False)),
             quant_static=bool(cfg.get("quant_int8_static", False)),
@@ -123,15 +136,20 @@ class HamerLightModel(nn.Module):
     """HaMeR with MANO decoding: ``model(inputs, meta_info)`` -> the
     ``mano.*`` prediction XDict of the JAX ``HamerLightModel``."""
 
-    def __init__(self, cfg: Config, vit_variant: str = "h", device=None):
+    def __init__(self, cfg: Config, vit_variant: str = "h", device=None,
+                 param_dtype=None):
         super().__init__()
         self.cfg = cfg
-        self.net = HamerNet(cfg, vit_variant=vit_variant, device=device)
+        self.net = HamerNet(cfg, vit_variant=vit_variant, device=device,
+                            param_dtype=param_dtype)
         dev = device or "cpu"  # nn.Module's own default for device=None
         self.mano_r = ManoBuffers(manolib.load_mano(is_rhand=True, device=dev))
         self.mano_l = ManoBuffers(manolib.load_mano(is_rhand=False, device=dev))
 
-    def forward(self, inputs: dict, meta_info: dict) -> XDict:
+    def forward(self, inputs: dict, meta_info: dict,
+                generator=None) -> XDict:
+        """``generator`` is the train step's dropout generator; HaMeR has no
+        dropout and ignores it."""
         cfg = self.cfg
         net_out = self.net(inputs)
         K = meta_info["intrinsics"]

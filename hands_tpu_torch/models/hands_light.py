@@ -11,8 +11,11 @@
 - the flip swap as a dense ``where`` over the batch.
 
 Maps are NHWC at every module boundary, as in the JAX model; convolutions see
-NCHW views inside. Inference only: BatchNorm runs on its running statistics
-and dropout is the identity.
+NCHW views inside. In eval mode BatchNorm runs on its running statistics and
+dropout is the identity; in train mode (``model.train()``) BatchNorm takes the
+batch's statistics and moves the running ones, and the HMR heads drop half of
+their refinement activations with masks from the ``generator`` passed to
+``forward``.
 """
 
 from __future__ import annotations
@@ -40,17 +43,20 @@ _POS_ENC_MODES = (
 
 
 class FeatureConv(nn.Module):
-    """7x7 latent map (+ KPE channels) -> feature vector: 1x1 conv -> two
-    valid 3x3 convs -> flatten (in H, W, C order) -> dense."""
+    """Latent map (+ KPE channels) -> feature vector: 1x1 conv -> two valid
+    3x3 convs -> flatten (in H, W, C order) -> dense. ``map_side`` is the
+    side of the latent map: 7 for 224^2 crops."""
 
     def __init__(self, in_ch: int, feat_dim: int, dtype=torch.float32,
-                 device=None):
+                 device=None, map_side: int = 7):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         self.conv0 = Conv(in_ch, 1024, 1, **kw)
         self.conv1 = Conv(1024, 512, 3, **kw)
         self.conv2 = Conv(512, 256, 3, **kw)
-        self.dense = Dense(3 * 3 * 256, feat_dim, dtype=dtype, device=device,
+        side = map_side - 4  # two valid 3x3 convolutions
+        self.dense = Dense(side * side * 256, feat_dim, dtype=dtype,
+                           device=device,
                            param_dtype=torch.float32)
 
     def forward(self, x):  # (B, 7, 7, C)
@@ -181,7 +187,7 @@ class HandsLightNet(nn.Module):
         self.feature_conv = None
         if not cfg.tf_decoder:
             self.feature_conv = FeatureConv(latent, feat_dim, self.dtype,
-                                            device)
+                                            device, cfg.img_res_ds // 32)
         head_in = latent if cfg.tf_decoder else feat_dim
         self.head_r = HandHMR(feat_dim, head_in, tf_decoder=cfg.tf_decoder,
                               **kw)
@@ -192,7 +198,7 @@ class HandsLightNet(nn.Module):
             self.center_head = RegressionHead(head_in, 2, **kw)
             self.corner_head = RegressionHead(head_in, 8, **kw)
 
-    def forward(self, inputs: dict) -> dict:
+    def forward(self, inputs: dict, generator=None) -> dict:
         cfg = self.cfg
         dtype = self.dtype
         L = cfg.n_freq_pos_enc
@@ -206,8 +212,8 @@ class HandsLightNet(nn.Module):
 
         if cfg.no_crops:
             pooled = glb_feat_map.mean(dim=(1, 2))
-            out["hmr_r"] = self.head_r(pooled)
-            out["hmr_l"] = self.head_l(pooled)
+            out["hmr_r"] = self.head_r(pooled, generator)
+            out["hmr_l"] = self.head_l(pooled, generator)
             if self.grasp_classifier is not None:
                 self._grasp_heads(out, pooled.shape[0])
             return out
@@ -288,8 +294,8 @@ class HandsLightNet(nn.Module):
         else:
             rl_vec = self.feature_conv(torch.cat([r_feat, l_feat], dim=0))
             r_vec, l_vec = rl_vec[:B], rl_vec[B:]
-        out["hmr_r"] = self.head_r(r_vec)
-        out["hmr_l"] = self.head_l(l_vec)
+        out["hmr_r"] = self.head_r(r_vec, generator)
+        out["hmr_l"] = self.head_l(l_vec, generator)
 
         if self.grasp_classifier is not None:
             self._grasp_heads(out, B)
@@ -389,9 +395,12 @@ class HandsLightModel(nn.Module):
         self.mano_l = ManoBuffers(manolib.load_mano(is_rhand=False, device=dev))
 
     @f32_matmuls  # f32 convolutions and products stay f32 on the card
-    def forward(self, inputs: dict, meta_info: dict) -> XDict:
+    def forward(self, inputs: dict, meta_info: dict,
+                generator=None) -> XDict:
+        """``generator``: the ``torch.Generator`` of the dropout masks, on
+        the model's device; needed in train mode only."""
         cfg = self.cfg
-        net_out = self.net(inputs)
+        net_out = self.net(inputs, generator)
         hmr_r, hmr_l = postprocess_hmr(cfg, inputs, meta_info,
                                        net_out["hmr_r"], net_out["hmr_l"])
         K = meta_info["intrinsics"]

@@ -3,13 +3,15 @@
 Parameter spec: ``pose_6d`` (96), ``cam_t_wp`` (3), ``shape`` (10). The
 ``n_iter`` refinement loop is unrolled; each decoder is a small linear layer
 (Flax initialises it xavier-uniform with gain 0.01, so early iterations stay
-near the identity-pose start). Plain PyTorch in f32; inference only, so the
-Flax dropout is the identity.
+near the identity-pose start). Plain PyTorch in f32. In train mode
+(``module.train()``) ``HMRLayer`` drops half of each refinement activation, as
+the Flax module does; the masks come from the ``torch.Generator`` the caller
+passes, so a seed fixes them. ``TfHMRLayer`` has no dropout.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -22,6 +24,18 @@ HAND_SPECS: Dict[str, int] = {"pose_6d": 6 * 16, "cam_t_wp": 3, "shape": 10}
 _N_PARAMS = sum(HAND_SPECS.values())  # 109
 
 
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Flax ``nn.Dropout``: keep each entry with probability ``1 - rate``
+    and scale it by ``1 / (1 - rate)``; the mask is drawn from ``generator``
+    on ``x``'s device."""
+    if generator is None:
+        raise ValueError("dropout in train mode needs a torch.Generator")
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
 def _decoders(mid_dim: int, specs, device) -> nn.ModuleDict:
     return nn.ModuleDict({key: Dense(mid_dim, size, device=device)
                           for key, size in specs})
@@ -29,6 +43,8 @@ def _decoders(mid_dim: int, specs, device) -> nn.ModuleDict:
 
 class HMRLayer(nn.Module):
     """Additive iterative refinement: concat(feat, params) -> MLP -> deltas."""
+
+    dropout_rate = 0.5  # of each refinement activation, in train mode
 
     def __init__(self, feat_dim: int, mid_dim: int = 1024,
                  specs: Tuple[Tuple[str, int], ...] = tuple(HAND_SPECS.items()),
@@ -39,16 +55,23 @@ class HMRLayer(nn.Module):
         self.refine0 = Dense(feat_dim + vec_dim, mid_dim, device=device)
         self.refine1 = Dense(mid_dim, mid_dim, device=device)
         self.dec = _decoders(mid_dim, specs, device)
+        self.eval()  # as the Flax module's train=False default
 
-    def forward(self, feat: torch.Tensor, init_vec: Dict[str, torch.Tensor]):
+    def forward(self, feat: torch.Tensor, init_vec: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None):
+        def drop(x):
+            if not self.training:
+                return x
+            return dropout(x, self.dropout_rate, generator)
+
         pred = dict(init_vec)
         for _ in range(self.n_iter):
             # concatenated in the init dict's insertion order (pose_6d,
             # shape, cam_t_wp), NOT the specs' order
             vec = torch.cat(list(pred.values()), dim=-1)
             xc = torch.cat([feat, vec], dim=-1)
-            xc = F.relu(self.refine0(xc))
-            xc = F.relu(self.refine1(xc))
+            xc = drop(F.relu(self.refine0(xc)))
+            xc = drop(F.relu(self.refine1(xc)))
             for key, _ in self.specs:
                 pred[key] = pred[key] + self.dec[key](xc)
         return pred
@@ -112,7 +135,7 @@ class TfHMRLayer(nn.Module):
         self.dec = _decoders(mid_dim, specs, device)
 
     def forward(self, feat_map: torch.Tensor,
-                init_vec: Dict[str, torch.Tensor]):
+                init_vec: Dict[str, torch.Tensor], generator=None):
         B = feat_map.shape[0]
         mem = feat_map.reshape(B, -1, feat_map.shape[-1])  # NHWC: row-major
         memory = F.relu(self.feat_mlp_dense(mem))  # (B, S, mid)
@@ -155,7 +178,8 @@ class HandHMR(nn.Module):
         else:
             self.hmr_layer = HMRLayer(in_dim, n_iter=n_iter, **kw)
 
-    def forward(self, feat: torch.Tensor):
+    def forward(self, feat: torch.Tensor,
+                generator: Optional[torch.Generator] = None):
         B = feat.shape[0]
         x = feat
         if self.tf_decoder:
@@ -172,7 +196,7 @@ class HandHMR(nn.Module):
             "cam_t_wp": init_transl,
         }
         layer = self.tf_hmr_layer if self.tf_decoder else self.hmr_layer
-        pred = layer(feat, init_vec)
+        pred = layer(feat, init_vec, generator)
         rotmat = rotlib.rot6d_to_matrix(pred["pose_6d"].reshape(B, 16, 6))
         return {
             "pose": rotmat,

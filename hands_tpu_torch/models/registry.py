@@ -87,18 +87,20 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
 
 def fetch_model(cfg: Config, device="cuda", seed: int = 0,
-                vit_variant: str = "h") -> nn.Module:
+                vit_variant: str = "h", param_dtype=None) -> nn.Module:
     """Build the model for ``cfg.method`` on ``device`` (the card unless the
     caller names the CPU; without a card that raises) with random weights
     from ``seed`` (load trained weights with ``load_state_dict``, e.g. from
-    ``hands_tpu_torch.utils.from_jax``)."""
+    ``hands_tpu_torch.utils.from_jax``), in eval mode. To train a bf16
+    HaMeR, pass ``param_dtype=torch.float32``: f32 master parameters, cast
+    to bf16 per call (WildHands always stores f32)."""
     method = cfg.method
     if method in ("hands_light", "hands", "hamer_light", "hamer"):
         if method.startswith("hamer"):
             from hands_tpu_torch.models.hamer_light import HamerLightModel
 
             model = HamerLightModel(cfg, vit_variant=vit_variant,
-                                    device=device)
+                                    device=device, param_dtype=param_dtype)
         else:
             from hands_tpu_torch.models.hands_light import HandsLightModel
 

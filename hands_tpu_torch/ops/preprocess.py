@@ -2,9 +2,10 @@
 the eval subset).
 
 Crops are axis-aligned resamples written as two interpolation-weight
-products (float32, TF32 off); keypoints, intrinsics and KPE angles follow the
-JAX module's math exactly. Train-time augmentation (rotation, blur, jitter,
-random draws), ``mask_crop`` and the ``pcl`` resampler (``pcl_crop``,
+products (float32, TF32 off), bilinear for images and nearest-neighbour for
+masks and depth maps (``mask_crop``); keypoints, intrinsics and KPE angles
+follow the JAX module's math exactly. Train-time augmentation (rotation,
+blur, jitter, random draws) and the ``pcl`` resampler (``pcl_crop``,
 ``warp_homography``) are not ported yet.
 """
 
@@ -37,37 +38,43 @@ def crop_transform(cx, cy, src_size, rot_deg, out_res: int) -> torch.Tensor:
         dim=-2)
 
 
-def _interp_weights(src: torch.Tensor, in_size: int) -> torch.Tensor:
-    """Bilinear interpolation weight matrix W (..., out, in): out = W @
-    signal. Rows are the bilinear hat at the fractional source coordinate;
+def _interp_weights(src: torch.Tensor, in_size: int,
+                    method: str = "bilinear") -> torch.Tensor:
+    """Interpolation weight matrix W (..., out, in): out = W @ signal. Rows
+    are the bilinear hat at the fractional source coordinate, or for
+    ``"nearest"`` the indicator of the sample within half a pixel;
     coordinates outside [0, in) give zero rows (the gather path's zero
     border)."""
     idx = torch.arange(in_size, dtype=src.dtype, device=src.device)
     d = src[..., None] - idx
-    return torch.clamp(1.0 - torch.abs(d), min=0.0)
+    if method == "bilinear":
+        return torch.clamp(1.0 - torch.abs(d), min=0.0)
+    if method == "nearest":
+        return (torch.abs(d) <= 0.5).to(src.dtype)
+    raise ValueError(method)
 
 
 @f32_matmuls
 def separable_resample(images: torch.Tensor, y_src: torch.Tensor,
-                       x_src: torch.Tensor) -> torch.Tensor:
-    """Axis-aligned bilinear resample of (B, H, W, C) as two batched
-    products: ``y_src`` (B, outH) and ``x_src`` (B, outW) are source
-    coordinates."""
-    Wy = _interp_weights(y_src, images.shape[1])  # (B, oh, H)
-    Wx = _interp_weights(x_src, images.shape[2])  # (B, ow, W)
+                       x_src: torch.Tensor,
+                       method: str = "bilinear") -> torch.Tensor:
+    """Axis-aligned resample of (B, H, W, C) as two batched products:
+    ``y_src`` (B, outH) and ``x_src`` (B, outW) are source coordinates."""
+    Wy = _interp_weights(y_src, images.shape[1], method)  # (B, oh, H)
+    Wx = _interp_weights(x_src, images.shape[2], method)  # (B, ow, W)
     tmp = torch.einsum("boh,bhwc->bowc", Wy, images)
     return torch.einsum("bpw,bowc->bopc", Wx, tmp)
 
 
-def crop_resize_separable(images, cx, cy, src_size,
-                          out_res: int) -> torch.Tensor:
+def crop_resize_separable(images, cx, cy, src_size, out_res: int,
+                          method: str = "bilinear") -> torch.Tensor:
     """Axis-aligned square crop+resize (the rot=0 case of ``crop_transform``)."""
     s = src_size / out_res
     half = out_res / 2.0
     grid = torch.arange(out_res, dtype=torch.float32, device=images.device)
     x_src = s[:, None] * grid[None, :] + (cx - s * half)[:, None]
     y_src = s[:, None] * grid[None, :] + (cy - s * half)[:, None]
-    return separable_resample(images, y_src, x_src)
+    return separable_resample(images, y_src, x_src, method)
 
 
 def augm_params(batch: int, device=None) -> Dict[str, torch.Tensor]:
@@ -93,6 +100,25 @@ def rgb_crop_augment(images, center, bbox_dim, augm: dict,
         imgs, center[:, 0], center[:, 1], crop_dim, img_res)
     patch = torch.clamp(patch * augm["pn"][:, None, None, :], 0.0, 255.0)
     return patch / 255.0
+
+
+def mask_crop(masks, center, bbox_dim, augm: dict, img_res: int,
+              apply_rot: bool = False) -> torch.Tensor:
+    """Batched ``mask_processing``: nearest-neighbour square crop of side
+    ``sc * bbox_dim * 200`` of (B, H, W) or (B, H, W, C) masks or depth maps
+    -> (B, img_res, img_res, C) float, no blur and no noise. The rotation
+    pass of train-time augmentation is not ported (ROADMAP queue 1 item
+    4)."""
+    if apply_rot:
+        raise NotImplementedError(
+            "the rotation pass of mask_crop is train-time augmentation: "
+            "ROADMAP queue 1 item 4")
+    crop_dim = augm["sc"] * bbox_dim * 200.0
+    if masks.ndim == 3:
+        masks = masks[..., None]
+    return crop_resize_separable(masks.to(torch.float32), center[:, 0],
+                                 center[:, 1], crop_dim, img_res,
+                                 method="nearest")
 
 
 @f32_matmuls

@@ -1,7 +1,7 @@
 """Differentiable silhouette rendering for the mask loss (port of
-``hands_tpu/ops/rasterizer.py``: ``splat_silhouette`` and
-``render_silhouette``; and of ``hands_tpu/ops/rasterizer_pallas.py``:
-``splat_silhouette_fused``).
+``hands_tpu/ops/rasterizer.py``: ``splat_silhouette``,
+``soft_raster_silhouette`` and ``render_silhouette``; and of
+``hands_tpu/ops/rasterizer_pallas.py``: ``splat_silhouette_fused``).
 
 Gaussian vertex splatting: ``mask(p) = 1 - prod_v (1 - exp(-|p - proj(v)|^2
 / 2 sigma^2))``, computed in log space. The MANO mesh is dense (778 vertices
@@ -19,7 +19,9 @@ Where a gaussian is clipped (a vertex within 1e-3 px of a pixel centre) the
 plain version's ``clamp`` passes no gradient while the kernel's formula does;
 vertices from a network do not land there, and the tests' seeded ones do not.
 
-``soft_raster_silhouette`` (per-face rasterisation) is not ported yet.
+:func:`soft_raster_silhouette` is the per-face soft rasteriser for
+evaluation-quality masks: plain PyTorch, chunked over faces (the JAX function
+is plain XLA too, and no model calls it).
 """
 
 from __future__ import annotations
@@ -137,6 +139,59 @@ def splat_silhouette(verts_cam: torch.Tensor, K: torch.Tensor, img_res: int,
     scale = render_res / img_res
     v2d = (_project(verts_cam, K) * scale).contiguous()
     mask = splat_silhouette_fused(v2d, render_res, sigma_px * scale)
+    if render_res != img_res:
+        mask = F.interpolate(mask[:, None], size=(img_res, img_res),
+                             mode="bilinear", align_corners=False,
+                             antialias=False)[:, 0]
+    return mask
+
+
+@f32_matmuls
+def soft_raster_silhouette(verts_cam: torch.Tensor, faces: torch.Tensor,
+                           K: torch.Tensor, img_res: int,
+                           sigma_px: float = 1.0,
+                           render_res: Optional[int] = None,
+                           face_chunk: int = 128) -> torch.Tensor:
+    """Per-face soft rasterised silhouette: (B, V, 3) vertices, (F, 3) int
+    faces, (B, 3, 3) intrinsics -> (B, img_res, img_res).
+
+    For each face a signed distance proxy d = min over the three edge
+    functions (positive inside, either winding); per-face coverage =
+    sigmoid(d / sigma); silhouette = 1 - prod_f (1 - cov_f), accumulated in
+    log space over chunks of ``face_chunk`` faces so that the peak tensor is
+    (B, face_chunk, P)."""
+    render_res = render_res or img_res
+    scale = render_res / img_res
+    B = verts_cam.shape[0]
+    v2d = _project(verts_cam, K) * scale  # (B, V, 2)
+    pix = _pixel_grid(render_res, verts_cam.dtype, verts_cam.device)
+    sig = sigma_px * scale
+
+    def edge_dist(a, b):
+        # signed distance of the pixels to the edge a->b, positive on the
+        # left. The norm is clamped so a degenerate face keeps a finite
+        # gradient.
+        e = b - a  # (B, C, 2)
+        n = torch.stack([-e[..., 1], e[..., 0]], dim=-1)  # left normal
+        norm = torch.sqrt(torch.clamp(
+            torch.sum(n * n, dim=-1, keepdim=True), min=_EPS * _EPS))
+        n = n / norm
+        return (torch.einsum("pc,bfc->bfp", pix, n)
+                - torch.sum(a * n, dim=-1)[..., None])
+
+    log_miss = torch.zeros((B, pix.shape[0]), dtype=verts_cam.dtype,
+                           device=verts_cam.device)
+    faces = faces.long()
+    for start in range(0, faces.shape[0], face_chunk):
+        f = faces[start:start + face_chunk]  # (C, 3)
+        va, vb, vc = v2d[:, f[:, 0]], v2d[:, f[:, 1]], v2d[:, f[:, 2]]
+        d0, d1, d2 = edge_dist(va, vb), edge_dist(vb, vc), edge_dist(vc, va)
+        d_ccw = torch.minimum(torch.minimum(d0, d1), d2)
+        d_cw = torch.minimum(torch.minimum(-d0, -d1), -d2)
+        cov = torch.sigmoid(torch.maximum(d_ccw, d_cw) / sig)  # (B, C, P)
+        log_miss = log_miss + torch.sum(
+            torch.log1p(-torch.clamp(cov, 0.0, _CLIP)), dim=1)
+    mask = (1.0 - torch.exp(log_miss)).reshape(B, render_res, render_res)
     if render_res != img_res:
         mask = F.interpolate(mask[:, None], size=(img_res, img_res),
                              mode="bilinear", align_corners=False,

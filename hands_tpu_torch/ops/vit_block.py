@@ -13,6 +13,10 @@ its kernel for CUDA tensors and counts the launch in :data:`launches`; for
 CPU tensors it runs its ``*_plain`` twin. Nothing falls back silently: a
 tensor on any other device, or one the kernel does not take, raises.
 
+:func:`vit_block_fused_trainable` (port of the JAX function of that name) is
+the block for training: the same seven launches forward, and a backward that
+keeps only the block's input and parameters and differentiates the twin.
+
 The shared library is built with ``nvcc`` at first use
 (:mod:`hands_tpu_torch.ops.cuda_build`).
 """
@@ -227,6 +231,61 @@ def vit_block_fused(x: torch.Tensor, params: dict, *, num_heads: int,
     tanh-approximate GELU in the MLP epilogue."""
     return _block(x.to(_BF16), params, num_heads, fast_gelu, layernorm, gemm,
                   attention)
+
+
+PARAM_ORDER = ("ln1_scale", "ln1_bias", "wqkv", "bqkv", "wproj", "bproj",
+               "ln2_scale", "ln2_bias", "w1", "b1", "w2", "b2")
+
+
+def _cast_params(params: dict) -> dict:
+    """The block's dtype preparation: matmul weights and biases to bf16 (the
+    ``nn.Dense`` promotion), LayerNorm scale and bias to f32. A tensor that
+    already has its dtype passes through untouched."""
+    return {k: v.to(torch.float32 if k.startswith("ln") else _BF16)
+            for k, v in params.items()}
+
+
+class _VitBlockTrainable(torch.autograd.Function):
+    """Forward: the kernels (the twin for CPU tensors). Saved for backward:
+    the input and the parameters as given, no activation of the block.
+    Backward: recompute the block through :func:`vit_block_plain`, dtype
+    preparation included, and take autograd's gradients of it, so f32 master
+    parameters receive f32 gradients through the cast."""
+
+    @staticmethod
+    def forward(ctx, num_heads, fast_gelu, x, *flat):
+        ctx.num_heads, ctx.fast_gelu = num_heads, fast_gelu
+        ctx.save_for_backward(x, *flat)
+        return vit_block_fused(x, _cast_params(dict(zip(PARAM_ORDER, flat))),
+                               num_heads=num_heads, fast_gelu=fast_gelu)
+
+    @staticmethod
+    def backward(ctx, g):
+        # no backward kernel (the TPU kernel has none): differentiate the twin
+        needs = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n)
+                   for t, n in zip(ctx.saved_tensors, needs)]
+            out = vit_block_plain(
+                ins[0].to(_BF16), _cast_params(dict(zip(PARAM_ORDER, ins[1:]))),
+                ctx.num_heads, ctx.fast_gelu)
+            got = iter(torch.autograd.grad(
+                out, [t for t, n in zip(ins, needs) if n], g.to(_BF16)))
+        return (None, None) + tuple(next(got) if n else None for n in needs)
+
+
+def vit_block_fused_trainable(x: torch.Tensor, params: dict, num_heads: int,
+                              fast_gelu: bool = False) -> torch.Tensor:
+    """:func:`vit_block_fused` with a backward: (B, N, C) tokens -> (B, N, C)
+    bf16. ``params`` is the flat dict of :func:`block_params` in any float
+    dtype (f32 masters are cast per call, as the JAX function casts them).
+
+    Only ``x`` and the parameters are kept between forward and backward, the
+    residuals a per-block checkpoint would keep, so do not wrap it in
+    ``torch.utils.checkpoint``: a training step costs the kernels' forward,
+    then the twin's forward and backward."""
+    return _VitBlockTrainable.apply(num_heads, fast_gelu, x,
+                                    *(params[k] for k in PARAM_ORDER))
 
 
 def block_params(block) -> dict:

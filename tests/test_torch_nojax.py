@@ -4,8 +4,11 @@ with the card has neither.
 In a fresh interpreter (the test process itself has JAX loaded), import
 every module of ``hands_tpu_torch``, build tiny HaMeR on the CPU, serve one
 bf16 and one int8 request, run the WildHands evaluation forward (ResNet-18,
-render and grasp on) and its int8 serving, and check that neither ``jax``, ``flax`` nor
-``hands_tpu`` was imported along the way. A second test reads the sources:
+render and grasp on) and its int8 serving, take a train step and an eval step
+with each model family on a synthetic batch (K4's Function, BatchNorm in
+train mode, dropout from a generator, the optimiser, the metrics), and check
+that neither ``jax``, ``flax``, ``optax`` nor ``hands_tpu`` was imported
+along the way. A second test reads the sources:
 no import line of the port or of ``chip_smoke.py`` names them.
 """
 
@@ -59,8 +62,31 @@ cfgq = serving_config("hands_light", "float32", quant_int8=True).replace(
     backbone="resnet18")
 outq = serve(recs, cfgq, fetch_model(cfgq, "cpu", seed=0), "cpu")
 assert torch.isfinite(outq["pred.mano.vertices.l"]).all()
+from hands_tpu_torch.data.synthetic import make_batch
+from hands_tpu_torch.train.state import create_train_state
+from hands_tpu_torch.train.step import make_eval_step, make_train_step
+for name in ("train.losses", "train.metrics", "train.process", "train.state",
+             "train.step", "ops.procrustes", "data.synthetic"):
+    assert f"hands_tpu_torch.{name}" in sys.modules, name
+size = dict(img_res=160, img_res_ds=160)
+for cfgt, kw in ((default_config("hamer_light", fused_block=True, **size),
+                  dict(vit_variant="tiny", param_dtype=torch.float32)),
+                 (default_config("hands_light", backbone="resnet18", **size),
+                  {})):
+    assert cfgt.compute_dtype == "bfloat16" and cfgt.use_render_seg_loss
+    modelt = fetch_model(cfgt, "cpu", seed=0, **kw)
+    batch = make_batch(cfgt, 2, seed=0, device="cpu")
+    state = create_train_state(cfgt, modelt)
+    state, logs = make_train_step(modelt, cfgt)(
+        state, batch, torch.Generator().manual_seed(0))
+    assert state.step == 1 and torch.isfinite(logs["loss"]), cfgt.method
+    assert float(logs["grad_norm"]) > 0 and "loss/mask/r" in logs
+    metrics, elogs = make_eval_step(modelt, cfgt)(state, batch)
+    assert torch.isfinite(metrics["mpjpe/pa/ra/h"]).all(), cfgt.method
+    assert torch.isfinite(elogs["loss"]) and not modelt.training
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "hands_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                    "hands_tpu"))
 assert not bad, bad
 print("NOJAX_OK")
 """
@@ -79,11 +105,15 @@ def test_port_serves_without_importing_jax():
 def test_port_sources_name_no_jax_import():
     """No ``import``/``from`` line of the port or of ``chip_smoke.py`` names
     ``hands_tpu``, ``jax`` or ``flax`` (docstrings may mention them)."""
-    pattern = re.compile(r"^\s*(from|import)\s+(hands_tpu|jax|jaxlib|flax)"
-                         r"(\.|\s|$)")
+    pattern = re.compile(r"^\s*(from|import)\s+(hands_tpu|jax|jaxlib|flax|"
+                         r"optax)(\.|\s|$)")
     files = sorted((REPO / "hands_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
-    assert len(files) > 20
+    assert len(files) > 45
+    names = {f.relative_to(REPO).as_posix() for f in files}
+    assert {"hands_tpu_torch/train/step.py", "hands_tpu_torch/train/state.py",
+            "hands_tpu_torch/data/synthetic.py",
+            "hands_tpu_torch/ops/procrustes.py"} <= names
     bad = [f"{f.relative_to(REPO)}:{n}: {line.strip()}"
            for f in files
            for n, line in enumerate(f.read_text().splitlines(), 1)
