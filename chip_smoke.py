@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: builds the port's CUDA
-kernels (the bf16 ViT block, the two W8A8 ViT blocks, the fused attention,
-the fused skinning, the splat silhouette forward and backward), holds each
+kernels (the bf16 ViT block, the two W8A8 ViT blocks and their knock-out
+variants, the fused attention, the fused skinning, the splat silhouette
+forward and backward), holds each
 against its plain PyTorch twin at the shapes its path gives it, serves
 requests through HaMeR at full ViT-H width and depth in its bf16,
 dynamic-int8 and calibrated static-int8 configurations (and one backbone
@@ -12,8 +13,14 @@ trainable ViT block (the bf16 block's kernels forward, a backward that keeps
 only the block's input and parameters) against autograd of its twin, takes
 optimiser steps with HaMeR ViT-H (64 crops a step) and with WildHands (two
 ResNet-50s, 64 images a step) on synthetic batches and runs one eval step
-with its metrics, checks the launch counts of each path, and times kernels,
-blocks, forwards, serving and train steps with CUDA events.
+with its metrics, runs the nine knock-out modes of the static int8 block at
+256 crops through ``cli.int8_ablation`` (each mode's kernels against their
+twins, its launches, the nine times and the attribution), trains, validates
+and checkpoints full-width WildHands through ``cli.train`` (train-mode
+preprocessing, the prefetching loader), evaluates the checkpoint through
+``cli.evaluate`` and resumes the run, checks the launch counts of each path,
+and times kernels, blocks, forwards, serving, train steps and the training
+loop with CUDA events or the host clock around a synchronise.
 
     python3 chip_smoke.py
 
@@ -69,6 +76,11 @@ SRC_ATTN = "hands_tpu_torch/csrc/attention.cu"
 K1 = "hands_tpu/ops/mano_pallas.py:64"
 K2 = "hands_tpu/ops/rasterizer_pallas.py:96"
 SRC_LBS = "hands_tpu_torch/csrc/lbs.cu"
+K8 = "scripts/vith_int8_ablation.py:178"
+SRC_ABL = "hands_tpu_torch/csrc/vit_block_ablation.cu"
+ABL_BATCH = 256  # crops of the ablation probe: 49,152 token rows
+ABL_ITERS = 10
+LOOP_STEPS = 6  # train steps an epoch of the cli.train phase
 SRC_SPLAT = "hands_tpu_torch/csrc/splat.cu"
 WH_BACKBONE = "resnet50"  # the shipped WildHands width
 WH_BATCHES = ((8, 3), (64, 2))  # (images per request, requests)
@@ -660,6 +672,59 @@ def geometry_cases(gen, dev, batch):
     return groups, extra, (grad, grad_s)
 
 
+def check_groups(groups, sources, rows) -> None:
+    """Hold every kernel of ``groups`` (the format of :func:`kernel_cases`)
+    against its twin and start its line of the kernels JSON in ``rows``."""
+    for replaces, source, kernels in groups:
+        for kname, (kfn, pfn, cases) in kernels.items():
+            errs, t_bytes, t_ops, bound = [], 0.0, 0.0, 0.0
+            for case in cases:
+                got, ref = case.call(kfn), case.call(pfn)
+                errs.append(case.check(case.label, got, ref))
+                b, o = case.bound(ref)
+                t_bytes, t_ops = t_bytes + b, t_ops + o
+                bound += max(b, o)
+            rows[kname] = {
+                "name": kname, "route": "cuda",
+                "source": sources.get(kname, source), "replaces": replaces,
+                "launches": 0, "max_abs_err": max(errs),
+                # per block: summed over this kernel's launch shapes
+                "bound_ms": bound,
+                "bound_by": "operations" if t_ops > t_bytes else "bytes"}
+
+
+def time_groups(groups, rows, tag) -> None:
+    """Time every kernel of ``groups`` beside its twin and its library call
+    and complete its line in ``rows``."""
+    for replaces, source, kernels in groups:
+        for kname, (kfn, pfn, cases) in kernels.items():
+            def each(fn):
+                return [case.timer(lambda c=case: c.call(fn))
+                        for case in cases]
+
+            # plain, kernel, kernel, plain; the better of each pair of reads
+            a, b, b2, a2 = each(pfn), each(kfn), each(kfn), each(pfn)
+            k_ms = [min(u, v) for u, v in zip(b, b2)]
+            p_ms = [min(u, v) for u, v in zip(a, a2)]
+            l_ms = [None if c.library is None else
+                    min(c.timer(c.library), c.timer(c.library)) for c in cases]
+            for case, km, pm, lm in zip(cases, k_ms, p_ms, l_ms):
+                bound = max(*case.bound(case.call(pfn)))
+                lib = "none" if lm is None else f"{lm:.4f} ms"
+                print(f"    {case.label:<34s} kernel {km:.4f} ms, plain "
+                      f"{pm:.4f} ms, library {lib}, bound {bound:.4f} ms")
+            # per block: the sum over this kernel's launch shapes
+            row = rows[kname]
+            row["ms"], row["plain_ms"] = sum(k_ms), sum(p_ms)
+            row["library_ms"] = (None if any(v is None for v in l_ms)
+                                 else sum(l_ms))
+            lib = ("none" if row["library_ms"] is None
+                   else f"{row['library_ms']:.4f} ms")
+            print(f"  {kname:<22s} per block or call: kernel {row['ms']:.4f} ms, "
+                  f"plain {row['plain_ms']:.4f} ms, library {lib}, bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}) {tag}")
+
+
 def twin_memory(fn) -> float:
     """Peak device memory (GB) that one call of ``fn`` adds."""
     torch.cuda.synchronize()
@@ -677,9 +742,10 @@ def counted_modules():
     from hands_tpu_torch.ops import mano_lbs
     from hands_tpu_torch.ops import rasterizer
     from hands_tpu_torch.ops import vit_block as vb
+    from hands_tpu_torch.ops import vit_block_ablation as abl
     from hands_tpu_torch.ops import vit_block_int8 as v8
 
-    return vb, v8, at, mano_lbs, rasterizer
+    return vb, v8, at, mano_lbs, rasterizer, abl
 
 
 def launch_counts() -> dict:
@@ -1115,6 +1181,368 @@ def trainable_block_phase(rows, x, p32, tag) -> None:
         "backward_bound_by": "operations" if b_ops > b_bytes else "bytes"}
 
 
+def ablation_cases(x, op):
+    """K8's own kernels at the shapes the ablation probe gives them, in the
+    format of :func:`kernel_cases`; the inputs of each are the twin's
+    intermediates of the mode that launches it."""
+    from hands_tpu_torch.ops import attention as at
+    from hands_tpu_torch.ops import vit_block_ablation as abl
+    from hands_tpu_torch.ops import vit_block_int8 as v8
+
+    B, N, c = x.shape
+    rows_n, hidden = B * N, op["w1_q"].shape[0]
+    x2 = x.reshape(rows_n, c)
+    inv = op["inv_proj"]
+    qy, _ = v8.ln_quant_plain(x2, op["ln1_s"], op["ln1_b"], False)
+    qkv = v8.gemm_i8_plain(qy, op["wqkv_q"], op["dqkv"], op["bqkv"])
+    qkv3 = qkv.view(B, N, 3 * c)
+    qo = at.qkv_attention_plain(qkv3, HEADS, inv).view(rows_n, c)
+    x1 = v8.gemm_i8_plain(qo, op["wproj_q"], op["dproj"], op["bproj"],
+                          epilogue="residual", residual=x2)
+    qy2, _ = v8.ln_quant_plain(x1, op["ln2_s"], op["ln2_b"], False)
+    qx = abl.cast_rows_plain(x2)
+    qkvh = abl.heads_split_plain(qkv3, HEADS).contiguous()
+    oh = abl.attention_heads_plain(qkvh)
+    del x1, qo
+    attn_ops = 4 * B * HEADS * N * N * HEAD_DIM
+    t5 = qkv3.view(B, N, 3, HEADS, HEAD_DIM).permute(2, 0, 3, 1, 4)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(t5[0], t5[1], t5[2])
+
+    def gemm_ops(n, k):
+        return 2 * rows_n * n * k
+
+    def int_mm(a_q, w_q):
+        return lambda: torch._int_mm(a_q, w_q.t())
+
+    def one(name, kfn, pfn, case):
+        return name, (kfn, pfn, [case])
+
+    kernels = dict([
+        one("ln_affine_quant", abl.ln_ablation, abl.ln_ablation_plain, Case(
+            "no_ln: x*s+b, quantise",
+            lambda f: f(x2, op["ln1_s"], op["ln1_b"], True, False),
+            [x2, op["ln1_s"], op["ln1_b"]], 3 * rows_n * c, "f32",
+            check=compare_int8)),
+        one("ln_cast", abl.ln_ablation, abl.ln_ablation_plain, Case(
+            "no_quant: LayerNorm, bare cast",
+            lambda f: f(x2, op["ln1_s"], op["ln1_b"], False, True),
+            [x2, op["ln1_s"], op["ln1_b"]], 8 * rows_n * c, "f32",
+            check=compare_int8)),
+        one("cast_rows", abl.cast_rows, abl.cast_rows_plain, Case(
+            "mm_only: bare cast of the tokens", lambda f: f(x2), [x2],
+            rows_n * c, "f32", check=compare_equal)),
+        one("qslice_quant", abl.qslice_quant, abl.qslice_quant_plain, Case(
+            "no_attn: q third, quantise", lambda f: f(qkv3, inv),
+            [qkv3[..., :c], inv], 2 * rows_n * c, "f32", check=compare_equal)),
+        one("heads_split", abl.heads_split, abl.heads_split_plain, Case(
+            "attn_merged: qkv to head-major", lambda f: f(qkv3, HEADS),
+            [qkv3], 0, "f32", lambda: t5.contiguous(), check=compare_equal)),
+        one("heads_merge_quant", abl.heads_merge_quant,
+            abl.heads_merge_quant_plain, Case(
+                "attn_merged: heads back, quantise",
+                lambda f: f(oh, inv, HEADS), [oh, inv], 2 * rows_n * c, "f32",
+                lambda: oh.view(B, HEADS, N, HEAD_DIM).permute(
+                    0, 2, 1, 3).contiguous(), check=compare_equal)),
+        one("gemm_i8_gelu_cast", abl.gemm_i8_ablation,
+            abl.gemm_i8_ablation_plain, Case(
+                "no_quant: mlp1+gelu_tanh, bare cast",
+                lambda f: f(qy2, op["w1_q"], op["d1"], op["b1"], "gelu_cast",
+                            op["inv_mlp2"], True),
+                [qy2, op["w1_q"], op["d1"], op["b1"], op["inv_mlp2"]],
+                gemm_ops(hidden, c), "int8", int_mm(qy2, op["w1_q"]),
+                compare_gelu_gemm)),
+        one("gemm_i8_ident_quant", abl.gemm_i8_ablation,
+            abl.gemm_i8_ablation_plain, Case(
+                "no_gelu: mlp1, quantise",
+                lambda f: f(qy2, op["w1_q"], op["d1"], op["b1"],
+                            "ident_quant", op["inv_mlp2"]),
+                [qy2, op["w1_q"], op["d1"], op["b1"], op["inv_mlp2"]],
+                gemm_ops(hidden, c), "int8", int_mm(qy2, op["w1_q"]),
+                compare_equal)),
+        one("gemm_i8_cast", abl.gemm_i8_ablation, abl.gemm_i8_ablation_plain,
+            Case("mm_only: qkv, bare cast of a third",
+                 lambda f: f(qx, op["wqkv_q"], op["dqkv"], op["bqkv"], "cast",
+                             keep_cols=c),
+                 [qx, op["wqkv_q"], op["dqkv"], op["bqkv"]],
+                 gemm_ops(3 * c, c), "int8", int_mm(qx, op["wqkv_q"]),
+                 compare_equal)),
+        one("attention_cast", abl.attention_ablation,
+            abl.attention_ablation_plain, Case(
+                "no_quant: attention, bare cast",
+                lambda f: f(qkv3, HEADS, inv, "cast"), [qkv3, inv], attn_ops,
+                "bf16", sdpa, compare_int8)),
+        one("attention_no_softmax", abl.attention_ablation,
+            abl.attention_ablation_plain, Case(
+                "no_softmax: p = bf16(s * 0.01)",
+                lambda f: f(qkv3, HEADS, inv, "no_softmax"), [qkv3, inv],
+                attn_ops, "bf16", sdpa, compare_int8)),
+        one("attention_heads", abl.attention_heads, abl.attention_heads_plain,
+            Case("attn_merged: contiguous heads, f32 out",
+                 lambda f: f(qkvh), [qkvh], attn_ops, "bf16",
+                 lambda: F.scaled_dot_product_attention(
+                     qkvh[0][None], qkvh[1][None], qkvh[2][None]))),
+        one("attention_i8", abl.attention_i8, abl.attention_i8_plain, Case(
+            "attn_i8: int8 q.k and p.v", lambda f: f(qkv3, HEADS, inv),
+            [qkv3, inv], attn_ops, "int8", sdpa, compare_int8)),
+    ])
+    return [(K8, SRC_ABL, kernels)]
+
+
+def ablation_phase(rows, dev, tag) -> None:
+    """K8: the nine knock-out modes of the static int8 block at ViT-H width,
+    256 crops (49,152 token rows), through ``cli.int8_ablation``."""
+    from hands_tpu_torch.cli import int8_ablation as cli
+    from hands_tpu_torch.ops import vit_block_ablation as abl
+    from hands_tpu_torch.ops import vit_block_int8 as v8
+
+    print(f"phase 9: K8, static int8 block ablation, {ABL_BATCH} crops "
+          f"({ABL_BATCH * N_TOK} rows), C={C} hidden={HIDDEN} heads={HEADS} "
+          f"{tag}")
+    t0 = time.time()
+    x, op = cli.make_probe(ABL_BATCH, dev, c=C, hidden=HIDDEN, n_tok=N_TOK)
+    torch.cuda.synchronize()
+    print(f"  probe (RandomState(0), the JAX script's draws) made in "
+          f"{time.time() - t0:.1f} s")
+    groups = ablation_cases(x, op)
+    check_groups(groups, {}, rows)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    def kernels(mode, xs=x, ops=op):
+        return abl.vit_block_ablation(xs, ops, num_heads=HEADS, mode=mode)
+
+    def twin(mode, xs=x, ops=op):
+        return abl.vit_block_ablation_plain(xs, ops, HEADS, mode)
+
+    # every mode against its twin, with its launches counted. Each kernel was
+    # held to its twin above on the same inputs; here a LayerNorm value that
+    # lands one int8 step apart (the row statistics are summed in another
+    # order; mode no_ln agrees bit for bit) moves its whole row of qkv and
+    # reaches the output through three more quantisations, on tokens of
+    # magnitude 0.5. So the whole block is held to the static block's mean
+    # bound, to BLOCK_REL on all but 1e-4 of its 6.3e7 elements, and to 4x
+    # BLOCK_REL on every element.
+    outs = {}
+    for mode in abl.MODES:
+        reset_launch_counts()
+        outs[mode] = kernels(mode)
+        torch.cuda.synchronize()
+        check_launches(f"ablation {mode}", launch_counts(),
+                       abl.MODE_LAUNCHES[mode], 1)
+        ref = twin(mode).float()
+        err = (outs[mode].float() - ref).abs()
+        rel = err / ref.abs().clamp(min=1.0)
+        worst = int(rel.argmax())
+        share, avg = float((rel > BLOCK_REL).float().mean()), float(err.mean())
+        ok = (bool(torch.isfinite(outs[mode]).all()) and share <= 1e-4
+              and avg <= MAX_MEAN and float(rel.max()) <= 4 * BLOCK_REL)
+        print(f"  whole block, mode {mode} ({ABL_BATCH} crops): max|d|/max("
+              f"|ref|,1) {float(rel.max()):.3e} (<= {4 * BLOCK_REL:g}; kernel "
+              f"{float(outs[mode].flatten()[worst]):.4f}, twin "
+              f"{float(ref.flatten()[worst]):.4f}), share beyond {BLOCK_REL:g}"
+              f" {share:.2e} (<= 0.0001), mean|d| {avg:.3e} (<= {MAX_MEAN:g})  "
+              f"{'ok' if ok else 'FAIL'}")
+        require(ok, f"ablation mode {mode}: kernels disagree with the twin")
+        del ref, err, rel
+    static = v8.vit_block_fused_int8_static(x, op, num_heads=HEADS,
+                                            fast_gelu=True)
+    compare_equal("mode full vs the static block (K6)", outs["full"], static)
+    compare_equal("mode attn_merged vs mode full", outs["attn_merged"],
+                  outs["full"])
+    zero = {m: float((outs[m] == 0).float().mean()) for m in
+            ("mm_only", "no_quant")}
+    del outs, static
+    # the probe's bare casts truncate nearly everything to 0: hold the two
+    # modes made of casts also on inputs that spread over the int8 range
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    xw = (x[:BATCH].float() * 160.0).to(torch.bfloat16)
+    opw = dict(op)
+    for k in ("bqkv", "bproj", "b1", "b2"):
+        opw[k] = torch.randn(op[k].shape, generator=gen, device=dev) * 60.0
+    for k in ("ln1_s", "ln2_s"):
+        opw[k] = op[k] * 2.0
+    for mode in ("mm_only", "no_quant"):
+        got, ref = kernels(mode, xw, opw), twin(mode, xw, opw)
+        compare(f"mode {mode}, wide inputs ({BATCH} crops)", got, ref,
+                rel=BLOCK_REL, mean=MAX_MEAN * float(ref.float().abs().mean()))
+        print(f"    of the outputs are 0: probe {zero[mode]:.3f}, wide "
+              f"{float((ref == 0).float().mean()):.3f}; |wide| > 127 after "
+              f"the first cast's input: "
+              f"{float((xw.float().abs() > 127).float().mean()):.3f}")
+
+    # the main path: the entry point's function, counts set to 0 before it
+    reset_launch_counts()
+    lines = []
+    times = cli.run_ablation(ABL_BATCH, ABL_ITERS, abl.MODES, dev,
+                             probe=(x, op), heads=HEADS,
+                             out=lines.append)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = {}
+    for mode in abl.MODES:
+        for k, n in abl.MODE_LAUNCHES[mode].items():
+            want[k] = want.get(k, 0) + n
+    check_launches("cli.int8_ablation, nine modes", counts, want,
+                   ABL_ITERS + 1)
+    for k in groups[0][2]:
+        rows[k]["launches"] = counts[k]
+    require(set(times) == set(abl.MODES)
+            and all(np.isfinite(v) and v > 0 for v in times.values()),
+            "ablation times")
+    for line in lines:
+        print("  " + line + (f" {tag}" if "ms/block" in line else ""))
+    int8_ops = 2 * ABL_BATCH * N_TOK * C * (3 * C + C + 2 * HIDDEN)
+    floor = int8_ops / PEAK_OPS_S["int8"] * 1e3
+    print(f"  int8 bound of the four products: {int8_ops:.3e} operations, "
+          f"{floor:.3f} ms; mm_only is {times['mm_only'] / floor:.1f}x that, "
+          f"full {times['full'] / floor:.1f}x {tag}")
+    time_groups(groups, rows, tag)
+    del x, op
+    torch.cuda.empty_cache()
+
+
+def training_runtime_phase(rows, dev, tag) -> None:
+    """The training runtime through its entry points: ``cli.train`` on
+    full-width WildHands (two ResNet-50s, 224^2, bf16, mask and grasp loss
+    on) with the synthetic dataset, 64 images a step, train-mode
+    preprocessing and the prefetch thread on; ``cli.evaluate`` on the
+    checkpoint it wrote; a resumed run."""
+    import os
+    import tempfile
+
+    from hands_tpu_torch.cli import _args
+    from hands_tpu_torch.cli import evaluate as cli_evaluate
+    from hands_tpu_torch.cli import train as cli_train
+    from hands_tpu_torch.data.datasets import SyntheticRecordDataset
+    from hands_tpu_torch.data.device_pipeline import PrefetchLoader
+    from hands_tpu_torch.train.state import create_train_state
+    from hands_tpu_torch.train.step import make_train_step
+    from hands_tpu_torch.train.trainer import Trainer
+
+    bs, steps = TRAIN_WH_BATCH, LOOP_STEPS
+    print(f"phase 10: cli.train / cli.evaluate, WildHands {WH_BACKBONE} x 2, "
+          f"{bs} images a step, {steps} steps an epoch, synthetic records "
+          f"{tag}")
+    common = ["--dataset", "synthetic", "--eval_on", "synthetic",
+              "--valsplit", "smallval", "--batch_size", str(bs),
+              "--test_batch_size", str(bs), "--num_workers", "8", "--mute",
+              "--no_vis"]
+    train_args = common + ["--trainsplit", "train", "--eval_every_epoch", "1",
+                           "--log_every", "2", "--exp_key", "smoke"]
+    cfg, _ = _args.parse(train_args)
+    require(cfg.backbone == WH_BACKBONE and cfg.use_render_seg_loss
+            and cfg.use_grasp_loss and cfg.compute_dtype == "bfloat16"
+            and cfg.img_res == 224, "the full-width default train config")
+    trainers = []
+    fit = Trainer.fit
+
+    def recording_fit(self, *args, **kwargs):
+        trainers.append(self)
+        return fit(self, *args, **kwargs)
+
+    def run(extra, root):
+        """cli.train with the launch counts set to 0 before it."""
+        reset_launch_counts()
+        state = cli_train.main(train_args + extra, log_root=root)
+        torch.cuda.synchronize()
+        return state, launch_counts()
+
+    # sanity validation + the epoch's steps + one validation batch
+    def expect(n_steps):
+        return {"lbs_apply": 4 * (n_steps + 2), "splat_fwd": 2 * (n_steps + 2),
+                "splat_bwd": 2 * n_steps}
+
+    with tempfile.TemporaryDirectory() as tmp, mock.patch.dict(
+            SyntheticRecordDataset._SPLIT_LEN, {"train": bs * steps}), \
+            mock.patch.object(Trainer, "fit", recording_fit):
+        root = os.path.join(tmp, "logs")
+        t0 = time.time()
+        state, counts = run(["--num_epoch", "1"], root)
+        first_s = time.time() - t0
+        require(state.step == steps and state.tx.count == steps,
+                f"cli.train took {state.step} steps, want {steps}")
+        check_launches("cli.train, epoch 1", counts, expect(steps), 1)
+        exp_dir = os.path.join(root, "smoke")
+        ck = os.path.join(exp_dir, "checkpoints")
+        require(sorted(os.listdir(ck)) == ["epoch_0000", "last", "scores.json"]
+                and os.path.exists(os.path.join(exp_dir, "args.json")),
+                f"checkpoints written: {os.listdir(ck)}")
+        rows_log = [json.loads(ln) for ln in
+                    open(os.path.join(exp_dir, "metrics.jsonl"))]
+        train_rows = [r for r in rows_log if "loss__train" in r]
+        val_rows = [r for r in rows_log if "loss__val" in r]
+        require(len(train_rows) == steps // 2 and len(val_rows) == 1
+                and all(np.isfinite(v) for r in rows_log for v in r.values()),
+                "metrics.jsonl: windows, one validation, finite values")
+        require("loss/mask/r__train" in train_rows[0]
+                and "metric.mpjpe/ra/h__val" in val_rows[0],
+                "the mask loss and the metrics are logged")
+        print(f"  epoch 1 ({first_s:.1f} s with model build and warm-up): "
+              f"loss__train windows "
+              + ", ".join(f"{r['loss__train']:.2f}" for r in train_rows)
+              + f"; loss__val {val_rows[0]['loss__val']:.4f}; checkpoints "
+              f"{sorted(os.listdir(ck))}")
+
+        # the checkpoint through cli.evaluate: same weights, same batches
+        reset_launch_counts()
+        metrics = cli_evaluate.main(
+            common + ["--infer_ckpt", os.path.join(ck, "last"), "--exp_key",
+                      "evaluate"], log_root=root)
+        torch.cuda.synchronize()
+        check_launches("cli.evaluate", launch_counts(),
+                       {"lbs_apply": 4, "splat_fwd": 2}, 1)
+        want = val_rows[0]["loss__val"]
+        err = abs(metrics["loss"] - want) / abs(want)
+        print(f"  cli.evaluate --infer_ckpt last: loss {metrics['loss']:.6f} "
+              f"against the trainer's loss__val {want:.6f}, relative "
+              f"{err:.2e} (<= 1e-05)")
+        require(err <= 1e-5, "cli.evaluate does not reproduce loss__val")
+
+        # resume: starts at the saved epoch, one more epoch of steps
+        state2, counts2 = run(["--num_epoch", "2", "--resume_ckpt",
+                               os.path.join(ck, "last")], root)
+        require(state2.step == 2 * steps and state2.tx.count == 2 * steps,
+                f"the resumed run ended at step {state2.step}")
+        check_launches("cli.train, resumed epoch 2", counts2, expect(steps), 1)
+        for k in ("lbs_apply", "splat_fwd", "splat_bwd"):
+            rows[k]["launches"] = counts2[k]
+        require(sorted(os.listdir(root)) == ["evaluate", "smoke"],
+                "the resumed run reused its experiment key")
+        resumed = trainers[-1]
+        timing = resumed.timing
+        require(timing["steps"] == steps, "the resumed run's step count")
+        loop_ms = timing["loop_s"] / steps * 1e3
+        wait = timing["data_s"] / timing["loop_s"]
+
+        # the bare step on one preprocessed batch of the same loader
+        model = state2.model
+        from hands_tpu_torch.core.xdict import device_view
+        from hands_tpu_torch.data.factory import fetch_dataloader
+        train_loader = fetch_dataloader(cfg, "train", device=dev)
+        require(isinstance(train_loader, PrefetchLoader),
+                "the train loader prefetches")
+        inputs, targets, meta = train_loader.peek()
+        batch = (inputs, targets, device_view(meta))
+        bare_state = create_train_state(cfg, model)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        step = make_train_step(model, cfg)
+        bare_ms, _ = steps_ms(step, bare_state, batch, n=3, gen=gen)
+        # the loader alone: host fetch + stack + pin + copy + preprocessing
+        t0 = time.perf_counter()
+        n_batches = sum(1 for _ in train_loader)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) / n_batches * 1e3
+    print(f"  training loop (resumed epoch, {steps} steps): {loop_ms:.1f} ms "
+          f"a step, {1e3 / loop_ms:.2f} steps/s, {bs * 1e3 / loop_ms:.1f} "
+          f"images/s; the bare step on a batch on the card {bare_ms:.1f} ms, "
+          f"{1e3 / bare_ms:.2f} steps/s, {bs * 1e3 / bare_ms:.1f} images/s; "
+          f"the loop waits for the loader {100 * wait:.1f}% of its time; the "
+          f"loader alone (8 fetch threads, prefetch on, train-mode "
+          f"preprocessing) {load_ms:.1f} ms a batch {tag}")
+
+
 def run_steps(step, state, batch, n, per_step, path, gen=None):
     """``n`` train steps on one batch, each with the launch counts set to 0
     before it and checked after it. Returns (losses, ms of each step, the
@@ -1395,13 +1823,14 @@ def main() -> int:
 
     # ---- 1. build: one nvcc per source, all started together
     t0 = time.time()
+    from hands_tpu_torch.ops import vit_block_ablation as abl
     libraries = [vb.LIBRARY, v8.LIBRARY, at.LIBRARY, mano_lbs.LIBRARY,
-                 rasterizer.LIBRARY]
+                 rasterizer.LIBRARY, abl.LIBRARY]
     reports = build_all(libraries)
     for lib in libraries:
         lib.lib()
     print(f"phase 1: built {SRC_K3}, {SRC_I8}, {SRC_ATTN}, {SRC_LBS}, "
-          f"{SRC_SPLAT} side by side in {time.time() - t0:.1f} s")
+          f"{SRC_SPLAT}, {SRC_ABL} side by side in {time.time() - t0:.1f} s")
     for name, report in reports.items():
         for line in report.splitlines():
             if "Used" in line or "spill" in line:
@@ -1420,22 +1849,7 @@ def main() -> int:
     groups += geo_groups
     extra += geo_extra
     rows = {}  # kernel name -> its line of the kernels JSON
-    for replaces, source, kernels in groups:
-        for kname, (kfn, pfn, cases) in kernels.items():
-            errs, t_bytes, t_ops, bound = [], 0.0, 0.0, 0.0
-            for case in cases:
-                got, ref = case.call(kfn), case.call(pfn)
-                errs.append(case.check(case.label, got, ref))
-                b, o = case.bound(ref)
-                t_bytes, t_ops = t_bytes + b, t_ops + o
-                bound += max(b, o)
-            rows[kname] = {
-                "name": kname, "route": "cuda",
-                "source": sources.get(kname, source), "replaces": replaces,
-                "launches": 0, "max_abs_err": max(errs),
-                # per block: summed over this kernel's launch shapes
-                "bound_ms": bound,
-                "bound_by": "operations" if t_ops > t_bytes else "bytes"}
+    check_groups(groups, sources, rows)
     for case, kfn, pfn in extra:
         case.check(case.label, case.call(kfn), case.call(pfn))
     torch.cuda.synchronize()
@@ -1644,33 +2058,7 @@ def main() -> int:
 
     # ---- 4. timing
     print(f"phase 4: CUDA-event times {tag}")
-    for replaces, source, kernels in groups:
-        for kname, (kfn, pfn, cases) in kernels.items():
-            def each(fn):
-                return [case.timer(lambda c=case: c.call(fn))
-                        for case in cases]
-
-            # plain, kernel, kernel, plain; the better of each pair of reads
-            a, b, b2, a2 = each(pfn), each(kfn), each(kfn), each(pfn)
-            k_ms = [min(u, v) for u, v in zip(b, b2)]
-            p_ms = [min(u, v) for u, v in zip(a, a2)]
-            l_ms = [None if c.library is None else
-                    min(c.timer(c.library), c.timer(c.library)) for c in cases]
-            for case, km, pm, lm in zip(cases, k_ms, p_ms, l_ms):
-                bound = max(*case.bound(case.call(pfn)))
-                lib = "none" if lm is None else f"{lm:.4f} ms"
-                print(f"    {case.label:<34s} kernel {km:.4f} ms, plain "
-                      f"{pm:.4f} ms, library {lib}, bound {bound:.4f} ms")
-            # per block: the sum over this kernel's launch shapes
-            row = rows[kname]
-            row["ms"], row["plain_ms"] = sum(k_ms), sum(p_ms)
-            row["library_ms"] = (None if any(v is None for v in l_ms)
-                                 else sum(l_ms))
-            lib = ("none" if row["library_ms"] is None
-                   else f"{row['library_ms']:.4f} ms")
-            print(f"  {kname:<22s} per block or call: kernel {row['ms']:.4f} ms, "
-                  f"plain {row['plain_ms']:.4f} ms, library {lib}, bound "
-                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}) {tag}")
+    time_groups(groups, rows, tag)
     for case, kfn, pfn in extra:
         km = min(case.timer(lambda: case.call(kfn)) for _ in range(2))
         pm = min(case.timer(lambda: case.call(pfn)) for _ in range(2))
@@ -1731,6 +2119,8 @@ def main() -> int:
     trainable_block_phase(rows, x, p32, tag)
     hamer_train_phase(rows, dev, tag)
     wildhands_train_phase(rows, dev, tag)
+    ablation_phase(rows, dev, tag)
+    training_runtime_phase(rows, dev, tag)
 
     print(card)
     print(json.dumps({"kernels": list(rows.values())}))

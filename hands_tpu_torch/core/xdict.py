@@ -56,3 +56,12 @@ class XDict(dict):
             return (v.float() if v.dtype == torch.bfloat16 else v).numpy()
 
         return XDict({k: _np(v) for k, v in self.items()})
+
+
+# host-only bookkeeping of a loader's meta_info (strings, python ints)
+HOST_ONLY_KEYS = ("imgname", "num_valid", "dataset_name")
+
+
+def device_view(meta: "XDict") -> "XDict":
+    """``meta`` without the host-only bookkeeping keys: what a step takes."""
+    return XDict({k: v for k, v in meta.items() if k not in HOST_ONLY_KEYS})

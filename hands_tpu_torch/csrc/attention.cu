@@ -27,163 +27,7 @@
 // and V of the head in shared memory, one warp per query row, lanes over keys
 // for the logits and over channels for p.v. No tensor cores yet.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
-typedef __nv_bfloat16 bf16;
-
-namespace {
-
-enum { MODE_MHA = 0, MODE_DYNAMIC = 1, MODE_STATIC = 2 };
-constexpr int ATTN_THREADS = 256;
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(bf16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__host__ __device__ constexpr int k_pad() {
-  // K rows padded to an odd number of 32-bit words: lanes reading different
-  // rows hit different banks
-  return sizeof(T) == 2 ? 2 : 1;
-}
-
-template <typename T, int MODE>
-__global__ void __launch_bounds__(ATTN_THREADS) attention_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    void* __restrict__ out, const float* __restrict__ inv_out, int N, int H,
-    int D, long long batch_stride, long long row_stride, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr bool ROUND_P =
-      MODE == MODE_STATIC || (MODE == MODE_MHA && sizeof(T) == 2);
-  const int C = H * D;
-  const int KD = D + k_pad<T>();
-  const int nwarps = ATTN_THREADS / 32;
-  T* Ks = reinterpret_cast<T*>(smem_raw);  // N x KD
-  T* Vs = Ks + (size_t)N * KD;             // N x D
-  float* qbuf = reinterpret_cast<float*>(Vs + (size_t)N * D);  // nwarps x D
-  float* pbuf = qbuf + nwarps * D;                             // nwarps x N
-
-  const int h = blockIdx.x;
-  const size_t base = (size_t)blockIdx.y * batch_stride + (size_t)h * D;
-  const T* qb = q + base;
-  const T* kb = k + base;
-  const T* vb = v + base;
-
-  for (int idx = threadIdx.x; idx < N * D; idx += ATTN_THREADS) {
-    const int m = idx / D, d = idx % D;
-    Ks[(size_t)m * KD + d] = kb[(size_t)m * row_stride + d];
-    Vs[(size_t)m * D + d] = vb[(size_t)m * row_stride + d];
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* qs = qbuf + warp * D;
-  float* p = pbuf + warp * N;
-  for (int n = warp; n < N; n += nwarps) {
-    const T* qrow = qb + (size_t)n * row_stride;
-    for (int d = lane; d < D; d += 32) {
-      const float qv = to_float(qrow[d]);
-      qs[d] = MODE == MODE_MHA ? qv : round_bf16(qv * scale);
-    }
-    __syncwarp();
-
-    float mx = -INFINITY;
-    for (int m = lane; m < N; m += 32) {
-      const T* krow = Ks + (size_t)m * KD;
-      float s = 0.f;
-      if constexpr (sizeof(T) == 2) {  // bf16 pairs (the wrapper checks D % 2)
-        const __nv_bfloat162* kr2 =
-            reinterpret_cast<const __nv_bfloat162*>(krow);
-        for (int d2 = 0; d2 < D / 2; ++d2) {
-          const float2 kv = __bfloat1622float2(kr2[d2]);
-          s = fmaf(qs[2 * d2], kv.x, s);
-          s = fmaf(qs[2 * d2 + 1], kv.y, s);
-        }
-      } else {
-        for (int d = 0; d < D; ++d) s = fmaf(qs[d], to_float(krow[d]), s);
-      }
-      if (MODE == MODE_MHA) s = s * scale;
-      p[m] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int m = lane; m < N; m += 32) {
-      const float e = expf(p[m] - mx);
-      p[m] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    for (int m = lane; m < N; m += 32) {
-      const float pr = p[m] / sum;
-      p[m] = ROUND_P ? round_bf16(pr) : pr;
-    }
-    __syncwarp();
-
-    const size_t orow = ((size_t)blockIdx.y * N + n) * C + (size_t)h * D;
-    for (int d = lane; d < D; d += 32) {
-      float o = 0.f;
-      for (int m = 0; m < N; ++m)
-        o = fmaf(p[m], to_float(Vs[(size_t)m * D + d]), o);
-      if (MODE == MODE_STATIC) {
-        const float r = rintf(__fmul_rn(o, inv_out[h * D + d]));
-        reinterpret_cast<int8_t*>(out)[orow + d] =
-            (int8_t)fminf(fmaxf(r, -127.f), 127.f);
-      } else if (sizeof(T) == 2) {
-        reinterpret_cast<bf16*>(out)[orow + d] = __float2bfloat16_rn(o);
-      } else {
-        reinterpret_cast<float*>(out)[orow + d] = o;
-      }
-    }
-    __syncwarp();
-  }
-}
-
-template <typename T>
-size_t smem_bytes(int N, int D) {
-  return (size_t)N * (D + k_pad<T>()) * sizeof(T) +
-         (size_t)N * D * sizeof(T) +
-         (size_t)(ATTN_THREADS / 32) * (D + N) * sizeof(float);
-}
-
-template <typename T, int MODE>
-int launch(const void* q, const void* k, const void* v, void* out,
-           const float* inv_out, int B, int N, int H, int D,
-           long long batch_stride, long long row_stride, float scale,
-           cudaStream_t stream) {
-  const size_t smem = smem_bytes<T>(N, D);
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel<T, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  attention_kernel<T, MODE><<<dim3(H, B), ATTN_THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, out, inv_out, N, H, D,
-      batch_stride, row_stride, scale);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
+#include "attention_kernel.cuh"
 
 // --------------------------------------------------------- C interface
 extern "C" {

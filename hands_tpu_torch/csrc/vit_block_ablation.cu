@@ -1,0 +1,449 @@
+// Knock-out variants of the static W8A8 ViT block for NVIDIA Hopper (sm_90a):
+// the kernels that hands_tpu_torch/ops/vit_block_ablation.py launches in
+// place of one or more of the static block's seven, so that the block's time
+// can be attributed piece by piece. Plain C interface, built with nvcc and
+// loaded with ctypes. Build with -fmad=false, as vit_block_int8.cu: the f32
+// dequantisation chains must round op by op.
+//
+// Replaces: scripts/vith_int8_ablation.py:178 run_variant (pl.pallas_call at
+// :194, body _ablation_kernel at :48). The TPU kernel is the static block's
+// body with a `mode` switch traced into it; here the block is a sequence of
+// launches, so a mode swaps launches:
+//   no_ln       abl_ln (NO_LN): x * s + b, round, clip; no mean, no variance
+//   no_quant    abl_ln (CAST), abl_attention (MODE_STATIC_CAST), abl_gemm
+//               (EPI_GELU_CAST): the bare cast instead of round and clip
+//   no_gelu     abl_gemm (EPI_IDENT_Q8)
+//   no_softmax  abl_attention (MODE_NO_SOFTMAX)
+//   no_attn     abl_qslice_quant: the q third of qkv times inv_proj, quantised
+//   attn_i8     abl_attention_i8: q, k, v quantised with fixed scales, both
+//               products in int8 (dp4a) with int32 sums, f32 softmax
+//   attn_merged abl_heads_split (qkv -> head-major (3, B*H, N, D)),
+//               abl_attention (MODE_STATIC_F32 on contiguous heads),
+//               abl_heads_merge_quant (f32 (B*H, N, D) -> int8 (B, N, C))
+//   mm_only     abl_cast_rows, abl_gemm (EPI_CAST) three times, then the
+//               serving GEMM's plain bf16 epilogue
+// The main loop of the GEMM (gemm_i8.cuh) and the attention kernel
+// (attention_kernel.cuh) are the serving kernels' own code, instantiated here
+// with other compile-time epilogues and modes.
+//
+// What bounds them on this card: the row and relayout passes move a few
+// bytes per element and do a handful of operations on each, so they are
+// bound by bytes; the GEMM variants by the int8 tensor cores as the serving
+// GEMM; abl_attention_i8 does 4*N*N*D integer operations per head on the
+// CUDA cores' dp4a path (four multiply-adds per instruction), bound by
+// operations. What this simple design does about it: one thread per element
+// (pair) in the passes; in the int8 attention one block per (batch row, head)
+// with K (rows padded to an odd number of words) and V transposed (so that
+// four keys share a word) in shared memory, one warp per query row.
+
+#include "attention_kernel.cuh"
+#include "gemm_i8.cuh"
+
+namespace {
+
+// ------------------------------------------------- LayerNorm knock-outs
+// One block per bf16 row. NO_LN: y = x * s + b; else the static block's
+// LayerNorm (flax's f32 rounding order). CAST: the bare cast; else round and
+// clip.
+template <bool NO_LN, bool CAST>
+__global__ void __launch_bounds__(ROW_THREADS) ln_ablation_kernel(
+    const bf16* __restrict__ x, const float* __restrict__ scale,
+    const float* __restrict__ bias, int8_t* __restrict__ q, int C, float eps) {
+  extern __shared__ float ybuf[];  // C values of this row
+  __shared__ float red[ROW_THREADS / 32];
+  const bf16* xr = x + (size_t)blockIdx.x * C;
+  int8_t* qr = q + (size_t)blockIdx.x * C;
+
+  if (NO_LN) {
+    for (int c = threadIdx.x; c < C; c += ROW_THREADS) {
+      const float y = to_float(xr[c]) * scale[c] + bias[c];
+      qr[c] = CAST ? cast_i8(y) : (int8_t)quant_clip(y);
+    }
+    return;
+  }
+  float s = 0.f, ss = 0.f;
+  for (int c = threadIdx.x; c < C; c += ROW_THREADS) {
+    const float v = to_float(xr[c]);
+    ybuf[c] = v;
+    s += v;
+    ss += v * v;
+  }
+  s = block_reduce<false>(s, red);
+  ss = block_reduce<false>(ss, red);
+  const float mu = s / (float)C;
+  const float var = fmaxf(ss / (float)C - mu * mu, 0.f);
+  const float r = rsqrtf(var + eps);
+  for (int c = threadIdx.x; c < C; c += ROW_THREADS) {
+    const float y = (ybuf[c] - mu) * (r * scale[c]) + bias[c];
+    qr[c] = CAST ? cast_i8(y) : (int8_t)quant_clip(y);
+  }
+}
+
+// ------------------------------------------------------ elementwise passes
+// q[i] = cast(f32(x[i])): the first link of the mm_only chain
+__global__ void cast_rows_kernel(const bf16* __restrict__ x,
+                                 int8_t* __restrict__ q, size_t n) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) q[i] = cast_i8(to_float(x[i]));
+}
+
+// out[r, c] = clip(round(f32(qkv[r, c]) * inv[c])) for c < C of 3C columns
+__global__ void qslice_quant_kernel(const bf16* __restrict__ qkv,
+                                    const float* __restrict__ inv,
+                                    int8_t* __restrict__ out, size_t rows,
+                                    int C) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= rows * C) return;
+  const size_t r = i / C;
+  const int c = (int)(i % C);
+  out[i] = (int8_t)quant_clip(to_float(qkv[r * 3 * C + c]) * inv[c]);
+}
+
+// (B, N, 3, H, D) -> (3, B*H, N, D), two bf16 values a thread (D is even)
+__global__ void heads_split_kernel(const uint32_t* __restrict__ qkv,
+                                   uint32_t* __restrict__ out, int B, int N,
+                                   int H, int D2) {
+  const size_t total = (size_t)3 * B * H * N * D2;
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  size_t r = i;
+  const int d = (int)(r % D2); r /= D2;
+  const int n = (int)(r % N); r /= N;
+  const int h = (int)(r % H); r /= H;
+  const int b = (int)(r % B); r /= B;
+  const int which = (int)r;
+  out[i] = qkv[((((size_t)b * N + n) * 3 + which) * H + h) * D2 + d];
+}
+
+// f32 (B*H, N, D) -> int8 (B, N, H*D): clip(round(o * inv[h*D + d]))
+__global__ void heads_merge_quant_kernel(const float* __restrict__ o,
+                                         const float* __restrict__ inv,
+                                         int8_t* __restrict__ out, int B,
+                                         int N, int H, int D) {
+  const size_t total = (size_t)B * N * H * D;
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  size_t r = i;
+  const int d = (int)(r % D); r /= D;
+  const int h = (int)(r % H); r /= H;
+  const int n = (int)(r % N); r /= N;
+  const int b = (int)r;
+  const float v = o[(((size_t)b * H + h) * N + n) * D + d];
+  out[i] = (int8_t)quant_clip(__fmul_rn(v, inv[h * D + d]));
+}
+
+// --------------------------------------------------------- GEMM knock-outs
+enum {
+  EPI_GELU_CAST = 0,  // int8 cast(gelu(acc*d + b) * inv_next)
+  EPI_IDENT_Q8 = 1,   // int8 clip(round((acc*d + b) * inv_next))
+  EPI_CAST = 2        // int8 cast(acc*d + b), the first keep_cols columns
+};
+
+template <int EPI>
+struct AblationEpilogue {
+  const float* col_scale;  // (N,)
+  const float* bias;       // (N,)
+  const float* inv_next;   // (N,), not for EPI_CAST
+  int8_t* out;             // (M, N), or (M, keep_cols) for EPI_CAST
+  int fast_gelu;
+  int keep_cols;
+
+  __device__ __forceinline__ void store(int acc, int gm, int gn,
+                                        size_t idx) const {
+    const float v = (float)acc * col_scale[gn] + bias[gn];
+    if (EPI == EPI_GELU_CAST) {
+      const float h = fast_gelu ? gelu_tanh_f32(v) : gelu_erfc_f32(v);
+      out[idx] = cast_i8(h * inv_next[gn]);
+    } else if (EPI == EPI_IDENT_Q8) {
+      out[idx] = (int8_t)quant_clip(v * inv_next[gn]);
+    } else if (gn < keep_cols) {
+      out[(size_t)gm * keep_cols + gn] = cast_i8(v);
+    }
+  }
+};
+
+template <int EPI>
+__global__ void __launch_bounds__(GEMM_THREADS) gemm_i8_ablation_kernel(
+    const int8_t* __restrict__ A, const int8_t* __restrict__ W,
+    AblationEpilogue<EPI> ep, int M, int N, int K) {
+  extern __shared__ __align__(128) unsigned char gemm_smem[];
+  gemm_i8_tile(A, W, ep, M, N, K, gemm_smem);
+}
+
+template <int EPI>
+int launch_gemm(const int8_t* a, const int8_t* w, AblationEpilogue<EPI> ep,
+                int M, int N, int K, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      gemm_i8_ablation_kernel<EPI>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)GEMM_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  gemm_i8_ablation_kernel<EPI><<<grid, GEMM_THREADS, GEMM_SMEM, stream>>>(
+      a, w, ep, M, N, K);
+  return (int)cudaGetLastError();
+}
+
+// ----------------------------------------------------------- int8 attention
+// Per (batch row, head): qq = quant(q * q_mul), kq = quant(k * kv_mul),
+// vq = quant(v * kv_mul) (round, clip); logits = f32(qq . kq) * s_mul in
+// int32 sums; f32 softmax; pq = quant(p * 127); o = f32(pq . vq) * o_mul;
+// out = quant(o * inv_out[h*D + d]). D % 4 == 0 (the wrapper checks).
+__device__ __forceinline__ int pack4(float a, float b, float c, float d) {
+  return ((int)quant_clip(a) & 0xff) | (((int)quant_clip(b) & 0xff) << 8) |
+         (((int)quant_clip(c) & 0xff) << 16) |
+         (((int)quant_clip(d) & 0xff) << 24);
+}
+
+__host__ __device__ constexpr int odd(int n) { return n | 1; }
+
+__global__ void __launch_bounds__(ATTN_THREADS) attention_i8_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, int8_t* __restrict__ out,
+    const float* __restrict__ inv_out, int N, int H, int D,
+    long long batch_stride, long long row_stride, float q_mul, float kv_mul,
+    float s_mul, float o_mul) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int C = H * D;
+  const int DW = D / 4, NW = (N + 3) / 4;
+  const int KROW = odd(DW), VROW = odd(NW);  // odd strides: no bank conflicts
+  const int nwarps = ATTN_THREADS / 32;
+  int* Ks = reinterpret_cast<int*>(smem_raw);       // N x KROW words
+  int* Vt = Ks + (size_t)N * KROW;                  // D x VROW words
+  int* qbuf = Vt + (size_t)D * VROW;                // nwarps x DW
+  float* pbuf = reinterpret_cast<float*>(qbuf + nwarps * DW);  // nwarps x N
+  int* pqbuf = reinterpret_cast<int*>(pbuf + nwarps * N);      // nwarps x NW
+
+  const int h = blockIdx.x;
+  const size_t base = (size_t)blockIdx.y * batch_stride + (size_t)h * D;
+  const bf16* qb = q + base;
+  const bf16* kb = k + base;
+  const bf16* vb = v + base;
+
+  for (int idx = threadIdx.x; idx < N * DW; idx += ATTN_THREADS) {
+    const int m = idx / DW, j = idx % DW;
+    const bf16* kr = kb + (size_t)m * row_stride + 4 * j;
+    Ks[(size_t)m * KROW + j] =
+        pack4(to_float(kr[0]) * kv_mul, to_float(kr[1]) * kv_mul,
+              to_float(kr[2]) * kv_mul, to_float(kr[3]) * kv_mul);
+  }
+  for (int idx = threadIdx.x; idx < NW * D; idx += ATTN_THREADS) {
+    const int w = idx / D, d = idx % D;
+    float f[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int m = 4 * w + i;  // keys beyond N weigh nothing
+      f[i] = m < N ? to_float(vb[(size_t)m * row_stride + d]) * kv_mul : 0.f;
+    }
+    Vt[(size_t)d * VROW + w] = pack4(f[0], f[1], f[2], f[3]);
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  int* qw = qbuf + warp * DW;
+  float* p = pbuf + warp * N;
+  int* pqw = pqbuf + warp * NW;
+  int8_t* pqb = reinterpret_cast<int8_t*>(pqw);
+  for (int n = warp; n < N; n += nwarps) {
+    const bf16* qrow = qb + (size_t)n * row_stride;
+    for (int j = lane; j < DW; j += 32)
+      qw[j] = pack4(to_float(qrow[4 * j]) * q_mul,
+                    to_float(qrow[4 * j + 1]) * q_mul,
+                    to_float(qrow[4 * j + 2]) * q_mul,
+                    to_float(qrow[4 * j + 3]) * q_mul);
+    for (int m = N + lane; m < 4 * NW; m += 32) pqb[m] = 0;
+    __syncwarp();
+
+    float mx = -INFINITY;
+    for (int m = lane; m < N; m += 32) {
+      const int* krow = Ks + (size_t)m * KROW;
+      int acc = 0;
+      for (int j = 0; j < DW; ++j) acc = __dp4a(qw[j], krow[j], acc);
+      const float s = (float)acc * s_mul;
+      p[m] = s;
+      mx = fmaxf(mx, s);
+    }
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int m = lane; m < N; m += 32) {
+      const float e = expf(p[m] - mx);
+      p[m] = e;
+      sum += e;
+    }
+    sum = warp_sum(sum);
+    for (int m = lane; m < N; m += 32)
+      pqb[m] = (int8_t)quant_clip((p[m] / sum) * 127.f);
+    __syncwarp();
+
+    const size_t orow = ((size_t)blockIdx.y * N + n) * C + (size_t)h * D;
+    for (int d = lane; d < D; d += 32) {
+      const int* vrow = Vt + (size_t)d * VROW;
+      int acc = 0;
+      for (int w = 0; w < NW; ++w) acc = __dp4a(pqw[w], vrow[w], acc);
+      const float o = (float)acc * o_mul;
+      out[orow + d] = (int8_t)quant_clip(__fmul_rn(o, inv_out[h * D + d]));
+    }
+    __syncwarp();
+  }
+}
+
+size_t attention_i8_smem(int N, int D) {
+  const int DW = D / 4, NW = (N + 3) / 4, nwarps = ATTN_THREADS / 32;
+  return sizeof(int) * ((size_t)N * odd(DW) + (size_t)D * odd(NW) +
+                        (size_t)nwarps * (DW + N + NW));
+}
+
+constexpr int PASS_THREADS = 256;
+
+unsigned pass_blocks(size_t n) {
+  return (unsigned)((n + PASS_THREADS - 1) / PASS_THREADS);
+}
+
+}  // namespace
+
+// --------------------------------------------------------- C interface
+// Pointers and the stream come from PyTorch as integers; every entry returns
+// the launch's cudaGetLastError() (0 = success) and never synchronises.
+extern "C" {
+
+int abl_ln(int device, const void* x, const void* scale, const void* bias,
+           void* q, int rows, int C, float eps, int no_ln, int cast,
+           void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = (cudaStream_t)stream;
+  const size_t smem = (size_t)C * sizeof(float);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  const bf16* xi = (const bf16*)x;
+  const float* sc = (const float*)scale;
+  const float* bi = (const float*)bias;
+  int8_t* qo = (int8_t*)q;
+  if (no_ln && cast)
+    ln_ablation_kernel<true, true><<<rows, ROW_THREADS, smem, s>>>(
+        xi, sc, bi, qo, C, eps);
+  else if (no_ln)
+    ln_ablation_kernel<true, false><<<rows, ROW_THREADS, smem, s>>>(
+        xi, sc, bi, qo, C, eps);
+  else if (cast)
+    ln_ablation_kernel<false, true><<<rows, ROW_THREADS, smem, s>>>(
+        xi, sc, bi, qo, C, eps);
+  else
+    return (int)cudaErrorInvalidValue;  // that is the serving kernel
+  return (int)cudaGetLastError();
+}
+
+int abl_cast_rows(int device, const void* x, void* q, long long n,
+                  void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cast_rows_kernel<<<pass_blocks((size_t)n), PASS_THREADS, 0,
+                     (cudaStream_t)stream>>>((const bf16*)x, (int8_t*)q,
+                                             (size_t)n);
+  return (int)cudaGetLastError();
+}
+
+int abl_qslice_quant(int device, const void* qkv, const void* inv, void* out,
+                     long long rows, int C, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  qslice_quant_kernel<<<pass_blocks((size_t)rows * C), PASS_THREADS, 0,
+                        (cudaStream_t)stream>>>(
+      (const bf16*)qkv, (const float*)inv, (int8_t*)out, (size_t)rows, C);
+  return (int)cudaGetLastError();
+}
+
+int abl_heads_split(int device, const void* qkv, void* out, int B, int N,
+                    int H, int D, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (D % 2) return (int)cudaErrorInvalidValue;
+  const size_t total = (size_t)3 * B * H * N * (D / 2);
+  heads_split_kernel<<<pass_blocks(total), PASS_THREADS, 0,
+                       (cudaStream_t)stream>>>(
+      (const uint32_t*)qkv, (uint32_t*)out, B, N, H, D / 2);
+  return (int)cudaGetLastError();
+}
+
+int abl_heads_merge_quant(int device, const void* o, const void* inv,
+                          void* out, int B, int N, int H, int D,
+                          void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const size_t total = (size_t)B * N * H * D;
+  heads_merge_quant_kernel<<<pass_blocks(total), PASS_THREADS, 0,
+                             (cudaStream_t)stream>>>(
+      (const float*)o, (const float*)inv, (int8_t*)out, B, N, H, D);
+  return (int)cudaGetLastError();
+}
+
+// epi: EPI_GELU_CAST, EPI_IDENT_Q8 or EPI_CAST (then out is (M, keep_cols))
+int abl_gemm(int device, const void* a, const void* w, const void* col_scale,
+             const void* bias, const void* inv_next, void* out, int M, int N,
+             int K, int epi, int fast_gelu, int keep_cols, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int8_t* ai = (const int8_t*)a;
+  const int8_t* wi = (const int8_t*)w;
+  const float* cs = (const float*)col_scale;
+  const float* bi = (const float*)bias;
+  const float* in = (const float*)inv_next;
+  int8_t* o = (int8_t*)out;
+  if (epi == EPI_GELU_CAST && in != nullptr)
+    return launch_gemm(ai, wi, AblationEpilogue<EPI_GELU_CAST>{
+        cs, bi, in, o, fast_gelu, N}, M, N, K, s);
+  if (epi == EPI_IDENT_Q8 && in != nullptr)
+    return launch_gemm(ai, wi, AblationEpilogue<EPI_IDENT_Q8>{
+        cs, bi, in, o, fast_gelu, N}, M, N, K, s);
+  if (epi == EPI_CAST && keep_cols > 0 && keep_cols <= N)
+    return launch_gemm(ai, wi, AblationEpilogue<EPI_CAST>{
+        cs, bi, in, o, fast_gelu, keep_cols}, M, N, K, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// mode: MODE_STATIC_CAST, MODE_STATIC_F32 or MODE_NO_SOFTMAX; bf16 q, k, v
+int abl_attention(int device, const void* q, const void* k, const void* v,
+                  void* out, const void* inv_out, int B, int N, int H, int D,
+                  long long batch_stride, long long row_stride, float scale,
+                  int mode, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = (cudaStream_t)stream;
+  const float* inv = (const float*)inv_out;
+  if (mode == MODE_STATIC_CAST && inv != nullptr)
+    return launch<bf16, MODE_STATIC_CAST>(q, k, v, out, inv, B, N, H, D,
+                                          batch_stride, row_stride, scale, s);
+  if (mode == MODE_STATIC_F32)
+    return launch<bf16, MODE_STATIC_F32>(q, k, v, out, inv, B, N, H, D,
+                                         batch_stride, row_stride, scale, s);
+  if (mode == MODE_NO_SOFTMAX && inv != nullptr)
+    return launch<bf16, MODE_NO_SOFTMAX>(q, k, v, out, inv, B, N, H, D,
+                                         batch_stride, row_stride, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+int abl_attention_i8(int device, const void* q, const void* k, const void* v,
+                     void* out, const void* inv_out, int B, int N, int H,
+                     int D, long long batch_stride, long long row_stride,
+                     float q_mul, float kv_mul, float s_mul, float o_mul,
+                     void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (D % 4) return (int)cudaErrorInvalidValue;
+  const size_t smem = attention_i8_smem(N, D);
+  err = cudaFuncSetAttribute(attention_i8_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  attention_i8_kernel<<<dim3(H, B), ATTN_THREADS, smem,
+                        (cudaStream_t)stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (int8_t*)out,
+      (const float*)inv_out, N, H, D, batch_stride, row_stride, q_mul, kv_mul,
+      s_mul, o_mul);
+  return (int)cudaGetLastError();
+}
+
+const char* abl_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+}  // extern "C"

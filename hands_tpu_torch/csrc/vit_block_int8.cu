@@ -43,71 +43,10 @@
 // accumulator registers; no TMA, no wgmma, no warp specialisation. The
 // row passes are one thread block per row.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
-typedef __nv_bfloat16 bf16;
+#include "common.cuh"
+#include "gemm_i8.cuh"
 
 namespace {
-
-constexpr float INV127 = 1.0f / 127.0f;
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(bf16 v) {
-  return __bfloat162float(v);
-}
-
-__device__ __forceinline__ float quant_clip(float v) {
-  return fminf(fmaxf(rintf(v), -127.f), 127.f);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-constexpr int ROW_THREADS = 256;
-
-// Sum (IS_MAX = false) or maximum over the thread block; every thread gets
-// the result. `red` holds one float per warp.
-template <bool IS_MAX>
-__device__ __forceinline__ float block_reduce(float v, float* red) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  v = IS_MAX ? warp_max(v) : warp_sum(v);
-  __syncthreads();  // red may still be read from an earlier reduction
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  v = lane < ROW_THREADS / 32 ? red[lane] : 0.f;  // maxima are of |.| >= 0
-  return IS_MAX ? warp_max(v) : warp_sum(v);
-}
-
-// f32 exact GELU 0.5x * erfc(-x * 2^-0.5), op by op as jax.nn.gelu lowers it
-__device__ __forceinline__ float gelu_erfc_f32(float x) {
-  const float half_x = 0.5f * x;
-  const float d = -x * 0.7071067811865476f;  // f32(2^-0.5)
-  return half_x * erfcf(d);
-}
-
-// f32 tanh GELU x * (0.5 * (1 + tanh(c * (x + k * x^3)))), op by op
-__device__ __forceinline__ float gelu_tanh_f32(float x) {
-  const float x3 = x * (x * x);
-  const float inner = 0.7978845608028654f * (x + 0.044715f * x3);
-  return x * (0.5f * (1.0f + tanhf(inner)));
-}
 
 // ---------------------------------------------------- LayerNorm + quantise
 // One block per row. flax LayerNorm to its f32 rounding order (fast variance
@@ -174,33 +113,6 @@ __global__ void __launch_bounds__(ROW_THREADS) quant_rows_kernel(
 }
 
 // -------------------------------------------------------------- int8 GEMM
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int src_bytes = pred ? 16 : 0;  // 0: 16 zero bytes (masked edge)
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(gmem), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// D (16x8, s32) += A (16x32, s8, row) . B (32x8, s8, col)
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 enum {
   EPI_DYN_BF16 = 0,        // bf16(acc*sr*sc + b)
   EPI_DYN_RESID_F32 = 1,   // f32 (res + acc*sr*sc) + b, res f32
@@ -220,156 +132,60 @@ struct Epilogue {
   void* out;               // (M, N) bf16, f32 or int8
   int mode;
   int fast_gelu;
+
+  __device__ __forceinline__ void store(int acc, int gm, int gn,
+                                        size_t idx) const {
+    float v = (float)acc;
+    if (mode <= EPI_DYN_GELU_F32) {
+      v = v * row_scale[gm];
+      v = v * col_scale[gn];
+    } else {
+      v = v * col_scale[gn] + bias[gn];
+    }
+    switch (mode) {
+      case EPI_DYN_BF16:
+        reinterpret_cast<bf16*>(out)[idx] =
+            __float2bfloat16_rn(v + bias[gn]);
+        break;
+      case EPI_DYN_RESID_F32:
+        reinterpret_cast<float*>(out)[idx] =
+            (reinterpret_cast<const float*>(residual)[idx] + v) + bias[gn];
+        break;
+      case EPI_DYN_RESID_BF16:
+        reinterpret_cast<bf16*>(out)[idx] = __float2bfloat16_rn(
+            (reinterpret_cast<const float*>(residual)[idx] + v) + bias[gn]);
+        break;
+      case EPI_DYN_GELU_F32: {
+        const float h = v + bias[gn];
+        reinterpret_cast<float*>(out)[idx] =
+            fast_gelu ? gelu_tanh_f32(h) : gelu_erfc_f32(h);
+        break;
+      }
+      case EPI_STA_BF16:
+        reinterpret_cast<bf16*>(out)[idx] = __float2bfloat16_rn(v);
+        break;
+      case EPI_STA_RESID_BF16:
+        reinterpret_cast<bf16*>(out)[idx] = __float2bfloat16_rn(
+            to_float(reinterpret_cast<const bf16*>(residual)[idx]) +
+            round_bf16(v));
+        break;
+      default: {  // EPI_STA_GELU_Q8
+        const float h = fast_gelu ? gelu_tanh_f32(v) : gelu_erfc_f32(v);
+        reinterpret_cast<int8_t*>(out)[idx] =
+            (int8_t)quant_clip(h * inv_next[gn]);
+      }
+    }
+  }
 };
 
-__device__ __forceinline__ void epilogue_store(const Epilogue& e, int acc,
-                                               int gm, int gn, size_t idx) {
-  float v = (float)acc;
-  if (e.mode <= EPI_DYN_GELU_F32) {
-    v = v * e.row_scale[gm];
-    v = v * e.col_scale[gn];
-  } else {
-    v = v * e.col_scale[gn] + e.bias[gn];
-  }
-  switch (e.mode) {
-    case EPI_DYN_BF16:
-      reinterpret_cast<bf16*>(e.out)[idx] =
-          __float2bfloat16_rn(v + e.bias[gn]);
-      break;
-    case EPI_DYN_RESID_F32:
-      reinterpret_cast<float*>(e.out)[idx] =
-          (reinterpret_cast<const float*>(e.residual)[idx] + v) + e.bias[gn];
-      break;
-    case EPI_DYN_RESID_BF16:
-      reinterpret_cast<bf16*>(e.out)[idx] = __float2bfloat16_rn(
-          (reinterpret_cast<const float*>(e.residual)[idx] + v) + e.bias[gn]);
-      break;
-    case EPI_DYN_GELU_F32: {
-      const float h = v + e.bias[gn];
-      reinterpret_cast<float*>(e.out)[idx] =
-          e.fast_gelu ? gelu_tanh_f32(h) : gelu_erfc_f32(h);
-      break;
-    }
-    case EPI_STA_BF16:
-      reinterpret_cast<bf16*>(e.out)[idx] = __float2bfloat16_rn(v);
-      break;
-    case EPI_STA_RESID_BF16:
-      reinterpret_cast<bf16*>(e.out)[idx] = __float2bfloat16_rn(
-          to_float(reinterpret_cast<const bf16*>(e.residual)[idx]) +
-          round_bf16(v));
-      break;
-    default: {  // EPI_STA_GELU_Q8
-      const float h = e.fast_gelu ? gelu_tanh_f32(v) : gelu_erfc_f32(v);
-      reinterpret_cast<int8_t*>(e.out)[idx] =
-          (int8_t)quant_clip(h * e.inv_next[gn]);
-    }
-  }
-}
 
-// out[M, N] = epilogue(A[M, K] . W[N, K]^T): A row-major int8, W int8 in
-// nn.Linear's (out, in) layout, int32 accumulation. Requires K % 16 == 0 and
-// 16-byte aligned A and W (the wrapper checks); M and N edges are masked
-// (zero-filled copies, guarded stores).
-constexpr int BM = 128, BN = 128, BK = 64, SKEW = 16, STAGES = 4;
-constexpr int LDS = BK + SKEW;     // 80-byte rows: 16-byte chunks stay
-                                   // aligned, fragment loads hit 32 banks
-constexpr int GEMM_THREADS = 256;  // 8 warps as 2 (M) x 4 (N), 64x32 each
-constexpr size_t GEMM_SMEM = (size_t)STAGES * (BM + BN) * LDS;  // 81,920 B
-
+// The GEMM of both blocks: the main loop of gemm_i8.cuh with the epilogue
+// chosen at run time by ep.mode.
 __global__ void __launch_bounds__(GEMM_THREADS) gemm_i8_kernel(
     const int8_t* __restrict__ A, const int8_t* __restrict__ W, Epilogue ep,
     int M, int N, int K) {
   extern __shared__ __align__(128) unsigned char gemm_smem[];
-  int8_t* As = reinterpret_cast<int8_t*>(gemm_smem);  // STAGES x BM x LDS
-  int8_t* Bs = As + STAGES * BM * LDS;                // STAGES x BN x LDS
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int warp_m = warp / 4, warp_n = warp % 4;
-  const int g = lane >> 2, t = lane & 3;  // mma fragment row group / column
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-
-  int acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0;
-
-  // a stage is 128 rows x 4 chunks of 16 int8 per operand: 2 chunks of A
-  // and 2 of W per thread
-  auto load_stage = [&](int stage, int k0) {
-    int8_t* as = As + stage * BM * LDS;
-    int8_t* bs = Bs + stage * BN * LDS;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * GEMM_THREADS;
-      const int r = c >> 2, kc = (c & 3) * 16;
-      const int gk = k0 + kc;
-      const bool a_ok = m0 + r < M && gk < K;
-      const bool b_ok = n0 + r < N && gk < K;
-      cp_async16(as + r * LDS + kc,
-                 a_ok ? A + (size_t)(m0 + r) * K + gk : A, a_ok);
-      cp_async16(bs + r * LDS + kc,
-                 b_ok ? W + (size_t)(n0 + r) * K + gk : W, b_ok);
-    }
-  };
-
-  const int KT = (K + BK - 1) / BK;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < KT) load_stage(s, s * BK);
-    cp_async_commit();  // one group per stage, empty ones included
-  }
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<STAGES - 2>();  // this thread's copies of tile kt landed
-    __syncthreads();  // everyone's landed; everyone is done with tile kt-1
-    const int nk = kt + STAGES - 1;
-    if (nk < KT) load_stage(nk % STAGES, nk * BK);  // into tile kt-1's slot
-    cp_async_commit();
-    const int8_t* as = As + (kt % STAGES) * BM * LDS;
-    const int8_t* bs = Bs + (kt % STAGES) * BN * LDS;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 32) {
-      uint32_t af[4][4], bfr[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int8_t* row = as + (warp_m * 64 + i * 16 + g) * LDS + kk + t * 4;
-        af[i][0] = *reinterpret_cast<const uint32_t*>(row);
-        af[i][1] = *reinterpret_cast<const uint32_t*>(row + 8 * LDS);
-        af[i][2] = *reinterpret_cast<const uint32_t*>(row + 16);
-        af[i][3] = *reinterpret_cast<const uint32_t*>(row + 8 * LDS + 16);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int8_t* col = bs + (warp_n * 32 + j * 8 + g) * LDS + kk + t * 4;
-        bfr[j][0] = *reinterpret_cast<const uint32_t*>(col);
-        bfr[j][1] = *reinterpret_cast<const uint32_t*>(col + 16);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_s8(acc[i][j], af[i], bfr[j]);
-    }
-  }
-  cp_async_wait<0>();  // only empty groups remain; drain before exit
-
-  // epilogue straight from the accumulator registers: a thread holds rows
-  // g and g + 8 and columns 2t, 2t + 1 of each 16x8 tile
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int gm = m0 + warp_m * 64 + i * 16 + g + (r >> 1) * 8;
-        const int gn = n0 + warp_n * 32 + j * 8 + t * 2 + (r & 1);
-        if (gm < M && gn < N)
-          epilogue_store(ep, acc[i][j][r], gm, gn, (size_t)gm * N + gn);
-      }
-    }
-  }
+  gemm_i8_tile(A, W, ep, M, N, K, gemm_smem);
 }
 
 }  // namespace

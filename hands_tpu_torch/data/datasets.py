@@ -173,3 +173,29 @@ class SyntheticRecordDataset(RecordDataset):
             grasp_valid_r=1.0, grasp_valid_l=1.0,
             loss_flags=dict(self._FLAGS), dataset=self.name,
         )
+
+
+# the JAX package's dataset names whose classes (and files) are not ported
+_NOT_PORTED = ("hands", "arctic", "sample", "assembly", "epic", "epic_grasp",
+               "epic_seg", "epic_depth", "ego_grasp", "ego_seg", "h2o",
+               "egoexo")
+DATASET_REGISTRY = {"synthetic": SyntheticRecordDataset}
+
+
+def fetch_dataset(cfg: Config, names: str, split: str):
+    """Resolve a dataset name into a dataset (port of ``fetch_dataset``).
+    Only ``"synthetic"`` is ported; a real dataset name, alone or in an
+    ``a+b+c`` mix, raises ``NotImplementedError``."""
+    parts = names.split("+")
+    for p in parts:
+        if p in _NOT_PORTED:
+            raise NotImplementedError(
+                f"dataset '{p}' is not ported (its class, the native decoder "
+                f"and the concatenation of datasets): ROADMAP queue 1 item 8")
+        if p not in DATASET_REGISTRY:
+            raise KeyError(f"unknown dataset '{p}'")
+    if len(parts) > 1:
+        raise NotImplementedError(
+            "the concatenation of datasets is not ported: ROADMAP queue 1 "
+            "item 8")
+    return DATASET_REGISTRY[parts[0]](cfg, split)

@@ -1,5 +1,5 @@
-"""On-device batch preprocessor (port of ``hands_tpu/data/device_pipeline.py``,
-eval mode).
+"""On-device batch preprocessor and the loaders around it (port of
+``hands_tpu/data/device_pipeline.py``).
 
 The host stacks records into numpy arrays (images stay uint8); the batch
 goes to the device once, and everything after that — crop, keypoint and
@@ -7,15 +7,26 @@ intrinsics transforms, KPE angles, ImageNet normalisation — runs there in
 float32 with TF32 off (the JAX module's float32 matmul pin).
 
 Eval mode draws no augmentation: no flip, no rotation, no box jitter, unit
-scale and channel gains. Records that carry a hand mask or a depth map get
-their mask and depth targets through a nearest-neighbour crop. Train mode is
-ROADMAP queue 1 item 4.
+scale and channel gains. Train mode draws flip, rotation, scale and channel
+gains per image, blurs before the crop, rotates the patch (and the mask and
+depth targets, the GT 3D joints and the global orientation with it), jitters
+the hand boxes and mirrors flipped images with their boxes. Records that carry
+a hand mask or a depth map get their mask and depth targets through a
+nearest-neighbour crop. Only ``pos_enc == "pcl"`` is not ported (ROADMAP
+queue 1 item 4).
+
+:class:`DeviceDataLoader` turns a dataset of records into a stream of such
+batches; :class:`PrefetchLoader` runs its host half (record fetch, stacking,
+pinning) on a background thread.
 """
 
 from __future__ import annotations
 
+import copy
 import math
-from typing import List
+import queue
+import threading
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -106,33 +117,43 @@ def stack_records(records: List[Record]) -> dict:
 
 
 class DevicePreprocessor:
-    """Record batch -> (inputs, targets, meta_info) on ``device``, eval mode.
-    ``device`` is the card unless the caller names the CPU."""
+    """Record batch -> (inputs, targets, meta_info) on ``device``, in eval or
+    train mode. ``device`` is the card unless the caller names the CPU.
+
+    Train mode draws its augmentation from the ``generator`` given to the
+    call (a ``torch.Generator`` on ``device``), in this order: flip, channel
+    gains, rotation (normal, then the keep-or-zero uniform), scale, the right
+    hand's box jitter, the left hand's. ``draws`` replaces the generator:
+    ``{"augm": the dict of ops.preprocess.augm_params, "jitter_r": (B, 2),
+    "jitter_l": (B, 2)}`` of raw uniform and normal values."""
 
     def __init__(self, cfg: Config, is_train: bool, device="cuda"):
-        if is_train:
-            raise NotImplementedError(
-                "train-mode preprocessing is not ported: ROADMAP queue 1 "
-                "item 4")
         if cfg.pos_enc == "pcl":
             raise NotImplementedError(
                 "pcl preprocessing (pcl_crop, warp_homography) is not "
                 "ported: ROADMAP queue 1 item 4")
         self.cfg = cfg
+        self.is_train = is_train
         self.device = torch.device(device)
 
-    def _process(self, batch: dict):
+    def _process(self, batch: dict, generator=None, draws=None):
         cfg = self.cfg
         B = batch["image"].shape[0]
         res = cfg.img_res
         dev = self.device
-        augm = pp.augm_params(B, device=dev)
+        draws = draws or {}
+        augm = pp.augm_params(
+            B, dev, self.is_train, cfg.flip_prob, cfg.noise_factor,
+            cfg.rot_factor, cfg.scale_factor, generator, draws.get("augm"))
+        # no scaling for egocam records: their intrinsics stay consistent
         augm["sc"] = torch.where(batch["is_egocam"] > 0, 1.0, augm["sc"])
 
-        # full-image patch
+        # full-image patch: blur -> (rotated) crop -> channel gains
         center = batch["bbox"][:, :2]
         bbox_dim = batch["bbox"][:, 2]
-        img = pp.rgb_crop_augment(batch["image"], center, bbox_dim, augm, res)
+        img = pp.rgb_crop_augment(
+            batch["image"], center, bbox_dim, augm, res,
+            antialias=self.is_train, apply_rot=self.is_train)
 
         # GT keypoints into (normalised) patch space
         j2d_r = pp.j2d_crop_transform(batch["j2d_r"], center, bbox_dim, augm, res)
@@ -167,11 +188,25 @@ class DevicePreprocessor:
             degenerate = (ok <= 0) | (xywh[:, 2] <= 0) | (xywh[:, 3] <= 0)
             return xywh, degenerate
 
+        def jitter_recheck(xywh, degen, side):
+            # train mode: jitter the tight box, clip it, check it again
+            if not self.is_train:
+                return xywh, degen
+            j = torch.floor(pp.jitter_bbox(
+                xywh, generator=generator, draws=draws.get(f"jitter_{side}")))
+            x0 = torch.clamp(j[:, 0], 0, resm1)
+            y0 = torch.clamp(j[:, 1], 0, resm1)
+            x1 = torch.clamp(j[:, 0] + j[:, 2], 0, resm1)
+            y1 = torch.clamp(j[:, 1] + j[:, 3], 0, resm1)
+            new = torch.stack([x0, y0, x1 - x0, y1 - y0], dim=-1)
+            return new, degen | (new[:, 2] <= 0) | (new[:, 3] <= 0)
+
         mode = batch["bbox_mode"] > 0  # (B,) provided-box records
 
-        def hand_boxes(j2d_norm, jvalid, det, det_ok):
+        def hand_boxes(j2d_norm, jvalid, det, det_ok, side):
             gt_xywh, gt_degen = joints_tight(j2d_norm, jvalid)
             og = torch.where(gt_degen[:, None], full_box, gt_xywh)
+            gt_xywh, gt_degen = jitter_recheck(gt_xywh, gt_degen, side)
             pr_xywh, pr_degen = provided_tight(det, det_ok)
             pr_og = torch.where(pr_degen[:, None], full_box, pr_xywh)
             xywh = torch.where(mode[:, None], pr_xywh, gt_xywh)
@@ -181,10 +216,10 @@ class DevicePreprocessor:
 
         r_xywh, r_full, r_bbox_og = hand_boxes(
             j2d_r, batch["joints_valid_r"], batch["r_bbox_det"],
-            batch["r_bbox_ok"])
+            batch["r_bbox_ok"], "r")
         l_xywh, l_full, l_bbox_og = hand_boxes(
             j2d_l, batch["joints_valid_l"], batch["l_bbox_det"],
-            batch["l_bbox_ok"])
+            batch["l_bbox_ok"], "l")
 
         # square max-side crop geometry (a degenerate box -> full image)
         def crop_geom(xywh, full):
@@ -227,6 +262,22 @@ class DevicePreprocessor:
         l_img = torch.clamp(pp.crop_resize_separable(
             img, l_cx, l_cy, l_size, cfg.img_res_ds), 0.0, 1.0)
 
+        # horizontal flip: pixels mirror; boxes mirror and swap sides (the
+        # model's flip-swap un-mirrors the predictions); GT targets stay
+        r_bbox_noflip, l_bbox_noflip = r_bbox, l_bbox
+        if self.is_train:
+            flip = augm["flip"].reshape(B, 1, 1, 1) > 0
+            img, r_img, l_img = (torch.where(flip, t.flip(2), t)
+                                 for t in (img, r_img, l_img))
+
+            def mirror_bbox(bb):
+                x0, y0, x1, y1 = (bb[:, i] for i in range(4))
+                return torch.stack([res - 1 - x1, y0, res - 1 - x0, y1], -1)
+
+            fb = augm["flip"].reshape(B, 1) > 0
+            r_bbox, l_bbox = (torch.where(fb, mirror_bbox(l_bbox), r_bbox),
+                              torch.where(fb, mirror_bbox(r_bbox), l_bbox))
+
         mean, std = cfg.img_norm_mean, cfg.img_norm_std
         inputs = XDict({
             "img": pp.normalize_imagenet(img, mean, std),
@@ -257,18 +308,28 @@ class DevicePreprocessor:
                     inputs[f"{side}_dense_angle"] = dense[0]
                     inputs[f"{side}_dense_mask"] = dense[1]
 
-        # no in-plane rotation in eval: GT 3D joints pass through; the pose
-        # still takes the rot_aa round trip, as in the JAX pipeline
+        # the in-plane rotation turns the global orientation and the GT 3D
+        # joints with the patch (eval: zero rotation, joints pass through;
+        # the pose still takes the rot_aa round trip, as in the JAX pipeline)
         pose_r = pp.pose_aug_rotate(batch["pose_r"], augm["rot"])
         pose_l = pp.pose_aug_rotate(batch["pose_l"], augm["rot"])
+        j3d_r, j3d_l = batch["j3d_r"], batch["j3d_l"]
+        if self.is_train:
+            rad = -augm["rot"] * math.pi / 180.0
+            c, sn = torch.cos(rad), torch.sin(rad)
+            zero, one = torch.zeros_like(c), torch.ones_like(c)
+            Rz = torch.stack([c, -sn, zero, sn, c, zero, zero, zero, one],
+                             -1).reshape(B, 3, 3)
+            j3d_r = torch.einsum("bij,bnj->bni", Rz, j3d_r)
+            j3d_l = torch.einsum("bij,bnj->bni", Rz, j3d_l)
 
         targets = XDict({
             "mano.pose.r": pose_r,
             "mano.pose.l": pose_l,
             "mano.beta.r": batch["beta_r"],
             "mano.beta.l": batch["beta_l"],
-            "mano.j3d.full.r": batch["j3d_r"],
-            "mano.j3d.full.l": batch["j3d_l"],
+            "mano.j3d.full.r": j3d_r,
+            "mano.j3d.full.l": j3d_l,
             "mano.j2d.norm.r": j2d_r,
             "mano.j2d.norm.l": j2d_l,
             "is_valid": batch["is_valid"],
@@ -293,8 +354,8 @@ class DevicePreprocessor:
         # records without masks or depth maps: zero targets
         if cfg.use_render_seg_loss:
             if "mask" in batch:
-                m = pp.mask_crop(batch["mask"], center, bbox_dim, augm,
-                                 res)[..., 0]
+                m = pp.mask_crop(batch["mask"], center, bbox_dim, augm, res,
+                                 apply_rot=self.is_train)[..., 0]
                 # mask coding: right hand 255, left hand 127
                 targets["render.r"] = (torch.abs(m - 255.0) < 32).float()
                 targets["render.l"] = (torch.abs(m - 127.0) < 32).float()
@@ -305,8 +366,8 @@ class DevicePreprocessor:
             targets["render_valid_l"] = batch["mask_valid_l"]
         if cfg.use_depth_loss:
             if "depth" in batch:
-                d = pp.mask_crop(batch["depth"], center, bbox_dim, augm,
-                                 res)[..., 0]
+                d = pp.mask_crop(batch["depth"], center, bbox_dim, augm, res,
+                                 apply_rot=self.is_train)[..., 0]
                 # per-hand depth: the patch's depth inside the hand's crop box
                 xs = torch.arange(res, dtype=torch.float32, device=dev)
 
@@ -317,8 +378,8 @@ class DevicePreprocessor:
                             & (xs[None, :, None] < box[:, 3, None, None]))
                     return (in_x & in_y).to(d.dtype)
 
-                targets["depth.r"] = d * region(r_bbox)
-                targets["depth.l"] = d * region(l_bbox)
+                targets["depth.r"] = d * region(r_bbox_noflip)
+                targets["depth.l"] = d * region(l_bbox_noflip)
             else:
                 targets["depth.r"] = torch.zeros((B, res, res), device=dev)
                 targets["depth.l"] = torch.zeros((B, res, res), device=dev)
@@ -333,15 +394,225 @@ class DevicePreprocessor:
             meta_info[flag] = batch[flag]
         return inputs, targets, meta_info
 
-    def __call__(self, record_batch: dict):
-        # one host->device copy per array; uint8 pixels widen on the device
+    def __call__(self, record_batch: dict,
+                 generator: Optional[torch.Generator] = None,
+                 draws: Optional[dict] = None):
+        # one host->device copy per array; uint8 pixels widen on the device.
+        # Values are numpy arrays or (pinned) tensors.
         device_batch = {
-            k: torch.from_numpy(np.ascontiguousarray(v)).to(
-                self.device, non_blocking=True)
+            k: (v if torch.is_tensor(v)
+                else torch.from_numpy(np.ascontiguousarray(v))).to(
+                    self.device, non_blocking=True)
             for k, v in record_batch.items() if not k.startswith("_")
         }
         with torch.no_grad(), f32_exact():
-            inputs, targets, meta_info = self._process(device_batch)
+            inputs, targets, meta_info = self._process(device_batch,
+                                                       generator, draws)
         if "_dist" in record_batch:
             meta_info["dist"] = record_batch["_dist"]
         return inputs, targets, meta_info
+
+
+class DeviceDataLoader:
+    """Host dataset of Records -> stream of device-preprocessed batches
+    ``(inputs, targets, meta_info)``.
+
+    Record fetches run on a thread pool with a bounded lookahead of batches,
+    consumed in submission order, so batch order and augmentation draws equal
+    the sequential path's. An iteration has a host half (:meth:`host_batches`:
+    fetch, stack, pin; safe on a worker thread) and a device half
+    (:meth:`device_batch`: the copy and the preprocessing, drawing from the
+    epoch's generator; always on the consumer's thread, so the generator is
+    never drawn from by two threads and every launch goes to the consumer's
+    stream). Every host batch gets fresh pinned tensors, so a
+    ``non_blocking`` copy never races a reuse of its staging memory.
+
+    A tail batch is padded to ``batch_size`` with copies of its last record
+    whose ``is_valid`` / ``right_valid`` / ``left_valid`` are 0 (the metrics
+    give NaN there); ``meta["num_valid"]`` counts the real rows.
+    """
+
+    def __init__(self, dataset, cfg: Config, batch_size: int, is_train: bool,
+                 seed: int = 0, drop_last: bool = True,
+                 num_workers: Optional[int] = None,
+                 lookahead_batches: int = 4, shard: tuple = (0, 1),
+                 device="cuda"):
+        if tuple(shard) != (0, 1):
+            raise NotImplementedError(
+                "the sharded (multi-process) loader path is not ported: "
+                "ROADMAP queue 1 item 13")
+        if hasattr(dataset, "stacked_batch"):
+            raise NotImplementedError(
+                "the packed stacked_batch fast path (data/packed.py) is not "
+                "ported: ROADMAP queue 1 item 8")
+        self.dataset = dataset
+        self.cfg = cfg
+        self.batch_size = batch_size
+        self.is_train = is_train
+        self.seed = seed
+        self.drop_last = drop_last
+        self.num_workers = (cfg.num_workers if num_workers is None
+                            else num_workers)
+        self.lookahead_batches = lookahead_batches
+        self.device = torch.device(device)
+        self.pre = DevicePreprocessor(cfg, is_train, device=self.device)
+        # advances once per full iteration: every epoch reshuffles and draws
+        # fresh augmentations; (seed, epoch) -> stream stays deterministic
+        self._epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        """Pin the epoch index (as ``DistributedSampler.set_epoch``)."""
+        self._epoch = int(epoch)
+
+    def peek(self):
+        """First batch of the upcoming epoch WITHOUT advancing the epoch
+        counter."""
+        epoch = self._epoch
+        try:
+            return next(iter(self))
+        finally:
+            self._epoch = epoch
+
+    def __len__(self):
+        n = len(self.dataset)
+        return (n // self.batch_size if self.drop_last
+                else -(-n // self.batch_size))
+
+    def begin_epoch(self):
+        """Advance the epoch counter; returns (record order, the epoch's
+        generator on the loader's device)."""
+        epoch = self._epoch
+        self._epoch += 1
+        order = np.arange(len(self.dataset))
+        if self.is_train:
+            np.random.RandomState(self.seed * 100003 + epoch).shuffle(order)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(self.seed * 100003 + epoch)
+        return order, gen
+
+    def _iter_record_batches(self, order):
+        """Yield the list of Records of each index batch, fetched by a thread
+        pool with bounded lookahead (``num_workers`` <= 0: sequentially)."""
+        n, step = len(order), self.batch_size
+        starts = range(0, n - (step - 1 if self.drop_last else 0), step)
+        if self.num_workers <= 0:
+            for s in starts:
+                yield [self.dataset[int(i)] for i in order[s:s + step]]
+            return
+        import concurrent.futures as cf
+        from collections import deque
+
+        with cf.ThreadPoolExecutor(self.num_workers) as ex:
+            pending = deque()
+            it = iter(starts)
+
+            def submit():
+                s = next(it, None)
+                if s is None:
+                    return False
+                pending.append([ex.submit(self.dataset.__getitem__, int(i))
+                                for i in order[s:s + step]])
+                return True
+
+            for _ in range(self.lookahead_batches):
+                if not submit():
+                    break
+            while pending:
+                futs = pending.popleft()
+                submit()
+                yield [f.result() for f in futs]
+
+    def host_batches(self, order):
+        """The host half: yields (stacked batch, number of real rows); arrays
+        are pinned tensors when the loader's device is a card."""
+        pin = self.device.type == "cuda"
+        for records in self._iter_record_batches(order):
+            n_real = len(records)
+            for _ in range(self.batch_size - n_real):
+                pad = copy.copy(records[-1])
+                pad.is_valid = pad.right_valid = pad.left_valid = 0.0
+                records.append(pad)
+            stacked = stack_records(records)
+            if pin:
+                stacked = {
+                    k: (v if k.startswith("_") else torch.from_numpy(
+                        np.ascontiguousarray(v)).pin_memory())
+                    for k, v in stacked.items()}
+            yield stacked, n_real
+
+    def device_batch(self, stacked: dict, n_real: int, gen: torch.Generator):
+        """The device half: copy, preprocess (drawing from ``gen`` in train
+        mode), attach the names and the count of real rows."""
+        inputs, targets, meta = self.pre(
+            stacked, generator=gen if self.is_train else None)
+        meta = XDict(meta)
+        meta["imgname"] = stacked["_imgnames"][:n_real]
+        meta["num_valid"] = n_real
+        return inputs, targets, meta
+
+    def __iter__(self):
+        order, gen = self.begin_epoch()
+        for stacked, n_real in self.host_batches(order):
+            yield self.device_batch(stacked, n_real, gen)
+
+
+class PrefetchLoader:
+    """Background-thread prefetch around a :class:`DeviceDataLoader`: the
+    thread runs the loader's host half (record fetch, stacking, pinning)
+    ``depth`` batches ahead; the copy to the card and the preprocessing stay
+    on the consumer's thread and stream (see :class:`DeviceDataLoader`).
+    ``wait_seconds`` adds up the time the consumer was blocked on the queue.
+    ``peek`` / ``set_epoch`` / attributes go to the wrapped loader."""
+
+    def __init__(self, loader, depth: int = 2):
+        self.loader = loader
+        self.depth = depth
+        self.wait_seconds = 0.0
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __getattr__(self, name):
+        return getattr(self.loader, name)
+
+    def __iter__(self):
+        import time
+
+        order, gen = self.loader.begin_epoch()
+        q: "queue.Queue" = queue.Queue(maxsize=self.depth)
+        done = object()
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def worker():
+            try:
+                for item in self.loader.host_batches(order):
+                    if not put(item):
+                        return
+                put(done)
+            except BaseException as exc:  # handed to the consumer, re-raised
+                put(exc)
+
+        thread = threading.Thread(target=worker, daemon=True)
+        thread.start()
+        try:
+            while True:
+                t0 = time.perf_counter()
+                item = q.get()
+                self.wait_seconds += time.perf_counter() - t0
+                if item is done:
+                    break
+                if isinstance(item, BaseException):
+                    raise item
+                yield self.loader.device_batch(*item, gen)
+        finally:
+            stop.set()  # an abandoned iteration must not leave the thread
+            thread.join(timeout=10.0)

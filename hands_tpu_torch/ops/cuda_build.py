@@ -2,8 +2,9 @@
 
 Each ``csrc/*.cu`` file has a plain C interface. It is compiled with ``nvcc``
 for ``sm_90a`` at first use into ``hands_tpu_torch/csrc/_build/`` (keyed by a
-hash of the source and flags) and loaded with ``ctypes``; no PyTorch header
-is involved, so a build takes seconds. Every C entry takes the device index
+hash of the source, of every ``csrc/*.cuh`` header and of the flags) and
+loaded with ``ctypes``; no PyTorch header is involved, so a build takes
+seconds. Every C entry takes the device index
 first and the stream last, launches on that stream without synchronising,
 and returns the launch's ``cudaGetLastError()``.
 """
@@ -51,8 +52,11 @@ class CudaLibrary:
         self._tmp: Optional[Path] = None
 
     def so_path(self) -> Path:
-        key = hashlib.sha256(
-            self.source.read_bytes() + " ".join(self.flags).encode()).hexdigest()
+        key = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(CSRC.glob("*.cuh")):  # shared device code
+            key.update(header.read_bytes())
+        key.update(" ".join(self.flags).encode())
+        key = key.hexdigest()
         return BUILD_DIR / f"{self.name}_{key[:16]}.so"
 
     def start_build(self) -> None:

@@ -1,18 +1,27 @@
-"""Batched on-device preprocessing (port of ``hands_tpu/ops/preprocess.py``,
-the eval subset).
+"""Batched on-device preprocessing (port of ``hands_tpu/ops/preprocess.py``).
 
 Crops are axis-aligned resamples written as two interpolation-weight
 products (float32, TF32 off), bilinear for images and nearest-neighbour for
 masks and depth maps (``mask_crop``); keypoints, intrinsics and KPE angles
-follow the JAX module's math exactly. Train-time augmentation (rotation,
-blur, jitter, random draws) and the ``pcl`` resampler (``pcl_crop``,
-``warp_homography``) are not ported yet.
+follow the JAX module's math exactly.
+
+Train-time augmentation: the draws of :func:`augm_params`, the 5-tap
+anti-alias blur, the in-plane rotation of the square patch and the box and
+intrinsics jitter. The rotation is one gather pass (:func:`rotate_patch` is
+the JAX module's ``rotate_patch_gather``, which that module keeps as the
+oracle of its three-shear rotation: a per-pixel gather is what a GPU is good
+at, so the shear passes are not ported; the two differ by interpolation
+softness only). Every function that draws takes a ``torch.Generator`` and,
+instead of it, the raw draws themselves (uniform [0, 1) and standard normal
+values), so that a test can feed another framework's. The ``pcl`` resampler
+(``pcl_crop``, ``warp_homography``) is not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from hands_tpu_torch.core import rot as rotlib
@@ -77,27 +86,153 @@ def crop_resize_separable(images, cx, cy, src_size, out_res: int,
     return separable_resample(images, y_src, x_src, method)
 
 
-def augm_params(batch: int, device=None) -> Dict[str, torch.Tensor]:
-    """Eval-mode augmentation parameters (none): (B,)-tensors flip, rot
-    (deg), sc and (B, 3) channel gains pn. Train-time draws are ROADMAP
-    queue 1 item 4."""
-    return {
-        "flip": torch.zeros(batch, device=device),
-        "pn": torch.ones((batch, 3), device=device),
-        "rot": torch.zeros(batch, device=device),
-        "sc": torch.ones(batch, device=device),
-    }
+@f32_matmuls
+def warp_affine(images: torch.Tensor, M_inv: torch.Tensor, out_res: int,
+                method: str = "bilinear") -> torch.Tensor:
+    """Batched inverse-map affine warp of (B, H, W, C) by the dst->src maps
+    ``M_inv`` (B, 2, 3) -> (B, out_res, out_res, C): one gather per tap,
+    zeros outside the image. ``"bilinear"`` or ``"nearest"`` (the sample
+    nearest to the source coordinate, halves to even)."""
+    B, H, W, C = images.shape
+    grid = torch.arange(out_res, dtype=torch.float32, device=images.device)
+    ys, xs = torch.meshgrid(grid, grid, indexing="ij")
+    dst = torch.stack([xs, ys, torch.ones_like(xs)], dim=-1).reshape(-1, 3)
+    src = torch.einsum("bij,pj->bpi", M_inv, dst)  # (B, P, 2)
+    sx, sy = src[..., 0], src[..., 1]
+    flat = images.reshape(B, H * W, C)
+
+    def gather(xi, yi):
+        inb = (xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)
+        idx = yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)
+        vals = torch.gather(flat, 1, idx[..., None].expand(-1, -1, C))
+        return vals * inb[..., None]
+
+    if method == "nearest":
+        out = gather(torch.round(sx).long(), torch.round(sy).long())
+    elif method == "bilinear":
+        x0f, y0f = torch.floor(sx), torch.floor(sy)
+        x0, y0 = x0f.long(), y0f.long()
+        fx, fy = (sx - x0f)[..., None], (sy - y0f)[..., None]
+        top = gather(x0, y0) * (1 - fx) + gather(x0 + 1, y0) * fx
+        bot = gather(x0, y0 + 1) * (1 - fx) + gather(x0 + 1, y0 + 1) * fx
+        out = top * (1 - fy) + bot * fy
+    else:
+        raise ValueError(method)
+    return out.reshape(B, out_res, out_res, C)
 
 
-def rgb_crop_augment(images, center, bbox_dim, augm: dict,
-                     img_res: int) -> torch.Tensor:
-    """Batched ``rgb_processing`` in its eval form (``antialias=False``,
-    ``apply_rot=False``: no blur, no rotation pass): square crop of side
-    ``sc * bbox_dim * 200`` -> channel gains -> [0, 1] NHWC float."""
+def rotate_patch(images: torch.Tensor, rot_deg: torch.Tensor,
+                 method: str = "bilinear") -> torch.Tensor:
+    """Rotate square (B, R, R, C) patches about their centre by ``rot_deg``
+    (B,) degrees in one gather pass (``rotate_patch_gather`` of the JAX
+    module)."""
+    res = images.shape[1]
+    half = torch.full_like(rot_deg, res / 2.0)
+    M = crop_transform(half, half, torch.full_like(rot_deg, float(res)),
+                       rot_deg, res)
+    return warp_affine(images, M, res, method=method)
+
+
+def gaussian_blur(images: torch.Tensor, kernel: int = 5,
+                  sigma: float = 8.0) -> torch.Tensor:
+    """Separable Gaussian blur of NHWC images with zero padding (the
+    anti-alias pass before a train-time crop): each pass is the weighted sum
+    of ``kernel`` shifted views, in exact float32."""
+    half = kernel // 2
+    x = torch.arange(-half, half + 1, dtype=torch.float32,
+                     device=images.device)
+    k = torch.exp(-(x * x) / (2 * sigma * sigma))
+    k = k / k.sum()
+    H, W = images.shape[1], images.shape[2]
+    pad = torch.nn.functional.pad(images, (0, 0, half, half))  # along W
+    out = sum(k[i] * pad[:, :, i:i + W] for i in range(kernel))
+    pad = torch.nn.functional.pad(out, (0, 0, 0, 0, half, half))  # along H
+    return sum(k[i] * pad[:, i:i + H] for i in range(kernel))
+
+
+def _uniform(shape, generator, device, given=None) -> torch.Tensor:
+    if given is not None:
+        return torch.as_tensor(given, dtype=torch.float32, device=device)
+    return torch.rand(shape, generator=generator, device=device)
+
+
+def _normal(shape, generator, device, given=None) -> torch.Tensor:
+    if given is not None:
+        return torch.as_tensor(given, dtype=torch.float32, device=device)
+    return torch.randn(shape, generator=generator, device=device)
+
+
+def augm_params(batch: int, device=None, is_train: bool = False,
+                flip_prob: float = 0.0, noise_factor: float = 0.0,
+                rot_factor: float = 0.0, scale_factor: float = 0.0,
+                generator: Optional[torch.Generator] = None,
+                draws: Optional[dict] = None) -> Dict[str, torch.Tensor]:
+    """Batched augmentation parameters: (B,)-tensors flip, rot (deg), sc and
+    (B, 3) channel gains pn. Eval mode draws nothing (no flip, no rotation,
+    unit scale and gains). Train mode: flip with probability ``flip_prob``;
+    gains uniform in 1 +- ``noise_factor``; rotation normal times
+    ``rot_factor`` clipped at twice that, and zero with probability 0.6;
+    scale normal times ``scale_factor`` + 1 clipped to 1 +- it. ``draws``
+    replaces the generator: ``flip_u``, ``rot_u`` (B,) and ``pn_u`` (B, 3)
+    uniform in [0, 1), ``rot_n`` and ``sc_n`` (B,) standard normal."""
+    if not is_train:
+        return {
+            "flip": torch.zeros(batch, device=device),
+            "pn": torch.ones((batch, 3), device=device),
+            "rot": torch.zeros(batch, device=device),
+            "sc": torch.ones(batch, device=device),
+        }
+    d = draws or {}
+    flip = (_uniform((batch,), generator, device, d.get("flip_u"))
+            <= flip_prob).float()
+    lo, hi = 1 - noise_factor, 1 + noise_factor
+    pn = torch.clamp(_uniform((batch, 3), generator, device, d.get("pn_u"))
+                     * (hi - lo) + lo, min=lo)
+    rot = torch.clamp(_normal((batch,), generator, device, d.get("rot_n"))
+                      * rot_factor, -2 * rot_factor, 2 * rot_factor)
+    rot = torch.where(_uniform((batch,), generator, device, d.get("rot_u"))
+                      <= 0.6, 0.0, rot)
+    sc = torch.clamp(_normal((batch,), generator, device, d.get("sc_n"))
+                     * scale_factor + 1.0, 1 - scale_factor, 1 + scale_factor)
+    return {"flip": flip, "pn": pn, "rot": rot, "sc": sc}
+
+
+def _rot_margin_res(img_res: int) -> int:
+    """Smallest even patch side >= img_res * sqrt(2): the central img_res
+    window of a rotation of this patch never touches the zero corners."""
+    big = int(np.ceil(img_res * np.sqrt(2.0)))
+    return big + (big - img_res) % 2
+
+
+def _crop_maybe_rotated(imgs, center, crop_dim, rot, img_res: int,
+                        method: str, apply_rot: bool) -> torch.Tensor:
+    if not apply_rot:
+        return crop_resize_separable(imgs, center[:, 0], center[:, 1],
+                                     crop_dim, img_res, method=method)
+    # sqrt(2) margin: the rotated square samples image content at its
+    # corners instead of the zero wedge of a tight crop-then-rotate
+    big = _rot_margin_res(img_res)
+    patch = crop_resize_separable(imgs, center[:, 0], center[:, 1],
+                                  crop_dim * (big / img_res), big,
+                                  method=method)
+    patch = rotate_patch(patch, rot, method=method)
+    off = (big - img_res) // 2
+    return patch[:, off:off + img_res, off:off + img_res, :]
+
+
+def rgb_crop_augment(images, center, bbox_dim, augm: dict, img_res: int,
+                     antialias: bool = False, method: str = "bilinear",
+                     apply_rot: bool = False) -> torch.Tensor:
+    """Batched ``rgb_processing``: blur (``antialias``) -> square crop of
+    side ``sc * bbox_dim * 200``, rotated by ``augm["rot"]`` with
+    ``apply_rot`` -> channel gains -> [0, 1] NHWC float. Eval pipelines leave
+    both switches off: no blur, no rotation pass."""
     imgs = images.to(torch.float32)
+    if antialias:
+        imgs = gaussian_blur(imgs)
     crop_dim = augm["sc"] * bbox_dim * 200.0
-    patch = crop_resize_separable(
-        imgs, center[:, 0], center[:, 1], crop_dim, img_res)
+    patch = _crop_maybe_rotated(imgs, center, crop_dim, augm["rot"], img_res,
+                                method, apply_rot)
     patch = torch.clamp(patch * augm["pn"][:, None, None, :], 0.0, 255.0)
     return patch / 255.0
 
@@ -106,19 +241,47 @@ def mask_crop(masks, center, bbox_dim, augm: dict, img_res: int,
               apply_rot: bool = False) -> torch.Tensor:
     """Batched ``mask_processing``: nearest-neighbour square crop of side
     ``sc * bbox_dim * 200`` of (B, H, W) or (B, H, W, C) masks or depth maps
-    -> (B, img_res, img_res, C) float, no blur and no noise. The rotation
-    pass of train-time augmentation is not ported (ROADMAP queue 1 item
-    4)."""
-    if apply_rot:
-        raise NotImplementedError(
-            "the rotation pass of mask_crop is train-time augmentation: "
-            "ROADMAP queue 1 item 4")
+    -> (B, img_res, img_res, C) float, no blur and no noise; rotated by
+    ``augm["rot"]`` with ``apply_rot``."""
     crop_dim = augm["sc"] * bbox_dim * 200.0
     if masks.ndim == 3:
         masks = masks[..., None]
-    return crop_resize_separable(masks.to(torch.float32), center[:, 0],
-                                 center[:, 1], crop_dim, img_res,
-                                 method="nearest")
+    return _crop_maybe_rotated(masks.to(torch.float32), center, crop_dim,
+                               augm["rot"], img_res, "nearest", apply_rot)
+
+
+def jitter_bbox(bbox: torch.Tensor, t_stdev: float = 0.2,
+                generator: Optional[torch.Generator] = None,
+                draws=None) -> torch.Tensor:
+    """Translation-only jitter of (B, 4) [x0, y0, w, h] boxes: the centre
+    moves by uniform(-1, 1) * ``t_stdev`` of the box's size. ``draws``: (B, 2)
+    uniform in [0, 1)."""
+    wh = bbox[:, 2:]
+    center = bbox[:, :2] + wh / 2
+    u = _uniform((bbox.shape[0], 2), generator, bbox.device, draws)
+    new_center = center + (u * 2 - 1) * t_stdev * wh
+    return torch.cat([new_center - wh / 2, wh], dim=-1)
+
+
+def jitter_intrinsics(K: torch.Tensor, s_stdev: float = 0.5,
+                      t_stdev: float = 0.2,
+                      generator: Optional[torch.Generator] = None,
+                      draws=None) -> torch.Tensor:
+    """Batched intrinsics jitter of (B, 3, 3): focal lengths times
+    exp(uniform(-s, s)), principal point times 1 + uniform(-t, t). ``draws``:
+    ((B,), (B, 2)) uniform in [0, 1)."""
+    B = K.shape[0]
+    us, ut = draws if draws is not None else (None, None)
+    jitter_s = torch.exp(_uniform((B,), generator, K.device, us)
+                         * s_stdev * 2 - s_stdev)
+    jitter_t = (_uniform((B, 2), generator, K.device, ut) * t_stdev * 2
+                - t_stdev)
+    K = K.clone()
+    K[:, 0, 0] *= jitter_s
+    K[:, 1, 1] *= jitter_s
+    K[:, 0, 2] *= 1.0 + jitter_t[:, 0]
+    K[:, 1, 2] *= 1.0 + jitter_t[:, 1]
+    return K
 
 
 @f32_matmuls

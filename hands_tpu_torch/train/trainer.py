@@ -1,0 +1,204 @@
+"""The training and evaluation loop (port of ``hands_tpu/train/trainer.py``,
+one process on one card).
+
+Kept from the JAX loop: running-window means of the *unweighted* loss terms
+logged every ``log_every`` steps with the ``__train`` postfix; the non-finite
+loss check under ``--debug``; ``save_every_steps``; validation every
+``eval_every_epoch`` epochs with the per-image metric arrays concatenated and
+``nanmean``-ed (padded tail rows are NaN) under ``metric.`` / ``__val`` names;
+checkpoint selection on the lowest ``loss__val`` (top 3 plus ``last``); one
+sanity validation batch before training; resume (``resume_ckpt``: optimiser,
+step and epoch) and warm start (``load_ckpt``: parameters only);
+``profile_steps``.
+
+Different by construction: the model is an ``nn.Module`` that holds its
+weights, so ``fit`` initialises nothing; the steps switch the module between
+train and eval mode themselves; the loss terms of a window stay on the card
+and are read back once per window (one host synchronisation per ``log_every``
+steps, not one per term and step); dropout draws from a generator seeded from
+``cfg.seed``. The mesh, FSDP and multi-process branches are ROADMAP queue 1
+item 13; ``visualize`` needs ``utils/vis.py`` (item 14).
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from collections import defaultdict
+from typing import Optional
+
+import numpy as np
+import torch
+
+from hands_tpu_torch.config import Config
+from hands_tpu_torch.core.xdict import device_view
+from hands_tpu_torch.train.checkpoint import CheckpointManager
+from hands_tpu_torch.train.state import create_train_state
+from hands_tpu_torch.train.step import make_eval_step, make_train_step
+from hands_tpu_torch.utils.experiment import Experiment
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class Trainer:
+    def __init__(self, cfg: Config, model,
+                 experiment: Optional[Experiment] = None):
+        if cfg.get("fsdp", False) or cfg.num_processes > 1:
+            raise NotImplementedError(
+                "the mesh, FSDP and multi-process trainer branches are not "
+                "ported: ROADMAP queue 1 item 13")
+        self.cfg = cfg
+        self.model = model
+        self.device = next(model.parameters()).device
+        self.exp = experiment or Experiment(cfg)
+        self.ckpt = CheckpointManager(self.exp.ckpt_dir)
+        self.train_step = make_train_step(model, cfg)
+        metric_specs = (
+            ["pix_err"] if cfg.val_dataset == "epic"
+            else ["mrrpe.rl", "mpjpe.ra", "mpjpe.pa.ra", "pix_err"])
+        self.eval_step = make_eval_step(model, cfg, metric_specs)
+        # host seconds of the last fit: the whole loop, and the part of it
+        # spent waiting for the loader's next batch
+        self.timing = {"steps": 0, "loop_s": 0.0, "data_s": 0.0}
+        self._vis_skipped = False
+
+    # ------------------------------------------------------------------ fit
+    def fit(self, train_loader, val_loader=None,
+            num_epochs: Optional[int] = None):
+        cfg = self.cfg
+        num_epochs = num_epochs or cfg.num_epoch
+        if cfg.get("load_backbone", ""):
+            raise NotImplementedError(
+                "--load_backbone read a converted orbax directory; loading "
+                "pretrained backbones is ROADMAP queue 1 item 9")
+        state = create_train_state(cfg, self.model,
+                                   steps_per_epoch=len(train_loader))
+
+        start_epoch = 0
+        if cfg.resume_ckpt and self.ckpt.has_checkpoint("last"):
+            state, start_epoch = self.ckpt.restore(state, "last")
+            print(f"resumed from epoch {start_epoch}")
+        elif cfg.load_ckpt:
+            warm = CheckpointManager(os.path.dirname(cfg.load_ckpt))
+            warm.restore_params(self.model, os.path.basename(cfg.load_ckpt))
+
+        # one sanity val batch before training
+        if val_loader is not None:
+            self._sanity_val(state, val_loader)
+
+        gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        global_step = int(state.step)
+        window = defaultdict(list)  # loss terms of this window, on the card
+        tracer = None
+        if cfg.get("profile_steps", 0):
+            from hands_tpu_torch.utils.profiling import StepTrace
+
+            tracer = StepTrace(os.path.join(self.exp.dir, "trace"),
+                               cfg.profile_steps)
+        step_in_run = 0
+        self.timing = {"steps": 0, "loop_s": 0.0, "data_s": 0.0}
+        for epoch in range(start_epoch, num_epochs):
+            t0 = time.time()
+            batches = iter(train_loader)
+            while True:
+                t_data = time.perf_counter()
+                batch = next(batches, None)
+                self.timing["data_s"] += time.perf_counter() - t_data
+                if batch is None:
+                    break
+                if tracer is not None:
+                    tracer.update(step_in_run)
+                inputs, targets, meta = batch
+                state, logs = self.train_step(
+                    state, (inputs, targets, device_view(meta)), gen)
+                global_step += 1
+                step_in_run += 1
+                for k, v in logs.items():
+                    window[k].append(v)
+                if cfg.debug and not bool(torch.isfinite(logs["loss"])):
+                    # fail fast under --debug (this check waits for the card;
+                    # NaN-masked metric arrays are exempt by construction)
+                    raise FloatingPointError(
+                        f"non-finite loss at step {global_step}")
+                if global_step % cfg.log_every == 0:
+                    self.exp.log_dict(self._window_means(window), global_step,
+                                      postfix="__train")
+                    window.clear()
+                if cfg.save_every_steps and \
+                        global_step % cfg.save_every_steps == 0:
+                    # mid-epoch checkpoint (resume replays the rest of the
+                    # epoch; the step counter is restored exactly)
+                    self.ckpt.save_last(state, epoch)
+
+            _sync(self.device)
+            epoch_time = time.time() - t0
+            self.timing["loop_s"] += epoch_time
+            self.timing["steps"] = step_in_run
+            self.exp.log_dict({"epoch_time_s": epoch_time}, global_step)
+
+            if val_loader is not None and \
+                    (epoch + 1) % cfg.eval_every_epoch == 0:
+                val_metrics = self.validate(state, val_loader)
+                self.exp.log_dict(val_metrics, global_step, postfix="__val")
+                self.ckpt.save_top_k(state, epoch, val_metrics["loss"])
+                if not cfg.no_vis:
+                    self._visualize_or_skip(state, val_loader, global_step)
+            self.ckpt.save_last(state, epoch + 1)
+        if tracer is not None:
+            tracer.close()
+        return state
+
+    @staticmethod
+    def _window_means(window) -> dict:
+        """Means of the window's loss terms, read back in one transfer."""
+        keys = list(window)
+        stacked = torch.stack([
+            torch.stack([v.detach().double() for v in window[k]]).mean()
+            for k in keys])
+        return dict(zip(keys, stacked.tolist()))
+
+    # ------------------------------------------------------------ visualise
+    def visualize(self, state, loader, step: int, max_examples: int = 1):
+        """Keypoint and mesh overlays of one batch, pushed to the
+        experiment."""
+        raise NotImplementedError(
+            "visualize needs utils/vis.py (renderer and overlays): ROADMAP "
+            "queue 1 item 14; pass --no_vis")
+
+    def _visualize_or_skip(self, state, loader, step: int) -> None:
+        # as in the JAX loop, visualisation never ends a training run
+        try:
+            self.visualize(state, loader, step)
+        except NotImplementedError as exc:
+            if not self._vis_skipped:
+                print(f"visualization skipped: {exc}")
+                self._vis_skipped = True
+
+    # ------------------------------------------------------------- validate
+    def _sanity_val(self, state, val_loader):
+        inputs, targets, meta = next(iter(val_loader))
+        self.eval_step(state, (inputs, targets, device_view(meta)))
+
+    def validate(self, state, val_loader) -> dict:
+        """Eval epoch: ``nanmean`` of the concatenated per-image metric
+        arrays and the mean of the per-batch losses. The model runs in eval
+        mode (running statistics, no dropout) and is left there."""
+        metric_arrays = defaultdict(list)
+        losses = defaultdict(list)
+        for inputs, targets, meta in val_loader:
+            metrics, logs = self.eval_step(
+                state, (inputs, targets, device_view(meta)))
+            for k, v in metrics.items():
+                metric_arrays[k].append(v)
+            for k, v in logs.items():
+                losses[k].append(v)
+        out = {}
+        for k, arrs in metric_arrays.items():
+            out["metric." + k] = float(np.nanmean(
+                torch.cat(arrs, dim=0).float().cpu().numpy()))
+        for k, vals in losses.items():
+            out[k] = float(np.mean(torch.stack(vals).cpu().tolist()))
+        return out

@@ -63,12 +63,25 @@ def test_mask_crop_matches_jax(kind):
 
 
 def test_mask_crop_rotation_pass_is_not_ported():
-    _, center, bbox_dim, augm = _crop_inputs()
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        tpp.mask_crop(torch.zeros(B, H, W), torch.from_numpy(center),
-                      torch.from_numpy(bbox_dim),
-                      {k: torch.from_numpy(v) for k, v in augm.items()}, RES,
-                      apply_rot=True)
+    """The rotation pass was the last piece of ``mask_crop`` to port: with
+    zero rotation it is the unrotated crop away from the border, with a
+    rotation it moves the mask; a resampling method that does not exist
+    still raises."""
+    rng, center, bbox_dim, augm = _crop_inputs()
+    args = (torch.from_numpy(center), torch.from_numpy(bbox_dim))
+    at = {k: torch.from_numpy(v) for k, v in augm.items()}
+    # blobs of 6 x 6 pixels: a pixel's neighbours mostly share its value
+    masks = torch.from_numpy(np.kron(
+        rng.choice([0, 127, 255], (B, H // 6, W // 6)),
+        np.ones((6, 6))).astype(np.float32))
+    flat = tpp.mask_crop(masks, *args, dict(at, rot=torch.zeros(B)), RES)
+    same = tpp.mask_crop(masks, *args, dict(at, rot=torch.zeros(B)), RES,
+                         apply_rot=True)
+    assert same.shape == flat.shape == (B, RES, RES, 1)
+    assert float((same != flat).float().mean()) < 0.05  # two nearest passes
+    turned = tpp.mask_crop(masks, *args, dict(at, rot=torch.full((B,), 30.0)),
+                           RES, apply_rot=True)
+    assert float((turned != flat).float().mean()) > 0.05
     with pytest.raises(ValueError):
         tpp.crop_resize_separable(
             torch.zeros(B, H, W, 1), torch.from_numpy(center[:, 0]),

@@ -6,8 +6,10 @@ every module of ``hands_tpu_torch``, build tiny HaMeR on the CPU, serve one
 bf16 and one int8 request, run the WildHands evaluation forward (ResNet-18,
 render and grasp on) and its int8 serving, take a train step and an eval step
 with each model family on a synthetic batch (K4's Function, BatchNorm in
-train mode, dropout from a generator, the optimiser, the metrics), and check
-that neither ``jax``, ``flax``, ``optax`` nor ``hands_tpu`` was imported
+train mode, dropout from a generator, the optimiser, the metrics), time the
+nine modes of the int8 block ablation on a small probe, run a ``--debug``
+epoch through ``cli.train`` (train-mode preprocessing, the prefetching loader,
+the trainer, checkpoints, the experiment log), and check that neither ``jax``, ``flax``, ``optax`` nor ``hands_tpu`` was imported
 along the way. A second test reads the sources:
 no import line of the port or of ``chip_smoke.py`` names them.
 """
@@ -84,6 +86,31 @@ for cfgt, kw in ((default_config("hamer_light", fused_block=True, **size),
     metrics, elogs = make_eval_step(modelt, cfgt)(state, batch)
     assert torch.isfinite(metrics["mpjpe/pa/ra/h"]).all(), cfgt.method
     assert torch.isfinite(elogs["loss"]) and not modelt.training
+from hands_tpu_torch.cli import int8_ablation
+times = int8_ablation.run_ablation(
+    iters=1, device="cpu", heads=2, out=lambda line: None,
+    probe=int8_ablation.make_probe(1, "cpu", c=128, hidden=256, n_tok=12))
+assert len(times) == 9 and all(v > 0 for v in times.values())
+import os, tempfile
+from hands_tpu_torch.cli import evaluate, train
+small = dict(backbone="resnet18", compute_dtype="float32", img_res=160,
+             img_res_ds=160, use_glb_feat=False, num_workers=2, batch_size=12,
+             test_batch_size=6, eval_every_epoch=1, exp_key="run",
+             # the TensorBoard writer is third-party code outside this guard:
+             # with TensorFlow installed it imports JAX by itself
+             logger="none")
+with tempfile.TemporaryDirectory() as tmp:
+    state = train.main(["--debug", "--device", "cpu", "--no_vis"],
+                       log_root=tmp, overrides=small)
+    assert state.step == 1 and not state.model.training
+    last = os.path.join(tmp, "run", "checkpoints", "last")
+    assert sorted(os.listdir(os.path.dirname(last))) == [
+        "epoch_0000", "last", "scores.json"]
+    assert callable(evaluate.main)  # run in tests/test_torch_trainer.py
+for name in ("ops.vit_block_ablation", "cli.int8_ablation", "cli.train",
+             "cli.evaluate", "cli._args", "data.factory", "train.trainer",
+             "train.checkpoint", "utils.experiment", "utils.profiling"):
+    assert f"hands_tpu_torch.{name}" in sys.modules, name
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                     "hands_tpu"))
@@ -94,10 +121,11 @@ print("NOJAX_OK")
 
 def test_port_serves_without_importing_jax():
     env = dict(os.environ)
+    env["OMP_NUM_THREADS"] = "2"  # six test workers run side by side
     env["PYTHONPATH"] = os.pathsep.join(
         [str(REPO)] + [p for p in [env.get("PYTHONPATH")] if p])
     proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
-                          capture_output=True, text=True, timeout=300)
+                          capture_output=True, text=True, timeout=400)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "NOJAX_OK" in proc.stdout
 
@@ -109,11 +137,19 @@ def test_port_sources_name_no_jax_import():
                          r"optax)(\.|\s|$)")
     files = sorted((REPO / "hands_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
-    assert len(files) > 45
+    assert len(files) > 55
     names = {f.relative_to(REPO).as_posix() for f in files}
     assert {"hands_tpu_torch/train/step.py", "hands_tpu_torch/train/state.py",
             "hands_tpu_torch/data/synthetic.py",
-            "hands_tpu_torch/ops/procrustes.py"} <= names
+            "hands_tpu_torch/ops/procrustes.py",
+            "hands_tpu_torch/ops/vit_block_ablation.py",
+            "hands_tpu_torch/cli/int8_ablation.py",
+            "hands_tpu_torch/cli/train.py", "hands_tpu_torch/cli/evaluate.py",
+            "hands_tpu_torch/cli/_args.py", "hands_tpu_torch/data/factory.py",
+            "hands_tpu_torch/train/trainer.py",
+            "hands_tpu_torch/train/checkpoint.py",
+            "hands_tpu_torch/utils/experiment.py",
+            "hands_tpu_torch/utils/profiling.py"} <= names
     bad = [f"{f.relative_to(REPO)}:{n}: {line.strip()}"
            for f in files
            for n, line in enumerate(f.read_text().splitlines(), 1)
