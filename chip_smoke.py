@@ -108,6 +108,21 @@ HBM_BYTES_S = 3.35e12
 # clock on each SM against 128 f32 FMAs, 1/16 of the f32 FLOP rate
 PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12,
               "sfu": 67e12 / 16}
+# the attention kernels on the tensor cores replaced a per-row loop on the
+# f32 CUDA cores; its times on an H100 at 700 W (this script, the run named)
+EARLIER_MS = {"vit_attention": (0.4681, "PR 3"),
+              "qkv_attention_dynamic": (0.4360, "PR 3"),
+              "qkv_attention_static": (0.4027, "PR 3"),
+              "mha_fused": (0.4042, "PR 3"),
+              "attention_cast": (6.0831, "PR 5"),
+              "attention_no_softmax": (6.0036, "PR 5"),
+              "attention_heads": (6.2191, "PR 5")}
+# ragged attention shapes (batch rows, tokens, head dim), two heads: B = 1,
+# token counts off the 16-row tiles, the head dims of ViT-H and of the tiny
+# and b16 ViTs, and the limits (256 tokens, head dim 128, head dim 16)
+ATTN_SWEEP = ((1, 50, 64), (1, 50, 80), (1, 145, 64), (1, 145, 80),
+              (1, 256, 64), (1, 145, 128), (2, 24, 16))
+ATTN_WARPS = (4, 6, 8, 12)  # warps a thread block, timed against each other
 
 
 def card_line() -> str:
@@ -720,9 +735,131 @@ def time_groups(groups, rows, tag) -> None:
                                  else sum(l_ms))
             lib = ("none" if row["library_ms"] is None
                    else f"{row['library_ms']:.4f} ms")
+            before = ""
+            if kname in EARLIER_MS:
+                row["redesigned"] = "PR 6"
+                row["earlier_ms"], row["earlier_ms_run"] = EARLIER_MS[kname]
+                before = (f", before the redesign {row['earlier_ms']:.4f} ms "
+                          f"({row['earlier_ms_run']})")
             print(f"  {kname:<22s} per block or call: kernel {row['ms']:.4f} ms, "
                   f"plain {row['plain_ms']:.4f} ms, library {lib}, bound "
-                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}) {tag}")
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}){before} {tag}")
+
+
+def f32p_attention(qkv, heads, bf16_logits, p_bf16=False,
+                   dtype=torch.float32):
+    """The attention of K3 (``bf16_logits``) or K5 on (B, N, 3C) bf16 qkv,
+    sums and softmax in ``dtype`` (f64: a reference for the twins' f32), bf16
+    out; ``p_bf16`` rounds the probabilities to bf16 before p.v, as a kernel
+    that did not split them into bf16 parts would."""
+    from hands_tpu_torch.ops import vit_block as vb
+
+    B, N, C3 = qkv.shape
+    C = C3 // 3
+    D = C // heads
+    t = qkv.view(B, N, 3, heads, D).permute(2, 0, 3, 1, 4)
+    q = t[0] * vb.bf16_const(D**-0.5)
+    s = torch.matmul(q.to(dtype), t[1].to(dtype).transpose(-1, -2))
+    if bf16_logits:
+        s = s.to(torch.bfloat16).to(dtype)
+    p = torch.softmax(s, dim=-1)
+    if p_bf16:
+        p = p.to(torch.bfloat16).to(dtype)
+    o = torch.matmul(p, t[2].to(dtype))
+    return o.permute(0, 2, 1, 3).reshape(B, N, C).to(torch.bfloat16)
+
+
+def attention_phase(dev, qkv_k3, qkv_dyn, qkv_sta, inv_sta, tag) -> None:
+    """The tensor-core attention beyond the ViT-H shapes of phase 2: every
+    mode against its twin at the ragged shapes of ``ATTN_SWEEP``; the split
+    of the f32 probabilities into bf16 parts in effect (K3, K5 at ViT-H); the
+    thread-block size, timed at 3072 and 49,152 rows."""
+    from hands_tpu_torch.ops import attention as at
+    from hands_tpu_torch.ops import vit_block as vb
+    from hands_tpu_torch.ops import vit_block_ablation as abl
+
+    bf, heads = torch.bfloat16, 2
+    print(f"phase 2b: attention, every mode at ragged shapes ({heads} heads)")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    for b, n, d in ATTN_SWEEP:
+        c = heads * d
+        qkv = torch.randn((b, n, 3 * c), generator=gen, device=dev).to(bf)
+        inv = 20.0 + 130.0 * torch.rand(c, generator=gen, device=dev)
+        at_ = f"B {b} N {n} D {d}"
+        compare(f"vit_attention {at_}", vb.attention(qkv, heads),
+                vb.attention_plain(qkv, heads))
+        compare(f"qkv dynamic {at_}", at.qkv_attention(qkv, heads),
+                at.qkv_attention_plain(qkv, heads))
+        compare_int8(f"qkv static {at_}", at.qkv_attention(qkv, heads, inv),
+                     at.qkv_attention_plain(qkv, heads, inv))
+        for variant in ("cast", "no_softmax"):
+            compare_int8(f"attention_{variant} {at_}",
+                         abl.attention_ablation(qkv, heads, inv, variant),
+                         abl.attention_ablation_plain(qkv, heads, inv,
+                                                      variant))
+        qkvh = abl.heads_split_plain(qkv, heads).contiguous()
+        compare(f"attention_heads {at_}", abl.attention_heads(qkvh),
+                abl.attention_heads_plain(qkvh))
+        t5 = qkv.view(b, n, 3, heads, d)
+        for dtype, rel, mean in ((bf, MAX_REL, MAX_MEAN),
+                                 (torch.float32, 2e-5, 2e-6)):
+            t = t5.to(dtype)
+            q, k, v = t[:, :, 0], t[:, :, 1], t[:, :, 2]
+            compare(f"mha_fused {str(dtype)[6:]} {at_}",
+                    at.mha_fused(q, k, v, d**-0.5),
+                    at.mha_plain(q, k, v, d**-0.5), rel=rel, mean=mean)
+    torch.cuda.synchronize()
+
+    # the split of f32 probabilities: nearer the f32-probability twin than p
+    # in bf16 is
+    for name, kern, qkv, bf16_logits, twin in (
+            ("vit_attention (K3)", vb.attention, qkv_k3, True,
+             vb.attention_plain),
+            ("qkv_attention_dynamic (K5)", at.qkv_attention, qkv_dyn, False,
+             at.qkv_attention_plain)):
+        got, ref = kern(qkv, HEADS), twin(qkv, HEADS)
+        d_f32 = float((got.float() - ref.float()).abs().mean())
+        d_bf16 = float((got.float() - f32p_attention(
+            qkv, HEADS, bf16_logits, p_bf16=True).float()).abs().mean())
+        print(f"  {name}: mean|d| against the f32-probability twin "
+              f"{d_f32:.3e}, against it with p in bf16 {d_bf16:.3e}  "
+              f"{'ok' if d_f32 < d_bf16 else 'FAIL'}")
+        require(d_f32 < d_bf16,
+                f"{name}: the split of the probabilities is not in effect")
+        # rounded to another bf16 value than the f64 attention: the kernel's
+        # share may not exceed twice the f32 twin's
+        f64 = f32p_attention(qkv, HEADS, bf16_logits, dtype=torch.float64)
+        k_off = float((got != f64).float().mean())
+        t_off = float((ref != f64).float().mean())
+        ok = k_off <= 2 * t_off
+        print(f"  {name}: outputs off the f64 attention's bf16 value: kernel "
+              f"{k_off:.3e}, twin {t_off:.3e} (kernel <= 2x twin)  "
+              f"{'ok' if ok else 'FAIL'}")
+        require(ok, f"{name}: the kernel's sums fall behind the twin's f32")
+
+    # thread-block size: warps of 16 query rows a block, the kernel's
+    # default against the others (3 CTAs of 4 warps per head at N = 192, or
+    # one of 12)
+    print(f"  thread-block size of the bf16 route {tag}")
+    big = qkv_sta.repeat(ABL_BATCH // BATCH, 1, 1)
+    for qkv in (qkv_sta, big):
+        b = qkv.shape[0]
+        t = qkv.view(b, N_TOK, 3, HEADS, HEAD_DIM)
+        outs = {"static": torch.empty((b, N_TOK, C), dtype=torch.int8,
+                                      device=dev),
+                "dynamic": torch.empty((b, N_TOK, C), dtype=bf, device=dev)}
+        for mode, out in outs.items():
+            inv = inv_sta if mode == "static" else None
+            code = 2 if mode == "static" else 1
+            times = {}
+            for warps in ATTN_WARPS + ATTN_WARPS[::-1]:
+                ms = cuda_ms(lambda w=warps: at._launch(
+                    t[:, :, 0], t[:, :, 1], t[:, :, 2], out, inv, b, N_TOK,
+                    HEADS, HEAD_DIM, vb.bf16_const(HEAD_DIM**-0.5), code, w))
+                times[warps] = min(times.get(warps, ms), ms)
+            print(f"    {mode:<7s} {b * N_TOK} rows: " + ", ".join(
+                f"{w} warps {ms:.4f} ms" for w, ms in times.items()))
+    del big
 
 
 def twin_memory(fn) -> float:
@@ -1363,8 +1500,27 @@ def ablation_phase(rows, dev, tag) -> None:
         opw[k] = torch.randn(op[k].shape, generator=gen, device=dev) * 60.0
     for k in ("ln1_s", "ln2_s"):
         opw[k] = op[k] * 2.0
+    # no_quant's attention sums on the tensor cores, in another order than
+    # its twin: on these inputs it is held to its twin within one int8 step
+    # (compare_int8), and the mode's bare casts, which this check is for, to
+    # the twin path that takes the kernel's attention output
+    seen = []
+
+    def kernel_attention(qkv, heads, inv, variant):
+        seen.append(qkv)
+        return abl.attention_ablation(qkv, heads, inv, variant)
+
     for mode in ("mm_only", "no_quant"):
-        got, ref = kernels(mode, xw, opw), twin(mode, xw, opw)
+        got = kernels(mode, xw, opw)
+        with mock.patch.object(abl._PLAIN, "attn_abl", kernel_attention):
+            ref = twin(mode, xw, opw)
+        for qkv in seen:
+            compare_int8(f"mode {mode}, wide inputs: attention_cast",
+                         abl.attention_ablation(qkv, HEADS, opw["inv_proj"],
+                                                "cast"),
+                         abl.attention_ablation_plain(
+                             qkv, HEADS, opw["inv_proj"], "cast"))
+        seen.clear()
         compare(f"mode {mode}, wide inputs ({BATCH} crops)", got, ref,
                 rel=BLOCK_REL, mean=MAX_MEAN * float(ref.float().abs().mean()))
         print(f"    of the outputs are 0: probe {zero[mode]:.3f}, wide "
@@ -1797,6 +1953,66 @@ def wildhands_train_phase(rows, dev, tag) -> None:
                      dev, rel=1e-3, steps=1)
 
 
+def print_ptxas(reports) -> None:
+    for name, report in reports.items():
+        for line in report.splitlines():
+            if "Used" in line or "spill" in line:
+                print(f"  ptxas {name}:", line.strip())
+
+
+def attention_inputs(groups):
+    """K3's, K5's and K6's qkv (and K6's inv_proj) at the ViT-H shape, from
+    the cases of :func:`kernel_cases`."""
+    kernels = {k: v for _, _, ks in groups for k, v in ks.items()}
+
+    def inputs(name):
+        return kernels[name][2][0].inputs
+
+    return (inputs("vit_attention")[0], inputs("qkv_attention_dynamic")[0],
+            *inputs("qkv_attention_static"))
+
+
+def attention_alone() -> int:
+    """The attention kernels alone: phase 2's checks at ViT-H, phase 2b, their
+    times, and K8's three attention modes at 256 crops::
+
+        python3 -c "import chip_smoke as cs; cs.attention_alone()"
+    """
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from hands_tpu_torch.cli import int8_ablation as cli
+    from hands_tpu_torch.ops import attention as at
+    from hands_tpu_torch.ops import vit_block as vb
+    from hands_tpu_torch.ops import vit_block_ablation as abl
+    from hands_tpu_torch.ops.cuda_build import build_all
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    tag = f"[{card_line()}]"
+    t0 = time.time()
+    print_ptxas(build_all([vb.LIBRARY, at.LIBRARY, abl.LIBRARY]))
+    print(f"built {SRC_K3}, {SRC_ATTN}, {SRC_ABL} in {time.time() - t0:.1f} s")
+
+    def attention_only(groups):
+        return [(r, src, {k: v for k, v in ks.items() if k in EARLIER_MS})
+                for r, src, ks in groups]
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    x, p, p32 = block_inputs(gen, DEV, BATCH, N_TOK, C, HIDDEN)
+    groups, sources, _, _ = kernel_cases(x, p, p32)
+    rows = {}
+    check_groups(attention_only(groups), sources, rows)
+    attention_phase(DEV, *attention_inputs(groups), tag)
+    time_groups(attention_only(groups), rows, tag)
+    del groups, x, p, p32
+    xa, op = cli.make_probe(ABL_BATCH, DEV, c=C, hidden=HIDDEN, n_tok=N_TOK)
+    groups = attention_only(ablation_cases(xa, op))
+    check_groups(groups, {}, rows)
+    time_groups(groups, rows, tag)
+    print(json.dumps({"kernels": list(rows.values())}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1831,10 +2047,7 @@ def main() -> int:
         lib.lib()
     print(f"phase 1: built {SRC_K3}, {SRC_I8}, {SRC_ATTN}, {SRC_LBS}, "
           f"{SRC_SPLAT}, {SRC_ABL} side by side in {time.time() - t0:.1f} s")
-    for name, report in reports.items():
-        for line in report.splitlines():
-            if "Used" in line or "spill" in line:
-                print(f"  ptxas {name}:", line.strip())
+    print_ptxas(reports)
 
     # ---- 2. each kernel against its twin at ViT-H shapes
     print(f"phase 2: kernels vs twins, rows={ROWS} C={C} hidden={HIDDEN} "
@@ -1914,6 +2127,7 @@ def main() -> int:
                 at.mha_fused(q, k, v, 80**-0.5),
                 at.mha_plain(q, k, v, 80**-0.5), rel=rel, mean=mean)
     torch.cuda.synchronize()
+    attention_phase(dev, *attention_inputs(groups), tag)
 
     # ---- 3. serve requests through full-width ViT-H, kernels on
     requests = make_requests(3, 8, SEED)

@@ -28,21 +28,25 @@ def parse(argv: Optional[List[str]]) -> Tuple[Config, str]:
     (the training dataset, e.g. ``synthetic``) are taken off ``argv``; the
     rest goes to ``construct_args``, the JAX package's flags. ``--eval_on``
     names the validation dataset. ``--debug`` and ``-f`` choose the synthetic
-    datasets and turn the mask loss off, as in the JAX package."""
+    datasets and turn the mask loss off, as in the JAX package, and win over
+    ``--eval_on`` and ``--dataset``: the order of
+    ``hands_tpu/cli/evaluate.py``, ``--eval_on`` first. (``hands_tpu``'s
+    ``cli.train`` reads no ``--eval_on``; the port's does, so that a run on
+    ``--dataset synthetic`` can name its validation set.)"""
     argv = list(sys.argv[1:] if argv is None else argv)
     device = _pop(argv, "--device", "cuda")
     dataset = _pop(argv, "--dataset", None)
     cfg = construct_args(argv)
     if cfg.num_processes > 1:
         raise NotImplementedError(
-            "multi-process runs are not ported: ROADMAP queue 1 item 13")
-    if cfg.debug or cfg.fast_dev_run:
-        cfg = cfg.replace(dataset="synthetic", val_dataset="synthetic",
-                          use_render_seg_loss=False)
+            "multi-process runs are not ported: ROADMAP queue 1 item 11")
     if dataset:
         cfg = cfg.replace(dataset=dataset)
     if cfg.eval_on:
         cfg = cfg.replace(val_dataset=cfg.eval_on)
+    if cfg.debug or cfg.fast_dev_run:
+        cfg = cfg.replace(dataset="synthetic", val_dataset="synthetic",
+                          use_render_seg_loss=False)
     return cfg, device
 
 

@@ -16,7 +16,7 @@ built with ``Config.quant_int8_static``:
 Weights are random (seed 0): a plumbing smoke run. Calibrate trained
 weights for real serving by passing their ``state_dict`` to
 :func:`calibrate_scales`; loading a checkpoint from the command line is
-ROADMAP queue 1 item 8.
+ROADMAP queue 1 item 5.
 """
 
 from __future__ import annotations
@@ -47,7 +47,9 @@ def serving_config(method: str, **overrides):
 
     if method not in ("hamer_vith", "hamer_light"):
         raise NotImplementedError(
-            f"method '{method}' is not ported: ROADMAP queue 1 items 1, 10")
+            f"method '{method}' is not ported: the calibration taps sit on "
+            f"HaMeR's ViT blocks; a ViT in WildHands is ROADMAP queue 1 item "
+            f"6, the other model families item 7")
     return default_config("hamer_light", compute_dtype="bfloat16",
                           use_render_seg_loss=False, use_grasp_loss=False,
                           **overrides)

@@ -10,7 +10,7 @@ Flags are the JAX package's (``config.construct_args``) plus ``--device``
 dataset; ``--eval_on`` names the validation one). ``--debug`` runs one epoch
 on the synthetic datasets with the mask loss off; ``--dataset synthetic``
 keeps the config's losses. Only the synthetic dataset is in the port
-(ROADMAP queue 1 item 8).
+(ROADMAP queue 1 item 4).
 """
 
 from __future__ import annotations

@@ -21,40 +21,47 @@
 // transposes are a tiling need of that chip and are not reproduced.
 //
 // What bounds it on this card: at N = 192, D = 80 a head reads 3 x 30 KB
-// (bf16) and does 4*N*N*D = 11.8 MFLOP, 130 FLOP per byte, below the bf16
-// ridge but on the f32 CUDA cores (67 TFLOP/s) it is operation-bound. What
-// this simple design does about it: one thread block per (crop, head) with K
-// and V of the head in shared memory, one warp per query row, lanes over keys
-// for the logits and over channels for p.v. No tensor cores yet.
+// (bf16) and writes 30 KB, and does 4*N*N*D = 11.8 MFLOP: 96 FLOP per byte,
+// below the bf16 tensor cores' ridge (~295), so bytes bound it (0.009 ms per
+// ViT-H block at 3072 rows against 0.003 ms of tensor-core operations).
+// What the design does about it: q, k and v are read once from device
+// memory, both products run on the tensor cores (mma.sync m16n8k16 with
+// ldmatrix operands) and the logits never leave the registers; see
+// attention_kernel.cuh. The f32 MODE_MHA keeps the per-row loop on the f32
+// CUDA cores.
 
 #include "attention_kernel.cuh"
 
 // --------------------------------------------------------- C interface
 extern "C" {
 
-// is_f32: element type of q, k, v (and of out in MODE_MHA). Returns the
-// launch's cudaGetLastError() (0 = success), cudaErrorInvalidValue for a
-// combination the kernel does not have; never synchronises.
+// is_f32: element type of q, k, v (and of out in MODE_MHA); warps: warps
+// (16 query rows each) a thread block of the bf16 route, 0 for the default.
+// Returns the launch's cudaGetLastError() (0 = success),
+// cudaErrorInvalidValue for a combination the kernel does not have; never
+// synchronises.
 int attn_fused(int device, const void* q, const void* k, const void* v,
                void* out, const void* inv_out, int B, int N, int H, int D,
                long long batch_stride, long long row_stride, float scale,
-               int is_f32, int mode, void* stream) {
+               int is_f32, int mode, int warps, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
   const float* inv = (const float*)inv_out;
   if (mode == MODE_MHA && is_f32)
-    return launch<float, MODE_MHA>(q, k, v, out, inv, B, N, H, D,
-                                   batch_stride, row_stride, scale, s);
+    return launch_f32((const float*)q, (const float*)k, (const float*)v,
+                      (float*)out, B, N, H, D, batch_stride, row_stride,
+                      scale, s);
+  if (is_f32) return (int)cudaErrorInvalidValue;
   if (mode == MODE_MHA)
-    return launch<bf16, MODE_MHA>(q, k, v, out, inv, B, N, H, D,
-                                  batch_stride, row_stride, scale, s);
-  if (mode == MODE_DYNAMIC && !is_f32)
-    return launch<bf16, MODE_DYNAMIC>(q, k, v, out, inv, B, N, H, D,
-                                      batch_stride, row_stride, scale, s);
-  if (mode == MODE_STATIC && !is_f32 && inv != nullptr)
-    return launch<bf16, MODE_STATIC>(q, k, v, out, inv, B, N, H, D,
-                                     batch_stride, row_stride, scale, s);
+    return launch<MODE_MHA>(q, k, v, out, inv, B, N, H, D, batch_stride,
+                            row_stride, scale, warps, s);
+  if (mode == MODE_DYNAMIC)
+    return launch<MODE_DYNAMIC>(q, k, v, out, inv, B, N, H, D, batch_stride,
+                                row_stride, scale, warps, s);
+  if (mode == MODE_STATIC && inv != nullptr)
+    return launch<MODE_STATIC>(q, k, v, out, inv, B, N, H, D, batch_stride,
+                               row_stride, scale, warps, s);
   return (int)cudaErrorInvalidValue;
 }
 

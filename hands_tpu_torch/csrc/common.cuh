@@ -1,9 +1,9 @@
-// Device helpers shared by the int8 block kernels (vit_block_int8.cu), the
-// attention kernels (attention.cu) and their knock-out variants
-// (vit_block_ablation.cu): conversions, the two int8 stores (round and clip,
-// or the bare cast), warp and block reductions, and the f32 GELUs. Everything
-// lives in an anonymous namespace: each source is built into a library of its
-// own.
+// Device helpers shared by the bf16 block (vit_block.cu), the int8 block
+// kernels (vit_block_int8.cu), the attention kernels (attention.cu) and their
+// knock-out variants (vit_block_ablation.cu): conversions, the two int8
+// stores (round and clip, or the bare cast), warp and block reductions,
+// 16-byte cp.async copies, and the f32 GELUs. Everything lives in an
+// anonymous namespace: each source is built into a library of its own.
 
 #pragma once
 
@@ -50,6 +50,24 @@ __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// 16-byte global -> shared copy that bypasses registers
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool pred) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int src_bytes = pred ? 16 : 0;  // 0: 16 zero bytes (masked edge)
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 constexpr int ROW_THREADS = 256;

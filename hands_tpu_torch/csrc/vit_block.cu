@@ -10,7 +10,7 @@
 //   vit_layernorm  x2   LN1, LN2: f32 statistics (flax fast variance), bf16 out
 //   vit_gemm       x4   qkv, proj(+residual), MLP1(+GELU, exact or tanh),
 //                       MLP2(+residual)
-//   vit_attention  x1   one thread block per (crop, head), K/V in shared memory
+//   vit_attention  x1   attention_kernel.cuh's tensor-core kernel, MODE_BLOCK
 // The rounding points are those of block_math / _vit_block_kernel: every
 // product is accumulated in f32 and rounded to bf16, the bias is added in
 // bf16 after that rounding, attention logits are rounded to bf16 before an
@@ -22,42 +22,24 @@
 // bounds a block only below ~300 rows (under two 192-token crops); at the
 // serving batches (8 images = 16 crops = 3072 rows) and above, the GEMMs are
 // compute-bound on the tensor cores. Attention at N=192, D=80 is ~3% of the
-// FLOPs and runs on the f32 CUDA cores.
-// What this simple design does about it: little yet. The GEMM is a plain
+// FLOPs.
+// What this simple design does about it: little yet for the GEMM, a plain
 // nvcuda::wmma 16x16x16 bf16 kernel over 128x128x32 shared-memory tiles,
 // fed by cp.async through a 4-stage ring so that global-memory latency
 // hides behind three tiles of MMAs; no TMA, no wgmma, no warp
 // specialisation, no persistent scheduling. Its epilogue finishes 8
-// adjacent outputs per lane with 16-byte loads and stores. Attention is a
-// plain per-row loop on the f32 CUDA cores. Those come in later work.
+// adjacent outputs per lane with 16-byte loads and stores. Attention runs
+// on the tensor cores (mma.sync with ldmatrix operands, the logits and the
+// softmax in registers, the f32 probabilities split into two bf16 halves);
+// see attention_kernel.cuh.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
 #include <mma.h>
-#include <stdint.h>
+
+#include "attention_kernel.cuh"
 
 using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
 
 namespace {
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
 
 // Exact GELU 0.5x * erfc(-x/sqrt2) with the bf16 rounding points of
 // _gelu_mosaic (vit_block_pallas.py:60): each op rounds to bf16, and the
@@ -83,25 +65,6 @@ __device__ __forceinline__ float gelu_tanh_bf16(float x) {
   const float a = round_bf16(1.0f + t);
   const float cdf = round_bf16(0.5f * a);
   return round_bf16(x * cdf);
-}
-
-// 16-byte global -> shared copy that bypasses registers; pred == false
-// writes 16 zero bytes instead (the masked edge of a tile).
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int src_bytes = pred ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(gmem), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // ------------------------------------------------------------- LayerNorm
@@ -313,91 +276,6 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_bf16_kernel(
   }
 }
 
-// ------------------------------------------------------------- attention
-// One thread block per (crop, head). qkv is (B*N, 3C) with column
-// s*C + h*D + d (s = q, k, v), out is (B*N, C). K and V of the head sit in
-// dynamic shared memory (K rows padded to D+2 so that lanes reading
-// different rows hit different banks). Each warp takes one query row at a
-// time: q*scale rounded to bf16, f32 logits rounded to bf16, f32 softmax,
-// f32 p.v, bf16 store into the head's column slice.
-constexpr int ATTN_THREADS = 256;
-
-__global__ void __launch_bounds__(ATTN_THREADS) attention_kernel(
-    const bf16* __restrict__ qkv, bf16* __restrict__ out, int N, int H,
-    int D, float q_scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int C = H * D;
-  const int KD = D + 2;
-  const int nwarps = ATTN_THREADS / 32;
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // N x KD
-  bf16* Vs = Ks + (size_t)N * KD;                // N x D
-  float* qbuf = reinterpret_cast<float*>(Vs + (size_t)N * D);  // nwarps x D
-  float* pbuf = qbuf + nwarps * D;                             // nwarps x N
-
-  const int h = blockIdx.x;
-  const size_t row0 = (size_t)blockIdx.y * N;
-  const size_t ld = 3 * (size_t)C;
-  const int D2 = D / 2;
-
-  for (int idx = threadIdx.x; idx < N * D2; idx += ATTN_THREADS) {
-    const int m = idx / D2, d2 = idx % D2;
-    const __nv_bfloat162* src = reinterpret_cast<const __nv_bfloat162*>(
-        qkv + (row0 + m) * ld + C + (size_t)h * D);
-    reinterpret_cast<__nv_bfloat162*>(Ks + (size_t)m * KD)[d2] = src[d2];
-    reinterpret_cast<__nv_bfloat162*>(Vs + (size_t)m * D)[d2] = src[C / 2 + d2];
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* q = qbuf + warp * D;
-  float* p = pbuf + warp * N;
-  for (int n = warp; n < N; n += nwarps) {
-    const bf16* qrow = qkv + (row0 + n) * ld + (size_t)h * D;
-    for (int d = lane; d < D; d += 32)
-      q[d] = round_bf16(__bfloat162float(qrow[d]) * q_scale);
-    __syncwarp();
-
-    float mx = -INFINITY;
-    for (int m = lane; m < N; m += 32) {
-      const __nv_bfloat162* krow =
-          reinterpret_cast<const __nv_bfloat162*>(Ks + (size_t)m * KD);
-      float s = 0.f;
-      for (int d2 = 0; d2 < D2; ++d2) {
-        const float2 kv = __bfloat1622float2(krow[d2]);
-        s = fmaf(q[2 * d2], kv.x, s);
-        s = fmaf(q[2 * d2 + 1], kv.y, s);
-      }
-      s = round_bf16(s);
-      p[m] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int m = lane; m < N; m += 32) {
-      const float e = expf(p[m] - mx);
-      p[m] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    for (int m = lane; m < N; m += 32) p[m] = p[m] / sum;
-    __syncwarp();
-
-    bf16* orow = out + (row0 + n) * C + (size_t)h * D;
-    for (int d = lane; d < D; d += 32) {
-      float o = 0.f;
-      for (int m = 0; m < N; ++m)
-        o = fmaf(p[m], __bfloat162float(Vs[(size_t)m * D + d]), o);
-      orow[d] = __float2bfloat16_rn(o);
-    }
-    __syncwarp();
-  }
-}
-
-size_t attention_smem_bytes(int N, int D) {
-  return (size_t)N * (D + 2) * sizeof(bf16) + (size_t)N * D * sizeof(bf16) +
-         (size_t)(ATTN_THREADS / 32) * (D + N) * sizeof(float);
-}
-
 }  // namespace
 
 // --------------------------------------------------------- C interface
@@ -432,18 +310,16 @@ int vit_gemm(int device, const void* a, const void* w, const void* bias,
   return (int)cudaGetLastError();
 }
 
+// qkv (B*N, 3C) with column s*C + h*D + d (s = q, k, v) -> out (B*N, C)
 int vit_attention(int device, const void* qkv, void* out, int B, int N,
                   int H, int D, float q_scale, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = attention_smem_bytes(N, D);
-  err = cudaFuncSetAttribute(attention_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  attention_kernel<<<dim3(H, B), ATTN_THREADS, smem, (cudaStream_t)stream>>>(
-      (const bf16*)qkv, (bf16*)out, N, H, D, q_scale);
-  return (int)cudaGetLastError();
+  const long long C = (long long)H * D;
+  const bf16* q = (const bf16*)qkv;
+  return launch<MODE_BLOCK>(q, q + C, q + 2 * C, out, nullptr, B, N, H, D,
+                            N * 3 * C, 3 * C, q_scale, 0,
+                            (cudaStream_t)stream);
 }
 
 const char* vit_error_string(int err) {

@@ -1,7 +1,7 @@
 """Host-side datasets producing :class:`Record` s (the port's own copy of
 the parts of ``hands_tpu/data/datasets.py`` that serving and calibration
 need): the robust image reader, the ``RecordDataset`` base and the synthetic
-dataset. The real dataset classes are ROADMAP queue 1 item 8.
+dataset. The real dataset classes are ROADMAP queue 1 item 4.
 """
 
 from __future__ import annotations
@@ -191,11 +191,11 @@ def fetch_dataset(cfg: Config, names: str, split: str):
         if p in _NOT_PORTED:
             raise NotImplementedError(
                 f"dataset '{p}' is not ported (its class, the native decoder "
-                f"and the concatenation of datasets): ROADMAP queue 1 item 8")
+                f"and the concatenation of datasets): ROADMAP queue 1 item 4")
         if p not in DATASET_REGISTRY:
             raise KeyError(f"unknown dataset '{p}'")
     if len(parts) > 1:
         raise NotImplementedError(
             "the concatenation of datasets is not ported: ROADMAP queue 1 "
-            "item 8")
+            "item 4")
     return DATASET_REGISTRY[parts[0]](cfg, split)

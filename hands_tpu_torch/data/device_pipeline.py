@@ -13,7 +13,7 @@ depth targets, the GT 3D joints and the global orientation with it), jitters
 the hand boxes and mirrors flipped images with their boxes. Records that carry
 a hand mask or a depth map get their mask and depth targets through a
 nearest-neighbour crop. Only ``pos_enc == "pcl"`` is not ported (ROADMAP
-queue 1 item 4).
+queue 1 item 3).
 
 :class:`DeviceDataLoader` turns a dataset of records into a stream of such
 batches; :class:`PrefetchLoader` runs its host half (record fetch, stacking,
@@ -131,7 +131,7 @@ class DevicePreprocessor:
         if cfg.pos_enc == "pcl":
             raise NotImplementedError(
                 "pcl preprocessing (pcl_crop, warp_homography) is not "
-                "ported: ROADMAP queue 1 item 4")
+                "ported: ROADMAP queue 1 item 3")
         self.cfg = cfg
         self.is_train = is_train
         self.device = torch.device(device)
@@ -440,11 +440,11 @@ class DeviceDataLoader:
         if tuple(shard) != (0, 1):
             raise NotImplementedError(
                 "the sharded (multi-process) loader path is not ported: "
-                "ROADMAP queue 1 item 13")
+                "ROADMAP queue 1 item 11")
         if hasattr(dataset, "stacked_batch"):
             raise NotImplementedError(
                 "the packed stacked_batch fast path (data/packed.py) is not "
-                "ported: ROADMAP queue 1 item 8")
+                "ported: ROADMAP queue 1 item 2")
         self.dataset = dataset
         self.cfg = cfg
         self.batch_size = batch_size

@@ -302,7 +302,7 @@ class ViTBackbone(nn.Module):
         if variant not in VIT_CONFIGS:
             raise NotImplementedError(
                 f"ViT variant {variant!r} is not ported (b16 and "
-                f"VitB16Spatial: ROADMAP queue 1 item 9)")
+                f"VitB16Spatial: ROADMAP queue 1 item 6)")
         cfg = VIT_CONFIGS[variant]
         C = cfg["embed_dim"]
         self.dtype = dtype

@@ -66,7 +66,7 @@ class HamerNet(nn.Module):
         if cfg.pos_enc not in (None, "center+corner_latent"):
             raise NotImplementedError(
                 f"pos_enc={cfg.pos_enc!r} is not ported for HaMeR (the dense "
-                f"token embedding): ROADMAP queue 1 item 9")
+                f"token embedding): ROADMAP queue 1 item 6")
         self.cfg = cfg
         self.dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
                       else torch.float32)

@@ -134,7 +134,7 @@ def _build_backbone(name: str, in_ch: int, dtype, quant_int8: bool, device):
         return resnet18(in_ch, dtype, quant_int8, device)
     if name == "vit_b_16":
         raise NotImplementedError(
-            "backbone='vit_b_16' is not ported: ROADMAP queue 1 item 9")
+            "backbone='vit_b_16' is not ported: ROADMAP queue 1 item 6")
     raise ValueError(f"unsupported backbone '{name}'")
 
 

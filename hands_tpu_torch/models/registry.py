@@ -13,10 +13,10 @@ from hands_tpu_torch.config import Config
 from hands_tpu_torch.core.xdict import XDict
 
 _NOT_PORTED = {
-    "arctic_sf_light": "ROADMAP queue 1 item 10",
-    "arctic_sf": "ROADMAP queue 1 item 10",
-    "handoccnet_light": "ROADMAP queue 1 item 10",
-    "handoccnet": "ROADMAP queue 1 item 10",
+    "arctic_sf_light": "ROADMAP queue 1 item 7",
+    "arctic_sf": "ROADMAP queue 1 item 7",
+    "handoccnet_light": "ROADMAP queue 1 item 7",
+    "handoccnet": "ROADMAP queue 1 item 7",
 }
 
 

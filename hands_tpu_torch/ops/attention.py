@@ -14,9 +14,12 @@ bf16, the static block rounds the probabilities to bf16 and returns the
 output times ``inv_out`` quantised to int8.
 
 CUDA tensors launch the kernel of ``csrc/attention.cu`` (one launch, counted
-in :data:`launches`); CPU tensors run the ``*_plain`` twin; anything else
-raises. q, k and v are read in place through their strides, so the slices of
-a fused qkv tensor are not copied.
+in :data:`launches`): bf16 on the tensor cores, f32 (``mha_fused`` only) on
+the CUDA cores; CPU tensors run the ``*_plain`` twin; anything else raises,
+and so does a shape past the kernel's limits
+(:func:`~hands_tpu_torch.ops.vit_block.check_attention_shape`). q, k and v
+are read in place through their strides, so the slices of a fused qkv
+tensor are not copied.
 """
 
 from __future__ import annotations
@@ -27,10 +30,11 @@ from typing import Dict, Optional
 import torch
 
 from hands_tpu_torch.ops.cuda_build import CudaLibrary, check, on_cpu
-from hands_tpu_torch.ops.vit_block import bf16_const
+from hands_tpu_torch.ops.vit_block import bf16_const, check_attention_shape
 
 _BF16 = torch.bfloat16
 _MODE_MHA, _MODE_DYNAMIC, _MODE_STATIC = 0, 1, 2
+_SMEM_MAX = 232448  # bytes of shared memory a Hopper thread block can have
 
 # kernel launches per wrapper since the last reset (CPU twin runs not counted)
 launches: Dict[str, int] = {"mha_fused": 0, "qkv_attention_dynamic": 0,
@@ -46,7 +50,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     p, i, f, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                    ctypes.c_longlong)
     lib.attn_fused.argtypes = [i, p, p, p, p, p, i, i, i, i, ll, ll, f, i, i,
-                               p]
+                               i, p]
     lib.attn_fused.restype = ctypes.c_int
 
 
@@ -100,21 +104,36 @@ def _strides(t: torch.Tensor, B: int, N: int, H: int, D: int):
     return (sb if B > 1 else N * sn), sn
 
 
-def _launch(q, k, v, out, inv_out, B, N, H, D, scale, mode) -> None:
+def _launch(q, k, v, out, inv_out, B, N, H, D, scale, mode,
+            warps: int = 0) -> None:
+    """One launch; ``warps`` (16 query rows each) per thread block of the
+    bf16 route, 0 for the kernel's default."""
+    check_attention_shape(N, D)
     dev = q.device
     qs = _strides(q, B, N, H, D)
     for name, t in (("k", k), ("v", v)):
         if (t.device != dev or t.dtype != q.dtype
                 or _strides(t, B, N, H, D) != qs):
             raise ValueError(f"{name}: want q's device, dtype and strides")
-    if q.dtype == _BF16 and (D % 2 or qs[0] % 2 or qs[1] % 2):
-        raise ValueError("bf16 attention needs an even head dim and strides")
+    if q.dtype == _BF16 and (qs[0] % 8 or qs[1] % 8
+                             or any(t.data_ptr() % 16 for t in (q, k, v))):
+        raise ValueError("bf16 attention kernel needs 16-byte aligned q, k, "
+                         "v and strides that are multiples of 8 elements")
+    # the f32 route's shared memory: K rows of D + 1 floats, V, and the q and
+    # p rows of its 8 warps
+    if (q.dtype == torch.float32
+            and 4 * (N * (2 * D + 1) + 8 * (D + N)) > _SMEM_MAX):
+        raise ValueError(
+            f"the f32 attention route holds K and V of a head in shared "
+            f"memory: N (2D + 1) + 8 (D + N) floats must fit in {_SMEM_MAX} "
+            f"bytes, got N={N}, D={D}")
     if any(t.data_ptr() % 4 for t in (q, k, v)):
         raise ValueError("attention kernel needs 4-byte aligned q, k, v")
     LIBRARY.launch(
         "attn_fused", dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), None if inv_out is None else inv_out.data_ptr(),
-        B, N, H, D, qs[0], qs[1], scale, int(q.dtype == torch.float32), mode)
+        B, N, H, D, qs[0], qs[1], scale, int(q.dtype == torch.float32), mode,
+        warps)
 
 
 def mha_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -57,6 +57,22 @@ def _bind(lib: ctypes.CDLL) -> None:
 LIBRARY = CudaLibrary("vit_block", _bind, "vit_error_string")
 
 
+# csrc/attention_kernel.cuh: a row of logits stays in registers
+ATTN_MAX_N, ATTN_MAX_D = 256, 128
+
+
+def check_attention_shape(N: int, D: int) -> None:
+    """Raise unless the attention kernel takes ``N`` tokens with head dim
+    ``D``: D a multiple of 16 up to :data:`ATTN_MAX_D`, N up to
+    :data:`ATTN_MAX_N`."""
+    if D % 16 or not 16 <= D <= ATTN_MAX_D:
+        raise ValueError(f"attention kernel needs a head dim that is a "
+                         f"multiple of 16 up to {ATTN_MAX_D}, got {D}")
+    if not 1 <= N <= ATTN_MAX_N:
+        raise ValueError(f"attention kernel takes 1 to {ATTN_MAX_N} tokens "
+                         f"(a row of logits in registers), got {N}")
+
+
 def bf16_const(v: float) -> float:
     """``v`` rounded to bf16, as JAX rounds a weak-typed scalar that meets a
     bf16 array."""
@@ -190,9 +206,10 @@ def attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     C = C3 // 3
     D = C // num_heads
     dev = qkv.device
-    if C3 % 3 or C % num_heads or D % 2:
-        raise ValueError(f"attention kernel needs 3C columns and an even "
-                         f"head dim, got {C3} columns, {num_heads} heads")
+    if C3 % 3 or C % num_heads:
+        raise ValueError(f"attention kernel needs 3C columns, got {C3} "
+                         f"columns, {num_heads} heads")
+    check_attention_shape(N, D)
     _check(qkv, "qkv", _BF16, (B, N, C3), dev)
     out = torch.empty((B, N, C), dtype=_BF16, device=dev)
     LIBRARY.launch("vit_attention", dev, qkv.data_ptr(), out.data_ptr(),

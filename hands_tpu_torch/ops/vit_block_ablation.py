@@ -50,7 +50,8 @@ from hands_tpu_torch.ops import vit_block_int8 as v8
 from hands_tpu_torch.ops.attention import (_strides, qkv_attention,
                                            qkv_attention_plain)
 from hands_tpu_torch.ops.cuda_build import CudaLibrary, check, on_cpu
-from hands_tpu_torch.ops.vit_block import bf16_const, gelu, layernorm_f32
+from hands_tpu_torch.ops.vit_block import (bf16_const, check_attention_shape,
+                                           gelu, layernorm_f32)
 
 _BF16, _F32, _I8 = torch.bfloat16, torch.float32, torch.int8
 
@@ -356,6 +357,7 @@ def attention_ablation(qkv, num_heads: int, inv_out, variant: str
         return attention_ablation_plain(qkv, num_heads, inv_out, variant)
     B, N, C3 = qkv.shape
     (q, k, v), (sb, sn), D = _qkv_views(qkv, num_heads)
+    check_attention_shape(N, D)
     dev = qkv.device
     check(inv_out, "inv_out", _F32, (C3 // 3,), dev)
     out = torch.empty((B, N, C3 // 3), dtype=_I8, device=dev)
@@ -404,9 +406,8 @@ def attention_heads(qkvh: torch.Tensor) -> torch.Tensor:
         return attention_heads_plain(qkvh)
     _, G, N, D = qkvh.shape
     dev = qkvh.device
+    check_attention_shape(N, D)
     check(qkvh, "qkvh", _BF16, (3, G, N, D), dev)
-    if D % 2:
-        raise ValueError("bf16 attention needs an even head dim")
     out = torch.empty((G, N, D), dtype=_F32, device=dev)
     # every head a batch row of one head: batch stride N*D, row stride D
     LIBRARY.launch("abl_attention", dev, qkvh[0].data_ptr(),

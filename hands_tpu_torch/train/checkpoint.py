@@ -14,8 +14,8 @@ into the live tensors: the model's parameters are the optimiser's, the
 schedule reads ``count`` and the accumulation ``mini_step``.
 
 ``graft_backbone_variables`` read a converted orbax directory in the JAX
-package; the converter falls away in the port (ROADMAP queue 1 item 11), so
-``--load_backbone`` raises (item 9).
+package; the converter falls away in the port (ROADMAP queue 1), so
+``--load_backbone`` raises (item 6).
 """
 
 from __future__ import annotations

@@ -17,7 +17,7 @@ train and eval mode themselves; the loss terms of a window stay on the card
 and are read back once per window (one host synchronisation per ``log_every``
 steps, not one per term and step); dropout draws from a generator seeded from
 ``cfg.seed``. The mesh, FSDP and multi-process branches are ROADMAP queue 1
-item 13; ``visualize`` needs ``utils/vis.py`` (item 14).
+item 11; ``visualize`` needs ``utils/vis.py`` (item 8).
 """
 
 from __future__ import annotations
@@ -49,7 +49,7 @@ class Trainer:
         if cfg.get("fsdp", False) or cfg.num_processes > 1:
             raise NotImplementedError(
                 "the mesh, FSDP and multi-process trainer branches are not "
-                "ported: ROADMAP queue 1 item 13")
+                "ported: ROADMAP queue 1 item 11")
         self.cfg = cfg
         self.model = model
         self.device = next(model.parameters()).device
@@ -73,7 +73,7 @@ class Trainer:
         if cfg.get("load_backbone", ""):
             raise NotImplementedError(
                 "--load_backbone read a converted orbax directory; loading "
-                "pretrained backbones is ROADMAP queue 1 item 9")
+                "pretrained backbones is ROADMAP queue 1 item 6")
         state = create_train_state(cfg, self.model,
                                    steps_per_epoch=len(train_loader))
 
@@ -166,7 +166,7 @@ class Trainer:
         experiment."""
         raise NotImplementedError(
             "visualize needs utils/vis.py (renderer and overlays): ROADMAP "
-            "queue 1 item 14; pass --no_vis")
+            "queue 1 item 8; pass --no_vis")
 
     def _visualize_or_skip(self, state, loader, step: int) -> None:
         # as in the JAX loop, visualisation never ends a training run

@@ -324,9 +324,9 @@ def test_fetch_model_and_evaluation_entry_points():
         assert bool(torch.isfinite(out[k]).all()), k
     assert out["pred.render.l"].shape == (2, 224, 224)
 
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         fetch_model(cfg.replace(backbone="vit_b_16"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(NotImplementedError, match="item 3"):
         DevicePreprocessor(cfg.replace(pos_enc="pcl"), False, device="cpu")
 
 

@@ -161,15 +161,15 @@ def test_factory_and_what_is_left_out():
     with pytest.raises(ValueError):
         fetch_dataloader(cfg, "holdout", device="cpu")
     for name in ("epic", "hands+assembly", "synthetic+synthetic"):
-        with pytest.raises(NotImplementedError, match="item 8"):
+        with pytest.raises(NotImplementedError, match="item 4"):
             fetch_dataset(cfg, name, "train")
     with pytest.raises(KeyError):
         fetch_dataset(cfg, "no_such_set", "train")
     ds = fetch_dataset(cfg, "synthetic", "minitrain")
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="item 11"):
         DeviceDataLoader(ds, cfg, 2, False, shard=(0, 2), device="cpu")
     ds.stacked_batch = lambda idxs: {}
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 2"):
         DeviceDataLoader(ds, cfg, 2, False, device="cpu")
 
 

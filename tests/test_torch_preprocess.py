@@ -138,7 +138,7 @@ def test_train_mode_not_ported():
     """Of train mode only ``pcl`` is still to port: it raises with its item;
     every other config builds a train-mode preprocessor."""
     cfg = serving_config()
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(NotImplementedError, match="item 3"):
         DevicePreprocessor(cfg.replace(pos_enc="pcl"), is_train=True,
                            device="cpu")
     assert DevicePreprocessor(cfg, is_train=True, device="cpu").is_train

@@ -235,6 +235,6 @@ def test_train_mode_preprocessor_matches_jax(monkeypatch, with_maps):
 
 
 def test_pcl_still_raises_in_train_mode():
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(NotImplementedError, match="item 3"):
         DevicePreprocessor(default_config("hands_light", pos_enc="pcl"),
                            is_train=True, device="cpu")

@@ -20,10 +20,14 @@ padded tail and the ``nanmean`` still do all their work. The pre-clip
 gradient norm, which the loops also log, is held to 5e-3.
 """
 
+import dataclasses
 import glob
 import json
 import os
+import re
 import shutil
+from types import SimpleNamespace
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -233,14 +237,14 @@ def test_debug_stops_on_a_non_finite_loss_and_what_is_left_out(tmp_path):
         next(iter(model.parameters())).fill_(float("nan"))
     with pytest.raises(FloatingPointError, match="step 1"):
         trainer.fit(train_loader, None, num_epochs=1)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="item 8"):
         trainer.visualize(None, None, 0)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         Trainer(tiny_cfg(load_backbone="x"), model, trainer.exp).fit(
             train_loader)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="item 11"):
         Trainer(tiny_cfg(fsdp=True), model, trainer.exp)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="item 11"):
         cli_train.main(["--num_processes", "2", "--device", "cpu"])
 
 
@@ -272,9 +276,10 @@ def both_runs(tmp_path_factory):
     orig = jtrainer.create_train_state
     jtrainer.create_train_state = (
         lambda cfg, _, steps_per_epoch: orig(cfg, variables, steps_per_epoch))
+    jexp = JaxExperiment(jcfg, root=str(tmp / "jax"))
+    jtr = jtrainer.Trainer(jcfg, jmodel, jexp)
     try:
-        jexp = JaxExperiment(jcfg, root=str(tmp / "jax"))
-        jtrainer.Trainer(jcfg, jmodel, jexp).fit(jtrain, jval, num_epochs=1)
+        jtr.fit(jtrain, jval, num_epochs=1)
     finally:
         jtrainer.create_train_state = orig
 
@@ -284,12 +289,15 @@ def both_runs(tmp_path_factory):
                            device="cpu")
     texp = Experiment(tcfg, root=str(tmp / "port"))
     state = Trainer(tcfg, model, texp).fit(ttrain, tval, num_epochs=1)
-    yield _rows(jexp.dir), _rows(texp.dir), state
+    yield SimpleNamespace(
+        ref=_rows(jexp.dir), got=_rows(texp.dir), state=state, jcfg=jcfg,
+        jmodel=jmodel, jtrainer=jtr, jval=jval, jinputs=(inputs, meta),
+        tcfg=tcfg, tval=tval, jdir=jexp.dir, tdir=texp.dir)
     shutil.rmtree(tmp, ignore_errors=True)
 
 
 def test_trainer_matches_the_jax_trainer(both_runs):
-    ref, got, state = both_runs
+    ref, got, state = both_runs.ref, both_runs.got, both_runs.state
     assert state.step == 4
     assert len(ref) == len(got) == 4  # two windows, the epoch time, val
     checked = 0
@@ -313,7 +321,160 @@ def test_trainer_matches_the_jax_trainer(both_runs):
     assert checked > 30
 
 
+def test_restore_params_also_restores_running_statistics(both_runs):
+    """A deliberate divergence (ROADMAP queue 3, fault 1). The port's
+    ``restore_params`` (``cli.evaluate --infer_ckpt``, warm start) loads the
+    running statistics with the parameters; the JAX one returns the
+    parameters only, so ``hands_tpu/cli/evaluate.py`` evaluates a ResNet on
+    the ``batch_stats`` of a fresh init. The tiny WildHands checkpoints of the
+    parity run, each evaluated as its package's ``cli.evaluate`` does: the
+    port's equals its trainer's ``loss__val``, the JAX one's does not."""
+    from hands_tpu.core.xdict import device_view
+    from hands_tpu.train.checkpoint import CheckpointManager as JaxCkpt
+    from hands_tpu.train.state import create_train_state as jax_state
+    from hands_tpu_torch.train.state import create_train_state
+
+    r = both_runs
+    j_logged = r.ref[-1]["loss__val"]
+    t_logged = r.got[-1]["loss__val"]
+
+    inputs, meta = r.jinputs
+    variables = r.jmodel.init(jax.random.PRNGKey(0), inputs,
+                              device_view(meta))
+    state = jax_state(r.jcfg, variables)
+    ckpt = JaxCkpt(os.path.join(r.jdir, "checkpoints"))
+    restored = ckpt.restore_params(state.params, "last")
+    assert set(restored) == set(state.params)  # parameters, nothing else
+    j_eval = r.jtrainer.validate(state.replace(params=restored),
+                                 r.jval)["loss"]
+
+    model = fetch_model(r.tcfg, "cpu")
+    untouched = CheckpointManager(os.path.join(r.tdir, "checkpoints")
+                                  ).restore_params(model, "last")
+    assert untouched == []  # running statistics included
+    exp = Experiment(r.tcfg.replace(exp_key="restored"),
+                     root=os.path.join(r.tdir, "eval"))
+    t_eval = Trainer(r.tcfg, model, exp).validate(
+        create_train_state(r.tcfg, model), r.tval)["loss"]
+
+    assert abs(t_eval - t_logged) <= 1e-6 * abs(t_logged)
+    assert abs(t_eval - j_logged) <= 1e-3 * abs(j_logged)  # the parity bound
+    assert abs(j_eval - j_logged) > 1e-2 * abs(j_logged), (j_eval, j_logged)
+
+
+def _queue1_titles():
+    text = open(os.path.join(os.path.dirname(__file__), os.pardir,
+                             "ROADMAP.md")).read()
+    queue = text.split("### 1. Modules to port")[1].split("### 2.")[0]
+    return {int(m.group(1)): " ".join(m.group(2).split()) for m in
+            re.finditer(r"^(\d+)\. \*\*(.+?)\*\*", queue, re.M | re.S)}
+
+
+def _left_out(what):
+    """Call what the port has not ported yet; return its message."""
+    from hands_tpu_torch.cli.calibrate import serving_config
+    from hands_tpu_torch.data.datasets import fetch_dataset
+    from hands_tpu_torch.data.device_pipeline import DevicePreprocessor
+
+    cfg = tiny_cfg()
+    calls = {
+        "pcl": lambda: DevicePreprocessor(cfg.replace(pos_enc="pcl"), False,
+                                          device="cpu"),
+        "dataset": lambda: fetch_dataset(cfg, "epic", "train"),
+        "mix": lambda: fetch_dataset(cfg, "synthetic+synthetic", "train"),
+        "packed": lambda: DeviceDataLoader(
+            SimpleNamespace(stacked_batch=None), cfg, 2, False, device="cpu"),
+        "shard": lambda: DeviceDataLoader(
+            SyntheticRecordDataset(cfg, "val", 2), cfg, 2, False,
+            shard=(0, 2), device="cpu"),
+        "vit_b_16": lambda: fetch_model(cfg.replace(backbone="vit_b_16"),
+                                        "cpu"),
+        "handoccnet": lambda: fetch_model(
+            default_config("handoccnet_light"), "cpu"),
+        "calibrate": lambda: serving_config("hands_light"),
+        "processes": lambda: cli_train.main(["--num_processes", "2",
+                                             "--device", "cpu"]),
+        "visualize": lambda: Trainer.visualize(None, None, None, 0),
+    }
+    with pytest.raises(NotImplementedError) as err:
+        calls[what]()
+    return str(err.value)
+
+
+@pytest.mark.parametrize("what,title", [
+    ("pcl", "`pcl` preprocessing"), ("dataset", "Real datasets"),
+    ("mix", "Real datasets"), ("packed", "packed-record path"),
+    ("shard", "Parallel axes"), ("processes", "Parallel axes"),
+    ("vit_b_16", "HaMeR and ViT remainder"),
+    ("handoccnet", "HandOccNet and ArcticSF"),
+    ("calibrate", "HaMeR and ViT remainder"),
+    ("visualize", "Demo output and visualisation")])
+def test_what_is_left_out_names_its_roadmap_item(what, title):
+    """ROADMAP queue 3, fault 3: every ``NotImplementedError`` of the port
+    points at the ``ROADMAP.md`` queue 1 item that ports it."""
+    titles = _queue1_titles()
+    cited = [int(n) for n in re.findall(r"item (\d+)", _left_out(what))]
+    assert cited and all(n in titles for n in cited), (cited, titles)
+    assert any(title in titles[n] for n in cited), [titles[n] for n in cited]
+
+
 # --------------------------------------------------------------- entry point
+def _jax_evaluate_config(argv):
+    """The config that ``hands_tpu/cli/evaluate.py`` builds from ``argv``,
+    stopped before it builds the model."""
+    import hands_tpu.models.registry as jax_registry
+    from hands_tpu.cli import evaluate as jax_evaluate
+
+    class Built(Exception):
+        pass
+
+    def stop(cfg, *args, **kwargs):
+        raise Built(cfg)
+
+    with mock.patch.object(jax_registry, "fetch_model", stop):
+        with pytest.raises(Built) as built:
+            jax_evaluate.main(argv)
+    return built.value.args[0]
+
+
+@pytest.mark.parametrize("argv", [
+    ["--eval_on", "synthetic"],
+    ["--debug", "--eval_on", "epic"],
+    ["--eval_on", "epic", "-f"],
+    ["--debug"],
+    ["--eval_on", "synthetic", "--valsplit", "smallval"],
+])
+def test_flags_follow_the_reference_order(argv):
+    """ROADMAP queue 3, fault 2: ``--eval_on`` first, then ``--debug`` or
+    ``-f`` win, as in ``hands_tpu/cli/evaluate.py``; the evaluation config
+    of the port equals the JAX one in every field the two share."""
+    from hands_tpu_torch.cli import _args
+
+    want = _jax_evaluate_config(argv)
+    got, device = _args.parse(argv + ["--device", "cpu"])
+    assert device == "cpu"
+    assert got.val_dataset == want.val_dataset
+    assert got.use_render_seg_loss == want.use_render_seg_loss
+    g, w = dataclasses.asdict(got), dataclasses.asdict(want)
+    shared = (set(g) & set(w)) - {"dataset"}  # --debug sets the port's too
+    assert {k: g[k] for k in shared} == {k: w[k] for k in shared}
+
+
+def test_cli_train_reads_eval_on_a_divergence():
+    """``hands_tpu/cli/train.py`` reads no ``--eval_on``; the port's
+    ``cli.train`` does (a listed divergence), so that a run on ``--dataset
+    synthetic`` can name its validation set; ``--debug`` still wins."""
+    from hands_tpu_torch.cli import _args
+
+    cfg, _ = _args.parse(["--dataset", "synthetic", "--eval_on", "synthetic",
+                          "--device", "cpu"])
+    assert (cfg.dataset, cfg.val_dataset) == ("synthetic", "synthetic")
+    cfg, _ = _args.parse(["--debug", "--dataset", "epic", "--eval_on",
+                          "epic", "--device", "cpu"])
+    assert (cfg.dataset, cfg.val_dataset) == ("synthetic", "synthetic")
+    assert not cfg.use_render_seg_loss
+
+
 SMALL = dict(backbone="resnet18", compute_dtype="float32", img_res=160,
              img_res_ds=160, use_glb_feat=False, logger="none")
 
