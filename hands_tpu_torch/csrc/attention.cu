@@ -35,15 +35,14 @@
 // --------------------------------------------------------- C interface
 extern "C" {
 
-// is_f32: element type of q, k, v (and of out in MODE_MHA); warps: warps
-// (16 query rows each) a thread block of the bf16 route, 0 for the default.
+// is_f32: element type of q, k, v (and of out in MODE_MHA).
 // Returns the launch's cudaGetLastError() (0 = success),
 // cudaErrorInvalidValue for a combination the kernel does not have; never
 // synchronises.
 int attn_fused(int device, const void* q, const void* k, const void* v,
                void* out, const void* inv_out, int B, int N, int H, int D,
                long long batch_stride, long long row_stride, float scale,
-               int is_f32, int mode, int warps, void* stream) {
+               int is_f32, int mode, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
@@ -55,13 +54,13 @@ int attn_fused(int device, const void* q, const void* k, const void* v,
   if (is_f32) return (int)cudaErrorInvalidValue;
   if (mode == MODE_MHA)
     return launch<MODE_MHA>(q, k, v, out, inv, B, N, H, D, batch_stride,
-                            row_stride, scale, warps, s);
+                            row_stride, scale, s);
   if (mode == MODE_DYNAMIC)
     return launch<MODE_DYNAMIC>(q, k, v, out, inv, B, N, H, D, batch_stride,
-                                row_stride, scale, warps, s);
+                                row_stride, scale, s);
   if (mode == MODE_STATIC && inv != nullptr)
     return launch<MODE_STATIC>(q, k, v, out, inv, B, N, H, D, batch_stride,
-                               row_stride, scale, warps, s);
+                               row_stride, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

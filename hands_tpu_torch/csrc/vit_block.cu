@@ -30,7 +30,7 @@
 // specialisation, no persistent scheduling. Its epilogue finishes 8
 // adjacent outputs per lane with 16-byte loads and stores. Attention runs
 // on the tensor cores (mma.sync with ldmatrix operands, the logits and the
-// softmax in registers, the f32 probabilities split into two bf16 halves);
+// softmax in registers, the f32 probabilities split into three bf16 parts);
 // see attention_kernel.cuh.
 
 #include <mma.h>
@@ -318,8 +318,7 @@ int vit_attention(int device, const void* qkv, void* out, int B, int N,
   const long long C = (long long)H * D;
   const bf16* q = (const bf16*)qkv;
   return launch<MODE_BLOCK>(q, q + C, q + 2 * C, out, nullptr, B, N, H, D,
-                            N * 3 * C, 3 * C, q_scale, 0,
-                            (cudaStream_t)stream);
+                            N * 3 * C, 3 * C, q_scale, (cudaStream_t)stream);
 }
 
 const char* vit_error_string(int err) {

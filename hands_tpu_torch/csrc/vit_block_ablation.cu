@@ -411,13 +411,13 @@ int abl_attention(int device, const void* q, const void* k, const void* v,
   const float* inv = (const float*)inv_out;
   if (mode == MODE_STATIC_CAST && inv != nullptr)
     return launch<MODE_STATIC_CAST>(q, k, v, out, inv, B, N, H, D,
-                                    batch_stride, row_stride, scale, 0, s);
+                                    batch_stride, row_stride, scale, s);
   if (mode == MODE_STATIC_F32)
     return launch<MODE_STATIC_F32>(q, k, v, out, inv, B, N, H, D,
-                                   batch_stride, row_stride, scale, 0, s);
+                                   batch_stride, row_stride, scale, s);
   if (mode == MODE_NO_SOFTMAX && inv != nullptr)
     return launch<MODE_NO_SOFTMAX>(q, k, v, out, inv, B, N, H, D,
-                                   batch_stride, row_stride, scale, 0, s);
+                                   batch_stride, row_stride, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -16,8 +16,9 @@ output times ``inv_out`` quantised to int8.
 CUDA tensors launch the kernel of ``csrc/attention.cu`` (one launch, counted
 in :data:`launches`): bf16 on the tensor cores, f32 (``mha_fused`` only) on
 the CUDA cores; CPU tensors run the ``*_plain`` twin; anything else raises,
-and so does a shape past the kernel's limits
-(:func:`~hands_tpu_torch.ops.vit_block.check_attention_shape`). q, k and v
+and so does a shape past the limits of the bf16 route
+(:func:`~hands_tpu_torch.ops.vit_block.check_attention_shape`) or past the
+shared memory of the f32 route. q, k and v
 are read in place through their strides, so the slices of a fused qkv
 tensor are not copied.
 """
@@ -50,7 +51,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     p, i, f, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                    ctypes.c_longlong)
     lib.attn_fused.argtypes = [i, p, p, p, p, p, i, i, i, i, ll, ll, f, i, i,
-                               i, p]
+                               p]
     lib.attn_fused.restype = ctypes.c_int
 
 
@@ -104,21 +105,19 @@ def _strides(t: torch.Tensor, B: int, N: int, H: int, D: int):
     return (sb if B > 1 else N * sn), sn
 
 
-def _launch(q, k, v, out, inv_out, B, N, H, D, scale, mode,
-            warps: int = 0) -> None:
-    """One launch; ``warps`` (16 query rows each) per thread block of the
-    bf16 route, 0 for the kernel's default."""
-    check_attention_shape(N, D)
+def _launch(q, k, v, out, inv_out, B, N, H, D, scale, mode) -> None:
     dev = q.device
     qs = _strides(q, B, N, H, D)
     for name, t in (("k", k), ("v", v)):
         if (t.device != dev or t.dtype != q.dtype
                 or _strides(t, B, N, H, D) != qs):
             raise ValueError(f"{name}: want q's device, dtype and strides")
-    if q.dtype == _BF16 and (qs[0] % 8 or qs[1] % 8
-                             or any(t.data_ptr() % 16 for t in (q, k, v))):
-        raise ValueError("bf16 attention kernel needs 16-byte aligned q, k, "
-                         "v and strides that are multiples of 8 elements")
+    if q.dtype == _BF16:
+        check_attention_shape(N, D)
+        if qs[0] % 8 or qs[1] % 8 or any(t.data_ptr() % 16 for t in (q, k, v)):
+            raise ValueError("bf16 attention kernel needs 16-byte aligned q, "
+                             "k, v and strides that are multiples of 8 "
+                             "elements")
     # the f32 route's shared memory: K rows of D + 1 floats, V, and the q and
     # p rows of its 8 warps
     if (q.dtype == torch.float32
@@ -132,8 +131,7 @@ def _launch(q, k, v, out, inv_out, B, N, H, D, scale, mode,
     LIBRARY.launch(
         "attn_fused", dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), None if inv_out is None else inv_out.data_ptr(),
-        B, N, H, D, qs[0], qs[1], scale, int(q.dtype == torch.float32), mode,
-        warps)
+        B, N, H, D, qs[0], qs[1], scale, int(q.dtype == torch.float32), mode)
 
 
 def mha_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -228,6 +228,17 @@ def test_f32_route_refuses_a_head_past_shared_memory():
         _meta_calls(256, 128, torch.float32)["mha_fused"]()
 
 
+@pytest.mark.parametrize("N,D", [(192, 72), (300, 64)])
+def test_f32_route_takes_shapes_past_the_tensor_core_limits(N, D):
+    """The tensor-core limits (D a multiple of 16, up to 256 tokens) do not
+    bind f32 ``mha_fused``: its CUDA-core route takes any head that fits in
+    shared memory, and the wrapper reaches the launch."""
+    with mock.patch.object(tat, "on_cpu", lambda t: False), \
+            mock.patch.object(tat.LIBRARY, "launch") as launch:
+        _meta_calls(N, D, torch.float32)["mha_fused"]()
+    assert launch.call_count == 1
+
+
 def test_vit_fused_attn_flag_matches_flax_backbone():
     """``ViTBackbone(fused_attn=True)`` (tiny, f32) against the Flax backbone
     with the same flag, its Pallas kernel in interpret mode: 5e-5, the JAX
