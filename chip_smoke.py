@@ -37,6 +37,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+import re
 import subprocess
 import sys
 import time
@@ -108,13 +109,36 @@ HBM_BYTES_S = 3.35e12
 # clock on each SM against 128 f32 FMAs, 1/16 of the f32 FLOP rate
 PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12,
               "sfu": 67e12 / 16}
-# the attention kernels on the tensor cores replaced a per-row loop on the
-# f32 CUDA cores; its times on an H100 at 700 W (PERF.md), printed beside the
-# new ones and kept out of the kernels line, which holds this run's readings
-EARLIER_MS = {"vit_attention": 0.4681, "qkv_attention_dynamic": 0.4360,
-              "qkv_attention_static": 0.4027, "mha_fused": 0.4042,
-              "attention_cast": 6.0831, "attention_no_softmax": 6.0036,
-              "attention_heads": 6.2191}
+# redesigned kernels: the design each replaced and that design's time on an
+# H100 at 700 W (PERF.md), printed beside the new time and kept out of the
+# kernels line, which holds this run's readings. ms per ViT-H block at 3072
+# rows, K8's per launch at 49,152 rows
+ATTN_BEFORE, GEMM_BF16_BEFORE, GEMM_I8_BEFORE = (
+    "the f32 CUDA-core attention loop", "wmma 16x16x16 + cp.async ring",
+    "mma.sync m16n8k32 + cp.async ring")
+EARLIER_MS = {"vit_attention": (ATTN_BEFORE, 0.4681),
+              "qkv_attention_dynamic": (ATTN_BEFORE, 0.4360),
+              "qkv_attention_static": (ATTN_BEFORE, 0.4027),
+              "mha_fused": (ATTN_BEFORE, 0.4042),
+              "attention_cast": (ATTN_BEFORE, 6.0831),
+              "attention_no_softmax": (ATTN_BEFORE, 6.0036),
+              "attention_heads": (ATTN_BEFORE, 6.2191),
+              "vit_gemm": (GEMM_BF16_BEFORE, 0.7765),
+              "gemm_i8_dynamic": (GEMM_I8_BEFORE, 0.6864),
+              "gemm_i8_static": (GEMM_I8_BEFORE, 0.5914),
+              "gemm_i8_gelu_cast": (GEMM_I8_BEFORE, 2.0725),
+              "gemm_i8_ident_quant": (GEMM_I8_BEFORE, 1.8498),
+              "gemm_i8_cast": (GEMM_I8_BEFORE, 1.2089)}
+ATTENTION_KERNELS = tuple(k for k, (d, _) in EARLIER_MS.items()
+                          if d == ATTN_BEFORE)
+# the wrappers of csrc/gemm_sm90.cuh's two main loops
+GEMM_KERNELS = ("vit_gemm", "gemm_i8_dynamic", "gemm_i8_static",
+                "gemm_i8_gelu_cast", "gemm_i8_ident_quant", "gemm_i8_cast")
+SRC_GEMM = "hands_tpu_torch/csrc/gemm_sm90.cuh"
+GEMM_SERVE_BATCH = 128  # crops of a bs64 serving request: 24,576 rows
+# M, N, K (bf16), K (int8) off every tile (128 x 256, K tiles of 64 bf16 or
+# 128 int8): TMA's zero fill of the ragged edges and the guarded stores
+RAGGED_GEMM = (200, 136, 1288, 1296)
 # ragged attention shapes (batch rows, tokens, head dim), two heads: B = 1,
 # token counts off the 16-row tiles, the head dims of ViT-H and of the tiny
 # and b16 ViTs, and the limits (256 tokens, head dim 128, head dim 16)
@@ -315,31 +339,34 @@ def make_requests(n_batches, batch, seed):
 
 
 def kernel_cases(x, p, p32):
-    """Every kernel of the port with its launch shapes at ViT-H: {kernel
-    name: (wrapper, twin, route info, [Case, ...])}."""
+    """Every kernel of the port with its launch shapes at ViT-H width for the
+    crops of ``x`` (B, 192, 1280): {kernel name: (wrapper, twin, route info,
+    [Case, ...])}."""
     from hands_tpu_torch.ops import attention as at
     from hands_tpu_torch.ops import quant
     from hands_tpu_torch.ops import vit_block as vb
     from hands_tpu_torch.ops import vit_block_int8 as v8
 
     bf = torch.bfloat16
-    x2 = x.reshape(ROWS, C)
+    batch = x.shape[0]
+    rows = batch * N_TOK
+    x2 = x.reshape(rows, C)
     x32 = x2.float()
-    attn_ops = 4 * BATCH * HEADS * N_TOK * N_TOK * HEAD_DIM
-    ln_ops = 8 * ROWS * C
+    attn_ops = 4 * batch * HEADS * N_TOK * N_TOK * HEAD_DIM
+    ln_ops = 8 * rows * C
 
     def gemm_ops(n, k):
-        return 2 * ROWS * n * k
+        return 2 * rows * n * k
 
     def sdpa(qkv3):
-        t = qkv3.view(BATCH, N_TOK, 3, HEADS, HEAD_DIM).permute(2, 0, 3, 1, 4)
+        t = qkv3.view(batch, N_TOK, 3, HEADS, HEAD_DIM).permute(2, 0, 3, 1, 4)
         return lambda: F.scaled_dot_product_attention(t[0], t[1], t[2])
 
     # ---- K3: bf16 block
     y = vb.layernorm_plain(x2, p["ln1_scale"], p["ln1_bias"])
     qkv = vb.gemm_plain(y, p["wqkv"], p["bqkv"])
-    qkv3 = qkv.view(BATCH, N_TOK, 3 * C)
-    o = vb.attention_plain(qkv3, HEADS).view(ROWS, C)
+    qkv3 = qkv.view(batch, N_TOK, 3 * C)
+    o = vb.attention_plain(qkv3, HEADS).view(rows, C)
     h = vb.gemm_plain(y, p["w1"], p["b1"], "gelu")
     ln_w, ln_b = p["ln1_scale"].to(bf), p["ln1_bias"].to(bf)
     k3 = {
@@ -386,8 +413,8 @@ def kernel_cases(x, p, p32):
     qy, sy = v8.ln_quant_plain(x2, d["ln1_s"], d["ln1_b"], True)
     dqkv = v8.gemm_i8_plain(qy, d["wqkv_q"], d["sqkv"], d["bqkv"],
                             row_scale=sy)
-    dqkv3 = dqkv.view(BATCH, N_TOK, 3 * C)
-    do = at.qkv_attention_plain(dqkv3, HEADS).view(ROWS, C)
+    dqkv3 = dqkv.view(batch, N_TOK, 3 * C)
+    do = at.qkv_attention_plain(dqkv3, HEADS).view(rows, C)
     qo, so = v8.quant_rows_plain(do)
     x1 = v8.gemm_i8_plain(qo, d["wproj_q"], d["sproj"], d["bproj"],
                           row_scale=so, epilogue="residual", residual=x32,
@@ -415,9 +442,9 @@ def kernel_cases(x, p, p32):
                  check=compare_int8)]),
         "quant_rows": (v8.quant_rows, v8.quant_rows_plain, [
             Case("quant_rows attention out (bf16)", lambda f: f(do), [do],
-                 3 * ROWS * C, "f32", check=compare_int8),
+                 3 * rows * C, "f32", check=compare_int8),
             Case("quant_rows GELU out (f32)", lambda f: f(hm), [hm],
-                 3 * ROWS * HIDDEN, "f32", check=compare_int8)]),
+                 3 * rows * HIDDEN, "f32", check=compare_int8)]),
         "gemm_i8_dynamic": (v8.gemm_i8, v8.gemm_i8_plain, [
             Case("gemm_i8 dynamic qkv",
                  dyn(qy, sy, "wqkv_q", "sqkv", "bqkv"),
@@ -464,8 +491,8 @@ def kernel_cases(x, p, p32):
     s = quant.fold_static_scales(p32, act)
     sq, _ = v8.ln_quant_plain(x2, s["ln1_s"], s["ln1_b"], False)
     sqkv = v8.gemm_i8_plain(sq, s["wqkv_q"], s["dqkv"], s["bqkv"])
-    sqkv3 = sqkv.view(BATCH, N_TOK, 3 * C)
-    sqo = at.qkv_attention_plain(sqkv3, HEADS, s["inv_proj"]).view(ROWS, C)
+    sqkv3 = sqkv.view(batch, N_TOK, 3 * C)
+    sqo = at.qkv_attention_plain(sqkv3, HEADS, s["inv_proj"]).view(rows, C)
     sx1 = v8.gemm_i8_plain(sqo, s["wproj_q"], s["dproj"], s["bproj"],
                            epilogue="residual", residual=x2)
     sq2, _ = v8.ln_quant_plain(sx1, s["ln2_s"], s["ln2_b"], False)
@@ -524,7 +551,7 @@ def kernel_cases(x, p, p32):
         compare_gelu_gemm), v8.gemm_i8, v8.gemm_i8_plain))
 
     # ---- K7: fused attention on the slices of a fused qkv, bf16 and f32
-    q5 = qkv.view(BATCH, N_TOK, 3, HEADS, HEAD_DIM)
+    q5 = qkv.view(batch, N_TOK, 3, HEADS, HEAD_DIM)
     q5f = q5.float()
     scale = HEAD_DIM**-0.5
 
@@ -714,17 +741,25 @@ def time_groups(groups, rows, tag) -> None:
                 return [case.timer(lambda c=case: c.call(fn))
                         for case in cases]
 
-            # plain, kernel, kernel, plain; the better of each pair of reads
-            a, b, b2, a2 = each(pfn), each(kfn), each(kfn), each(pfn)
+            def library():
+                return [None if c.library is None else c.timer(c.library)
+                        for c in cases]
+
+            # in turns: plain, kernel, library, library, kernel, plain; the
+            # better of each pair of reads
+            a, b, lb, lb2, b2, a2 = (each(pfn), each(kfn), library(),
+                                     library(), each(kfn), each(pfn))
             k_ms = [min(u, v) for u, v in zip(b, b2)]
             p_ms = [min(u, v) for u, v in zip(a, a2)]
-            l_ms = [None if c.library is None else
-                    min(c.timer(c.library), c.timer(c.library)) for c in cases]
+            l_ms = [None if u is None else min(u, v) for u, v in zip(lb, lb2)]
             for case, km, pm, lm in zip(cases, k_ms, p_ms, l_ms):
                 bound = max(*case.bound(case.call(pfn)))
                 lib = "none" if lm is None else f"{lm:.4f} ms"
-                print(f"    {case.label:<34s} kernel {km:.4f} ms, plain "
-                      f"{pm:.4f} ms, library {lib}, bound {bound:.4f} ms")
+                unit = "TOP/s" if case.kind == "int8" else "TFLOP/s"
+                print(f"    {case.label:<34s} kernel {km:.4f} ms "
+                      f"({case.ops / km / 1e9:.1f} {unit}, {bound / km:.1%} "
+                      f"of the bound), plain {pm:.4f} ms, library {lib}, "
+                      f"bound {bound:.4f} ms")
             # per block: the sum over this kernel's launch shapes
             row = rows[kname]
             row["ms"], row["plain_ms"] = sum(k_ms), sum(p_ms)
@@ -734,11 +769,143 @@ def time_groups(groups, rows, tag) -> None:
                    else f"{row['library_ms']:.4f} ms")
             before = ""
             if kname in EARLIER_MS:
-                row["redesigned"] = "PR 6"
-                before = f", before the redesign {EARLIER_MS[kname]:.4f} ms"
+                design, ms = EARLIER_MS[kname]
+                row["redesigned"] = f"from {design}"
+                before = f", before the redesign ({design}) {ms:.4f} ms"
             print(f"  {kname:<22s} per block or call: kernel {row['ms']:.4f} ms, "
                   f"plain {row['plain_ms']:.4f} ms, library {lib}, bound "
                   f"{row['bound_ms']:.4f} ms ({row['bound_by']}){before} {tag}")
+
+
+def only(groups, names):
+    """``groups`` (the format of :func:`kernel_cases`) cut to ``names``."""
+    return [(r, src, {k: v for k, v in ks.items() if k in names})
+            for r, src, ks in groups]
+
+
+def gemm_shape_cases(gen, dev, M, N, k_bf16, k_i8):
+    """Every epilogue of the two GEMM main loops at one (M, N) on seeded
+    random operands, in the format of :func:`kernel_cases`: the bf16 block's
+    four, the int8 blocks' seven, K8's three (its bare cast keeps an odd
+    number of columns)."""
+    from hands_tpu_torch.ops import vit_block as vb
+    from hands_tpu_torch.ops import vit_block_ablation as abl
+    from hands_tpu_torch.ops import vit_block_int8 as v8
+
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def randn(*shape, std=1.0, dtype=f32):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
+
+    def uniform(*shape, lo, hi):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev)
+
+    def int8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    a, w = randn(M, k_bf16, dtype=bf), randn(N, k_bf16, std=k_bf16**-0.5,
+                                             dtype=bf)
+    bias, res = randn(N, std=0.1, dtype=bf), randn(M, N, dtype=bf)
+    bf16_cases = [
+        Case(f"gemm {e or 'bias'} ({M}, {N}, {k_bf16})",
+             lambda f, e=e: f(a, w, bias, e, res if e == "residual" else None),
+             [a, w, bias] + ([res] if e == "residual" else []),
+             2 * M * N * k_bf16, "bf16", lambda: F.linear(a, w, bias))
+        for e in (None, "gelu", "gelu_tanh", "residual")]
+
+    # |acc| ~ 2e5 at K ~ 1300: scales that put the dequantised values at
+    # tens, and the quantised ones over the int8 range
+    aq, wq = int8(M, k_i8), int8(N, k_i8)
+    sr, sc = uniform(M, 1, lo=0.005, hi=0.02), uniform(N, lo=0.005, hi=0.02)
+    d, inv = uniform(N, lo=5e-5, hi=2e-4), uniform(N, lo=0.5, hi=4.0)
+    b32, r32 = randn(N, std=4.0), randn(M, N, std=4.0)
+    rbf = randn(M, N, std=4.0, dtype=bf)
+    shape = f"({M}, {N}, {k_i8})"
+
+    def i8(label, call, inputs, check):
+        return Case(f"{label} {shape}", call, [aq, wq] + inputs,
+                    2 * M * N * k_i8, "int8",
+                    lambda: torch._int_mm(aq, wq.t()), check)
+
+    dyn = [i8(f"gemm_i8 dynamic {e}", lambda f, kw=kw: f(
+        aq, wq, sc, b32, row_scale=sr, **kw),
+        [sr, sc, b32] + ([r32] if "residual" in kw else []), check)
+        for e, kw, check in (
+            ("bias", {}, compare_equal),
+            ("residual f32", dict(epilogue="residual", residual=r32,
+                                  out_dtype=f32), compare_equal),
+            ("residual bf16", dict(epilogue="residual", residual=r32,
+                                   out_dtype=bf), compare_equal),
+            ("gelu", dict(epilogue="gelu", out_dtype=f32), compare_gelu_gemm),
+            ("gelu_tanh", dict(epilogue="gelu", out_dtype=f32,
+                               fast_gelu=True), compare_gelu_gemm))]
+    sta = [i8(f"gemm_i8 static {e}", lambda f, kw=kw: f(aq, wq, d, b32, **kw),
+              [d, b32] + inputs, check)
+           for e, kw, inputs, check in (
+               ("bias", {}, [], compare_equal),
+               ("residual", dict(epilogue="residual", residual=rbf), [rbf],
+                compare_equal),
+               ("gelu+quant", dict(epilogue="gelu", inv_next=inv), [inv],
+                compare_gelu_gemm),
+               ("gelu_tanh+quant", dict(epilogue="gelu", inv_next=inv,
+                                        fast_gelu=True), [inv],
+                compare_gelu_gemm))]
+    keep = N // 3 | 1
+    kernels = {
+        "vit_gemm": (vb.gemm, vb.gemm_plain, bf16_cases),
+        "gemm_i8_dynamic": (v8.gemm_i8, v8.gemm_i8_plain, dyn),
+        "gemm_i8_static": (v8.gemm_i8, v8.gemm_i8_plain, sta),
+        "gemm_i8_gelu_cast": (abl.gemm_i8_ablation, abl.gemm_i8_ablation_plain, [
+            i8("gemm_i8 gelu_tanh, bare cast", lambda f: f(
+                aq, wq, d, b32, "gelu_cast", inv, True), [d, b32, inv],
+               compare_gelu_gemm)]),
+        "gemm_i8_ident_quant": (abl.gemm_i8_ablation,
+                                abl.gemm_i8_ablation_plain, [
+            i8("gemm_i8 identity, quantise", lambda f: f(
+                aq, wq, d, b32, "ident_quant", inv), [d, b32, inv],
+               compare_equal)]),
+        "gemm_i8_cast": (abl.gemm_i8_ablation, abl.gemm_i8_ablation_plain, [
+            i8(f"gemm_i8 bare cast, {keep} columns", lambda f: f(
+                aq, wq, d, b32, "cast", keep_cols=keep), [d, b32],
+               compare_equal)]),
+    }
+    return [(f"GEMMs at ({M}, {N})", SRC_GEMM, kernels)]
+
+
+def gemm_extra(extra):
+    """The GEMM cases of :func:`kernel_cases`' ``extra`` list."""
+    from hands_tpu_torch.ops import vit_block as vb
+    from hands_tpu_torch.ops import vit_block_int8 as v8
+
+    return [e for e in extra if e[1] in (vb.gemm, v8.gemm_i8)]
+
+
+def gemm_ragged_check(gen, dev) -> None:
+    """Every GEMM epilogue at :data:`RAGGED_GEMM` against its twin."""
+    M, N, k_bf16, k_i8 = RAGGED_GEMM
+    print(f"  GEMMs off every tile: M={M}, N={N}, K={k_bf16} (bf16) / {k_i8} "
+          f"(int8)")
+    check_groups(gemm_shape_cases(gen, dev, M, N, k_bf16, k_i8), {}, {})
+    torch.cuda.synchronize()
+
+
+def gemm_serving_phase(gen, dev, tag) -> None:
+    """The serving GEMMs at the bs64 batch (:data:`GEMM_SERVE_BATCH` crops,
+    24,576 rows) against their twins, timed beside the library call; their
+    lines stay out of the kernels JSON (per ViT-H block at 3072 rows)."""
+    x, p, p32 = block_inputs(gen, dev, GEMM_SERVE_BATCH, N_TOK, C, HIDDEN)
+    groups, sources, extra, _ = kernel_cases(x, p, p32)
+    groups = only(groups, GEMM_KERNELS)
+    print(f"  serving GEMMs at {GEMM_SERVE_BATCH * N_TOK} rows "
+          f"({GEMM_SERVE_BATCH} crops) {tag}")
+    rows = {}
+    check_groups(groups, sources, rows)
+    for case, kfn, pfn in gemm_extra(extra):
+        case.check(case.label, case.call(kfn), case.call(pfn))
+    time_groups(groups, rows, tag)
+    del groups, extra, x, p, p32
+    torch.cuda.empty_cache()
 
 
 def f32p_attention(qkv, heads, bf16_logits, p_bf16=False,
@@ -1991,11 +2158,36 @@ def wildhands_train_phase(rows, dev, tag) -> None:
                      dev, rel=1e-3, steps=1)
 
 
+def kernel_name(mangled: str) -> str:
+    """The names inside an Itanium-mangled symbol and its integer template
+    arguments: enough to tell the kernels of one library apart."""
+    names, i = [], 0
+    while i < len(mangled):
+        j = i
+        while j < len(mangled) and mangled[j].isdigit():
+            j += 1
+        if j == i:
+            i += 1
+            continue
+        n = int(mangled[i:j])
+        name = mangled[j:j + n]
+        if len(name) > 2 and not name.startswith(("_INTERNAL", "_GLOBAL",
+                                                   "CUtensorMap")):
+            names.append(name)
+        i = j + n
+    return " ".join(names + re.findall(r"Li(\d+)E", mangled))
+
+
 def print_ptxas(reports) -> None:
-    for name, report in reports.items():
+    """The compiler's report per kernel: registers, shared memory, spills."""
+    for lib, report in reports.items():
+        fn = ""
         for line in report.splitlines():
-            if "Used" in line or "spill" in line:
-                print(f"  ptxas {name}:", line.strip())
+            found = re.search(r"(?:entry function '|properties for )(\w+)", line)
+            if found:
+                fn = kernel_name(found.group(1))
+            elif "Used" in line or "spill" in line:
+                print(f"  ptxas {lib} [{fn}]:", line.strip())
 
 
 def attention_inputs(groups):
@@ -2027,20 +2219,58 @@ def attention_alone() -> int:
     print_ptxas(build_all([vb.LIBRARY, at.LIBRARY, abl.LIBRARY]))
     print(f"built {SRC_K3}, {SRC_ATTN}, {SRC_ABL} in {time.time() - t0:.1f} s")
 
-    def attention_only(groups):
-        return [(r, src, {k: v for k, v in ks.items() if k in EARLIER_MS})
-                for r, src, ks in groups]
-
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     x, p, p32 = block_inputs(gen, DEV, BATCH, N_TOK, C, HIDDEN)
     groups, sources, _, _ = kernel_cases(x, p, p32)
     rows = {}
-    check_groups(attention_only(groups), sources, rows)
+    check_groups(only(groups, ATTENTION_KERNELS), sources, rows)
     attention_phase(DEV, *attention_inputs(groups))
-    time_groups(attention_only(groups), rows, tag)
+    time_groups(only(groups, ATTENTION_KERNELS), rows, tag)
     del groups, x, p, p32
     xa, op = cli.make_probe(ABL_BATCH, DEV, c=C, hidden=HIDDEN, n_tok=N_TOK)
-    groups = attention_only(ablation_cases(xa, op))
+    groups = only(ablation_cases(xa, op), ATTENTION_KERNELS)
+    check_groups(groups, {}, rows)
+    time_groups(groups, rows, tag)
+    print(json.dumps({"kernels": list(rows.values())}))
+    return 0
+
+
+def gemm_alone() -> int:
+    """The GEMM kernels alone (csrc/gemm_sm90.cuh): phase 2's GEMM checks at
+    ViT-H (3072 rows), every epilogue off every tile, their times beside the
+    library call, the serving GEMMs at 24,576 rows, and K8's three GEMM
+    modes at 256 crops::
+
+        python3 -c "import sys, chip_smoke as cs; sys.exit(cs.gemm_alone())"
+    """
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from hands_tpu_torch.cli import int8_ablation as cli
+    from hands_tpu_torch.ops import vit_block as vb
+    from hands_tpu_torch.ops import vit_block_ablation as abl
+    from hands_tpu_torch.ops import vit_block_int8 as v8
+    from hands_tpu_torch.ops.cuda_build import build_all
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    tag = f"[{card_line()}]"
+    t0 = time.time()
+    print_ptxas(build_all([vb.LIBRARY, v8.LIBRARY, abl.LIBRARY]))
+    print(f"built {SRC_K3}, {SRC_I8}, {SRC_ABL} in {time.time() - t0:.1f} s")
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    x, p, p32 = block_inputs(gen, DEV, BATCH, N_TOK, C, HIDDEN)
+    groups, sources, extra, _ = kernel_cases(x, p, p32)
+    groups = only(groups, GEMM_KERNELS)
+    rows = {}
+    check_groups(groups, sources, rows)
+    for case, kfn, pfn in gemm_extra(extra):
+        case.check(case.label, case.call(kfn), case.call(pfn))
+    gemm_ragged_check(gen, DEV)
+    time_groups(groups, rows, tag)
+    del groups, extra, x, p, p32
+    gemm_serving_phase(gen, DEV, tag)
+    xa, op = cli.make_probe(ABL_BATCH, DEV, c=C, hidden=HIDDEN, n_tok=N_TOK)
+    groups = only(ablation_cases(xa, op), GEMM_KERNELS)
     check_groups(groups, {}, rows)
     time_groups(groups, rows, tag)
     print(json.dumps({"kernels": list(rows.values())}))
@@ -2162,6 +2392,7 @@ def main() -> int:
                 at.mha_plain(q, k, v, 80**-0.5), rel=rel, mean=mean)
     torch.cuda.synchronize()
     attention_phase(dev, *attention_inputs(groups))
+    gemm_ragged_check(gen, dev)
 
     # ---- 3. serve requests through full-width ViT-H, kernels on
     requests = make_requests(3, 8, SEED)
@@ -2333,6 +2564,7 @@ def main() -> int:
         t = [cuda_ms(twin), cuda_ms(kern), cuda_ms(kern), cuda_ms(twin)]
         print(f"  whole {name} (rows {ROWS}): kernels {min(t[1], t[2]):.4f} "
               f"ms, twin {min(t[0], t[3]):.4f} ms {tag}")
+    gemm_serving_phase(gen, dev, tag)
 
     # the model forward alone (preprocessed batch of 8 already on the card)
     for name, (c, m, _) in configs.items():

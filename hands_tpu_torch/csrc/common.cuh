@@ -1,8 +1,8 @@
 // Device helpers shared by the bf16 block (vit_block.cu), the int8 block
 // kernels (vit_block_int8.cu), the attention kernels (attention.cu) and their
 // knock-out variants (vit_block_ablation.cu): conversions, the two int8
-// stores (round and clip, or the bare cast), warp and block reductions,
-// 16-byte cp.async copies, and the f32 GELUs. Everything lives in an
+// stores (round and clip, or the bare cast), the static dequantisation,
+// warp and block reductions, 16-byte cp.async copies, and the f32 GELUs. Everything lives in an
 // anonymous namespace: each source is built into a library of its own.
 
 #pragma once
@@ -30,6 +30,13 @@ __device__ __forceinline__ float to_float(bf16 v) {
 // _quant_static: round half to even, clip to [-127, 127]
 __device__ __forceinline__ float quant_clip(float v) {
   return fminf(fmaxf(rintf(v), -127.f), 127.f);
+}
+
+// The static dequantisation acc * d + b as one fused multiply-add, rounded
+// once, as XLA contracts it in the JAX kernels. An explicit fmaf stays fused
+// under -fmad=false, which the int8 sources need for their other chains.
+__device__ __forceinline__ float dequant_static(int acc, float d, float b) {
+  return fmaf((float)acc, d, b);
 }
 
 // The bare f32 -> int8 cast as XLA compiles it: truncation toward zero,

@@ -20,24 +20,20 @@
 // FLOPs over 39 MB of weights, i.e. M FLOPs per weight byte for M token rows.
 // The H100's bf16 ridge is ~295 FLOPs/byte, so the weight stream from HBM
 // bounds a block only below ~300 rows (under two 192-token crops); at the
-// serving batches (8 images = 16 crops = 3072 rows) and above, the GEMMs are
-// compute-bound on the tensor cores. Attention at N=192, D=80 is ~3% of the
-// FLOPs.
-// What this simple design does about it: little yet for the GEMM, a plain
-// nvcuda::wmma 16x16x16 bf16 kernel over 128x128x32 shared-memory tiles,
-// fed by cp.async through a 4-stage ring so that global-memory latency
-// hides behind three tiles of MMAs; no TMA, no wgmma, no warp
-// specialisation, no persistent scheduling. Its epilogue finishes 8
-// adjacent outputs per lane with 16-byte loads and stores. Attention runs
-// on the tensor cores (mma.sync with ldmatrix operands, the logits and the
-// softmax in registers, the f32 probabilities split into three bf16 parts);
-// see attention_kernel.cuh.
-
-#include <mma.h>
+// serving batches (8 images = 16 crops = 3072 rows, 0.122 ms of tensor-core
+// time a block) and above, the GEMMs are bound by the tensor cores.
+// Attention at N=192, D=80 is ~3% of the FLOPs.
+// What the design does about it: vit_gemm is the bf16 form of the Hopper
+// main loop of gemm_sm90.cuh (TMA loads into a four-stage mbarrier ring, one
+// producer warp, two consumer warpgroups on wgmma m64n128k16, 128 x 256
+// tiles) with the four epilogues below applied to the accumulator registers
+// and stored as bf16 pairs. Attention runs on the tensor cores (mma.sync
+// with ldmatrix operands, the logits and the softmax in registers, the f32
+// probabilities split into three bf16 parts); see attention_kernel.cuh. The
+// LayerNorm is one thread block per row.
 
 #include "attention_kernel.cuh"
-
-using namespace nvcuda;
+#include "gemm_sm90.cuh"
 
 namespace {
 
@@ -117,19 +113,9 @@ __global__ void __launch_bounds__(LN_THREADS) layernorm_kernel(
 }
 
 // ------------------------------------------------------------------ GEMM
-// out[M, N] = epilogue(A[M, K] . W[N, K]^T): A row-major, W in nn.Linear's
-// (out, in) layout, f32 accumulation. Epilogue on the accumulator:
-// round to bf16 -> + bias (bf16 add) -> {nothing | exact GELU | tanh GELU |
-// + residual (bf16)}.
-// Requires K % 8 == 0 and 16-byte aligned A and W (checked by the wrapper);
-// M and N edges are masked (zero-filled copies, guarded stores); bias,
-// residual and out must be 16-byte aligned too (the wrapper checks).
-constexpr int BM = 128, BN = 128, BK = 32, SKEW = 8, STAGES = 4;
-constexpr int LDS = BK + SKEW;  // 80-byte rows: 16-byte chunks stay aligned
-constexpr int GEMM_THREADS = 256;  // 8 warps as 2 (M) x 4 (N), 64x32 each
-constexpr size_t GEMM_SMEM =
-    (size_t)STAGES * (BM + BN) * LDS * sizeof(bf16) +
-    (size_t)(GEMM_THREADS / 32) * 16 * 16 * sizeof(float);  // 90,112 B
+// out[M, N] = epilogue(A[M, K] . W[N, K]^T), the bf16 form of gemm_sm90.cuh.
+// Epilogue on the f32 accumulator: round to bf16 -> + bias (bf16 add) ->
+// {nothing | exact GELU | tanh GELU | + residual (bf16)}.
 enum {
   EPI_BIAS = 0,
   EPI_BIAS_GELU = 1,
@@ -137,143 +123,38 @@ enum {
   EPI_BIAS_GELU_TANH = 3
 };
 
-__global__ void __launch_bounds__(GEMM_THREADS) gemm_bf16_kernel(
-    const bf16* __restrict__ A, const bf16* __restrict__ W,
-    const bf16* __restrict__ bias, const bf16* __restrict__ residual,
-    bf16* __restrict__ out, int M, int N, int K, int epilogue) {
-  extern __shared__ __align__(128) unsigned char gemm_smem[];
-  bf16* As = reinterpret_cast<bf16*>(gemm_smem);  // STAGES x BM x LDS
-  bf16* Bs = As + STAGES * BM * LDS;              // STAGES x BN x LDS
-  float* Cs = reinterpret_cast<float*>(Bs + STAGES * BN * LDS);
+template <int EPI>
+struct BlockEpilogue {
+  const bf16* bias;      // (N,)
+  const bf16* residual;  // (M, N), EPI_BIAS_RESIDUAL only
+  bf16* out;             // (M, N)
+  int N;
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int warp_m = warp / 4, warp_n = warp % 4;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  // a stage is 128 rows x 4 chunks of 8 bf16 (16 bytes) per operand:
-  // 2 chunks of A and 2 of W per thread
-  auto load_stage = [&](int stage, int k0) {
-    bf16* as = As + stage * BM * LDS;
-    bf16* bs = Bs + stage * BN * LDS;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * GEMM_THREADS;
-      const int r = c >> 2, kc = (c & 3) * 8;
-      const int gk = k0 + kc;
-      const bool a_ok = m0 + r < M && gk < K;
-      const bool b_ok = n0 + r < N && gk < K;
-      cp_async16(as + r * LDS + kc,
-                 a_ok ? A + (size_t)(m0 + r) * K + gk : A, a_ok);
-      cp_async16(bs + r * LDS + kc,
-                 b_ok ? W + (size_t)(n0 + r) * K + gk : W, b_ok);
-    }
-  };
-
-  const int KT = (K + BK - 1) / BK;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < KT) load_stage(s, s * BK);
-    cp_async_commit();  // one group per stage, empty ones included
+  __device__ __forceinline__ float finish(float acc, float b, float r) const {
+    const float x = round_bf16(round_bf16(acc) + b);
+    if (EPI == EPI_BIAS_GELU) return gelu_bf16(x);
+    if (EPI == EPI_BIAS_GELU_TANH) return gelu_tanh_bf16(x);
+    if (EPI == EPI_BIAS_RESIDUAL) return r + x;
+    return x;
   }
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<STAGES - 2>();  // this thread's copies of tile kt landed
-    __syncthreads();  // everyone's landed; everyone is done with tile kt-1
-    const int nk = kt + STAGES - 1;
-    if (nk < KT) load_stage(nk % STAGES, nk * BK);  // into tile kt-1's slot
-    cp_async_commit();
-    const bf16* as = As + (kt % STAGES) * BM * LDS;
-    const bf16* bs = Bs + (kt % STAGES) * BN * LDS;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bfr[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(af[i], as + (warp_m * 64 + i * 16) * LDS + kk,
-                               LDS);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(bfr[j], bs + (warp_n * 32 + j * 16) * LDS + kk,
-                               LDS);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], af[i], bfr[j], acc[i][j]);
-    }
-  }
-  cp_async_wait<0>();  // only empty groups remain; drain before exit
 
-  // epilogue: stage one 16x16 accumulator at a time in the warp's own
-  // shared-memory slot; each lane then finishes 8 adjacent outputs of it
-  // (row lane/2, columns (lane%2)*8 ..+8) through the rounding chain
-  float* stage = Cs + warp * 16 * 16;
-  const int r = lane >> 1, c0 = (lane & 1) * 8;
-  const bool vec_ok = (N % 8) == 0;  // 16-byte aligned rows of out/residual
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(stage, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int gm = m0 + warp_m * 64 + i * 16 + r;
-      const int gn = n0 + warp_n * 32 + j * 16 + c0;
-      if (gm < M) {
-        float v[8];
-        const float4 lo = *reinterpret_cast<const float4*>(stage + r * 16 + c0);
-        const float4 hi =
-            *reinterpret_cast<const float4*>(stage + r * 16 + c0 + 4);
-        v[0] = lo.x, v[1] = lo.y, v[2] = lo.z, v[3] = lo.w;
-        v[4] = hi.x, v[5] = hi.y, v[6] = hi.z, v[7] = hi.w;
-        const size_t row = (size_t)gm * N;
-        if (vec_ok && gn + 8 <= N) {
-          const uint4 braw = *reinterpret_cast<const uint4*>(bias + gn);
-          const bf16* b8 = reinterpret_cast<const bf16*>(&braw);
-          uint4 rraw = make_uint4(0u, 0u, 0u, 0u);
-          if (epilogue == EPI_BIAS_RESIDUAL)
-            rraw = *reinterpret_cast<const uint4*>(residual + row + gn);
-          const bf16* r8 = reinterpret_cast<const bf16*>(&rraw);
-          uint4 oraw;
-          bf16* o8 = reinterpret_cast<bf16*>(&oraw);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            float x = round_bf16(v[e]);
-            x = round_bf16(x + __bfloat162float(b8[e]));
-            if (epilogue == EPI_BIAS_GELU) {
-              x = gelu_bf16(x);
-            } else if (epilogue == EPI_BIAS_GELU_TANH) {
-              x = gelu_tanh_bf16(x);
-            } else if (epilogue == EPI_BIAS_RESIDUAL) {
-              x = __bfloat162float(r8[e]) + x;
-            }
-            o8[e] = __float2bfloat16_rn(x);
-          }
-          *reinterpret_cast<uint4*>(out + row + gn) = oraw;
-        } else {
-          for (int e = 0; e < 8 && gn + e < N; ++e) {
-            float x = round_bf16(v[e]);
-            x = round_bf16(x + __bfloat162float(bias[gn + e]));
-            if (epilogue == EPI_BIAS_GELU) {
-              x = gelu_bf16(x);
-            } else if (epilogue == EPI_BIAS_GELU_TANH) {
-              x = gelu_tanh_bf16(x);
-            } else if (epilogue == EPI_BIAS_RESIDUAL) {
-              x = __bfloat162float(residual[row + gn + e]) + x;
-            }
-            out[row + gn + e] = __float2bfloat16_rn(x);
-          }
-        }
-      }
-      __syncwarp();
-    }
+  __device__ __forceinline__ void store2(float a0, float a1, int gm, int gn,
+                                         bool two) const {
+    const size_t idx = (size_t)gm * N + gn;
+    const float2 b = pair_load(bias + gn, two);
+    const float2 r = EPI == EPI_BIAS_RESIDUAL ? pair_load(residual + idx, two)
+                                              : make_float2(0.f, 0.f);
+    pair_store(out + idx, finish(a0, b.x, r.x), finish(a1, b.y, r.y), two);
   }
+};
+
+template <int EPI>
+int block_gemm(const void* a, const void* w, const void* bias,
+               const void* residual, void* out, int M, int N, int K,
+               cudaStream_t stream) {
+  const BlockEpilogue<EPI> ep{(const bf16*)bias, (const bf16*)residual,
+                              (bf16*)out, N};
+  return launch_gemm((const bf16*)a, (const bf16*)w, ep, M, N, K, stream);
 }
 
 }  // namespace
@@ -299,15 +180,21 @@ int vit_gemm(int device, const void* a, const void* w, const void* bias,
              int epilogue, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(gemm_bf16_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)GEMM_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm_bf16_kernel<<<grid, GEMM_THREADS, GEMM_SMEM, (cudaStream_t)stream>>>(
-      (const bf16*)a, (const bf16*)w, (const bf16*)bias,
-      (const bf16*)residual, (bf16*)out, M, N, K, epilogue);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (epilogue) {
+    case EPI_BIAS:
+      return block_gemm<EPI_BIAS>(a, w, bias, residual, out, M, N, K, s);
+    case EPI_BIAS_GELU:
+      return block_gemm<EPI_BIAS_GELU>(a, w, bias, residual, out, M, N, K, s);
+    case EPI_BIAS_RESIDUAL:
+      return block_gemm<EPI_BIAS_RESIDUAL>(a, w, bias, residual, out, M, N, K,
+                                           s);
+    case EPI_BIAS_GELU_TANH:
+      return block_gemm<EPI_BIAS_GELU_TANH>(a, w, bias, residual, out, M, N,
+                                            K, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // qkv (B*N, 3C) with column s*C + h*D + d (s = q, k, v) -> out (B*N, C)

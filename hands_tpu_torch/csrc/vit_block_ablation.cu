@@ -2,8 +2,8 @@
 // the kernels that hands_tpu_torch/ops/vit_block_ablation.py launches in
 // place of one or more of the static block's seven, so that the block's time
 // can be attributed piece by piece. Plain C interface, built with nvcc and
-// loaded with ctypes. Build with -fmad=false, as vit_block_int8.cu: the f32
-// dequantisation chains must round op by op.
+// loaded with ctypes. Build with -fmad=false, as vit_block_int8.cu: after
+// the dequantisation (one fma, common.cuh) the f32 chains round op by op.
 //
 // Replaces: scripts/vith_int8_ablation.py:178 run_variant (pl.pallas_call at
 // :194, body _ablation_kernel at :48). The TPU kernel is the static block's
@@ -22,9 +22,9 @@
 //               abl_heads_merge_quant (f32 (B*H, N, D) -> int8 (B, N, C))
 //   mm_only     abl_cast_rows, abl_gemm (EPI_CAST) three times, then the
 //               serving GEMM's plain bf16 epilogue
-// The main loop of the GEMM (gemm_i8.cuh) and the attention kernel
-// (attention_kernel.cuh) are the serving kernels' own code, instantiated here
-// with other compile-time epilogues and modes.
+// The main loop of the GEMM (gemm_sm90.cuh, its s8 form) and the attention
+// kernel (attention_kernel.cuh) are the serving kernels' own code,
+// instantiated here with other compile-time epilogues and modes.
 //
 // What bounds them on this card: the row and relayout passes move a few
 // bytes per element and do a handful of operations on each, so they are
@@ -37,7 +37,7 @@
 // four keys share a word) in shared memory, one warp per query row.
 
 #include "attention_kernel.cuh"
-#include "gemm_i8.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
 
@@ -145,43 +145,32 @@ struct AblationEpilogue {
   const float* bias;       // (N,)
   const float* inv_next;   // (N,), not for EPI_CAST
   int8_t* out;             // (M, N), or (M, keep_cols) for EPI_CAST
+  int N;
   int fast_gelu;
   int keep_cols;
 
-  __device__ __forceinline__ void store(int acc, int gm, int gn,
-                                        size_t idx) const {
-    const float v = (float)acc * col_scale[gn] + bias[gn];
-    if (EPI == EPI_GELU_CAST) {
-      const float h = fast_gelu ? gelu_tanh_f32(v) : gelu_erfc_f32(v);
-      out[idx] = cast_i8(h * inv_next[gn]);
-    } else if (EPI == EPI_IDENT_Q8) {
-      out[idx] = (int8_t)quant_clip(v * inv_next[gn]);
-    } else if (gn < keep_cols) {
-      out[(size_t)gm * keep_cols + gn] = cast_i8(v);
-    }
+  __device__ __forceinline__ int8_t finish(int acc, float d, float b,
+                                           float inv) const {
+    const float v = dequant_static(acc, d, b);
+    if (EPI == EPI_GELU_CAST)
+      return cast_i8((fast_gelu ? gelu_tanh_f32(v) : gelu_erfc_f32(v)) * inv);
+    if (EPI == EPI_IDENT_Q8) return (int8_t)quant_clip(v * inv);
+    return cast_i8(v);
+  }
+
+  __device__ __forceinline__ void store2(int a0, int a1, int gm, int gn,
+                                         bool two) const {
+    const int cols = EPI == EPI_CAST ? keep_cols : N;
+    if (gn >= cols) return;
+    two = two && gn + 1 < cols;
+    const float2 cs = pair_load(col_scale + gn, two);
+    const float2 b = pair_load(bias + gn, two);
+    const float2 inv = EPI == EPI_CAST ? make_float2(0.f, 0.f)
+                                       : pair_load(inv_next + gn, two);
+    pair_store(out + (size_t)gm * cols + gn, finish(a0, cs.x, b.x, inv.x),
+               finish(a1, cs.y, b.y, inv.y), two);
   }
 };
-
-template <int EPI>
-__global__ void __launch_bounds__(GEMM_THREADS) gemm_i8_ablation_kernel(
-    const int8_t* __restrict__ A, const int8_t* __restrict__ W,
-    AblationEpilogue<EPI> ep, int M, int N, int K) {
-  extern __shared__ __align__(128) unsigned char gemm_smem[];
-  gemm_i8_tile(A, W, ep, M, N, K, gemm_smem);
-}
-
-template <int EPI>
-int launch_gemm(const int8_t* a, const int8_t* w, AblationEpilogue<EPI> ep,
-                int M, int N, int K, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      gemm_i8_ablation_kernel<EPI>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)GEMM_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm_i8_ablation_kernel<EPI><<<grid, GEMM_THREADS, GEMM_SMEM, stream>>>(
-      a, w, ep, M, N, K);
-  return (int)cudaGetLastError();
-}
 
 // ----------------------------------------------------------- int8 attention
 // Per (batch row, head): qq = quant(q * q_mul), kq = quant(k * kv_mul),
@@ -390,13 +379,13 @@ int abl_gemm(int device, const void* a, const void* w, const void* col_scale,
   int8_t* o = (int8_t*)out;
   if (epi == EPI_GELU_CAST && in != nullptr)
     return launch_gemm(ai, wi, AblationEpilogue<EPI_GELU_CAST>{
-        cs, bi, in, o, fast_gelu, N}, M, N, K, s);
+        cs, bi, in, o, N, fast_gelu, N}, M, N, K, s);
   if (epi == EPI_IDENT_Q8 && in != nullptr)
     return launch_gemm(ai, wi, AblationEpilogue<EPI_IDENT_Q8>{
-        cs, bi, in, o, fast_gelu, N}, M, N, K, s);
+        cs, bi, in, o, N, fast_gelu, N}, M, N, K, s);
   if (epi == EPI_CAST && keep_cols > 0 && keep_cols <= N)
     return launch_gemm(ai, wi, AblationEpilogue<EPI_CAST>{
-        cs, bi, in, o, fast_gelu, keep_cols}, M, N, K, s);
+        cs, bi, in, o, N, fast_gelu, keep_cols}, M, N, K, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -22,29 +22,34 @@
 //
 // Rounding. Quantisation rounds half to even (rintf), as jnp.round does. The
 // int32 accumulations are exact in any order, so a GEMM agrees with its plain
-// twin bit for bit as long as the f32 dequantisation chain is evaluated op by
-// op: acc * s_row * s_col + bias (dynamic), acc * d_col + bias (static), and
-// the f32 GELU steps. nvcc would contract a multiply and an add into one FMA,
-// which rounds once instead of twice and flips an int8 step downstream, so
-// this file is compiled with -fmad=false (explicit fmaf calls stay fused).
-// A scale amax / 127 + 1e-12 is one fmaf(amax, 1/127, 1e-12): XLA turns the
-// JAX block's division by a constant into a multiplication and contracts it
-// with the addition, and the twins follow that.
+// twin bit for bit as long as the f32 dequantisation chain rounds where the
+// twin rounds: acc * s_row * s_col + bias op by op (dynamic), acc * d_col +
+// bias as one fused multiply-add (static, as XLA contracts it in the JAX
+// kernels; common.cuh's dequant_static), and the f32 GELU steps. nvcc would
+// contract any other multiply and add into one FMA, which rounds once
+// instead of twice and flips an int8 step downstream, so this file is
+// compiled with -fmad=false (explicit fmaf calls stay fused). A scale amax /
+// 127 + 1e-12 is one fmaf(amax, 1/127, 1e-12): XLA turns the JAX block's
+// division by a constant into a multiplication and contracts it with the
+// addition, and the twins follow that.
 //
 // What bounds it on this card: per ViT-H block the four GEMMs do 2*M*19.7M
 // integer operations over 19.7 MB of int8 weights, 2M operations per weight
 // byte for M token rows; the int8 ridge of the H100 is ~590 operations per
-// byte, so from ~300 rows on (3072 at the serving batch of 8 images) the
-// GEMMs are bound by the tensor cores, and the LayerNorm/quantise passes by
-// bytes (the dynamic block's f32 residual stream doubles them against bf16).
-// What this simple design does about it: little yet. The GEMM runs
-// mma.sync m16n8k32 s8 MMAs over 128x128x64 shared-memory tiles fed by
-// cp.async through a 4-stage ring, with the epilogue applied to the
-// accumulator registers; no TMA, no wgmma, no warp specialisation. The
-// row passes are one thread block per row.
+// byte, so from ~300 rows on (3072 at the serving batch of 8 images: 0.061
+// ms of tensor-core time a block) the GEMMs are bound by the tensor cores,
+// and the LayerNorm/quantise passes by bytes (the dynamic block's f32
+// residual stream doubles them against bf16).
+// What the design does about it: the GEMM is the s8 form of the Hopper main
+// loop of gemm_sm90.cuh (TMA loads of 128-byte K tiles into a four-stage
+// mbarrier ring, one producer warp, two consumer warpgroups on wgmma
+// m64n128k32 with s32 accumulators, 128 x 256 tiles); each of the seven
+// dequantising epilogues below is a type applied to the accumulator
+// registers, storing pairs of adjacent outputs. The row passes are one
+// thread block per row.
 
 #include "common.cuh"
-#include "gemm_i8.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
 
@@ -118,11 +123,14 @@ enum {
   EPI_DYN_RESID_F32 = 1,   // f32 (res + acc*sr*sc) + b, res f32
   EPI_DYN_RESID_BF16 = 2,  // the same, rounded to bf16
   EPI_DYN_GELU_F32 = 3,    // f32 gelu(acc*sr*sc + b)
-  EPI_STA_BF16 = 4,        // bf16(acc*d + b)
+  EPI_STA_BF16 = 4,        // bf16(acc*d + b), acc*d + b one fma
   EPI_STA_RESID_BF16 = 5,  // bf16(res + bf16(acc*d + b)), res bf16
   EPI_STA_GELU_Q8 = 6      // int8 clip(round(gelu(acc*d + b) * inv_next))
 };
 
+// The epilogue of gemm_sm90.cuh's s8 loop: two adjacent outputs of one row,
+// dequantised and finished in f32 in MODE's rounding order.
+template <int MODE>
 struct Epilogue {
   const float* row_scale;  // (M,) dynamic only
   const float* col_scale;  // (N,)
@@ -130,63 +138,55 @@ struct Epilogue {
   const void* residual;    // (M, N) f32 or bf16, residual modes only
   const float* inv_next;   // (N,) EPI_STA_GELU_Q8 only
   void* out;               // (M, N) bf16, f32 or int8
-  int mode;
+  int N;
   int fast_gelu;
 
-  __device__ __forceinline__ void store(int acc, int gm, int gn,
-                                        size_t idx) const {
-    float v = (float)acc;
-    if (mode <= EPI_DYN_GELU_F32) {
-      v = v * row_scale[gm];
-      v = v * col_scale[gn];
-    } else {
-      v = v * col_scale[gn] + bias[gn];
-    }
-    switch (mode) {
-      case EPI_DYN_BF16:
-        reinterpret_cast<bf16*>(out)[idx] =
-            __float2bfloat16_rn(v + bias[gn]);
-        break;
-      case EPI_DYN_RESID_F32:
-        reinterpret_cast<float*>(out)[idx] =
-            (reinterpret_cast<const float*>(residual)[idx] + v) + bias[gn];
-        break;
-      case EPI_DYN_RESID_BF16:
-        reinterpret_cast<bf16*>(out)[idx] = __float2bfloat16_rn(
-            (reinterpret_cast<const float*>(residual)[idx] + v) + bias[gn]);
-        break;
-      case EPI_DYN_GELU_F32: {
-        const float h = v + bias[gn];
-        reinterpret_cast<float*>(out)[idx] =
-            fast_gelu ? gelu_tanh_f32(h) : gelu_erfc_f32(h);
-        break;
+  __device__ __forceinline__ float gelu(float h) const {
+    return fast_gelu ? gelu_tanh_f32(h) : gelu_erfc_f32(h);
+  }
+
+  __device__ __forceinline__ void store2(int a0, int a1, int gm, int gn,
+                                         bool two) const {
+    const size_t idx = (size_t)gm * N + gn;
+    const float2 cs = pair_load(col_scale + gn, two);
+    const float2 b = pair_load(bias + gn, two);
+    if (MODE <= EPI_DYN_GELU_F32) {
+      const float sr = row_scale[gm];
+      const float v0 = (float)a0 * sr * cs.x, v1 = (float)a1 * sr * cs.y;
+      if (MODE == EPI_DYN_BF16) {
+        pair_store(reinterpret_cast<bf16*>(out) + idx, v0 + b.x, v1 + b.y,
+                   two);
+      } else if (MODE == EPI_DYN_GELU_F32) {
+        pair_store(reinterpret_cast<float*>(out) + idx, gelu(v0 + b.x),
+                   gelu(v1 + b.y), two);
+      } else {
+        const float2 r =
+            pair_load(reinterpret_cast<const float*>(residual) + idx, two);
+        const float o0 = (r.x + v0) + b.x, o1 = (r.y + v1) + b.y;
+        if (MODE == EPI_DYN_RESID_F32)
+          pair_store(reinterpret_cast<float*>(out) + idx, o0, o1, two);
+        else
+          pair_store(reinterpret_cast<bf16*>(out) + idx, o0, o1, two);
       }
-      case EPI_STA_BF16:
-        reinterpret_cast<bf16*>(out)[idx] = __float2bfloat16_rn(v);
-        break;
-      case EPI_STA_RESID_BF16:
-        reinterpret_cast<bf16*>(out)[idx] = __float2bfloat16_rn(
-            to_float(reinterpret_cast<const bf16*>(residual)[idx]) +
-            round_bf16(v));
-        break;
-      default: {  // EPI_STA_GELU_Q8
-        const float h = fast_gelu ? gelu_tanh_f32(v) : gelu_erfc_f32(v);
-        reinterpret_cast<int8_t*>(out)[idx] =
-            (int8_t)quant_clip(h * inv_next[gn]);
+    } else {
+      const float v0 = dequant_static(a0, cs.x, b.x);
+      const float v1 = dequant_static(a1, cs.y, b.y);
+      if (MODE == EPI_STA_BF16) {
+        pair_store(reinterpret_cast<bf16*>(out) + idx, v0, v1, two);
+      } else if (MODE == EPI_STA_RESID_BF16) {
+        const float2 r =
+            pair_load(reinterpret_cast<const bf16*>(residual) + idx, two);
+        pair_store(reinterpret_cast<bf16*>(out) + idx, r.x + round_bf16(v0),
+                   r.y + round_bf16(v1), two);
+      } else {  // EPI_STA_GELU_Q8
+        const float2 inv = pair_load(inv_next + gn, two);
+        pair_store(reinterpret_cast<int8_t*>(out) + idx,
+                   (int8_t)quant_clip(gelu(v0) * inv.x),
+                   (int8_t)quant_clip(gelu(v1) * inv.y), two);
       }
     }
   }
 };
-
-
-// The GEMM of both blocks: the main loop of gemm_i8.cuh with the epilogue
-// chosen at run time by ep.mode.
-__global__ void __launch_bounds__(GEMM_THREADS) gemm_i8_kernel(
-    const int8_t* __restrict__ A, const int8_t* __restrict__ W, Epilogue ep,
-    int M, int N, int K) {
-  extern __shared__ __align__(128) unsigned char gemm_smem[];
-  gemm_i8_tile(A, W, ep, M, N, K, gemm_smem);
-}
 
 }  // namespace
 
@@ -243,25 +243,38 @@ int i8_gemm(int device, const void* a, const void* w, const void* row_scale,
             int fast_gelu, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (mode < EPI_DYN_BF16 || mode > EPI_STA_GELU_Q8)
-    return (int)cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(gemm_i8_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)GEMM_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  Epilogue ep;
-  ep.row_scale = (const float*)row_scale;
-  ep.col_scale = (const float*)col_scale;
-  ep.bias = (const float*)bias;
-  ep.residual = residual;
-  ep.inv_next = (const float*)inv_next;
-  ep.out = out;
-  ep.mode = mode;
-  ep.fast_gelu = fast_gelu;
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm_i8_kernel<<<grid, GEMM_THREADS, GEMM_SMEM, (cudaStream_t)stream>>>(
-      (const int8_t*)a, (const int8_t*)w, ep, M, N, K);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  const int8_t* ai = (const int8_t*)a;
+  const int8_t* wi = (const int8_t*)w;
+  const float* rs = (const float*)row_scale;
+  const float* cs = (const float*)col_scale;
+  const float* bi = (const float*)bias;
+  const float* in = (const float*)inv_next;
+  switch (mode) {
+    case EPI_DYN_BF16:
+      return launch_gemm(ai, wi, Epilogue<EPI_DYN_BF16>{
+          rs, cs, bi, residual, in, out, N, fast_gelu}, M, N, K, s);
+    case EPI_DYN_RESID_F32:
+      return launch_gemm(ai, wi, Epilogue<EPI_DYN_RESID_F32>{
+          rs, cs, bi, residual, in, out, N, fast_gelu}, M, N, K, s);
+    case EPI_DYN_RESID_BF16:
+      return launch_gemm(ai, wi, Epilogue<EPI_DYN_RESID_BF16>{
+          rs, cs, bi, residual, in, out, N, fast_gelu}, M, N, K, s);
+    case EPI_DYN_GELU_F32:
+      return launch_gemm(ai, wi, Epilogue<EPI_DYN_GELU_F32>{
+          rs, cs, bi, residual, in, out, N, fast_gelu}, M, N, K, s);
+    case EPI_STA_BF16:
+      return launch_gemm(ai, wi, Epilogue<EPI_STA_BF16>{
+          rs, cs, bi, residual, in, out, N, fast_gelu}, M, N, K, s);
+    case EPI_STA_RESID_BF16:
+      return launch_gemm(ai, wi, Epilogue<EPI_STA_RESID_BF16>{
+          rs, cs, bi, residual, in, out, N, fast_gelu}, M, N, K, s);
+    case EPI_STA_GELU_Q8:
+      return launch_gemm(ai, wi, Epilogue<EPI_STA_GELU_Q8>{
+          rs, cs, bi, residual, in, out, N, fast_gelu}, M, N, K, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 const char* i8_error_string(int err) {

@@ -135,3 +135,19 @@ def check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
             f"{name}: want a contiguous 16-byte-aligned {dtype} {tuple(shape)} "
             f"on {device}, got {t.dtype} {tuple(t.shape)} on {t.device} "
             f"(contiguous={t.is_contiguous()})")
+
+
+def check_gemm_operands(a: torch.Tensor, w: torch.Tensor) -> None:
+    """Raise unless the TMA-fed GEMM kernels (``csrc/gemm_sm90.cuh``) take
+    ``a`` (M, K) and ``w`` (N, K): rows of a multiple of 16 bytes (K % 8 in
+    bf16, K % 16 in int8) and 16-byte aligned base addresses."""
+    K, size = a.shape[-1], a.element_size()
+    if K * size % 16:
+        raise ValueError(
+            f"GEMM kernel needs rows of a multiple of 16 bytes (TMA): "
+            f"K % {16 // size} == 0 for {a.dtype}, got K={K}")
+    for name, t in (("a", a), ("w", w)):
+        if t.data_ptr() % 16:
+            raise ValueError(
+                f"GEMM kernel needs 16-byte aligned base addresses (TMA): "
+                f"{name} starts at {t.data_ptr():#x}")

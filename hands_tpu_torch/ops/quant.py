@@ -47,6 +47,32 @@ def scale_from_amax(amax: torch.Tensor) -> torch.Tensor:
     return (amax.double() * _INV127 + _EPS).float()
 
 
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+            ) -> torch.Tensor:
+    """f32 ``a * b + c`` rounded once, as one fused multiply-add (torch has
+    none). The product of two f32 values is exact in f64; the f64 sum is
+    made round-to-odd (TwoSum gives its error, and an inexact even result
+    steps one ulp toward the exact value), so rounding it to f32 rounds the
+    exact value once: 53 bits leave the two to spare that this needs."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bp = s - p
+    err = (p - (s - bp)) + (c - bp)  # s + err == p + c exactly
+    even = (s.view(torch.int64) & 1) == 0
+    step = (err != 0) & even & torch.isfinite(s)
+    toward = torch.copysign(torch.full_like(s, torch.inf), err)
+    return torch.where(step, torch.nextafter(s, toward), s).float()
+
+
+def dequant_static(acc: torch.Tensor, d: torch.Tensor, b: torch.Tensor
+                   ) -> torch.Tensor:
+    """The static dequantisation ``f32(acc) * d + b`` of an int32 product as
+    one fused multiply-add, as XLA contracts it in the JAX kernels and as the
+    CUDA kernels evaluate it (``csrc/common.cuh:dequant_static``)."""
+    return fma_f32(acc.float(), d, b)
+
+
 def quantize_weight_int8(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out, in) weight -> (int8 (out, in), f32 (out,)) symmetric
     per-output-channel scales: ``s = max|w| / 127 + 1e-12``,

@@ -31,6 +31,7 @@ import torch
 
 from hands_tpu_torch.ops.cuda_build import CudaLibrary
 from hands_tpu_torch.ops.cuda_build import check as _check
+from hands_tpu_torch.ops.cuda_build import check_gemm_operands
 from hands_tpu_torch.ops.cuda_build import on_cpu as _on_cpu
 
 _EPILOGUES = {None: 0, "gelu": 1, "residual": 2, "gelu_tanh": 3}
@@ -182,8 +183,7 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     M, K = a.shape
     N = w.shape[0]
     dev = a.device
-    if K % 8:
-        raise ValueError(f"gemm kernel needs K % 8 == 0, got K={K}")
+    check_gemm_operands(a, w)
     _check(a, "a", _BF16, (M, K), dev)
     _check(w, "w", _BF16, (N, K), dev)
     _check(bias, "bias", _BF16, (N,), dev)

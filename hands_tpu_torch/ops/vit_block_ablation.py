@@ -49,7 +49,8 @@ from hands_tpu_torch.ops import quant
 from hands_tpu_torch.ops import vit_block_int8 as v8
 from hands_tpu_torch.ops.attention import (_strides, qkv_attention,
                                            qkv_attention_plain)
-from hands_tpu_torch.ops.cuda_build import CudaLibrary, check, on_cpu
+from hands_tpu_torch.ops.cuda_build import (CudaLibrary, check,
+                                           check_gemm_operands, on_cpu)
 from hands_tpu_torch.ops.vit_block import (bf16_const, check_attention_shape,
                                            gelu, layernorm_f32)
 
@@ -164,10 +165,11 @@ def qslice_quant_plain(qkv: torch.Tensor, inv_out: torch.Tensor
 def gemm_i8_ablation_plain(a_q, w_q, col_scale, bias, epilogue: str,
                            inv_next=None, fast_gelu: bool = False,
                            keep_cols=None) -> torch.Tensor:
-    """int8 ``a_q (M, K) . w_q (N, K)^T`` in int32, ``acc * d + b`` in f32,
-    then ``cast(gelu(.) * inv_next)`` | ``quant(. * inv_next)`` | ``cast(.)``
-    of the first ``keep_cols`` columns."""
-    v = quant.int_matmul(a_q, w_q).float() * col_scale + bias
+    """int8 ``a_q (M, K) . w_q (N, K)^T`` in int32, ``acc * d + b`` in f32
+    as one fused multiply-add, then ``cast(gelu(.) * inv_next)`` |
+    ``quant(. * inv_next)`` | ``cast(.)`` of the first ``keep_cols``
+    columns."""
+    v = quant.dequant_static(quant.int_matmul(a_q, w_q), col_scale, bias)
     if epilogue == "gelu_cast":
         return cast_i8(gelu(v, fast_gelu) * inv_next)
     if epilogue == "ident_quant":
@@ -314,8 +316,7 @@ def gemm_i8_ablation(a_q, w_q, col_scale, bias, epilogue: str, inv_next=None,
         return gemm_i8_ablation_plain(a_q, w_q, col_scale, bias, epilogue,
                                       inv_next, fast_gelu, keep)
     dev = a_q.device
-    if K % 16:
-        raise ValueError(f"int8 gemm kernel needs K % 16 == 0, got K={K}")
+    check_gemm_operands(a_q, w_q)
     check(a_q, "a_q", _I8, (M, K), dev)
     check(w_q, "w_q", _I8, (N, K), dev)
     check(col_scale, "col_scale", _F32, (N,), dev)

@@ -31,7 +31,8 @@ import torch
 
 from hands_tpu_torch.ops import quant
 from hands_tpu_torch.ops.attention import qkv_attention, qkv_attention_plain
-from hands_tpu_torch.ops.cuda_build import CudaLibrary, check, on_cpu
+from hands_tpu_torch.ops.cuda_build import (CudaLibrary, check,
+                                           check_gemm_operands, on_cpu)
 from hands_tpu_torch.ops.vit_block import gelu, layernorm_f32
 
 _BF16, _F32, _I8 = torch.bfloat16, torch.float32, torch.int8
@@ -90,14 +91,15 @@ def quant_rows_plain(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def gemm_i8_plain(a_q, w_q, col_scale, bias, *, row_scale=None,
                   epilogue: str = "bias", residual=None, inv_next=None,
                   out_dtype=_BF16, fast_gelu: bool = False) -> torch.Tensor:
-    """int8 ``a_q (M, K) . w_q (N, K)^T`` in int32, then in f32, op by op:
-    dynamic (``row_scale`` (M, 1) given) ``acc * s_row * s_col``, then
+    """int8 ``a_q (M, K) . w_q (N, K)^T`` in int32, then in f32: dynamic
+    (``row_scale`` (M, 1) given) ``acc * s_row * s_col`` op by op, then
     ``+ bias`` | ``(residual + .) + bias`` | ``gelu(. + bias)``; static
-    ``acc * d_col + bias``, then nothing | ``residual + bf16(.)`` in bf16 |
-    ``clip(round(gelu(.) * inv_next))`` as int8."""
-    acc = quant.int_matmul(a_q, w_q).float()
+    ``acc * d_col + bias`` as one fused multiply-add
+    (:func:`quant.dequant_static`), then nothing | ``residual + bf16(.)`` in
+    bf16 | ``clip(round(gelu(.) * inv_next))`` as int8."""
+    acc = quant.int_matmul(a_q, w_q)
     if row_scale is not None:
-        v = acc * row_scale * col_scale
+        v = acc.float() * row_scale * col_scale
         if epilogue == "residual":
             v = residual + v + bias
         else:
@@ -105,7 +107,7 @@ def gemm_i8_plain(a_q, w_q, col_scale, bias, *, row_scale=None,
             if epilogue == "gelu":
                 v = gelu(v, fast_gelu)
         return v.to(out_dtype)
-    v = acc * col_scale + bias
+    v = quant.dequant_static(acc, col_scale, bias)
     if epilogue == "residual":
         return residual + v.to(_BF16)
     if epilogue == "gelu":
@@ -181,8 +183,7 @@ def gemm_i8(a_q, w_q, col_scale, bias, *, row_scale=None,
     M, K = a_q.shape
     N = w_q.shape[0]
     dev = a_q.device
-    if K % 16:
-        raise ValueError(f"int8 gemm kernel needs K % 16 == 0, got K={K}")
+    check_gemm_operands(a_q, w_q)
     check(a_q, "a_q", _I8, (M, K), dev)
     check(w_q, "w_q", _I8, (N, K), dev)
     check(col_scale, "col_scale", _F32, (N,), dev)
