@@ -2,8 +2,9 @@
 // kernels (vit_block_int8.cu), the attention kernels (attention.cu) and their
 // knock-out variants (vit_block_ablation.cu): conversions, the two int8
 // stores (round and clip, or the bare cast), the static dequantisation,
-// warp and block reductions, 16-byte cp.async copies, and the f32 GELUs. Everything lives in an
-// anonymous namespace: each source is built into a library of its own.
+// warp and block reductions, 16-byte cp.async copies, and the f32 GELUs.
+// Everything lives in an anonymous namespace: each source is built into a
+// library of its own.
 
 #pragma once
 

@@ -6,10 +6,11 @@
 //   s8 x s8 -> s32 (wgmma m64n128k32): the W8A8 blocks' GEMMs with their
 //     dequantising epilogues (vit_block_int8.cu, K5 and K6) and the
 //     knock-out epilogues of K8 (vit_block_ablation.cu).
-// The epilogue is a type: `ep.store2(v0, v1, gm, gn, two)` finishes the two
-// adjacent outputs (gm, gn) and (gm, gn + 1) of a thread's accumulator
-// registers (the second only if `two`), so each source pays only for the
-// epilogues it instantiates.
+// The epilogue is a type: `ep.store2<EDGE>(v0, v1, gm, gn, two)` finishes
+// the two adjacent outputs (gm, gn) and (gm, gn + 1) of a thread's
+// accumulator registers (the second only if `two`; EDGE = false when both
+// exist and are aligned, `ep.aligned_pairs()` says whether an inner tile's
+// are), so each source pays only for the epilogues it instantiates.
 //
 // Replaces the dense products of hands_tpu/ops/vit_block_pallas.py's block
 // kernels (matmul_bf16 :154 in _vit_block_kernel, pl.pallas_call :414;
@@ -224,6 +225,29 @@ __device__ __forceinline__ void fence_acc(Acc (&d)[2][64]) {
     for (int i = 0; i < 64; ++i) fence_reg(d[h][i]);
 }
 
+// A thread's outputs through ep.store2, two adjacent columns at a time;
+// EDGE: guard the rows and columns past the output and pairs that are not
+// aligned (else all of them are inside and aligned)
+template <bool EDGE, typename Epi, typename Acc>
+__device__ __forceinline__ void epilogue(const Epi& ep, Acc (&acc)[2][64],
+                                         int row0, int col0, int M, int N) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int gm = row0 + 8 * r;
+    if (EDGE && gm >= M) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int gn = col0 + 128 * h + 8 * j;
+        if (!EDGE || gn < N)
+          ep.template store2<EDGE>(acc[h][4 * j + 2 * r],
+                                   acc[h][4 * j + 2 * r + 1], gm, gn,
+                                   !EDGE || gn + 1 < N);
+      }
+  }
+}
+
 template <typename T, typename Epi>
 __global__ void __launch_bounds__(GEMM_THREADS, 1)
     gemm_sm90_kernel(const __grid_constant__ CUtensorMap tm_a,
@@ -299,24 +323,16 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1)
     fence_acc(acc);
 
     // ---- epilogue from the registers: acc[h][4j + q] is row
-    // 16*warp + lane/4 + 8*(q/2), column 128h + 8j + 2*(lane%4) + q%2
+    // 16*warp + lane/4 + 8*(q/2), column 128h + 8j + 2*(lane%4) + q%2.
+    // A tile inside the output whose pairs are aligned takes a path without
+    // a branch, so that the compiler can interleave the pairs' chains.
     const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
     const int row0 = m0 + cw * 64 + warp * 16 + lane / 4;
     const int col0 = n0 + 2 * (lane % 4);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int gm = row0 + 8 * r;
-      if (gm >= M) continue;
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          const int gn = col0 + 128 * h + 8 * j;
-          if (gn < N)
-            ep.store2(acc[h][4 * j + 2 * r], acc[h][4 * j + 2 * r + 1], gm, gn,
-                      gn + 1 < N);
-        }
-    }
+    if (m0 + GEMM_BM <= M && n0 + GEMM_BN <= N && ep.aligned_pairs())
+      epilogue<false>(ep, acc, row0, col0, M, N);
+    else
+      epilogue<true>(ep, acc, row0, col0, M, N);
   }
 }
 
@@ -378,23 +394,27 @@ int launch_gemm(const T* a, const T* w, const Epi& ep, int M, int N, int K,
 }
 
 // ----------------------------------------------- pairs of adjacent values
-// p[0] and, if `two`, p[1]: one access where the pair is aligned
+// p[0] and, if `two`, p[1]: one access where the pair is aligned. EDGE =
+// false: the caller knows that both exist and are aligned.
+template <bool EDGE>
 __device__ __forceinline__ float2 pair_load(const float* p, bool two) {
-  if (two && !(reinterpret_cast<uintptr_t>(p) & 7))
+  if (!EDGE || (two && !(reinterpret_cast<uintptr_t>(p) & 7)))
     return *reinterpret_cast<const float2*>(p);
   return make_float2(p[0], two ? p[1] : 0.f);
 }
 
+template <bool EDGE>
 __device__ __forceinline__ float2 pair_load(const bf16* p, bool two) {
-  if (two && !(reinterpret_cast<uintptr_t>(p) & 3))
+  if (!EDGE || (two && !(reinterpret_cast<uintptr_t>(p) & 3)))
     return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
   return make_float2(__bfloat162float(p[0]),
                      two ? __bfloat162float(p[1]) : 0.f);
 }
 
+template <bool EDGE>
 __device__ __forceinline__ void pair_store(float* p, float v0, float v1,
                                            bool two) {
-  if (two && !(reinterpret_cast<uintptr_t>(p) & 7)) {
+  if (!EDGE || (two && !(reinterpret_cast<uintptr_t>(p) & 7))) {
     *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
   } else {
     p[0] = v0;
@@ -403,9 +423,10 @@ __device__ __forceinline__ void pair_store(float* p, float v0, float v1,
 }
 
 // rounds each value to bf16 (round to nearest even)
+template <bool EDGE>
 __device__ __forceinline__ void pair_store(bf16* p, float v0, float v1,
                                            bool two) {
-  if (two && !(reinterpret_cast<uintptr_t>(p) & 3)) {
+  if (!EDGE || (two && !(reinterpret_cast<uintptr_t>(p) & 3))) {
     *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
   } else {
     p[0] = __float2bfloat16_rn(v0);
@@ -413,9 +434,10 @@ __device__ __forceinline__ void pair_store(bf16* p, float v0, float v1,
   }
 }
 
+template <bool EDGE>
 __device__ __forceinline__ void pair_store(int8_t* p, int8_t v0, int8_t v1,
                                            bool two) {
-  if (two && !(reinterpret_cast<uintptr_t>(p) & 1)) {
+  if (!EDGE || (two && !(reinterpret_cast<uintptr_t>(p) & 1))) {
     *reinterpret_cast<uint16_t*>(p) =
         (uint16_t)((uint8_t)v0 | (uint16_t)(uint8_t)v1 << 8);
   } else {

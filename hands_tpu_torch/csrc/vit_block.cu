@@ -130,7 +130,11 @@ struct BlockEpilogue {
   bf16* out;             // (M, N)
   int N;
 
-  __device__ __forceinline__ float finish(float acc, float b, float r) const {
+  // an inner tile's pairs start at even elements of 4-byte aligned rows
+  __device__ __forceinline__ bool aligned_pairs() const { return N % 2 == 0; }
+
+  __device__ __forceinline__ static float finish(float acc, float b,
+                                                 float r) {
     const float x = round_bf16(round_bf16(acc) + b);
     if (EPI == EPI_BIAS_GELU) return gelu_bf16(x);
     if (EPI == EPI_BIAS_GELU_TANH) return gelu_tanh_bf16(x);
@@ -138,13 +142,16 @@ struct BlockEpilogue {
     return x;
   }
 
+  template <bool EDGE>
   __device__ __forceinline__ void store2(float a0, float a1, int gm, int gn,
                                          bool two) const {
     const size_t idx = (size_t)gm * N + gn;
-    const float2 b = pair_load(bias + gn, two);
-    const float2 r = EPI == EPI_BIAS_RESIDUAL ? pair_load(residual + idx, two)
-                                              : make_float2(0.f, 0.f);
-    pair_store(out + idx, finish(a0, b.x, r.x), finish(a1, b.y, r.y), two);
+    const float2 b = pair_load<EDGE>(bias + gn, two);
+    const float2 r = EPI == EPI_BIAS_RESIDUAL
+                         ? pair_load<EDGE>(residual + idx, two)
+                         : make_float2(0.f, 0.f);
+    pair_store<EDGE>(out + idx, finish(a0, b.x, r.x), finish(a1, b.y, r.y),
+                     two);
   }
 };
 

@@ -139,36 +139,44 @@ enum {
   EPI_CAST = 2        // int8 cast(acc*d + b), the first keep_cols columns
 };
 
-template <int EPI>
+// FAST: the tanh GELU of EPI_GELU_CAST (else the exact one), a template
+// argument so that an inner tile's epilogue has no branch
+template <int EPI, bool FAST = false>
 struct AblationEpilogue {
   const float* col_scale;  // (N,)
   const float* bias;       // (N,)
   const float* inv_next;   // (N,), not for EPI_CAST
   int8_t* out;             // (M, N), or (M, keep_cols) for EPI_CAST
   int N;
-  int fast_gelu;
   int keep_cols;
 
-  __device__ __forceinline__ int8_t finish(int acc, float d, float b,
-                                           float inv) const {
+  // an inner tile's pairs start at even elements of the output's rows
+  __device__ __forceinline__ bool aligned_pairs() const {
+    return (EPI == EPI_CAST ? keep_cols : N) % 2 == 0;
+  }
+
+  __device__ __forceinline__ static int8_t finish(int acc, float d, float b,
+                                                  float inv) {
     const float v = dequant_static(acc, d, b);
     if (EPI == EPI_GELU_CAST)
-      return cast_i8((fast_gelu ? gelu_tanh_f32(v) : gelu_erfc_f32(v)) * inv);
+      return cast_i8((FAST ? gelu_tanh_f32(v) : gelu_erfc_f32(v)) * inv);
     if (EPI == EPI_IDENT_Q8) return (int8_t)quant_clip(v * inv);
     return cast_i8(v);
   }
 
+  template <bool EDGE>
   __device__ __forceinline__ void store2(int a0, int a1, int gm, int gn,
                                          bool two) const {
     const int cols = EPI == EPI_CAST ? keep_cols : N;
-    if (gn >= cols) return;
-    two = two && gn + 1 < cols;
-    const float2 cs = pair_load(col_scale + gn, two);
-    const float2 b = pair_load(bias + gn, two);
+    if (EPI == EPI_CAST && gn >= cols) return;  // the columns it drops
+    if (EPI == EPI_CAST) two = two && gn + 1 < cols;
+    const float2 cs = pair_load<EDGE>(col_scale + gn, two);
+    const float2 b = pair_load<EDGE>(bias + gn, two);
     const float2 inv = EPI == EPI_CAST ? make_float2(0.f, 0.f)
-                                       : pair_load(inv_next + gn, two);
-    pair_store(out + (size_t)gm * cols + gn, finish(a0, cs.x, b.x, inv.x),
-               finish(a1, cs.y, b.y, inv.y), two);
+                                       : pair_load<EDGE>(inv_next + gn, two);
+    pair_store<EDGE>(out + (size_t)gm * cols + gn,
+                     finish(a0, cs.x, b.x, inv.x),
+                     finish(a1, cs.y, b.y, inv.y), two);
   }
 };
 
@@ -377,15 +385,18 @@ int abl_gemm(int device, const void* a, const void* w, const void* col_scale,
   const float* bi = (const float*)bias;
   const float* in = (const float*)inv_next;
   int8_t* o = (int8_t*)out;
+  if (epi == EPI_GELU_CAST && in != nullptr && fast_gelu)
+    return launch_gemm(ai, wi, AblationEpilogue<EPI_GELU_CAST, true>{
+        cs, bi, in, o, N, N}, M, N, K, s);
   if (epi == EPI_GELU_CAST && in != nullptr)
     return launch_gemm(ai, wi, AblationEpilogue<EPI_GELU_CAST>{
-        cs, bi, in, o, N, fast_gelu, N}, M, N, K, s);
+        cs, bi, in, o, N, N}, M, N, K, s);
   if (epi == EPI_IDENT_Q8 && in != nullptr)
     return launch_gemm(ai, wi, AblationEpilogue<EPI_IDENT_Q8>{
-        cs, bi, in, o, N, fast_gelu, N}, M, N, K, s);
+        cs, bi, in, o, N, N}, M, N, K, s);
   if (epi == EPI_CAST && keep_cols > 0 && keep_cols <= N)
     return launch_gemm(ai, wi, AblationEpilogue<EPI_CAST>{
-        cs, bi, in, o, N, fast_gelu, keep_cols}, M, N, K, s);
+        cs, bi, in, o, N, keep_cols}, M, N, K, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -129,8 +129,10 @@ enum {
 };
 
 // The epilogue of gemm_sm90.cuh's s8 loop: two adjacent outputs of one row,
-// dequantised and finished in f32 in MODE's rounding order.
-template <int MODE>
+// dequantised and finished in f32 in MODE's rounding order; FAST: the tanh
+// GELU (else the exact one), a template argument so that an inner tile's
+// epilogue has no branch.
+template <int MODE, bool FAST = false>
 struct Epilogue {
   const float* row_scale;  // (M,) dynamic only
   const float* col_scale;  // (N,)
@@ -139,54 +141,68 @@ struct Epilogue {
   const float* inv_next;   // (N,) EPI_STA_GELU_Q8 only
   void* out;               // (M, N) bf16, f32 or int8
   int N;
-  int fast_gelu;
 
-  __device__ __forceinline__ float gelu(float h) const {
-    return fast_gelu ? gelu_tanh_f32(h) : gelu_erfc_f32(h);
+  // an inner tile's pairs start at even elements of aligned rows
+  __device__ __forceinline__ bool aligned_pairs() const { return N % 2 == 0; }
+
+  __device__ __forceinline__ static float gelu(float h) {
+    return FAST ? gelu_tanh_f32(h) : gelu_erfc_f32(h);
   }
 
+  template <bool EDGE>
   __device__ __forceinline__ void store2(int a0, int a1, int gm, int gn,
                                          bool two) const {
     const size_t idx = (size_t)gm * N + gn;
-    const float2 cs = pair_load(col_scale + gn, two);
-    const float2 b = pair_load(bias + gn, two);
+    const float2 cs = pair_load<EDGE>(col_scale + gn, two);
+    const float2 b = pair_load<EDGE>(bias + gn, two);
+    bf16* out_bf16 = reinterpret_cast<bf16*>(out) + idx;
+    float* out_f32 = reinterpret_cast<float*>(out) + idx;
     if (MODE <= EPI_DYN_GELU_F32) {
       const float sr = row_scale[gm];
       const float v0 = (float)a0 * sr * cs.x, v1 = (float)a1 * sr * cs.y;
       if (MODE == EPI_DYN_BF16) {
-        pair_store(reinterpret_cast<bf16*>(out) + idx, v0 + b.x, v1 + b.y,
-                   two);
+        pair_store<EDGE>(out_bf16, v0 + b.x, v1 + b.y, two);
       } else if (MODE == EPI_DYN_GELU_F32) {
-        pair_store(reinterpret_cast<float*>(out) + idx, gelu(v0 + b.x),
-                   gelu(v1 + b.y), two);
+        pair_store<EDGE>(out_f32, gelu(v0 + b.x), gelu(v1 + b.y), two);
       } else {
-        const float2 r =
-            pair_load(reinterpret_cast<const float*>(residual) + idx, two);
+        const float2 r = pair_load<EDGE>(
+            reinterpret_cast<const float*>(residual) + idx, two);
         const float o0 = (r.x + v0) + b.x, o1 = (r.y + v1) + b.y;
         if (MODE == EPI_DYN_RESID_F32)
-          pair_store(reinterpret_cast<float*>(out) + idx, o0, o1, two);
+          pair_store<EDGE>(out_f32, o0, o1, two);
         else
-          pair_store(reinterpret_cast<bf16*>(out) + idx, o0, o1, two);
+          pair_store<EDGE>(out_bf16, o0, o1, two);
       }
     } else {
       const float v0 = dequant_static(a0, cs.x, b.x);
       const float v1 = dequant_static(a1, cs.y, b.y);
       if (MODE == EPI_STA_BF16) {
-        pair_store(reinterpret_cast<bf16*>(out) + idx, v0, v1, two);
+        pair_store<EDGE>(out_bf16, v0, v1, two);
       } else if (MODE == EPI_STA_RESID_BF16) {
-        const float2 r =
-            pair_load(reinterpret_cast<const bf16*>(residual) + idx, two);
-        pair_store(reinterpret_cast<bf16*>(out) + idx, r.x + round_bf16(v0),
-                   r.y + round_bf16(v1), two);
+        const float2 r = pair_load<EDGE>(
+            reinterpret_cast<const bf16*>(residual) + idx, two);
+        pair_store<EDGE>(out_bf16, r.x + round_bf16(v0), r.y + round_bf16(v1),
+                         two);
       } else {  // EPI_STA_GELU_Q8
-        const float2 inv = pair_load(inv_next + gn, two);
-        pair_store(reinterpret_cast<int8_t*>(out) + idx,
-                   (int8_t)quant_clip(gelu(v0) * inv.x),
-                   (int8_t)quant_clip(gelu(v1) * inv.y), two);
+        const float2 inv = pair_load<EDGE>(inv_next + gn, two);
+        pair_store<EDGE>(reinterpret_cast<int8_t*>(out) + idx,
+                         (int8_t)quant_clip(gelu(v0) * inv.x),
+                         (int8_t)quant_clip(gelu(v1) * inv.y), two);
       }
     }
   }
 };
+
+template <int MODE, bool FAST = false>
+int int8_gemm(const void* a, const void* w, const void* row_scale,
+              const void* col_scale, const void* bias, const void* residual,
+              const void* inv_next, void* out, int M, int N, int K,
+              cudaStream_t stream) {
+  const Epilogue<MODE, FAST> ep{
+      (const float*)row_scale, (const float*)col_scale, (const float*)bias,
+      residual, (const float*)inv_next, out, N};
+  return launch_gemm((const int8_t*)a, (const int8_t*)w, ep, M, N, K, stream);
+}
 
 }  // namespace
 
@@ -244,37 +260,30 @@ int i8_gemm(int device, const void* a, const void* w, const void* row_scale,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
-  const int8_t* ai = (const int8_t*)a;
-  const int8_t* wi = (const int8_t*)w;
-  const float* rs = (const float*)row_scale;
-  const float* cs = (const float*)col_scale;
-  const float* bi = (const float*)bias;
-  const float* in = (const float*)inv_next;
+#define I8_GEMM(MODE, FAST)                                                 \
+  int8_gemm<MODE, FAST>(a, w, row_scale, col_scale, bias, residual, inv_next, \
+                        out, M, N, K, s)
   switch (mode) {
     case EPI_DYN_BF16:
-      return launch_gemm(ai, wi, Epilogue<EPI_DYN_BF16>{
-          rs, cs, bi, residual, in, out, N, fast_gelu}, M, N, K, s);
+      return I8_GEMM(EPI_DYN_BF16, false);
     case EPI_DYN_RESID_F32:
-      return launch_gemm(ai, wi, Epilogue<EPI_DYN_RESID_F32>{
-          rs, cs, bi, residual, in, out, N, fast_gelu}, M, N, K, s);
+      return I8_GEMM(EPI_DYN_RESID_F32, false);
     case EPI_DYN_RESID_BF16:
-      return launch_gemm(ai, wi, Epilogue<EPI_DYN_RESID_BF16>{
-          rs, cs, bi, residual, in, out, N, fast_gelu}, M, N, K, s);
+      return I8_GEMM(EPI_DYN_RESID_BF16, false);
     case EPI_DYN_GELU_F32:
-      return launch_gemm(ai, wi, Epilogue<EPI_DYN_GELU_F32>{
-          rs, cs, bi, residual, in, out, N, fast_gelu}, M, N, K, s);
+      return fast_gelu ? I8_GEMM(EPI_DYN_GELU_F32, true)
+                       : I8_GEMM(EPI_DYN_GELU_F32, false);
     case EPI_STA_BF16:
-      return launch_gemm(ai, wi, Epilogue<EPI_STA_BF16>{
-          rs, cs, bi, residual, in, out, N, fast_gelu}, M, N, K, s);
+      return I8_GEMM(EPI_STA_BF16, false);
     case EPI_STA_RESID_BF16:
-      return launch_gemm(ai, wi, Epilogue<EPI_STA_RESID_BF16>{
-          rs, cs, bi, residual, in, out, N, fast_gelu}, M, N, K, s);
+      return I8_GEMM(EPI_STA_RESID_BF16, false);
     case EPI_STA_GELU_Q8:
-      return launch_gemm(ai, wi, Epilogue<EPI_STA_GELU_Q8>{
-          rs, cs, bi, residual, in, out, N, fast_gelu}, M, N, K, s);
+      return fast_gelu ? I8_GEMM(EPI_STA_GELU_Q8, true)
+                       : I8_GEMM(EPI_STA_GELU_Q8, false);
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef I8_GEMM
 }
 
 const char* i8_error_string(int err) {
