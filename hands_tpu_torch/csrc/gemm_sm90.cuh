@@ -59,17 +59,26 @@
 
 namespace {
 
-constexpr int GEMM_BM = 128;  // two consumer warpgroups of 64 rows
-constexpr int GEMM_BN = 256;  // two m64n128 products per k-slice
+constexpr int GEMM_BM = 128;  // two MMA warpgroups of 64 rows
+constexpr int GEMM_BN = 128;  // one m64n128 product per k-slice
 constexpr int GEMM_STAGES = 4;
-constexpr int GEMM_THREADS = 384;  // producer warpgroup + two consumers
-constexpr int ROW_BYTES = 128;     // one K tile row, one swizzle span
+constexpr int MMA_WARPS = 8;  // warps 0-7: two MMA warpgroups
+constexpr int EPI_WARPS = 8;  // warps 8-15: the epilogue
+constexpr int GEMM_THREADS = 32 * (MMA_WARPS + EPI_WARPS + 1);  // + producer
+constexpr int ROW_BYTES = 128;  // one K tile row, one swizzle span
 constexpr int A_TILE_BYTES = GEMM_BM * ROW_BYTES;  // 16 KB
-constexpr int W_TILE_BYTES = GEMM_BN * ROW_BYTES;  // 32 KB
+constexpr int W_TILE_BYTES = GEMM_BN * ROW_BYTES;  // 16 KB
 constexpr int STAGE_BYTES = A_TILE_BYTES + W_TILE_BYTES;
-// stages (1024-byte aligned for the swizzle), then 2 x STAGES mbarriers
+// a tile's accumulators on their way to the epilogue warps: 128 rows of
+// 128 32-bit values, padded by 8 (a warp's pair stores from the MMA
+// fragments and its row reads both take the minimal two wavefronts)
+constexpr int ACC_STRIDE = GEMM_BN + 8;
+constexpr int ACC_BYTES = GEMM_BM * ACC_STRIDE * 4;  // 69,632 B
+// stages (1024-byte aligned for the swizzle), the accumulators, then the
+// mbarriers: full and empty per stage, acc_full and acc_empty
+constexpr int NUM_BARRIERS = 2 * GEMM_STAGES + 2;
 constexpr size_t GEMM_SMEM = 1024 + (size_t)GEMM_STAGES * STAGE_BYTES +
-                             2 * GEMM_STAGES * sizeof(uint64_t);  // 197,696 B
+                             ACC_BYTES + NUM_BARRIERS * 8;  // 201,808 B
 
 template <typename T>
 struct GemmType;
@@ -218,36 +227,55 @@ __device__ __forceinline__ void fence_reg(int& v) {
 }
 
 template <typename Acc>
-__device__ __forceinline__ void fence_acc(Acc (&d)[2][64]) {
+__device__ __forceinline__ void fence_acc(Acc (&d)[64]) {
 #pragma unroll
-  for (int h = 0; h < 2; ++h)
-#pragma unroll
-    for (int i = 0; i < 64; ++i) fence_reg(d[h][i]);
+  for (int i = 0; i < 64; ++i) fence_reg(d[i]);
 }
 
-// A thread's outputs through ep.store2, two adjacent columns at a time;
-// EDGE: guard the rows and columns past the output and pairs that are not
-// aligned (else all of them are inside and aligned)
+template <typename Acc>
+struct Pair;
+template <>
+struct Pair<float> {
+  typedef float2 type;
+};
+template <>
+struct Pair<int> {
+  typedef int2 type;
+};
+
+// The epilogue warps' share of one tile: warp e takes rows e, e + 8, ...,
+// a lane the column pairs 2*lane and 64 + 2*lane of each, so that a warp
+// stores 64 adjacent outputs at a time. EDGE: guard the rows and columns
+// past the output and pairs that are not aligned (else the tile is inside
+// and its pairs aligned, and the loop has no branch).
 template <bool EDGE, typename Epi, typename Acc>
-__device__ __forceinline__ void epilogue(const Epi& ep, Acc (&acc)[2][64],
-                                         int row0, int col0, int M, int N) {
+__device__ __forceinline__ void epilogue_tile(const Epi& ep, const Acc* acc,
+                                              int e, int lane, int m0, int n0,
+                                              int M, int N) {
+  typedef typename Pair<Acc>::type Acc2;
+#pragma unroll 4
+  for (int r = e; r < GEMM_BM; r += EPI_WARPS) {
+    const int gm = m0 + r;
+    if (EDGE && gm >= M) break;
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int gm = row0 + 8 * r;
-    if (EDGE && gm >= M) continue;
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const int gn = col0 + 128 * h + 8 * j;
-        if (!EDGE || gn < N)
-          ep.template store2<EDGE>(acc[h][4 * j + 2 * r],
-                                   acc[h][4 * j + 2 * r + 1], gm, gn,
-                                   !EDGE || gn + 1 < N);
-      }
+    for (int h = 0; h < 2; ++h) {
+      const int c = 64 * h + 2 * lane, gn = n0 + c;
+      if (EDGE && gn >= N) continue;
+      const Acc2 v = *reinterpret_cast<const Acc2*>(acc + r * ACC_STRIDE + c);
+      ep.template store2<EDGE>(v.x, v.y, gm, gn, !EDGE || gn + 1 < N);
+    }
   }
 }
 
+// A persistent grid: block b takes output tiles b, b + gridDim.x, ... of
+// the (M / 128) x (N / 128) grid, N fastest. Warp roles:
+//   warp 16 (producer): one thread keeps the ring of stages full with TMA
+//     loads, across tiles;
+//   warps 0-7 (two MMA warpgroups): rows 0-63 and 64-127 of a tile on
+//     wgmma, then the accumulators into shared memory (acc_full) once the
+//     epilogue warps have read the last tile's (acc_empty);
+//   warps 8-15 (epilogue): apply ep to a tile while the MMA warpgroups run
+//     the next one's main loop.
 template <typename T, typename Epi>
 __global__ void __launch_bounds__(GEMM_THREADS, 1)
     gemm_sm90_kernel(const __grid_constant__ CUtensorMap tm_a,
@@ -257,82 +285,106 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1)
   constexpr int K_TILE = ROW_BYTES / (int)sizeof(T);  // 64 bf16, 128 int8
   extern __shared__ unsigned char gemm_smem_raw[];
   const uint32_t base = (smem_u32(gemm_smem_raw) + 1023) & ~1023u;
-  const uint32_t bars = base + GEMM_STAGES * STAGE_BYTES;
+  Acc* acc_smem = reinterpret_cast<Acc*>(
+      gemm_smem_raw + (base - smem_u32(gemm_smem_raw)) +
+      GEMM_STAGES * STAGE_BYTES);
+  const uint32_t bars = base + GEMM_STAGES * STAGE_BYTES + ACC_BYTES;
   auto full = [&](int s) { return bars + 8 * s; };
   auto empty = [&](int s) { return bars + 8 * (GEMM_STAGES + s); };
+  const uint32_t acc_full = bars + 16 * GEMM_STAGES;
+  const uint32_t acc_empty = acc_full + 8;
   const int k_tiles = (K + K_TILE - 1) / K_TILE;
-  const int m0 = blockIdx.y * GEMM_BM, n0 = blockIdx.x * GEMM_BN;
-  const int wg = threadIdx.x / 128;
+  const int tiles_n = (N + GEMM_BN - 1) / GEMM_BN;
+  const int tiles = tiles_n * ((M + GEMM_BM - 1) / GEMM_BM);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < GEMM_STAGES; ++s) {
       mbar_init(full(s), 1);   // the producer's expect_tx, then the bytes
-      mbar_init(empty(s), 2);  // one arrival per consumer warpgroup
+      mbar_init(empty(s), 2);  // one arrival per MMA warpgroup
     }
+    mbar_init(acc_full, 32 * MMA_WARPS);
+    mbar_init(acc_empty, 32 * EPI_WARPS);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (wg == 0) {
-    // ---- producer: one thread keeps the ring full
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if (threadIdx.x == 0) {
-      for (int kt = 0; kt < k_tiles; ++kt) {
-        const int s = kt % GEMM_STAGES;
-        mbar_wait(empty(s), ((kt / GEMM_STAGES) & 1) ^ 1);
-        mbar_expect_tx(full(s), STAGE_BYTES);  // zero-filled bytes count
-        const uint32_t a = base + s * STAGE_BYTES;
-        tma_load(a, &tm_a, full(s), kt * K_TILE, m0);
-        tma_load(a + A_TILE_BYTES, &tm_w, full(s), kt * K_TILE, n0);
+  if (warp == MMA_WARPS + EPI_WARPS) {
+    // ---- producer
+    if (lane == 0) {
+      int g = 0;  // k-steps issued by this block, over all its tiles
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = t / tiles_n * GEMM_BM, n0 = t % tiles_n * GEMM_BN;
+        for (int kt = 0; kt < k_tiles; ++kt, ++g) {
+          const int s = g % GEMM_STAGES;
+          mbar_wait(empty(s), ((g / GEMM_STAGES) & 1) ^ 1);
+          mbar_expect_tx(full(s), STAGE_BYTES);  // zero-filled bytes count
+          const uint32_t a = base + s * STAGE_BYTES;
+          tma_load(a, &tm_a, full(s), kt * K_TILE, m0);
+          tma_load(a + A_TILE_BYTES, &tm_w, full(s), kt * K_TILE, n0);
+        }
       }
+    }
+  } else if (warp < MMA_WARPS) {
+    // ---- MMA warpgroup cw: rows 64*cw .. 64*cw + 63 of each tile
+    const int cw = warp / 4;
+    int g = 0;
+    for (int t = blockIdx.x, it = 0; t < tiles; t += gridDim.x, ++it) {
+      Acc acc[64];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = 0;
+      for (int kt = 0; kt < k_tiles; ++kt, ++g) {
+        const int s = g % GEMM_STAGES;
+        mbar_wait(full(s), (g / GEMM_STAGES) & 1);
+        const uint32_t a = base + s * STAGE_BYTES + cw * 64 * ROW_BYTES;
+        const uint32_t w = base + s * STAGE_BYTES + A_TILE_BYTES;
+        fence_acc(acc);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+        for (int kk = 0; kk < ROW_BYTES / 32; ++kk)  // 32 bytes of K a step
+          GemmType<T>::mma(acc, smem_desc(a + 32 * kk),
+                           smem_desc(w + 32 * kk));
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        fence_acc(acc);
+        // the products of the step before are done: hand its slot back
+        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+        fence_acc(acc);
+        if (kt > 0 && threadIdx.x % 128 == 0)
+          mbar_arrive(empty((g - 1) % GEMM_STAGES));
+      }
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      fence_acc(acc);
+      if (threadIdx.x % 128 == 0) mbar_arrive(empty((g - 1) % GEMM_STAGES));
+
+      // acc[4j + q] is row 16*(warp%4) + lane/4 + 8*(q/2), column 8j +
+      // 2*(lane%4) + q%2 of this warpgroup's 64 rows
+      mbar_wait(acc_empty, (it & 1) ^ 1);
+      Acc* rows = acc_smem + (cw * 64 + (warp % 4) * 16 + lane / 4) *
+                                 ACC_STRIDE + 2 * (lane % 4);
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          typedef typename Pair<Acc>::type Acc2;
+          Acc2 v;
+          v.x = acc[4 * j + 2 * r];
+          v.y = acc[4 * j + 2 * r + 1];
+          *reinterpret_cast<Acc2*>(rows + 8 * r * ACC_STRIDE + 8 * j) = v;
+        }
+      mbar_arrive(acc_full);
     }
   } else {
-    // ---- consumers: warpgroup cw owns rows 64*cw .. 64*cw + 63
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-    const int cw = wg - 1;
-    Acc acc[2][64];
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int i = 0; i < 64; ++i) acc[h][i] = 0;
-
-    for (int kt = 0; kt < k_tiles; ++kt) {
-      const int s = kt % GEMM_STAGES;
-      mbar_wait(full(s), (kt / GEMM_STAGES) & 1);
-      const uint32_t a = base + s * STAGE_BYTES + cw * 64 * ROW_BYTES;
-      const uint32_t w = base + s * STAGE_BYTES + A_TILE_BYTES;
-      fence_acc(acc);
-      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-#pragma unroll
-      for (int kk = 0; kk < ROW_BYTES / 32; ++kk) {  // 32 bytes of K a step
-        const uint64_t da = smem_desc(a + 32 * kk);
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          GemmType<T>::mma(acc[h],
-                           da, smem_desc(w + h * 128 * ROW_BYTES + 32 * kk));
-      }
-      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-      fence_acc(acc);
-      // the products of stage kt - 1 are done: hand its slot back
-      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
-      fence_acc(acc);
-      if (kt > 0 && threadIdx.x % 128 == 0)
-        mbar_arrive(empty((kt - 1) % GEMM_STAGES));
+    // ---- epilogue warps
+    const int e = warp - MMA_WARPS;
+    for (int t = blockIdx.x, it = 0; t < tiles; t += gridDim.x, ++it) {
+      const int m0 = t / tiles_n * GEMM_BM, n0 = t % tiles_n * GEMM_BN;
+      mbar_wait(acc_full, it & 1);
+      if (m0 + GEMM_BM <= M && n0 + GEMM_BN <= N && ep.aligned_pairs())
+        epilogue_tile<false>(ep, acc_smem, e, lane, m0, n0, M, N);
+      else
+        epilogue_tile<true>(ep, acc_smem, e, lane, m0, n0, M, N);
+      mbar_arrive(acc_empty);
     }
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-    fence_acc(acc);
-
-    // ---- epilogue from the registers: acc[h][4j + q] is row
-    // 16*warp + lane/4 + 8*(q/2), column 128h + 8j + 2*(lane%4) + q%2.
-    // A tile inside the output whose pairs are aligned takes a path without
-    // a branch, so that the compiler can interleave the pairs' chains.
-    const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
-    const int row0 = m0 + cw * 64 + warp * 16 + lane / 4;
-    const int col0 = n0 + 2 * (lane % 4);
-    if (m0 + GEMM_BM <= M && n0 + GEMM_BN <= N && ep.aligned_pairs())
-      epilogue<false>(ep, acc, row0, col0, M, N);
-    else
-      epilogue<true>(ep, acc, row0, col0, M, N);
   }
 }
 
@@ -374,8 +426,9 @@ bool encode_operand(CUtensorMap* map, const T* p, int rows, int K,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// One launch of the GEMM: a 128 x 256 tile per thread block (blockIdx.x
-// over N, blockIdx.y over M). Returns the cudaError_t of the launch.
+// One launch of the GEMM: one block per SM (at most one per tile), each
+// walking its share of the 128 x 128 output tiles. Returns the cudaError_t
+// of the launch.
 template <typename T, typename Epi>
 int launch_gemm(const T* a, const T* w, const Epi& ep, int M, int N, int K,
                 cudaStream_t stream) {
@@ -383,13 +436,20 @@ int launch_gemm(const T* a, const T* w, const Epi& ep, int M, int N, int K,
   if (!encode_operand(&tm_a, a, M, K, GEMM_BM) ||
       !encode_operand(&tm_w, w, N, K, GEMM_BN))
     return (int)cudaErrorInvalidValue;
-  const cudaError_t err = cudaFuncSetAttribute(
-      gemm_sm90_kernel<T, Epi>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)GEMM_SMEM);
+  int device, sms;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(gemm_sm90_kernel<T, Epi>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)GEMM_SMEM);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((N + GEMM_BN - 1) / GEMM_BN, (M + GEMM_BM - 1) / GEMM_BM);
-  gemm_sm90_kernel<T, Epi><<<grid, GEMM_THREADS, GEMM_SMEM, stream>>>(
-      tm_a, tm_w, ep, M, N, K);
+  const int tiles =
+      ((N + GEMM_BN - 1) / GEMM_BN) * ((M + GEMM_BM - 1) / GEMM_BM);
+  gemm_sm90_kernel<T, Epi>
+      <<<tiles < sms ? tiles : sms, GEMM_THREADS, GEMM_SMEM, stream>>>(
+          tm_a, tm_w, ep, M, N, K);
   return (int)cudaGetLastError();
 }
 
