@@ -63,7 +63,7 @@ constexpr int GEMM_BM = 128;  // two MMA warpgroups of 64 rows
 constexpr int GEMM_BN = 128;  // one m64n128 product per k-slice
 constexpr int GEMM_STAGES = 4;
 constexpr int MMA_WARPS = 8;  // warps 0-7: two MMA warpgroups
-constexpr int EPI_WARPS = 8;  // warps 8-15: the epilogue
+constexpr int EPI_WARPS = 11;  // warps 8-18: the epilogue
 constexpr int GEMM_THREADS = 32 * (MMA_WARPS + EPI_WARPS + 1);  // + producer
 constexpr int ROW_BYTES = 128;  // one K tile row, one swizzle span
 constexpr int A_TILE_BYTES = GEMM_BM * ROW_BYTES;  // 16 KB
