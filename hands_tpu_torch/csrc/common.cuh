@@ -23,12 +23,6 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// both values rounded to bf16 in one packed conversion (half the
-// conversion instructions of two round_bf16 calls; the same roundings)
-__device__ __forceinline__ float2 round_bf16x2(float a, float b) {
-  return __bfloat1622float2(__floats2bfloat162_rn(a, b));
-}
-
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(bf16 v) {
   return __bfloat162float(v);

@@ -37,31 +37,30 @@
 
 namespace {
 
-// Exact GELU 0.5x * erfc(-x/sqrt2) of a pair with the bf16 rounding points
-// of _gelu_mosaic (vit_block_pallas.py:60): each op rounds to bf16, and the
+// Exact GELU 0.5x * erfc(-x/sqrt2) with the bf16 rounding points of
+// _gelu_mosaic (vit_block_pallas.py:60): each op rounds to bf16, and the
 // 2^-0.5 constant is itself the bf16 value 0.70703125. x is bf16-exact.
-__device__ __forceinline__ float2 gelu_bf16(float2 x) {
-  const float2 half_x = round_bf16x2(0.5f * x.x, 0.5f * x.y);
-  const float2 d = round_bf16x2(-x.x * 0.70703125f, -x.y * 0.70703125f);
-  const float2 e = round_bf16x2(erfcf(d.x), erfcf(d.y));
-  return round_bf16x2(half_x.x * e.x, half_x.y * e.y);
+__device__ __forceinline__ float gelu_bf16(float x) {
+  const float half_x = round_bf16(0.5f * x);
+  const float d = round_bf16(-x * 0.70703125f);
+  const float e = round_bf16(erfcf(d));
+  return round_bf16(half_x * e);
 }
 
-// tanh-approximate GELU x * 0.5 * (1 + tanh(c * (x + k x^3))) of a pair with
-// the bf16 rounding points of jax.nn.gelu(approximate=True) on a bf16 array
-// (the fast form of _gelu_mosaic): each op rounds to bf16, and the constants
-// are the bf16 values of sqrt(2/pi) (0.796875) and 0.044715 (0.044677734375).
-__device__ __forceinline__ float2 gelu_tanh_bf16(float2 x) {
-  const float k = 0.044677734375f, c = 0.796875f;
-  const float2 x2 = round_bf16x2(x.x * x.x, x.y * x.y);
-  const float2 x3 = round_bf16x2(x.x * x2.x, x.y * x2.y);
-  const float2 kx3 = round_bf16x2(k * x3.x, k * x3.y);
-  const float2 u = round_bf16x2(x.x + kx3.x, x.y + kx3.y);
-  const float2 w = round_bf16x2(c * u.x, c * u.y);
-  const float2 t = round_bf16x2(tanhf(w.x), tanhf(w.y));
-  const float2 a = round_bf16x2(1.0f + t.x, 1.0f + t.y);
-  const float2 cdf = round_bf16x2(0.5f * a.x, 0.5f * a.y);
-  return round_bf16x2(x.x * cdf.x, x.y * cdf.y);
+// tanh-approximate GELU x * 0.5 * (1 + tanh(c * (x + k x^3))) with the bf16
+// rounding points of jax.nn.gelu(approximate=True) on a bf16 array (the fast
+// form of _gelu_mosaic): each op rounds to bf16, and the constants are the
+// bf16 values of sqrt(2/pi) (0.796875) and 0.044715 (0.044677734375).
+__device__ __forceinline__ float gelu_tanh_bf16(float x) {
+  const float x2 = round_bf16(x * x);
+  const float x3 = round_bf16(x * x2);
+  const float kx3 = round_bf16(0.044677734375f * x3);
+  const float u = round_bf16(x + kx3);
+  const float w = round_bf16(0.796875f * u);
+  const float t = round_bf16(tanhf(w));
+  const float a = round_bf16(1.0f + t);
+  const float cdf = round_bf16(0.5f * a);
+  return round_bf16(x * cdf);
 }
 
 // ------------------------------------------------------------- LayerNorm
@@ -134,14 +133,12 @@ struct BlockEpilogue {
   // an inner tile's pairs start at even elements of 4-byte aligned rows
   __device__ __forceinline__ bool aligned_pairs() const { return N % 2 == 0; }
 
-  // a pair of accumulators through the rounding chain
-  __device__ __forceinline__ static float2 finish(float a0, float a1,
-                                                  float2 b, float2 r) {
-    const float2 acc = round_bf16x2(a0, a1);
-    const float2 x = round_bf16x2(acc.x + b.x, acc.y + b.y);
+  __device__ __forceinline__ static float finish(float acc, float b,
+                                                 float r) {
+    const float x = round_bf16(round_bf16(acc) + b);
     if (EPI == EPI_BIAS_GELU) return gelu_bf16(x);
     if (EPI == EPI_BIAS_GELU_TANH) return gelu_tanh_bf16(x);
-    if (EPI == EPI_BIAS_RESIDUAL) return make_float2(r.x + x.x, r.y + x.y);
+    if (EPI == EPI_BIAS_RESIDUAL) return r + x;
     return x;
   }
 
@@ -153,8 +150,8 @@ struct BlockEpilogue {
     const float2 r = EPI == EPI_BIAS_RESIDUAL
                          ? pair_load<EDGE>(residual + idx, two)
                          : make_float2(0.f, 0.f);
-    const float2 v = finish(a0, a1, b, r);
-    pair_store<EDGE>(out + idx, v.x, v.y, two);
+    pair_store<EDGE>(out + idx, finish(a0, b.x, r.x), finish(a1, b.y, r.y),
+                     two);
   }
 };
 

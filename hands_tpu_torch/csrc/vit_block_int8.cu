@@ -181,8 +181,8 @@ struct Epilogue {
       } else if (MODE == EPI_STA_RESID_BF16) {
         const float2 r = pair_load<EDGE>(
             reinterpret_cast<const bf16*>(residual) + idx, two);
-        const float2 v = round_bf16x2(v0, v1);
-        pair_store<EDGE>(out_bf16, r.x + v.x, r.y + v.y, two);
+        pair_store<EDGE>(out_bf16, r.x + round_bf16(v0), r.y + round_bf16(v1),
+                         two);
       } else {  // EPI_STA_GELU_Q8
         const float2 inv = pair_load<EDGE>(inv_next + gn, two);
         pair_store<EDGE>(reinterpret_cast<int8_t*>(out) + idx,
