@@ -7,10 +7,10 @@
 //     dequantising epilogues (vit_block_int8.cu, K5 and K6) and the
 //     knock-out epilogues of K8 (vit_block_ablation.cu).
 // The epilogue is a type: `ep.store2<EDGE>(v0, v1, gm, gn, two)` finishes
-// the two adjacent outputs (gm, gn) and (gm, gn + 1) of a thread's
-// accumulator registers (the second only if `two`; EDGE = false when both
-// exist and are aligned, `ep.aligned_pairs()` says whether an inner tile's
-// are), so each source pays only for the epilogues it instantiates.
+// the two adjacent outputs (gm, gn) and (gm, gn + 1) (the second only if
+// `two`; EDGE = false when both exist and are aligned, and
+// `ep.aligned_pairs()` says whether an inner tile's are), so each source
+// pays only for the epilogues it instantiates.
 //
 // Replaces the dense products of hands_tpu/ops/vit_block_pallas.py's block
 // kernels (matmul_bf16 :154 in _vit_block_kernel, pl.pallas_call :414;
@@ -22,30 +22,37 @@
 // operations over 39 MB of bf16 (19.7 MB of int8) weights; from ~300 token
 // rows on (3072 at 8 images) that is the tensor cores' time, 989 TFLOP/s
 // bf16 and 1,979 TOP/s int8: 0.122 ms and 0.061 ms per block at 3072 rows.
-// Only wgmma reaches that rate (mma.sync, which the earlier kernels used,
-// tops out well below it).
+// Only wgmma reaches that rate (the mma.sync and wmma loops this replaces
+// reached 10-18% of it). Behind the products, the epilogues: the exact GELU
+// of the MLP's first GEMM costs ~74 instructions an output (erfcf, the bf16
+// roundings), as much as the tile's products take when run alone.
 // What the design does about it:
-//   - a thread block computes a 128 x 256 output tile with three
-//     warpgroups: one producer warp issues TMA loads of A and W tiles
-//     (128-byte rows: 64 bf16 or 128 int8 of K, the 128-byte swizzle that
-//     wgmma reads without bank conflicts) into a ring of four stages, each
-//     with a "full" and an "empty" mbarrier; two consumer warpgroups each
-//     own 64 rows and run wgmma.mma_async from shared-memory descriptors,
-//     keeping one stage's products in flight while they wait for the next
-//     (wgmma.wait_group 1) and releasing a stage as soon as its products
-//     have read it;
-//   - setmaxnreg moves registers from the producer (40) to the consumers
-//     (232): 128 accumulators a thread;
+//   - one thread block per SM walks 128 x 128 output tiles (a persistent
+//     grid); one producer warp issues TMA loads of A and W tiles (128-byte
+//     rows: 64 bf16 or 128 int8 of K, in the 128-byte swizzle that wgmma
+//     reads without bank conflicts) into a ring of four stages with a
+//     "full" and an "empty" mbarrier each, running ahead across tiles;
+//   - two MMA warpgroups own 64 rows each and run wgmma.mma_async from
+//     shared-memory descriptors, keeping one stage's products in flight
+//     while they wait for the next (wgmma.wait_group 1) and releasing a
+//     stage as soon as its products have read it;
+//   - the MMA warpgroups hand a finished tile's accumulators to 11 epilogue
+//     warps through shared memory (acc_full / acc_empty) and go on with the
+//     next tile, so that the epilogue of one tile runs while the tensor
+//     cores work on the next; the epilogue warps store rows of 64 adjacent
+//     outputs (coalesced pairs), without a branch inside inner tiles;
 //   - TMA zero-fills the ragged M, N and K edges; only the stores are
 //     guarded;
-//   - the epilogue works on the accumulator registers (row 16*warp + lane/4
-//     (+8), columns 8*j + 2*(lane%4) (+1) of each 64-row tile) and stores
-//     each pair of adjacent columns as one access;
-//   - the tile is fixed at 128 x 256 (the launcher's rule): at M = 3072 the
-//     ViT-H shapes give 360 / 120 / 480 / 120 tiles (qkv, proj, fc1, fc2)
-//     on 132 SMs; 128 x 128 tiles would give 720 / 240 / 960 / 240 with the
-//     same ~9% of a wave idle on the narrow shapes. No persistent grid yet:
-//     a tile's epilogue does not overlap the next tile's loads.
+//   - registers: ptxas compiles every warp within the launch's register
+//     count, 96 for 20 warps (5 in each of the SM's four register
+//     partitions); the 64-accumulator wgmma needs 90, so 8 MMA + 11
+//     epilogue + 1 producer warps is the largest block (setmaxnreg cannot
+//     give the MMA warps more);
+//   - the tile is fixed at 128 x 128 (the launcher's rule): at M = 3072 the
+//     ViT-H shapes give 720 / 240 / 960 / 240 tiles (qkv, proj, fc1, fc2)
+//     on 132 SMs, ~9% of the last round idle on the narrow shapes, as with
+//     128 x 256 tiles (360 / 120 / 480 / 120), which need 128 accumulators
+//     a thread and leave no registers for epilogue warps.
 // The host encodes the two tensor maps per launch with
 // cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint so that
 // the library needs no -lcuda. TMA needs 16-byte aligned bases and row

@@ -24,10 +24,10 @@
 // time a block) and above, the GEMMs are bound by the tensor cores.
 // Attention at N=192, D=80 is ~3% of the FLOPs.
 // What the design does about it: vit_gemm is the bf16 form of the Hopper
-// main loop of gemm_sm90.cuh (TMA loads into a four-stage mbarrier ring, one
-// producer warp, two consumer warpgroups on wgmma m64n128k16, 128 x 256
-// tiles) with the four epilogues below applied to the accumulator registers
-// and stored as bf16 pairs. Attention runs on the tensor cores (mma.sync
+// GEMM of gemm_sm90.cuh (a persistent grid of 128 x 128 tiles, TMA loads
+// into a four-stage mbarrier ring, two MMA warpgroups on wgmma m64n128k16,
+// epilogue warps that finish one tile while the next one's products run)
+// with the four epilogues below, stored as bf16 pairs. Attention runs on the tensor cores (mma.sync
 // with ldmatrix operands, the logits and the softmax in registers, the f32
 // probabilities split into three bf16 parts); see attention_kernel.cuh. The
 // LayerNorm is one thread block per row.

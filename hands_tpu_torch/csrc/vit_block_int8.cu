@@ -40,12 +40,12 @@
 // ms of tensor-core time a block) the GEMMs are bound by the tensor cores,
 // and the LayerNorm/quantise passes by bytes (the dynamic block's f32
 // residual stream doubles them against bf16).
-// What the design does about it: the GEMM is the s8 form of the Hopper main
-// loop of gemm_sm90.cuh (TMA loads of 128-byte K tiles into a four-stage
-// mbarrier ring, one producer warp, two consumer warpgroups on wgmma
-// m64n128k32 with s32 accumulators, 128 x 256 tiles); each of the seven
-// dequantising epilogues below is a type applied to the accumulator
-// registers, storing pairs of adjacent outputs. The row passes are one
+// What the design does about it: the GEMM is the s8 form of the Hopper GEMM
+// of gemm_sm90.cuh (a persistent grid of 128 x 128 tiles, TMA loads of
+// 128-byte K tiles into a four-stage mbarrier ring, two MMA warpgroups on
+// wgmma m64n128k32 with s32 accumulators, epilogue warps that finish one
+// tile while the next one's products run); each of the seven dequantising
+// epilogues below is a type, storing pairs of adjacent outputs. The row passes are one
 // thread block per row.
 
 #include "common.cuh"
