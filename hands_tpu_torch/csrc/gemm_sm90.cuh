@@ -10,7 +10,9 @@
 // the two adjacent outputs (gm, gn) and (gm, gn + 1) (the second only if
 // `two`; EDGE = false when both exist and are aligned, and
 // `ep.aligned_pairs()` says whether an inner tile's are), so each source
-// pays only for the epilogues it instantiates.
+// pays only for the epilogues it instantiates. An epilogue may ask for
+// SCRATCH_BYTES of shared memory, which the epilogue warps fill once a
+// launch through `ep.prepare(scratch, thread, threads)` (a table).
 //
 // Replaces the dense products of hands_tpu/ops/vit_block_pallas.py's block
 // kernels (matmul_bf16 :154 in _vit_block_kernel, pl.pallas_call :414;
@@ -381,15 +383,23 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1)
       mbar_arrive(acc_full);
     }
   } else {
-    // ---- epilogue warps
+    // ---- epilogue warps: the epilogue's tables (Epi::SCRATCH_BYTES past
+    // the barriers) are filled while the first tile's products run
     const int e = warp - MMA_WARPS;
+    Epi lep = ep;
+    if (Epi::SCRATCH_BYTES > 0) {
+      lep.prepare(gemm_smem_raw + (bars + 8 * NUM_BARRIERS -
+                                   smem_u32(gemm_smem_raw)),
+                  threadIdx.x - 32 * MMA_WARPS, 32 * EPI_WARPS);
+      asm volatile("bar.sync 1, %0;\n" ::"n"(32 * EPI_WARPS) : "memory");
+    }
     for (int t = blockIdx.x, it = 0; t < tiles; t += gridDim.x, ++it) {
       const int m0 = t / tiles_n * GEMM_BM, n0 = t % tiles_n * GEMM_BN;
       mbar_wait(acc_full, it & 1);
-      if (m0 + GEMM_BM <= M && n0 + GEMM_BN <= N && ep.aligned_pairs())
-        epilogue_tile<false>(ep, acc_smem, e, lane, m0, n0, M, N);
+      if (m0 + GEMM_BM <= M && n0 + GEMM_BN <= N && lep.aligned_pairs())
+        epilogue_tile<false>(lep, acc_smem, e, lane, m0, n0, M, N);
       else
-        epilogue_tile<true>(ep, acc_smem, e, lane, m0, n0, M, N);
+        epilogue_tile<true>(lep, acc_smem, e, lane, m0, n0, M, N);
       mbar_arrive(acc_empty);
     }
   }
@@ -447,16 +457,16 @@ int launch_gemm(const T* a, const T* w, const Epi& ep, int M, int N, int K,
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const size_t smem = GEMM_SMEM + Epi::SCRATCH_BYTES;
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(gemm_sm90_kernel<T, Epi>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)GEMM_SMEM);
+                               (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int tiles =
       ((N + GEMM_BN - 1) / GEMM_BN) * ((M + GEMM_BM - 1) / GEMM_BM);
-  gemm_sm90_kernel<T, Epi>
-      <<<tiles < sms ? tiles : sms, GEMM_THREADS, GEMM_SMEM, stream>>>(
-          tm_a, tm_w, ep, M, N, K);
+  gemm_sm90_kernel<T, Epi><<<tiles < sms ? tiles : sms, GEMM_THREADS, smem,
+                             stream>>>(tm_a, tm_w, ep, M, N, K);
   return (int)cudaGetLastError();
 }
 

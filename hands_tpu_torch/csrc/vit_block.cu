@@ -27,23 +27,52 @@
 // GEMM of gemm_sm90.cuh (a persistent grid of 128 x 128 tiles, TMA loads
 // into a four-stage mbarrier ring, two MMA warpgroups on wgmma m64n128k16,
 // epilogue warps that finish one tile while the next one's products run)
-// with the four epilogues below, stored as bf16 pairs. Attention runs on the tensor cores (mma.sync
-// with ldmatrix operands, the logits and the softmax in registers, the f32
-// probabilities split into three bf16 parts); see attention_kernel.cuh. The
-// LayerNorm is one thread block per row.
+// with the four epilogues below, stored as bf16 pairs; the exact GELU's
+// erfc comes from a table of its bf16 arguments. Attention runs on the
+// tensor cores (mma.sync with ldmatrix operands, the logits and the softmax
+// in registers, the f32 probabilities split into three bf16 parts); see
+// attention_kernel.cuh. The LayerNorm is one thread block per row.
 
 #include "attention_kernel.cuh"
 #include "gemm_sm90.cuh"
 
 namespace {
 
+// bf16(erfcf(d)) for a bf16 value d, from a table of the values with 2^-16
+// <= |d| < 16 (two signs, exponents 2^-16 .. 2^3, 128 mantissas each, as
+// f32): erfcf of a bf16 value is all the exact GELU below ever evaluates,
+// so the table gives its results bit for bit, at a shared-memory load
+// instead of ~50 instructions. Outside the table the result is 1 (|d| <
+// 2^-16: erfc(d) is within 2e-5 of 1), 0 (d >= 16) or 2 (d <= -16).
+constexpr int ERFC_EXP_LO = 127 - 16;   // the exponent field of 2^-16
+constexpr int ERFC_ENTRIES = 20 * 128;  // one sign
+constexpr int ERFC_TABLE_BYTES = 2 * ERFC_ENTRIES * 4;  // 20 KB
+
+__device__ __forceinline__ float erfc_bf16_table_entry(int k) {
+  const uint32_t sign = k < ERFC_ENTRIES ? 0u : 1u;
+  const uint32_t bits = (uint32_t)(ERFC_EXP_LO * 128 + k % ERFC_ENTRIES);
+  return round_bf16(erfcf(__uint_as_float(sign << 31 | bits << 16)));
+}
+
+__device__ __forceinline__ float erfc_bf16(float d, const float* table) {
+  const uint32_t bits = __float_as_uint(d);
+  const uint32_t mag = bits & 0x7fffffffu, neg = bits >> 31;
+  const int i = (int)(mag >> 16) - ERFC_EXP_LO * 128;
+  const bool in = (unsigned)i < (unsigned)ERFC_ENTRIES;
+  const float t = table[neg * ERFC_ENTRIES + (in ? i : 0)];
+  const float outside =
+      mag < (uint32_t)ERFC_EXP_LO << 23 ? 1.f : (neg ? 2.f : 0.f);
+  return mag > 0x7f800000u ? d : (in ? t : outside);  // NaN stays NaN
+}
+
 // Exact GELU 0.5x * erfc(-x/sqrt2) with the bf16 rounding points of
 // _gelu_mosaic (vit_block_pallas.py:60): each op rounds to bf16, and the
-// 2^-0.5 constant is itself the bf16 value 0.70703125. x is bf16-exact.
-__device__ __forceinline__ float gelu_bf16(float x) {
+// 2^-0.5 constant is itself the bf16 value 0.70703125. x is bf16-exact;
+// erfc through the table of erfc_bf16.
+__device__ __forceinline__ float gelu_bf16(float x, const float* erfc_table) {
   const float half_x = round_bf16(0.5f * x);
   const float d = round_bf16(-x * 0.70703125f);
-  const float e = round_bf16(erfcf(d));
+  const float e = erfc_bf16(d, erfc_table);
   return round_bf16(half_x * e);
 }
 
@@ -129,14 +158,26 @@ struct BlockEpilogue {
   const bf16* residual;  // (M, N), EPI_BIAS_RESIDUAL only
   bf16* out;             // (M, N)
   int N;
+  const float* erfc_table;  // EPI_BIAS_GELU: in shared memory, see prepare
 
   // an inner tile's pairs start at even elements of 4-byte aligned rows
   __device__ __forceinline__ bool aligned_pairs() const { return N % 2 == 0; }
 
-  __device__ __forceinline__ static float finish(float acc, float b,
-                                                 float r) {
+  static constexpr int SCRATCH_BYTES =
+      EPI == EPI_BIAS_GELU ? ERFC_TABLE_BYTES : 0;
+
+  // the exact GELU's erfc table, by the epilogue warps at the launch's start
+  __device__ __forceinline__ void prepare(unsigned char* scratch, int thread,
+                                          int threads) {
+    float* table = reinterpret_cast<float*>(scratch);
+    for (int k = thread; k < 2 * ERFC_ENTRIES; k += threads)
+      table[k] = erfc_bf16_table_entry(k);
+    erfc_table = table;
+  }
+
+  __device__ __forceinline__ float finish(float acc, float b, float r) const {
     const float x = round_bf16(round_bf16(acc) + b);
-    if (EPI == EPI_BIAS_GELU) return gelu_bf16(x);
+    if (EPI == EPI_BIAS_GELU) return gelu_bf16(x, erfc_table);
     if (EPI == EPI_BIAS_GELU_TANH) return gelu_tanh_bf16(x);
     if (EPI == EPI_BIAS_RESIDUAL) return r + x;
     return x;
@@ -160,7 +201,7 @@ int block_gemm(const void* a, const void* w, const void* bias,
                const void* residual, void* out, int M, int N, int K,
                cudaStream_t stream) {
   const BlockEpilogue<EPI> ep{(const bf16*)bias, (const bf16*)residual,
-                              (bf16*)out, N};
+                              (bf16*)out, N, nullptr};
   return launch_gemm((const bf16*)a, (const bf16*)w, ep, M, N, K, stream);
 }
 

@@ -155,6 +155,9 @@ struct AblationEpilogue {
     return (EPI == EPI_CAST ? keep_cols : N) % 2 == 0;
   }
 
+  static constexpr int SCRATCH_BYTES = 0;  // no table
+  __device__ __forceinline__ void prepare(unsigned char*, int, int) {}
+
   __device__ __forceinline__ static int8_t finish(int acc, float d, float b,
                                                   float inv) {
     const float v = dequant_static(acc, d, b);

@@ -45,8 +45,8 @@
 // 128-byte K tiles into a four-stage mbarrier ring, two MMA warpgroups on
 // wgmma m64n128k32 with s32 accumulators, epilogue warps that finish one
 // tile while the next one's products run); each of the seven dequantising
-// epilogues below is a type, storing pairs of adjacent outputs. The row passes are one
-// thread block per row.
+// epilogues below is a type, storing pairs of adjacent outputs. The row
+// passes are one thread block per row.
 
 #include "common.cuh"
 #include "gemm_sm90.cuh"
@@ -144,6 +144,9 @@ struct Epilogue {
 
   // an inner tile's pairs start at even elements of aligned rows
   __device__ __forceinline__ bool aligned_pairs() const { return N % 2 == 0; }
+
+  static constexpr int SCRATCH_BYTES = 0;  // no table
+  __device__ __forceinline__ void prepare(unsigned char*, int, int) {}
 
   __device__ __forceinline__ static float gelu(float h) {
     return FAST ? gelu_tanh_f32(h) : gelu_erfc_f32(h);
