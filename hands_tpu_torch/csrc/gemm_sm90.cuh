@@ -453,16 +453,26 @@ int launch_gemm(const T* a, const T* w, const Epi& ep, int M, int N, int K,
   if (!encode_operand(&tm_a, a, M, K, GEMM_BM) ||
       !encode_operand(&tm_w, w, N, K, GEMM_BN))
     return (int)cudaErrorInvalidValue;
-  int device, sms;
+  // the SM count and the shared-memory limit, once per device (a launch
+  // of a few tens of microseconds should not pay driver queries)
+  constexpr int MAX_DEVICES = 64;
+  static int sms_of[MAX_DEVICES];
+  int device;
   cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  const size_t smem = GEMM_SMEM + Epi::SCRATCH_BYTES;
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(gemm_sm90_kernel<T, Epi>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
   if (err != cudaSuccess) return (int)err;
+  if (device >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  const size_t smem = GEMM_SMEM + Epi::SCRATCH_BYTES;
+  if (sms_of[device] == 0) {
+    int sms;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(gemm_sm90_kernel<T, Epi>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    sms_of[device] = sms;
+  }
+  const int sms = sms_of[device];
   const int tiles =
       ((N + GEMM_BN - 1) / GEMM_BN) * ((M + GEMM_BM - 1) / GEMM_BM);
   gemm_sm90_kernel<T, Epi><<<tiles < sms ? tiles : sms, GEMM_THREADS, smem,
