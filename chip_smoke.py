@@ -168,6 +168,18 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_ms(fn, iters: int = 100) -> float:
+    """Mean host time of a call of ``fn`` (the enqueue, not the kernel)."""
+    fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    ms = (time.perf_counter() - start) / iters * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
 def graph_ms(fn, iters: int = 50, replays: int = 20) -> float:
     """Mean device time of ``fn`` for launches of a few microseconds:
     ``iters`` calls captured into one CUDA graph and replayed, so that the
@@ -768,10 +780,14 @@ def time_groups(groups, rows, tag) -> None:
                 bound = max(*case.bound(case.call(pfn)))
                 lib = "none" if lm is None else f"{lm:.4f} ms"
                 unit = "TOP/s" if case.kind == "int8" else "TFLOP/s"
+                host = ""  # the wrapper's host time, where it nears the card's
+                if kname in GEMM_KERNELS:
+                    host = (f", host {host_ms(lambda c=case: c.call(kfn)):.4f}"
+                            f" ms a call")
                 print(f"    {case.label:<34s} kernel {km:.4f} ms "
                       f"({case.ops / km / 1e9:.1f} {unit}, {bound / km:.1%} "
                       f"of the bound), plain {pm:.4f} ms, library {lib}, "
-                      f"bound {bound:.4f} ms")
+                      f"bound {bound:.4f} ms{host}")
             # per block: the sum over this kernel's launch shapes
             row = rows[kname]
             row["ms"], row["plain_ms"] = sum(k_ms), sum(p_ms)

@@ -24,10 +24,10 @@
 // operations over 39 MB of bf16 (19.7 MB of int8) weights; from ~300 token
 // rows on (3072 at 8 images) that is the tensor cores' time, 989 TFLOP/s
 // bf16 and 1,979 TOP/s int8: 0.122 ms and 0.061 ms per block at 3072 rows.
-// Only wgmma reaches that rate (the mma.sync and wmma loops this replaces
-// reached 10-18% of it). Behind the products, the epilogues: the exact GELU
-// of the MLP's first GEMM costs ~74 instructions an output (erfcf, the bf16
-// roundings), as much as the tile's products take when run alone.
+// Only wgmma reaches that rate. Behind the products, the epilogues: the
+// exact GELU of the MLP's first GEMM costs ~74 instructions an output
+// (erfcf, the bf16 roundings) without vit_block.cu's erfc table, more than
+// the tile's products take.
 // What the design does about it:
 //   - one thread block per SM walks 128 x 128 output tiles (a persistent
 //     grid); one producer warp issues TMA loads of A and W tiles (128-byte
@@ -252,8 +252,8 @@ struct Pair<int> {
   typedef int2 type;
 };
 
-// The epilogue warps' share of one tile: warp e takes rows e, e + 8, ...,
-// a lane the column pairs 2*lane and 64 + 2*lane of each, so that a warp
+// The epilogue warps' share of one tile: warp e takes rows e, e + EPI_WARPS,
+// ..., a lane the column pairs 2*lane and 64 + 2*lane of each, so that a warp
 // stores 64 adjacent outputs at a time. EDGE: guard the rows and columns
 // past the output and pairs that are not aligned (else the tile is inside
 // and its pairs aligned, and the loop has no branch).
@@ -278,12 +278,12 @@ __device__ __forceinline__ void epilogue_tile(const Epi& ep, const Acc* acc,
 
 // A persistent grid: block b takes output tiles b, b + gridDim.x, ... of
 // the (M / 128) x (N / 128) grid, N fastest. Warp roles:
-//   warp 16 (producer): one thread keeps the ring of stages full with TMA
+//   warp 19 (producer): one thread keeps the ring of stages full with TMA
 //     loads, across tiles;
 //   warps 0-7 (two MMA warpgroups): rows 0-63 and 64-127 of a tile on
 //     wgmma, then the accumulators into shared memory (acc_full) once the
 //     epilogue warps have read the last tile's (acc_empty);
-//   warps 8-15 (epilogue): apply ep to a tile while the MMA warpgroups run
+//   warps 8-18 (epilogue): apply ep to a tile while the MMA warpgroups run
 //     the next one's main loop.
 template <typename T, typename Epi>
 __global__ void __launch_bounds__(GEMM_THREADS, 1)

@@ -57,8 +57,9 @@ def _bind(lib: ctypes.CDLL) -> None:
         fn.restype = ctypes.c_int
 
 
-# -fmad=false: the f32 dequantisation chains must round op by op, as the
-# twins do (see the note at the top of the source)
+# -fmad=false: the f32 chains must round where the twins round, op by op
+# but for the static dequantisation's one explicit fmaf (see the note at the
+# top of the source)
 LIBRARY = CudaLibrary("vit_block_int8", _bind, "i8_error_string",
                       extra_flags=("-fmad=false",))
 
