@@ -34,10 +34,6 @@
 //     rows: 64 bf16 or 128 int8 of K, in the 128-byte swizzle that wgmma
 //     reads without bank conflicts) into a ring of four stages with a
 //     "full" and an "empty" mbarrier each, running ahead across tiles;
-//   - blocks work in clusters of two on two tiles of one W column: each
-//     loads its A tile and half of the W tile, multicast into both blocks,
-//     a quarter less to read from L2 (a stage's slot is refilled once the
-//     MMA warpgroups of both blocks have released it);
 //   - two MMA warpgroups own 64 rows each and run wgmma.mma_async from
 //     shared-memory descriptors, keeping one stage's products in flight
 //     while they wait for the next (wgmma.wait_group 1) and releasing a
@@ -78,10 +74,6 @@ constexpr int GEMM_STAGES = 4;
 constexpr int MMA_WARPS = 8;  // warps 0-7: two MMA warpgroups
 constexpr int EPI_WARPS = 11;  // warps 8-18: the epilogue
 constexpr int GEMM_THREADS = 32 * (MMA_WARPS + EPI_WARPS + 1);  // + producer
-// two blocks of a cluster take two tiles of one W column: each loads half of
-// the W tile and multicasts it to both, a quarter less from L2 a stage
-constexpr int CLUSTER = 2;
-constexpr int W_PART_ROWS = GEMM_BN / CLUSTER;
 constexpr int ROW_BYTES = 128;  // one K tile row, one swizzle span
 constexpr int A_TILE_BYTES = GEMM_BM * ROW_BYTES;  // 16 KB
 constexpr int W_TILE_BYTES = GEMM_BN * ROW_BYTES;  // 16 KB
@@ -227,46 +219,6 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
-// the box at (x, y) of `map` into offset `dst` of every block of the
-// cluster in `mask`, completing on each block's barrier at offset `bar`
-__device__ __forceinline__ void tma_load_multicast(uint32_t dst,
-                                                   const CUtensorMap* map,
-                                                   uint32_t bar, int x, int y,
-                                                   uint16_t mask) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes.multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(x), "r"(y),
-      "h"(mask)
-      : "memory");
-}
-
-// an arrival on the barrier at offset `bar` of block `rank` of the cluster
-__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar,
-                                                    uint32_t rank) {
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(remote)
-               : "r"(bar), "r"(rank));
-  asm volatile(
-      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
-          remote)
-      : "memory");
-}
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t rank;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
-  return rank;
-}
-
-// every thread of both blocks of the cluster
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
 // wgmma descriptor of a K-major tile of 128-byte rows in the 128-byte
 // swizzle: rows in groups of 8 (1024 bytes apart, the stride byte offset);
 // the leading byte offset is unused for this layout
@@ -324,9 +276,8 @@ __device__ __forceinline__ void epilogue_tile(const Epi& ep, const Acc* acc,
   }
 }
 
-// A persistent grid of 2-block clusters: cluster c takes the tile pairs c,
-// c + gridDim.x / 2, ... (pair p: tile rows 2 (p / tiles_n) and 2 (p /
-// tiles_n) + 1 of column p % tiles_n, one a block). Warp roles:
+// A persistent grid: block b takes output tiles b, b + gridDim.x, ... of
+// the (M / 128) x (N / 128) grid, N fastest. Warp roles:
 //   warp 19 (producer): one thread keeps the ring of stages full with TMA
 //     loads, across tiles;
 //   warps 0-7 (two MMA warpgroups): rows 0-63 and 64-127 of a tile on
@@ -352,48 +303,34 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1)
   const uint32_t acc_full = bars + 16 * GEMM_STAGES;
   const uint32_t acc_empty = acc_full + 8;
   const int k_tiles = (K + K_TILE - 1) / K_TILE;
-  // cluster c takes the tile pairs c, c + clusters, ...: pair p is column
-  // p % tiles_n of tile rows 2 (p / tiles_n) and 2 (p / tiles_n) + 1, the
-  // block of rank r the second
-  const uint32_t rank = cluster_rank();
   const int tiles_n = (N + GEMM_BN - 1) / GEMM_BN;
-  const int tiles_m = (M + GEMM_BM - 1) / GEMM_BM;
-  const int pairs = tiles_n * ((tiles_m + CLUSTER - 1) / CLUSTER);
-  const int first = blockIdx.x / CLUSTER, step = gridDim.x / CLUSTER;
-  auto tile_m0 = [&](int p) {
-    return (p / tiles_n * CLUSTER + (int)rank) * GEMM_BM;
-  };
-  auto tile_n0 = [&](int p) { return p % tiles_n * GEMM_BN; };
+  const int tiles = tiles_n * ((M + GEMM_BM - 1) / GEMM_BM);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < GEMM_STAGES; ++s) {
       mbar_init(full(s), 1);   // the producer's expect_tx, then the bytes
-      mbar_init(empty(s), 2 * CLUSTER);  // each MMA warpgroup of each block
+      mbar_init(empty(s), 2);  // one arrival per MMA warpgroup
     }
     mbar_init(acc_full, 32 * MMA_WARPS);
     mbar_init(acc_empty, 32 * EPI_WARPS);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  cluster_sync();  // the peer's barriers exist before any arrival on them
+  __syncthreads();
 
   if (warp == MMA_WARPS + EPI_WARPS) {
     // ---- producer
     if (lane == 0) {
       int g = 0;  // k-steps issued by this block, over all its tiles
-      for (int p = first; p < pairs; p += step) {
-        const int m0 = tile_m0(p), n0 = tile_n0(p);
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = t / tiles_n * GEMM_BM, n0 = t % tiles_n * GEMM_BN;
         for (int kt = 0; kt < k_tiles; ++kt, ++g) {
-          // the slot is free in both blocks: their MMA warpgroups released
-          // it here, and this block's half of W lands in both
           const int s = g % GEMM_STAGES;
           mbar_wait(empty(s), ((g / GEMM_STAGES) & 1) ^ 1);
           mbar_expect_tx(full(s), STAGE_BYTES);  // zero-filled bytes count
           const uint32_t a = base + s * STAGE_BYTES;
           tma_load(a, &tm_a, full(s), kt * K_TILE, m0);
-          tma_load_multicast(a + A_TILE_BYTES + rank * W_PART_ROWS * ROW_BYTES,
-                             &tm_w, full(s), kt * K_TILE,
-                             n0 + rank * W_PART_ROWS, (1 << CLUSTER) - 1);
+          tma_load(a + A_TILE_BYTES, &tm_w, full(s), kt * K_TILE, n0);
         }
       }
     }
@@ -401,7 +338,7 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1)
     // ---- MMA warpgroup cw: rows 64*cw .. 64*cw + 63 of each tile
     const int cw = warp / 4;
     int g = 0;
-    for (int p = first, it = 0; p < pairs; p += step, ++it) {
+    for (int t = blockIdx.x, it = 0; t < tiles; t += gridDim.x, ++it) {
       Acc acc[64];
 #pragma unroll
       for (int i = 0; i < 64; ++i) acc[i] = 0;
@@ -422,14 +359,11 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1)
         asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
         fence_acc(acc);
         if (kt > 0 && threadIdx.x % 128 == 0)
-          for (int r = 0; r < CLUSTER; ++r)
-            mbar_arrive_cluster(empty((g - 1) % GEMM_STAGES), r);
+          mbar_arrive(empty((g - 1) % GEMM_STAGES));
       }
       asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
       fence_acc(acc);
-      if (threadIdx.x % 128 == 0)
-        for (int r = 0; r < CLUSTER; ++r)
-          mbar_arrive_cluster(empty((g - 1) % GEMM_STAGES), r);
+      if (threadIdx.x % 128 == 0) mbar_arrive(empty((g - 1) % GEMM_STAGES));
 
       // acc[4j + q] is row 16*(warp%4) + lane/4 + 8*(q/2), column 8j +
       // 2*(lane%4) + q%2 of this warpgroup's 64 rows
@@ -459,8 +393,8 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1)
                   threadIdx.x - 32 * MMA_WARPS, 32 * EPI_WARPS);
       asm volatile("bar.sync 1, %0;\n" ::"n"(32 * EPI_WARPS) : "memory");
     }
-    for (int p = first, it = 0; p < pairs; p += step, ++it) {
-      const int m0 = tile_m0(p), n0 = tile_n0(p);
+    for (int t = blockIdx.x, it = 0; t < tiles; t += gridDim.x, ++it) {
+      const int m0 = t / tiles_n * GEMM_BM, n0 = t % tiles_n * GEMM_BN;
       mbar_wait(acc_full, it & 1);
       if (m0 + GEMM_BM <= M && n0 + GEMM_BN <= N && lep.aligned_pairs())
         epilogue_tile<false>(lep, acc_smem, e, lane, m0, n0, M, N);
@@ -469,7 +403,6 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1)
       mbar_arrive(acc_empty);
     }
   }
-  cluster_sync();  // no block leaves while its peer may still arrive on it
 }
 
 // ------------------------------------------------------------------ host
@@ -510,57 +443,40 @@ bool encode_operand(CUtensorMap* map, const T* p, int rows, int K,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// One launch of the GEMM: clusters of two blocks, as many as fit on the
-// card at once (at most one per tile pair), each walking its share of the
-// pairs of 128 x 128 output tiles. Returns the cudaError_t of the launch.
+// One launch of the GEMM: one block per SM (at most one per tile), each
+// walking its share of the 128 x 128 output tiles. Returns the cudaError_t
+// of the launch.
 template <typename T, typename Epi>
 int launch_gemm(const T* a, const T* w, const Epi& ep, int M, int N, int K,
                 cudaStream_t stream) {
   CUtensorMap tm_a, tm_w;
   if (!encode_operand(&tm_a, a, M, K, GEMM_BM) ||
-      !encode_operand(&tm_w, w, N, K, W_PART_ROWS))
+      !encode_operand(&tm_w, w, N, K, GEMM_BN))
     return (int)cudaErrorInvalidValue;
-  cudaLaunchAttribute cluster_dim;
-  cluster_dim.id = cudaLaunchAttributeClusterDimension;
-  cluster_dim.val.clusterDim.x = CLUSTER;
-  cluster_dim.val.clusterDim.y = 1;
-  cluster_dim.val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.blockDim = dim3(GEMM_THREADS);
-  cfg.dynamicSmemBytes = GEMM_SMEM + Epi::SCRATCH_BYTES;
-  cfg.stream = stream;
-  cfg.attrs = &cluster_dim;
-  cfg.numAttrs = 1;
-  // the clusters that fit at once and the shared-memory limit, once per
-  // device (a launch of a few tens of microseconds should not pay driver
-  // queries)
+  // the SM count and the shared-memory limit, once per device (a launch
+  // of a few tens of microseconds should not pay driver queries)
   constexpr int MAX_DEVICES = 64;
-  static int clusters_of[MAX_DEVICES];
+  static int sms_of[MAX_DEVICES];
   int device;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return (int)err;
   if (device >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  if (clusters_of[device] == 0) {
-    int clusters = 0;
-    cfg.gridDim = dim3(CLUSTER);
-    err = cudaFuncSetAttribute(gemm_sm90_kernel<T, Epi>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)cfg.dynamicSmemBytes);
+  const size_t smem = GEMM_SMEM + Epi::SCRATCH_BYTES;
+  if (sms_of[device] == 0) {
+    int sms;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveClusters(&clusters,
-                                           gemm_sm90_kernel<T, Epi>, &cfg);
+      err = cudaFuncSetAttribute(gemm_sm90_kernel<T, Epi>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem);
     if (err != cudaSuccess) return (int)err;
-    if (clusters == 0) return (int)cudaErrorInvalidConfiguration;
-    clusters_of[device] = clusters;
+    sms_of[device] = sms;
   }
-  const int pairs = ((N + GEMM_BN - 1) / GEMM_BN) *
-                    ((M + CLUSTER * GEMM_BM - 1) / (CLUSTER * GEMM_BM));
-  const int clusters =
-      pairs < clusters_of[device] ? pairs : clusters_of[device];
-  cfg.gridDim = dim3(CLUSTER * clusters);
-  err = cudaLaunchKernelEx(&cfg, gemm_sm90_kernel<T, Epi>, tm_a, tm_w, ep, M,
-                           N, K);
-  if (err != cudaSuccess) return (int)err;
+  const int sms = sms_of[device];
+  const int tiles =
+      ((N + GEMM_BN - 1) / GEMM_BN) * ((M + GEMM_BM - 1) / GEMM_BM);
+  gemm_sm90_kernel<T, Epi><<<tiles < sms ? tiles : sms, GEMM_THREADS, smem,
+                             stream>>>(tm_a, tm_w, ep, M, N, K);
   return (int)cudaGetLastError();
 }
 
