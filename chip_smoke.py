@@ -112,11 +112,13 @@ PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12,
 # redesigned kernels: the design each replaced and that design's time on an
 # H100 at 700 W (PERF.md), printed beside the new time and kept out of the
 # kernels line, which holds this run's readings. ms per ViT-H block at 3072
-# rows, K8's per launch at 49,152 rows
+# rows (the LayerNorm's through a CUDA graph), K8's per launch at 49,152 rows
 ATTN_BEFORE, GEMM_BF16_BEFORE, GEMM_I8_BEFORE = (
     "the f32 CUDA-core attention loop", "wmma 16x16x16 + cp.async ring",
     "mma.sync m16n8k32 + cp.async ring")
-EARLIER_MS = {"vit_attention": (ATTN_BEFORE, 0.4681),
+EARLIER_MS = {"vit_layernorm": ("a 256-thread block per row", 0.0192),
+              "attention_i8": ("dp4a, a warp per query row", 1.9415),
+              "vit_attention": (ATTN_BEFORE, 0.4681),
               "qkv_attention_dynamic": (ATTN_BEFORE, 0.4360),
               "qkv_attention_static": (ATTN_BEFORE, 0.4027),
               "mha_fused": (ATTN_BEFORE, 0.4042),
@@ -129,8 +131,10 @@ EARLIER_MS = {"vit_attention": (ATTN_BEFORE, 0.4681),
               "gemm_i8_gelu_cast": (GEMM_I8_BEFORE, 2.0725),
               "gemm_i8_ident_quant": (GEMM_I8_BEFORE, 1.8498),
               "gemm_i8_cast": (GEMM_I8_BEFORE, 1.2089)}
+# every attention kernel: the bf16 ones on attention_kernel.cuh's MMA route
+# and K8's int8 one
 ATTENTION_KERNELS = tuple(k for k, (d, _) in EARLIER_MS.items()
-                          if d == ATTN_BEFORE)
+                          if d == ATTN_BEFORE) + ("attention_i8",)
 # the wrappers of csrc/gemm_sm90.cuh's two main loops
 GEMM_KERNELS = ("vit_gemm", "gemm_i8_dynamic", "gemm_i8_static",
                 "gemm_i8_gelu_cast", "gemm_i8_ident_quant", "gemm_i8_cast")
@@ -144,6 +148,10 @@ RAGGED_GEMM = (200, 136, 1288, 1296)
 # and b16 ViTs, and the limits (256 tokens, head dim 128, head dim 16)
 ATTN_SWEEP = ((1, 50, 64), (1, 50, 80), (1, 145, 64), (1, 145, 80),
               (1, 256, 64), (1, 145, 128), (2, 24, 16))
+# the int8 attention also takes a head dim that is a multiple of 4 only
+ATTN_I8_SWEEP = ATTN_SWEEP + ((1, 50, 20), (2, 193, 36))
+# LayerNorm off its rows a thread block: (rows, widths)
+LN_RAGGED = ((1, 13, 3077), (128, 160, 768, 1280))
 
 
 def card_line() -> str:
@@ -192,6 +200,12 @@ def graph_ms(fn, iters: int = 50, replays: int = 20) -> float:
         for _ in range(iters):
             fn()
     return cuda_ms(graph.replay, iters=replays) / iters
+
+
+def short_ms(fn) -> float:
+    """:func:`graph_ms` for launches of a few tens of microseconds whose
+    outputs are large (10 calls a graph)."""
+    return graph_ms(fn, iters=10)
 
 
 def require(ok: bool, what: str) -> None:
@@ -370,13 +384,6 @@ def kernel_cases(x, p, p32):
     def gemm_ops(n, k):
         return 2 * rows * n * k
 
-    # a GEMM at 3072 rows takes 17-90 us on the card and its wrapper 25-45
-    # us on the host: time those through a CUDA graph, so that the host's
-    # cost is not read as the kernel's (10 calls a graph: outputs stay in
-    # the graph's pool)
-    gemm_timer = cuda_ms if rows > ROWS else (
-        lambda fn: graph_ms(fn, iters=10))
-
     def sdpa(qkv3):
         t = qkv3.view(batch, N_TOK, 3, HEADS, HEAD_DIM).permute(2, 0, 3, 1, 4)
         return lambda: F.scaled_dot_product_attention(t[0], t[1], t[2])
@@ -401,23 +408,19 @@ def kernel_cases(x, p, p32):
         "vit_gemm": (vb.gemm, vb.gemm_plain, [
             Case("gemm qkv", lambda f: f(y, p["wqkv"], p["bqkv"]),
                  [y, p["wqkv"], p["bqkv"]], gemm_ops(3 * C, C), "bf16",
-                 lambda: F.linear(y, p["wqkv"], p["bqkv"]),
-                 timer=gemm_timer),
+                 lambda: F.linear(y, p["wqkv"], p["bqkv"])),
             Case("gemm proj+residual",
                  lambda f: f(o, p["wproj"], p["bproj"], "residual", x2),
                  [o, p["wproj"], p["bproj"], x2], gemm_ops(C, C), "bf16",
-                 lambda: F.linear(o, p["wproj"], p["bproj"]),
-                 timer=gemm_timer),
+                 lambda: F.linear(o, p["wproj"], p["bproj"])),
             Case("gemm mlp1+gelu",
                  lambda f: f(y, p["w1"], p["b1"], "gelu"),
                  [y, p["w1"], p["b1"]], gemm_ops(HIDDEN, C), "bf16",
-                 lambda: F.linear(y, p["w1"], p["b1"]),
-                 timer=gemm_timer),
+                 lambda: F.linear(y, p["w1"], p["b1"])),
             Case("gemm mlp2+residual",
                  lambda f: f(h, p["w2"], p["b2"], "residual", x2),
                  [h, p["w2"], p["b2"], x2], gemm_ops(C, HIDDEN), "bf16",
-                 lambda: F.linear(h, p["w2"], p["b2"]),
-                 timer=gemm_timer),
+                 lambda: F.linear(h, p["w2"], p["b2"])),
         ]),
         "vit_attention": (vb.attention, vb.attention_plain, [
             Case("attention", lambda f: f(qkv3, HEADS), [qkv3], attn_ops,
@@ -428,8 +431,7 @@ def kernel_cases(x, p, p32):
     extra = [(Case("gemm mlp1+gelu_tanh",
                    lambda f: f(y, p["w1"], p["b1"], "gelu_tanh"),
                    [y, p["w1"], p["b1"]], gemm_ops(HIDDEN, C), "bf16",
-                   lambda: F.linear(y, p["w1"], p["b1"]),
-                 timer=gemm_timer),
+                   lambda: F.linear(y, p["w1"], p["b1"])),
               vb.gemm, vb.gemm_plain)]
 
     # ---- K5: dynamic W8A8 block
@@ -474,25 +476,25 @@ def kernel_cases(x, p, p32):
                  dyn(qy, sy, "wqkv_q", "sqkv", "bqkv"),
                  [qy, sy, d["wqkv_q"], d["sqkv"], d["bqkv"]],
                  gemm_ops(3 * C, C), "int8", int_mm(qy, d["wqkv_q"]),
-                 compare_equal, timer=gemm_timer),
+                 compare_equal),
             Case("gemm_i8 dynamic proj+residual",
                  dyn(qo, so, "wproj_q", "sproj", "bproj", epilogue="residual",
                      residual=x32, out_dtype=torch.float32),
                  [qo, so, d["wproj_q"], d["sproj"], d["bproj"], x32],
                  gemm_ops(C, C), "int8", int_mm(qo, d["wproj_q"]),
-                 compare_equal, timer=gemm_timer),
+                 compare_equal),
             Case("gemm_i8 dynamic mlp1+gelu",
                  dyn(qy2, sy2, "w1_q", "s1", "b1", epilogue="gelu",
                      out_dtype=torch.float32),
                  [qy2, sy2, d["w1_q"], d["s1"], d["b1"]],
                  gemm_ops(HIDDEN, C), "int8", int_mm(qy2, d["w1_q"]),
-                 compare_gelu_gemm, timer=gemm_timer),
+                 compare_gelu_gemm),
             Case("gemm_i8 dynamic mlp2+residual",
                  dyn(qh, sh, "w2_q", "s2", "b2", epilogue="residual",
                      residual=x1, out_dtype=bf),
                  [qh, sh, d["w2_q"], d["s2"], d["b2"], x1],
                  gemm_ops(C, HIDDEN), "int8", int_mm(qh, d["w2_q"]),
-                 compare_equal, timer=gemm_timer),
+                 compare_equal),
         ]),
         "qkv_attention_dynamic": (at.qkv_attention, at.qkv_attention_plain, [
             Case("attention dynamic (f32 probs)", lambda f: f(dqkv3, HEADS),
@@ -503,7 +505,7 @@ def kernel_cases(x, p, p32):
         dyn(qy2, sy2, "w1_q", "s1", "b1", epilogue="gelu",
             out_dtype=torch.float32, fast_gelu=True),
         [qy2, sy2, d["w1_q"], d["s1"], d["b1"]], gemm_ops(HIDDEN, C), "int8",
-        int_mm(qy2, d["w1_q"]), compare_gelu_gemm, timer=gemm_timer),
+        int_mm(qy2, d["w1_q"]), compare_gelu_gemm),
         v8.gemm_i8, v8.gemm_i8_plain))
 
     # ---- K6: static W8A8 block, scales from these activations' maxima
@@ -540,25 +542,25 @@ def kernel_cases(x, p, p32):
             Case("gemm_i8 static qkv", sta(sq, "wqkv_q", "dqkv", "bqkv"),
                  [sq, s["wqkv_q"], s["dqkv"], s["bqkv"]],
                  gemm_ops(3 * C, C), "int8", int_mm(sq, s["wqkv_q"]),
-                 compare_equal, timer=gemm_timer),
+                 compare_equal),
             Case("gemm_i8 static proj+residual",
                  sta(sqo, "wproj_q", "dproj", "bproj", epilogue="residual",
                      residual=x2),
                  [sqo, s["wproj_q"], s["dproj"], s["bproj"], x2],
                  gemm_ops(C, C), "int8", int_mm(sqo, s["wproj_q"]),
-                 compare_equal, timer=gemm_timer),
+                 compare_equal),
             Case("gemm_i8 static mlp1+gelu_tanh+quant",  # the served form
                  sta(sq2, "w1_q", "d1", "b1", epilogue="gelu",
                      inv_next=s["inv_mlp2"], fast_gelu=True),
                  [sq2, s["w1_q"], s["d1"], s["b1"], s["inv_mlp2"]],
                  gemm_ops(HIDDEN, C), "int8", int_mm(sq2, s["w1_q"]),
-                 compare_gelu_gemm, timer=gemm_timer),
+                 compare_gelu_gemm),
             Case("gemm_i8 static mlp2+residual",
                  sta(sqh, "w2_q", "d2", "b2", epilogue="residual",
                      residual=sx1),
                  [sqh, s["w2_q"], s["d2"], s["b2"], sx1],
                  gemm_ops(C, HIDDEN), "int8", int_mm(sqh, s["w2_q"]),
-                 compare_equal, timer=gemm_timer),
+                 compare_equal),
         ]),
         "qkv_attention_static": (at.qkv_attention, at.qkv_attention_plain, [
             Case("attention static (int8 out)",
@@ -572,7 +574,7 @@ def kernel_cases(x, p, p32):
             inv_next=s["inv_mlp2"]),
         [sq2, s["w1_q"], s["d1"], s["b1"], s["inv_mlp2"]],
         gemm_ops(HIDDEN, C), "int8", int_mm(sq2, s["w1_q"]),
-        compare_gelu_gemm, timer=gemm_timer), v8.gemm_i8, v8.gemm_i8_plain))
+        compare_gelu_gemm), v8.gemm_i8, v8.gemm_i8_plain))
 
     # ---- K7: fused attention on the slices of a fused qkv, bf16 and f32
     q5 = qkv.view(batch, N_TOK, 3, HEADS, HEAD_DIM)
@@ -598,6 +600,14 @@ def kernel_cases(x, p, p32):
         at.mha_fused, at.mha_plain))
     groups = [(K3, SRC_K3, k3), (K5, SRC_I8, k5), (K6, SRC_I8, k6),
               (K7, SRC_ATTN, k7)]
+    # at 3072 rows a launch takes 5-90 us on the card and its wrapper 20-45
+    # us on the host: time every case, its twin and its library call through
+    # a CUDA graph, so that the host's cost is not read as the card's (10
+    # calls a graph: outputs stay in the graph's pool)
+    if rows <= ROWS:
+        for case in [c for _, _, ks in groups for *_, cs in ks.values()
+                     for c in cs] + [e[0] for e in extra]:
+            case.timer = short_ms
     # the int8 blocks' attention lives in the attention library
     sources = {"qkv_attention_dynamic": SRC_ATTN,
                "qkv_attention_static": SRC_ATTN}
@@ -756,9 +766,10 @@ def check_groups(groups, sources, rows) -> None:
                 "bound_by": "operations" if t_ops > t_bytes else "bytes"}
 
 
-def time_groups(groups, rows, tag) -> None:
+def time_groups(groups, rows, tag, earlier=True) -> None:
     """Time every kernel of ``groups`` beside its twin and its library call
-    and complete its line in ``rows``."""
+    and complete its line in ``rows``; ``earlier``: print the time of the
+    design a redesigned kernel replaced (:data:`EARLIER_MS`) beside it."""
     for replaces, source, kernels in groups:
         for kname, (kfn, pfn, cases) in kernels.items():
             def each(fn):
@@ -780,10 +791,16 @@ def time_groups(groups, rows, tag) -> None:
                 bound = max(*case.bound(case.call(pfn)))
                 lib = "none" if lm is None else f"{lm:.4f} ms"
                 unit = "TOP/s" if case.kind == "int8" else "TFLOP/s"
-                host = ""  # the wrapper's host time, where it nears the card's
-                if kname in GEMM_KERNELS:
-                    host = (f", host {host_ms(lambda c=case: c.call(kfn)):.4f}"
-                            f" ms a call")
+                # a graph-timed case: the events reading of back-to-back
+                # calls and the wrapper's host time beside it
+                host = ""
+                if case.timer is not cuda_ms:
+                    ev = [cuda_ms(f) for f in (lambda c=case: c.call(kfn),
+                                               case.library) if f]
+                    host = (f", by events {ev[0]:.4f} ms" + (
+                        f" (library {ev[1]:.4f} ms)" if len(ev) > 1 else "")
+                        + f", host {host_ms(lambda c=case: c.call(kfn)):.4f}"
+                        f" ms a call")
                 print(f"    {case.label:<34s} kernel {km:.4f} ms "
                       f"({case.ops / km / 1e9:.1f} {unit}, {bound / km:.1%} "
                       f"of the bound), plain {pm:.4f} ms, library {lib}, "
@@ -796,7 +813,7 @@ def time_groups(groups, rows, tag) -> None:
             lib = ("none" if row["library_ms"] is None
                    else f"{row['library_ms']:.4f} ms")
             before = ""
-            if kname in EARLIER_MS:
+            if earlier and kname in EARLIER_MS:
                 design, ms = EARLIER_MS[kname]
                 row["redesigned"] = f"from {design}"
                 before = f", before the redesign ({design}) {ms:.4f} ms"
@@ -919,20 +936,58 @@ def gemm_ragged_check(gen, dev) -> None:
     torch.cuda.synchronize()
 
 
-def gemm_serving_phase(gen, dev, tag) -> None:
-    """The serving GEMMs at the bs64 batch (:data:`GEMM_SERVE_BATCH` crops,
-    24,576 rows) against their twins, timed beside the library call; their
-    lines stay out of the kernels JSON (per ViT-H block at 3072 rows)."""
+def require_refused(name, call) -> None:
+    """``call`` on the card raises the wrapper's ValueError and launches
+    nothing."""
+    before = launch_counts()
+    try:
+        call()
+    except ValueError as err:
+        require(launch_counts() == before, f"{name}: launched")
+        print(f"  {name:<34s} refused: {err}")
+        return
+    raise AssertionError(f"{name}: the wrapper took a shape past its limits")
+
+
+def layernorm_ragged_check(gen, dev) -> None:
+    """K3's LayerNorm at :data:`LN_RAGGED` against its twin; a width it does
+    not take is refused."""
+    from hands_tpu_torch.ops import vit_block as vb
+
+    counts, widths = LN_RAGGED
+    for c in widths:
+        scale = 1.0 + 0.1 * torch.randn(c, generator=gen, device=dev)
+        bias = 0.1 * torch.randn(c, generator=gen, device=dev)
+        for r in counts:
+            x = (3.0 * torch.randn((r, c), generator=gen, device=dev)
+                 + 0.5).to(torch.bfloat16)
+            compare(f"vit_layernorm rows {r} C {c}", vb.layernorm(x, scale,
+                                                                  bias),
+                    vb.layernorm_plain(x, scale, bias))
+    torch.cuda.synchronize()
+    x = torch.zeros((4, 1284), dtype=torch.bfloat16, device=dev)
+    ones = torch.ones(1284, device=dev)
+    require_refused("vit_layernorm C 1284",
+                    lambda: vb.layernorm(x, ones, ones))
+
+
+def gemm_serving_phase(gen, dev, tag,
+                       names=GEMM_KERNELS + ("vit_layernorm",)) -> None:
+    """The serving GEMMs and K3's LayerNorm (or the kernels of ``names``) at
+    the bs64 batch (:data:`GEMM_SERVE_BATCH` crops, 24,576 rows) against
+    their twins, timed beside the library call; their lines stay out of the
+    kernels JSON (per ViT-H block at 3072 rows)."""
     x, p, p32 = block_inputs(gen, dev, GEMM_SERVE_BATCH, N_TOK, C, HIDDEN)
     groups, sources, extra, _ = kernel_cases(x, p, p32)
-    groups = only(groups, GEMM_KERNELS)
-    print(f"  serving GEMMs at {GEMM_SERVE_BATCH * N_TOK} rows "
+    groups = only(groups, names)
+    print(f"  {', '.join(names)} at {GEMM_SERVE_BATCH * N_TOK} rows "
           f"({GEMM_SERVE_BATCH} crops) {tag}")
     rows = {}
     check_groups(groups, sources, rows)
-    for case, kfn, pfn in gemm_extra(extra):
+    for case, kfn, pfn in (gemm_extra(extra)
+                           if set(names) & set(GEMM_KERNELS) else []):
         case.check(case.label, case.call(kfn), case.call(pfn))
-    time_groups(groups, rows, tag)
+    time_groups(groups, rows, tag, earlier=False)
     del groups, extra, x, p, p32
     torch.cuda.empty_cache()
 
@@ -990,6 +1045,8 @@ def attention_phase(dev, qkv_k3, qkv_dyn) -> None:
         qkvh = abl.heads_split_plain(qkv, heads).contiguous()
         compare(f"attention_heads {at_}", abl.attention_heads(qkvh),
                 abl.attention_heads_plain(qkvh))
+        compare_int8(f"attention_i8 {at_}", abl.attention_i8(qkv, heads, inv),
+                     abl.attention_i8_plain(qkv, heads, inv))
         t5 = qkv.view(b, n, 3, heads, d)
         for dtype, rel, mean in ((bf, MAX_REL, MAX_MEAN),
                                  (torch.float32, 2e-5, 2e-6)):
@@ -998,7 +1055,18 @@ def attention_phase(dev, qkv_k3, qkv_dyn) -> None:
             compare(f"mha_fused {str(dtype)[6:]} {at_}",
                     at.mha_fused(q, k, v, d**-0.5),
                     at.mha_plain(q, k, v, d**-0.5), rel=rel, mean=mean)
+    for b, n, d in ATTN_I8_SWEEP[len(ATTN_SWEEP):]:
+        c = heads * d
+        qkv = torch.randn((b, n, 3 * c), generator=gen, device=dev).to(bf)
+        inv = 20.0 + 130.0 * torch.rand(c, generator=gen, device=dev)
+        compare_int8(f"attention_i8 B {b} N {n} D {d}",
+                     abl.attention_i8(qkv, heads, inv),
+                     abl.attention_i8_plain(qkv, heads, inv))
     torch.cuda.synchronize()
+    qkv = torch.zeros((1, 257, 3 * heads * 64), dtype=bf, device=dev)
+    inv = torch.ones(heads * 64, device=dev)
+    require_refused("attention_i8 N 257",
+                    lambda: abl.attention_i8(qkv, heads, inv))
 
     # the split of f32 probabilities: nearer the f32-probability twin than p
     # in bf16 is
@@ -2265,6 +2333,40 @@ def attention_alone() -> int:
     return 0
 
 
+def kernels_alone() -> int:
+    """The kernels of the three HaMeR serving blocks and of K7 at ViT-H, 3072
+    rows: each against its twin, the LayerNorm at ragged shapes, and every
+    launch timed through a CUDA graph beside its twin, its library call and
+    its events reading::
+
+        python3 -c "import sys, chip_smoke as cs; sys.exit(cs.kernels_alone())"
+    """
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from hands_tpu_torch.ops import attention as at
+    from hands_tpu_torch.ops import vit_block as vb
+    from hands_tpu_torch.ops import vit_block_int8 as v8
+    from hands_tpu_torch.ops.cuda_build import build_all
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    tag = f"[{card_line()}]"
+    t0 = time.time()
+    print_ptxas(build_all([vb.LIBRARY, v8.LIBRARY, at.LIBRARY]))
+    print(f"built {SRC_K3}, {SRC_I8}, {SRC_ATTN} in {time.time() - t0:.1f} s")
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    x, p, p32 = block_inputs(gen, DEV, BATCH, N_TOK, C, HIDDEN)
+    groups, sources, _, _ = kernel_cases(x, p, p32)
+    rows = {}
+    check_groups(groups, sources, rows)
+    layernorm_ragged_check(gen, DEV)
+    time_groups(groups, rows, tag)
+    del groups, x, p, p32
+    gemm_serving_phase(gen, DEV, tag, ("vit_layernorm",))
+    print(json.dumps({"kernels": list(rows.values())}))
+    return 0
+
+
 def gemm_alone() -> int:
     """The GEMM kernels alone (csrc/gemm_sm90.cuh): phase 2's GEMM checks at
     ViT-H (3072 rows), every epilogue off every tile, their times beside the
@@ -2422,6 +2524,7 @@ def main() -> int:
                 at.mha_plain(q, k, v, 80**-0.5), rel=rel, mean=mean)
     torch.cuda.synchronize()
     attention_phase(dev, *attention_inputs(groups))
+    layernorm_ragged_check(gen, dev)
     gemm_ragged_check(gen, dev)
 
     # ---- 3. serve requests through full-width ViT-H, kernels on

@@ -15,8 +15,9 @@
 //   no_gelu     abl_gemm (EPI_IDENT_Q8)
 //   no_softmax  abl_attention (MODE_NO_SOFTMAX)
 //   no_attn     abl_qslice_quant: the q third of qkv times inv_proj, quantised
-//   attn_i8     abl_attention_i8: q, k, v quantised with fixed scales, both
-//               products in int8 (dp4a) with int32 sums, f32 softmax
+//   attn_i8     abl_attention_i8 (attention_kernel.cuh's int8 route,
+//               MODE_I8): q, k, v quantised with fixed scales, both products
+//               on the int8 tensor cores with int32 sums, f32 softmax
 //   attn_merged abl_heads_split (qkv -> head-major (3, B*H, N, D)),
 //               abl_attention (MODE_STATIC_F32 on contiguous heads),
 //               abl_heads_merge_quant (f32 (B*H, N, D) -> int8 (B, N, C))
@@ -29,12 +30,12 @@
 // What bounds them on this card: the row and relayout passes move a few
 // bytes per element and do a handful of operations on each, so they are
 // bound by bytes; the GEMM variants by the int8 tensor cores as the serving
-// GEMM; abl_attention_i8 does 4*N*N*D integer operations per head on the
-// CUDA cores' dp4a path (four multiply-adds per instruction), bound by
-// operations. What this simple design does about it: one thread per element
-// (pair) in the passes; in the int8 attention one block per (batch row, head)
-// with K (rows padded to an odd number of words) and V transposed (so that
-// four keys share a word) in shared memory, one warp per query row.
+// GEMM; the int8 attention by its bytes too (bf16 q, k, v in, int8 out:
+// 4*N*N*D integer operations a head are 0.024 ms of int8 tensor-core time
+// at 256 crops against 0.13 ms of bytes), as long as the softmax between
+// its two products keeps up. What the design does about it: one thread per
+// element (pair) in the passes; the attention kernels' MMA geometry (see
+// attention_kernel.cuh) for every attention mode, int8 included.
 
 #include "attention_kernel.cuh"
 #include "gemm_sm90.cuh"
@@ -183,119 +184,41 @@ struct AblationEpilogue {
   }
 };
 
-// ----------------------------------------------------------- int8 attention
-// Per (batch row, head): qq = quant(q * q_mul), kq = quant(k * kv_mul),
-// vq = quant(v * kv_mul) (round, clip); logits = f32(qq . kq) * s_mul in
-// int32 sums; f32 softmax; pq = quant(p * 127); o = f32(pq . vq) * o_mul;
-// out = quant(o * inv_out[h*D + d]). D % 4 == 0 (the wrapper checks).
-__device__ __forceinline__ int pack4(float a, float b, float c, float d) {
-  return ((int)quant_clip(a) & 0xff) | (((int)quant_clip(b) & 0xff) << 8) |
-         (((int)quant_clip(c) & 0xff) << 16) |
-         (((int)quant_clip(d) & 0xff) << 24);
-}
-
-__host__ __device__ constexpr int odd(int n) { return n | 1; }
-
-__global__ void __launch_bounds__(ATTN_THREADS) attention_i8_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, int8_t* __restrict__ out,
-    const float* __restrict__ inv_out, int N, int H, int D,
-    long long batch_stride, long long row_stride, float q_mul, float kv_mul,
-    float s_mul, float o_mul) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int C = H * D;
-  const int DW = D / 4, NW = (N + 3) / 4;
-  const int KROW = odd(DW), VROW = odd(NW);  // odd strides: no bank conflicts
-  const int nwarps = ATTN_THREADS / 32;
-  int* Ks = reinterpret_cast<int*>(smem_raw);       // N x KROW words
-  int* Vt = Ks + (size_t)N * KROW;                  // D x VROW words
-  int* qbuf = Vt + (size_t)D * VROW;                // nwarps x DW
-  float* pbuf = reinterpret_cast<float*>(qbuf + nwarps * DW);  // nwarps x N
-  int* pqbuf = reinterpret_cast<int*>(pbuf + nwarps * N);      // nwarps x NW
-
-  const int h = blockIdx.x;
-  const size_t base = (size_t)blockIdx.y * batch_stride + (size_t)h * D;
-  const bf16* qb = q + base;
-  const bf16* kb = k + base;
-  const bf16* vb = v + base;
-
-  for (int idx = threadIdx.x; idx < N * DW; idx += ATTN_THREADS) {
-    const int m = idx / DW, j = idx % DW;
-    const bf16* kr = kb + (size_t)m * row_stride + 4 * j;
-    Ks[(size_t)m * KROW + j] =
-        pack4(to_float(kr[0]) * kv_mul, to_float(kr[1]) * kv_mul,
-              to_float(kr[2]) * kv_mul, to_float(kr[3]) * kv_mul);
-  }
-  for (int idx = threadIdx.x; idx < NW * D; idx += ATTN_THREADS) {
-    const int w = idx / D, d = idx % D;
-    float f[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int m = 4 * w + i;  // keys beyond N weigh nothing
-      f[i] = m < N ? to_float(vb[(size_t)m * row_stride + d]) * kv_mul : 0.f;
-    }
-    Vt[(size_t)d * VROW + w] = pack4(f[0], f[1], f[2], f[3]);
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  int* qw = qbuf + warp * DW;
-  float* p = pbuf + warp * N;
-  int* pqw = pqbuf + warp * NW;
-  int8_t* pqb = reinterpret_cast<int8_t*>(pqw);
-  for (int n = warp; n < N; n += nwarps) {
-    const bf16* qrow = qb + (size_t)n * row_stride;
-    for (int j = lane; j < DW; j += 32)
-      qw[j] = pack4(to_float(qrow[4 * j]) * q_mul,
-                    to_float(qrow[4 * j + 1]) * q_mul,
-                    to_float(qrow[4 * j + 2]) * q_mul,
-                    to_float(qrow[4 * j + 3]) * q_mul);
-    for (int m = N + lane; m < 4 * NW; m += 32) pqb[m] = 0;
-    __syncwarp();
-
-    float mx = -INFINITY;
-    for (int m = lane; m < N; m += 32) {
-      const int* krow = Ks + (size_t)m * KROW;
-      int acc = 0;
-      for (int j = 0; j < DW; ++j) acc = __dp4a(qw[j], krow[j], acc);
-      const float s = (float)acc * s_mul;
-      p[m] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int m = lane; m < N; m += 32) {
-      const float e = expf(p[m] - mx);
-      p[m] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    for (int m = lane; m < N; m += 32)
-      pqb[m] = (int8_t)quant_clip((p[m] / sum) * 127.f);
-    __syncwarp();
-
-    const size_t orow = ((size_t)blockIdx.y * N + n) * C + (size_t)h * D;
-    for (int d = lane; d < D; d += 32) {
-      const int* vrow = Vt + (size_t)d * VROW;
-      int acc = 0;
-      for (int w = 0; w < NW; ++w) acc = __dp4a(pqw[w], vrow[w], acc);
-      const float o = (float)acc * o_mul;
-      out[orow + d] = (int8_t)quant_clip(__fmul_rn(o, inv_out[h * D + d]));
-    }
-    __syncwarp();
-  }
-}
-
-size_t attention_i8_smem(int N, int D) {
-  const int DW = D / 4, NW = (N + 3) / 4, nwarps = ATTN_THREADS / 32;
-  return sizeof(int) * ((size_t)N * odd(DW) + (size_t)D * odd(NW) +
-                        (size_t)nwarps * (DW + N + NW));
-}
-
 constexpr int PASS_THREADS = 256;
 
 unsigned pass_blocks(size_t n) {
   return (unsigned)((n + PASS_THREADS - 1) / PASS_THREADS);
+}
+
+// One launch of the int8 route; cudaErrorInvalidValue for a shape past the
+// limits (the wrapper refuses those first): N up to ATTN_MAX_N, D a multiple
+// of 4 up to ATTN_MAX_D, strides of whole 8-byte words.
+int launch_i8(const void* q, const void* k, const void* v, void* out,
+              const float* inv_out, int B, int N, int H, int D,
+              long long batch_stride, long long row_stride, float q_mul,
+              float kv_mul, float s_mul, float o_mul, cudaStream_t stream) {
+  if (N < 1 || N > ATTN_MAX_N || D < 4 || D > ATTN_MAX_D || D % 4 ||
+      batch_stride % 4 || row_stride % 4)
+    return (int)cudaErrorInvalidValue;
+  const bf16 *qb = (const bf16*)q, *kb = (const bf16*)k, *vb = (const bf16*)v;
+  int8_t* o = (int8_t*)out;
+  // 16-byte loads where every row and head starts on 16 bytes
+  const bool wide = D % 8 == 0 && batch_stride % 8 == 0 &&
+                    row_stride % 8 == 0 &&
+                    ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 == 0;
+  if (N <= 192)
+    return wide ? launch_i8_kc<6, 8>(qb, kb, vb, o, inv_out, B, N, H, D,
+                                     batch_stride, row_stride, q_mul, kv_mul,
+                                     s_mul, o_mul, stream)
+                : launch_i8_kc<6, 4>(qb, kb, vb, o, inv_out, B, N, H, D,
+                                     batch_stride, row_stride, q_mul, kv_mul,
+                                     s_mul, o_mul, stream);
+  return wide ? launch_i8_kc<8, 8>(qb, kb, vb, o, inv_out, B, N, H, D,
+                                   batch_stride, row_stride, q_mul, kv_mul,
+                                   s_mul, o_mul, stream)
+              : launch_i8_kc<8, 4>(qb, kb, vb, o, inv_out, B, N, H, D,
+                                   batch_stride, row_stride, q_mul, kv_mul,
+                                   s_mul, o_mul, stream);
 }
 
 }  // namespace
@@ -431,18 +354,9 @@ int abl_attention_i8(int device, const void* q, const void* k, const void* v,
                      void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (D % 4) return (int)cudaErrorInvalidValue;
-  const size_t smem = attention_i8_smem(N, D);
-  err = cudaFuncSetAttribute(attention_i8_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  attention_i8_kernel<<<dim3(H, B), ATTN_THREADS, smem,
-                        (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (int8_t*)out,
-      (const float*)inv_out, N, H, D, batch_stride, row_stride, q_mul, kv_mul,
-      s_mul, o_mul);
-  return (int)cudaGetLastError();
+  return launch_i8(q, k, v, out, (const float*)inv_out, B, N, H, D,
+                   batch_stride, row_stride, q_mul, kv_mul, s_mul, o_mul,
+                   (cudaStream_t)stream);
 }
 
 const char* abl_error_string(int err) {

@@ -60,6 +60,17 @@ LIBRARY = CudaLibrary("vit_block", _bind, "vit_error_string")
 
 # csrc/attention_kernel.cuh: a row of logits stays in registers
 ATTN_MAX_N, ATTN_MAX_D = 256, 128
+# csrc/vit_block.cu: a LayerNorm row stays in one warp's registers
+LN_MAX_C = 2048
+
+
+def check_layernorm_width(C: int) -> None:
+    """Raise unless the LayerNorm kernel takes rows of ``C`` channels: a
+    multiple of 8 (16-byte loads) up to :data:`LN_MAX_C`."""
+    if C % 8 or not 8 <= C <= LN_MAX_C:
+        raise ValueError(f"LayerNorm kernel needs a width that is a multiple "
+                         f"of 8 up to {LN_MAX_C} (16-byte loads, the row in "
+                         f"one warp's registers), got {C}")
 
 
 def check_attention_shape(N: int, D: int) -> None:
@@ -158,6 +169,7 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         return layernorm_plain(x, scale, bias, eps)
     R, C = x.shape
     dev = x.device
+    check_layernorm_width(C)
     _check(x, "x", _BF16, (R, C), dev)
     _check(scale, "scale", torch.float32, (C,), dev)
     _check(bias, "bias", torch.float32, (C,), dev)

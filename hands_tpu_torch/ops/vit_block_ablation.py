@@ -51,8 +51,9 @@ from hands_tpu_torch.ops.attention import (_strides, qkv_attention,
                                            qkv_attention_plain)
 from hands_tpu_torch.ops.cuda_build import (CudaLibrary, check,
                                            check_gemm_operands, on_cpu)
-from hands_tpu_torch.ops.vit_block import (bf16_const, check_attention_shape,
-                                           gelu, layernorm_f32)
+from hands_tpu_torch.ops.vit_block import (ATTN_MAX_D, ATTN_MAX_N, bf16_const,
+                                           check_attention_shape, gelu,
+                                           layernorm_f32)
 
 _BF16, _F32, _I8 = torch.bfloat16, torch.float32, torch.int8
 
@@ -369,14 +370,25 @@ def attention_ablation(qkv, num_heads: int, inv_out, variant: str
     return out
 
 
+def check_attention_i8_shape(N: int, D: int) -> None:
+    """Raise unless the int8 attention kernel takes ``N`` tokens with head
+    dim ``D``: D a multiple of 4 up to :data:`ATTN_MAX_D`, N up to
+    :data:`ATTN_MAX_N` (a row of logits in registers)."""
+    if D % 4 or not 4 <= D <= ATTN_MAX_D:
+        raise ValueError(f"int8 attention kernel needs a head dim that is a "
+                         f"multiple of 4 up to {ATTN_MAX_D}, got {D}")
+    if not 1 <= N <= ATTN_MAX_N:
+        raise ValueError(f"int8 attention kernel takes 1 to {ATTN_MAX_N} "
+                         f"tokens (a row of logits in registers), got {N}")
+
+
 def attention_i8(qkv, num_heads: int, inv_out) -> torch.Tensor:
     """See :func:`attention_i8_plain`."""
     if on_cpu(qkv):
         return attention_i8_plain(qkv, num_heads, inv_out)
     B, N, C3 = qkv.shape
     (q, k, v), (sb, sn), D = _qkv_views(qkv, num_heads)
-    if D % 4:
-        raise ValueError(f"int8 attention needs a head dim % 4 == 0, got {D}")
+    check_attention_i8_shape(N, D)
     dev = qkv.device
     check(inv_out, "inv_out", _F32, (C3 // 3,), dev)
     out = torch.empty((B, N, C3 // 3), dtype=_I8, device=dev)

@@ -71,8 +71,10 @@ def interpret_mode(monkeypatch):
     yield
 
 
-def _inputs(kind, seed=0):
-    """(x, JAX-layout f32 params, scales) as numpy."""
+def _inputs(kind, seed=0, shape=(B, N, C, HIDDEN)):
+    """(x, JAX-layout f32 params, scales) as numpy; ``shape`` is (batch,
+    tokens, width, hidden)."""
+    B, N, C, HIDDEN = shape
     rng = np.random.RandomState(seed)
     wide = kind == "wide"
     w_std, x_std, b_std = (1.0, 80.0, 60.0) if wide else (0.03, 0.5, 0.0)
@@ -101,12 +103,12 @@ def _inputs(kind, seed=0):
     return x, params, scales
 
 
-def _jax_variant(x, params, scales, mode):
+def _jax_variant(x, params, scales, mode, heads=HEADS):
     xb = jnp.asarray(x, jnp.bfloat16)
     pj = {k: jnp.asarray(v) for k, v in params.items()}
     fn = jax.jit(functools.partial(
         jabl.run_variant, scales={k: jnp.asarray(v) for k, v in scales.items()},
-        num_heads=HEADS, mode=mode, tile=TILE))
+        num_heads=heads, mode=mode, tile=TILE))
     return np.asarray(fn.lower(xb, pj).compile(NO_EXCESS)(xb, pj), np.float32)
 
 
@@ -143,6 +145,39 @@ def test_twin_matches_run_variant_interpret(interpret_mode, kind, mode):
     assert np.max(err / np.maximum(np.abs(ref), 1.0)) <= MAX_REL
     assert np.mean(err) <= MAX_MEAN * max(1.0, float(np.mean(np.abs(ref))))
     assert np.mean(err > 0) <= MAX_SHARE, np.mean(err > 0)
+
+
+def test_attn_i8_twin_at_a_head_dim_off_the_mma_depth(interpret_mode):
+    """``attn_i8`` at ViT-H's head dim 80 (C 160, 2 heads), which the int8
+    tensor-core kernel pads to the MMA's depth of 32 (to 96), with 20 tokens,
+    off the 16-row tiles and padded to 32 keys; the bounds of the parametrised
+    test above."""
+    shape = (2, 20, 160, 320)
+    x, params, scales = _inputs("probe", seed=5, shape=shape)
+    ref = _jax_variant(x, params, scales, "attn_i8")
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    got = abl.vit_block_ablation(xt, _port_operands(params, scales),
+                                 num_heads=HEADS, mode="attn_i8")
+    assert got.shape == shape[:3]
+    got = got.float().numpy()
+    err = np.abs(got - ref)
+    assert np.max(err / np.maximum(np.abs(ref), 1.0)) <= MAX_REL
+    assert np.mean(err) <= MAX_MEAN * max(1.0, float(np.mean(np.abs(ref))))
+    assert np.mean(err > 0) <= MAX_SHARE, np.mean(err > 0)
+
+
+@pytest.mark.parametrize("n,d,ok", [
+    (192, 80, True), (256, 128, True), (50, 20, True), (1, 4, True),
+    (257, 80, False), (192, 82, False), (192, 132, False), (0, 80, False)])
+def test_attention_i8_shape_limits(n, d, ok):
+    """The int8 attention kernel's limits: N up to 256 keys (a row of logits
+    in registers), a head dim that is a multiple of 4 up to 128; the rest is
+    refused with a ValueError that names the limit."""
+    if ok:
+        abl.check_attention_i8_shape(n, d)
+        return
+    with pytest.raises(ValueError, match="256|128"):
+        abl.check_attention_i8_shape(n, d)
 
 
 def test_wide_inputs_reach_and_exceed_the_int8_range():

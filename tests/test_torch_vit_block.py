@@ -198,6 +198,45 @@ def test_port_block_module_f32():
     assert np.max(np.abs(got - ref) / np.maximum(np.abs(ref), 1.0)) < 1e-5
 
 
+@pytest.mark.parametrize("C", [160, 768, 1280])
+def test_layernorm_twin_matches_jax_layernorm_f32(C):
+    """``layernorm_plain`` against the JAX package's ``_layernorm_f32`` on
+    bf16 rows (13, off any rows-a-block count), rounded to bf16 at the end
+    as K3 rounds it. Equal, or one bf16 ulp apart on few entries: the two
+    frameworks sum a row's statistics in another order, so mu and var may
+    differ in their last f32 bit and move an output that lies on a bf16
+    rounding boundary."""
+    rng = np.random.RandomState(C)
+    x = (rng.randn(13, C) * 3.0 + 0.5).astype(np.float32)
+    scale = (1.0 + 0.1 * rng.randn(C)).astype(np.float32)
+    bias = (0.1 * rng.randn(C)).astype(np.float32)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    fn = jax.jit(lambda a, s, b: jvb._layernorm_f32(
+        a.astype(jnp.float32), s, b).astype(jnp.bfloat16))
+    ref = np.asarray(fn.lower(xb, scale, bias).compile(NO_EXCESS)(
+        xb, scale, bias), np.float32)
+    got = tvb.layernorm(torch.from_numpy(np.asarray(xb, np.float32)).to(
+        torch.bfloat16), torch.from_numpy(scale),
+        torch.from_numpy(bias)).float().numpy()
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(ref), 2.0**-126))) - 7)
+    assert np.all(np.abs(got - ref) <= ulp)
+    assert np.mean(got != ref) <= 1e-2
+
+
+@pytest.mark.parametrize("C,ok", [(8, True), (128, True), (160, True),
+                                  (768, True), (1280, True), (2048, True),
+                                  (4, False), (1284, False), (2056, False)])
+def test_layernorm_width_limits(C, ok):
+    """The LayerNorm kernel's widths: a multiple of 8 (16-byte loads) up to
+    2048 (a row in one warp's registers); the rest raises a ValueError that
+    names the limit."""
+    if ok:
+        tvb.check_layernorm_width(C)
+        return
+    with pytest.raises(ValueError, match="multiple of 8 up to 2048"):
+        tvb.check_layernorm_width(C)
+
+
 def test_wrappers_refuse_what_they_do_not_take():
     x = torch.zeros(4, 8, dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError):
