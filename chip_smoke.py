@@ -87,6 +87,14 @@ WH_BACKBONE = "resnet50"  # the shipped WildHands width
 WH_BATCHES = ((8, 3), (64, 2))  # (images per request, requests)
 WH_GRAD_BATCH = 8  # images of the forward that is differentiated
 N_VERTS, RENDER_RES, RENDER_SIGMA = 778, 112, 1.5  # the 224^2 half-res render
+# K2's cases beside the main path's blob and the ragged shape (batch,
+# vertices, res, sigma, layout): vertices spread over the canvas and beyond
+# it, 1/8 of them at +-1e4 px; sigma 12, whose cut radius (173 px) exceeds
+# the canvas's diagonal, so nothing is skipped; a canvas past 128^2 pixels,
+# whose backward reads the A map from device memory, not shared memory
+SPLAT_CASES = ((64, N_VERTS, RENDER_RES, RENDER_SIGMA, "spread"),
+               (64, N_VERTS, RENDER_RES, 12.0, "blob"),
+               (2, N_VERTS, 144, 3.0, "blob"))
 TRAIN_VIT_BATCH = 32  # images of a HaMeR train step: 64 crops
 TRAIN_WH_BATCH = 64  # images of a WildHands train step: 128 crops + 64 images
 TRAIN_STEPS = 3
@@ -116,7 +124,9 @@ PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12,
 ATTN_BEFORE, GEMM_BF16_BEFORE, GEMM_I8_BEFORE = (
     "the f32 CUDA-core attention loop", "wmma 16x16x16 + cp.async ring",
     "mma.sync m16n8k32 + cp.async ring")
-EARLIER_MS = {"vit_layernorm": ("a 256-thread block per row", 0.0192),
+EARLIER_MS = {"splat_fwd": ("dense loop", 1.3606),
+              "splat_bwd": ("dense loop", 2.4476),
+              "vit_layernorm": ("a 256-thread block per row", 0.0192),
               "attention_i8": ("dp4a, a warp per query row", 1.9415),
               "vit_attention": (ATTN_BEFORE, 0.4681),
               "qkv_attention_dynamic": (ATTN_BEFORE, 0.4360),
@@ -300,9 +310,12 @@ class Case:
     input once, each output once) and the operations it does."""
 
     def __init__(self, label, call, inputs, ops, kind, library=None,
-                 check=compare, timer=cuda_ms, saved_bytes=0):
+                 check=compare, timer=cuda_ms, saved_bytes=0, dense_ops=None):
         self.label, self.call, self.library = label, call, library
         self.inputs, self.ops, self.kind, self.check = inputs, ops, kind, check
+        # where the work depends on the data, ``ops`` counts what these
+        # inputs need and ``dense_ops`` what a dense evaluation does
+        self.dense_ops = dense_ops
         self.timer = timer  # graph_ms for launches of a few microseconds
         self.saved_bytes = saved_bytes  # written for a backward, not returned
 
@@ -312,6 +325,15 @@ class Case:
                    + self.saved_bytes) / HBM_BYTES_S * 1e3
         t_ops = self.ops / PEAK_OPS_S[self.kind] * 1e3
         return t_bytes, t_ops
+
+    def dense_bound(self, out) -> str:
+        """The bound of a dense evaluation, printed beside the data's own."""
+        if self.dense_ops is None:
+            return ""
+        t_bytes, _ = self.bound(out)
+        t_ops = self.dense_ops / PEAK_OPS_S[self.kind] * 1e3
+        return (f", dense bound {max(t_bytes, t_ops):.4f} ms "
+                f"({self.ops / self.dense_ops:.2%} of the pairs)")
 
 
 def block_inputs(gen, dev, batch, n_tok, c, hidden):
@@ -631,25 +653,108 @@ def skinning_inputs(gen, dev, batch):
     return v_posed, A
 
 
-def projected_vertices(gen, dev, batch, n_verts, res):
-    """Projected vertices of ``batch`` hands in render pixels: a blob of
-    0.08 res around a centre inside the image."""
+def projected_vertices(gen, dev, batch, n_verts, res, layout="blob"):
+    """Projected vertices of ``batch`` hands in render pixels. ``blob``: a
+    blob of 0.08 res around a centre inside the image; ``spread``: uniform
+    over [-res / 2, 3 res / 2]^2, every eighth vertex at +-1e4 px."""
+    if layout == "spread":
+        v = (torch.rand((batch, n_verts, 2), generator=gen, device=dev) * 2.0
+             - 0.5) * res
+        far = v[:, ::8]
+        sign = torch.randint(0, 2, far.shape, generator=gen, device=dev)
+        v[:, ::8] = (2.0 * sign - 1.0) * 1e4
+        return v.contiguous()
     centre = (0.25 + 0.5 * torch.rand((batch, 1, 2), generator=gen,
                                       device=dev)) * res
     return (centre + torch.randn((batch, n_verts, 2), generator=gen,
                                  device=dev) * (0.08 * res)).contiguous()
 
 
+def splat_nonzero_pairs(v2d, res, sigma) -> int:
+    """The pixel-vertex pairs whose gaussian is nonzero in the twin's f32
+    evaluation: the work the splat needs on these inputs."""
+    from hands_tpu_torch.ops import rasterizer as ras
+
+    chunk = max(1, (1 << 27) // (res * res * v2d.shape[1]))
+    return sum(int((ras.splat_gaussians(v2d[i:i + chunk], res, sigma) > 0)
+                   .sum()) for i in range(0, v2d.shape[0], chunk))
+
+
+def splat_in_order(v2d, res, sigma):
+    """The forward's (lm, mask) in plain PyTorch, every step as the kernel
+    rounds it: the distance as ``(|p|^2 + |v|^2) - 2 fma(p_y, v_y, p_x v_x)``,
+    a true f32 division, and the sum over vertices in vertex order."""
+    from hands_tpu_torch.ops import rasterizer as ras
+    from hands_tpu_torch.ops.quant import fma_f32
+
+    B, V, _ = v2d.shape
+    pix = ras._pixel_grid(res, device=v2d.device)
+    px, py = pix[None, :, 0], pix[None, :, 1]
+    p_sq = px * px + py * py
+    two_s2 = torch.tensor(float(ras.two_sigma_sq(sigma)), device=v2d.device)
+    clip = torch.tensor(1.0 - 1e-6, dtype=torch.float32)
+    lm = torch.zeros((B, res * res), device=v2d.device)
+    for i in range(V):
+        vx, vy = v2d[:, i, 0:1], v2d[:, i, 1:2]
+        cross = fma_f32(py, vy.expand_as(lm), px * vx)
+        d2 = torch.clamp((p_sq + (vx * vx + vy * vy)) - 2.0 * cross, min=0.0)
+        g = torch.clamp(torch.exp(torch.div(-d2, two_s2)), max=float(clip))
+        lm = lm + torch.log1p(-g)
+    return lm, 1.0 - torch.exp(lm)
+
+
+def splat_exactness(v2d, res, sigma) -> None:
+    """What the skipping rests on, read on the card: exp of every f32 from
+    ``EXP_ZERO`` down to 8 below it (and of far values) is 0, of the next f32
+    above it not; and whether the forward kernel is bit-equal to
+    :func:`splat_in_order` on ``v2d``."""
+    from hands_tpu_torch.ops import rasterizer as ras
+
+    x0 = torch.tensor([ras.EXP_ZERO], dtype=torch.float32)
+    bits = int(x0.view(torch.int32))  # negative: larger bits, lower value
+    n = 8 << 17  # the f32 spacing at 104 is 2^-17
+    xs = (torch.arange(bits, bits + n, dtype=torch.int64, device=DEV)
+          .to(torch.int32).view(torch.float32))
+    far = torch.tensor([-110.0, -1e4, -1e30, -float("inf")], device=DEV)
+    above = torch.tensor([bits - 1], dtype=torch.int32).view(torch.float32)
+    zero = bool((torch.exp(torch.cat([xs, far])) == 0).all())
+    up = float(torch.exp(above.to(DEV)))
+    print(f"  exp on the card: 0 from {float(x0):.9g} down to "
+          f"{float(xs[-1]):.9g} and at -110, -1e4, -1e30, -inf: {zero}; at "
+          f"the next f32 above, {float(above):.9g}: {up:.3e}")
+    require(zero and up > 0.0, "exp on the card does not vanish at EXP_ZERO")
+    got = ras._launch_fwd(v2d, res, sigma)
+    moved = [int((a.view(torch.int32) != b.view(torch.int32)).sum())
+             for a, b in zip(got, splat_in_order(v2d, res, sigma))]
+    lm = got[0]
+    print(f"  splat forward B={v2d.shape[0]} res={res} V={v2d.shape[1]} "
+          f"against the in-order plain sum: {moved[0]} of {lm.numel()} lm "
+          f"and {moved[1]} mask values differ"
+          + ("  bit-equal" if not any(moved) else ""))
+
+
 class SplatGrad:
-    """The gradient of the splat under a fixed upstream ``gmask``: builds the
-    forward graph of ``fn`` once and differentiates it on every call, so that
-    a timed call is the backward alone."""
+    """The gradient of the splat under a fixed upstream ``gmask``. The twin's
+    (and any other function's) by autograd of a forward graph built once, so
+    that a timed call is the backward alone; the kernel's by the backward
+    kernel on the forward kernel's log-miss map, without the autograd
+    engine, whose host time is as long as a launch of ~0.2 ms. (The f64
+    check of :func:`geometry_cases` takes the kernels through autograd.)"""
 
     def __init__(self, v2d, res, sigma, gmask):
         self.v2d, self.res, self.sigma, self.gmask = v2d, res, sigma, gmask
         self._graphs = {}
+        self._lm = None
 
     def __call__(self, fn):
+        from hands_tpu_torch.ops import rasterizer as ras
+
+        if fn is ras.splat_silhouette_fused:
+            if self._lm is None:
+                self._lm = ras._launch_fwd(self.v2d, self.res, self.sigma)[0]
+            return ras._launch_bwd(self.v2d, self._lm,
+                                   self.gmask.reshape(self._lm.shape),
+                                   self.res, self.sigma)
         if fn not in self._graphs:
             v = self.v2d.detach().clone().requires_grad_(True)
             self._graphs[fn] = (v, fn(v, self.res, self.sigma))
@@ -658,6 +763,7 @@ class SplatGrad:
 
     def release(self):
         self._graphs.clear()
+        self._lm = None
 
 
 def geometry_cases(gen, dev, batch):
@@ -685,21 +791,28 @@ def geometry_cases(gen, dev, batch):
     def grad_check(n, g, r):
         return compare_abs(n, g, r, GRAD_ATOL, GRAD_RTOL)
 
-    def splat_cases(b, n_verts, res, sigma):
-        v2d = projected_vertices(gen, dev, b, n_verts, res)
+    def splat_cases(b, n_verts, res, sigma, layout="blob"):
+        v2d = projected_vertices(gen, dev, b, n_verts, res, layout)
         pairs = b * res * res * n_verts
+        # two special-function results a pair with g > 0 (exp and log1p
+        # forward, exp and a division backward); a dense loop does them for
+        # every pair
+        live = splat_nonzero_pairs(v2d, res, sigma)
         # the gradient of a mean L1 mask loss against a random binary target
         target = (torch.rand((b, res, res), generator=gen, device=dev)
                   > 0.5).float()
         gmask = (torch.sign(ras.splat_silhouette_plain(v2d, res, sigma)
                             - target) / target.numel()).contiguous()
         grad = SplatGrad(v2d, res, sigma, gmask)
-        tail = f"B={b} res={res} V={n_verts}"
+        tail = f"B={b} res={res} V={n_verts}" + (
+            f" s={sigma:g}" if sigma != RENDER_SIGMA else "") + (
+            f" {layout}" if layout != "blob" else "")
         fwd = Case(f"splat forward {tail}", lambda f: f(v2d, res, sigma),
-                   [v2d], 2 * pairs, "sfu", None, mask_check,
-                   saved_bytes=4 * b * res * res)  # the log-miss map
+                   [v2d], 2 * live, "sfu", None, mask_check,
+                   saved_bytes=4 * b * res * res,  # the log-miss map
+                   dense_ops=2 * pairs)
         bwd = Case(f"splat backward {tail}", grad, [v2d, gmask, gmask],
-                   2 * pairs, "sfu", None, grad_check)
+                   2 * live, "sfu", None, grad_check, dense_ops=2 * pairs)
         return fwd, bwd, grad
 
     fwd, bwd, grad = splat_cases(batch, N_VERTS, RENDER_RES, RENDER_SIGMA)
@@ -717,21 +830,29 @@ def geometry_cases(gen, dev, batch):
 
     # K2's gradient against the twin in f64, at 8 hands (the f64 pair tensors
     # of 64 would take 30 GB)
-    for b, n_verts, res, sigma in ((8, N_VERTS, RENDER_RES, RENDER_SIGMA),
-                                   (3, 50, 20, 2.0)):
-        _, case, g32 = splat_cases(b, n_verts, res, sigma)
+    def through_autograd(v2d, res, sigma, gmask):
+        v = v2d.detach().clone().requires_grad_(True)
+        return torch.autograd.grad(fused(v, res, sigma), v, gmask)[0]
+
+    def f64_check(b, n_verts, res, sigma, layout="blob"):
+        _, case, g32 = splat_cases(b, n_verts, res, sigma, layout)
         g64 = SplatGrad(g32.v2d.double(), res, sigma, g32.gmask.double())
         want = g64(plain)
         scale = float(want.abs().max())
         for label, fn in (("kernel", fused), ("f32 twin", plain)):
-            err = float((g32(fn).double() - want).abs().max()) / scale
-            print(f"  splat backward B={b} res={res} V={n_verts} {label} vs "
-                  f"f64 twin: max|d| / max|ref| {err:.3e}"
+            got = (through_autograd(g32.v2d, res, sigma, g32.gmask)
+                   if fn is fused else g32(fn))
+            err = float((got.double() - want).abs().max()) / scale
+            print(f"  {case.label} {label} vs f64 twin: max|d| / max|ref| "
+                  f"{err:.3e}"
                   + (f" (<= {GRAD_F64_REL:g})" if fn is fused else ""))
             require(fn is plain or err <= GRAD_F64_REL,
                     "splat backward kernel disagrees with the f64 twin")
         g32.release()
         g64.release()
+
+    f64_check(8, N_VERTS, RENDER_RES, RENDER_SIGMA)
+    f64_check(3, 50, 20, 2.0)
 
     # K1's gradient: the kernel forward, the twin recomputed in the backward
     v_posed, A = skinning_inputs(gen, dev, 3)
@@ -742,7 +863,50 @@ def geometry_cases(gen, dev, batch):
         grads.append(torch.autograd.grad(fn(v, W, a), (v, a), g_out))
     for name, got, ref in zip(("d v_posed", "d A"), *grads):
         compare_abs(f"lbs_apply gradient {name}", got, ref, 1e-5, 1e-5)
-    return groups, extra, (grad, grad_s)
+
+    # K2 where the skipping differs: spread and off-canvas vertices, a sigma
+    # that skips nothing, a canvas too large for the staged A map
+    grads = [grad, grad_s]
+    for b, n_verts, res, sigma, layout in SPLAT_CASES:
+        fwd_c, bwd_c, grad_c = splat_cases(b, n_verts, res, sigma, layout)
+        extra += [(fwd_c, fused, plain), (bwd_c, fused, plain)]
+        grads.append(grad_c)
+    for b, n_verts, res, sigma, layout in SPLAT_CASES:
+        f64_check(min(b, 8), n_verts, res, sigma, layout)
+    return groups, extra, grads
+
+
+def check_extra(extra) -> None:
+    """Hold each of the extra shapes' kernels against its twin; a splat
+    gradient lets go of its graphs (the twin's hold the pair tensors)."""
+    for case, kfn, pfn in extra:
+        case.check(case.label, case.call(kfn), case.call(pfn))
+        if isinstance(case.call, SplatGrad):
+            case.call.release()
+    torch.cuda.synchronize()
+
+
+def time_extra(extra, tag) -> None:
+    """Time each extra shape's kernel beside its twin and library call."""
+    for case, kfn, pfn in extra:
+        km = min(case.timer(lambda: case.call(kfn)) for _ in range(2))
+        pm = min(case.timer(lambda: case.call(pfn)) for _ in range(2))
+        lib = ("none" if case.library is None else
+               f"{min(case.timer(case.library) for _ in range(2)):.4f} ms")
+        ref = case.call(pfn)
+        bound = max(*case.bound(ref))
+        print(f"    {case.label:<34s} kernel {km:.4f} ms ({bound / km:.1%} "
+              f"of the bound), plain {pm:.4f} ms, library {lib}, bound "
+              f"{bound:.4f} ms{case.dense_bound(ref)} {tag}")
+        del ref
+        if isinstance(case.call, SplatGrad):
+            case.call.release()
+
+
+def splat_blob(groups):
+    """(v2d, res, sigma) of K2's main-path case in ``groups``."""
+    fwd = {k: v for _, _, ks in groups for k, v in ks.items()}["splat_fwd"]
+    return fwd[2][0].inputs[0], RENDER_RES, RENDER_SIGMA
 
 
 def check_groups(groups, sources, rows) -> None:
@@ -804,7 +968,8 @@ def time_groups(groups, rows, tag, earlier=True) -> None:
                 print(f"    {case.label:<34s} kernel {km:.4f} ms "
                       f"({case.ops / km / 1e9:.1f} {unit}, {bound / km:.1%} "
                       f"of the bound), plain {pm:.4f} ms, library {lib}, "
-                      f"bound {bound:.4f} ms{host}")
+                      f"bound {bound:.4f} ms"
+                      f"{case.dense_bound(case.call(pfn))}{host}")
             # per block: the sum over this kernel's launch shapes
             row = rows[kname]
             row["ms"], row["plain_ms"] = sum(k_ms), sum(p_ms)
@@ -1383,6 +1548,8 @@ def wildhands_phases(rows, dev, tag) -> None:
     print(f"  hands_light evaluation forward bs{big} ({2 * big} crops, render "
           f"and grasp on): kernels {min(k_ms, k_ms2):.2f} ms, peak +{k_gb:.2f} "
           f"GB; twins {min(t_ms, t_ms2):.2f} ms, peak +{t_gb:.2f} GB {tag}")
+    busy_line(f"hands_light evaluation forward bs{big}", forward,
+              min(k_ms, k_ms2), tag)
 
     # ---- the same forward differentiated: an L1 mask loss against the
     # pipeline's zero targets, back through K2, K1 and the network
@@ -1465,6 +1632,37 @@ def wildhands_phases(rows, dev, tag) -> None:
             compare_abs(f"resnet18 {name} GPU vs CPU render.r",
                         got["pred.render.r"].cpu(), want["pred.render.r"],
                         2e-3)
+
+
+def device_busy_ms(fn, names=("splat",)):
+    """(ms, {name: ms}): the device time of the kernels one call of ``fn``
+    launches (torch.profiler over CUPTI, after a warm-up call), and the part
+    of it in kernels whose name holds each of ``names``; (None, {}) where
+    the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    times = [(e.key, e.self_device_time_total / 1e3)
+             for e in prof.key_averages()]
+    total = sum(t for _, t in times)
+    if total <= 0.0:
+        return None, {}
+    return total, {n: sum(t for k, t in times if n in k) for n in names}
+
+
+def busy_line(what, fn, wall_ms, tag) -> None:
+    """Print the device time of one call of ``fn`` beside its wall time."""
+    busy, part = device_busy_ms(fn)
+    if busy is None:
+        print(f"  {what}: device time not measured (the profiler saw none)")
+        return
+    print(f"  {what}: device busy {busy:.2f} ms of {wall_ms:.2f} ms "
+          f"({1.0 - busy / wall_ms:.1%} idle), of it in the splat kernels "
+          f"{part['splat']:.3f} ms {tag}")
 
 
 def peak_ms(fn, iters: int = 5, warmup: int = 1):
@@ -2216,6 +2414,8 @@ def wildhands_train_phase(rows, dev, tag) -> None:
           f"K1 and K2 as twins {t_ms:.1f} ms, peak +{t_gb:.2f} GB; without "
           f"the mask loss {n_ms:.1f} ms, peak +{n_gb:.2f} GB; over {held:.2f} "
           f"GB held {tag}")
+    busy_line(f"hands_light train step bs{bs}",
+              lambda: step(state, batch, gen), min(k_ms, k_ms2), tag)
 
     # ---- one eval step: forward, losses, denormalised 2D, metrics
     eval_step = make_eval_step(model, cfg)
@@ -2233,6 +2433,8 @@ def wildhands_train_phase(rows, dev, tag) -> None:
     require(bool(torch.isfinite(logs["loss"])), "eval loss")
     e_ms = min(cuda_ms(lambda: eval_step(state, batch), iters=3)
                for _ in range(2))
+    busy_line(f"hands_light eval step bs{bs}",
+              lambda: eval_step(state, batch), e_ms, tag)
     pts = torch.randn((2 * bs, 21, 3), generator=gen, device=dev) * 0.05
     tgt = torch.randn((2 * bs, 21, 3), generator=gen, device=dev) * 0.05
     svd_ms = min(cuda_ms(lambda: similarity_align(pts, tgt), iters=5)
@@ -2409,6 +2611,84 @@ def gemm_alone() -> int:
     return 0
 
 
+def splat_alone(save=None, against=None) -> int:
+    """K2 alone: builds ``csrc/splat.cu``, holds both kernels against their
+    twins in every K2 case (values, gradients, the f64 twin), reads what the
+    skipping rests on (:func:`splat_exactness`) and times every case beside
+    its twin with both bounds. ``save``: write each case's forward (lm, mask)
+    to that file; ``against``: count the values that differ from a file that
+    another build of the kernels saved on the same inputs::
+
+        python3 -c "import sys, chip_smoke as cs; sys.exit(cs.splat_alone())"
+    """
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from hands_tpu_torch.ops import mano_lbs
+    from hands_tpu_torch.ops import rasterizer as ras
+    from hands_tpu_torch.ops.cuda_build import build_all
+
+    tag = f"[{card_line()}]"
+    t0 = time.time()
+    print_ptxas(build_all([ras.LIBRARY, mano_lbs.LIBRARY]))
+    print(f"built {SRC_SPLAT}, {SRC_LBS} in {time.time() - t0:.1f} s")
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    groups, extra, grads = geometry_cases(gen, DEV, WH_BATCHES[-1][0])
+    names = ("splat_fwd", "splat_bwd")
+    groups = only(groups, names)
+    extra = [e for e in extra if e[1] is ras.splat_silhouette_fused]
+    rows = {}
+    check_groups(groups, {}, rows)
+    check_extra(extra)
+    for grad in grads:
+        grad.release()
+    splat_exactness(*splat_blob(groups))
+    forwards = [c for _, _, ks in groups for k, (_, _, cs) in ks.items()
+                if k == "splat_fwd" for c in cs]
+    forwards += [c for c, _, _ in extra if c.label.startswith("splat fo")]
+    outs = {}  # label -> the kernel's (lm, mask)
+    for case in forwards:
+        outs[case.label] = case.call(
+            lambda v, r, s: tuple(t.cpu() for t in ras._launch_fwd(v, r, s)))
+    if save:
+        torch.save(outs, save)
+    if against:
+        other = torch.load(against)
+        for label, (lm, mask) in outs.items():
+            o_lm, o_mask = other[label]
+            moved = [int((a.view(torch.int32) != b.view(torch.int32)).sum())
+                     for a, b in ((lm, o_lm), (mask, o_mask))]
+            print(f"  {label} against {against}: {moved[0]} lm and "
+                  f"{moved[1]} mask values of {lm.numel()} differ"
+                  + ("  bit-equal" if not any(moved) else ""))
+    time_groups(groups, rows, tag)
+    time_extra(extra, tag)
+    print(json.dumps({"kernels": list(rows.values())}))
+    return 0
+
+
+def wildhands_alone() -> int:
+    """The WildHands phases alone (K1 and K2 on their paths): serving, the
+    evaluation forward with render and grasp, the mask-loss gradient, the
+    train and eval steps with their device time::
+
+        python3 -c "import sys, chip_smoke as cs; sys.exit(cs.wildhands_alone())"
+    """
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from hands_tpu_torch.ops import mano_lbs
+    from hands_tpu_torch.ops import rasterizer as ras
+    from hands_tpu_torch.ops.cuda_build import build_all
+
+    tag = f"[{card_line()}]"
+    print_ptxas(build_all([ras.LIBRARY, mano_lbs.LIBRARY]))
+    rows = {k: {} for k in ("lbs_apply", "splat_fwd", "splat_bwd")}
+    wildhands_phases(rows, DEV, tag)
+    wildhands_train_phase(rows, DEV, tag)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2459,11 +2739,10 @@ def main() -> int:
     extra += geo_extra
     rows = {}  # kernel name -> its line of the kernels JSON
     check_groups(groups, sources, rows)
-    for case, kfn, pfn in extra:
-        case.check(case.label, case.call(kfn), case.call(pfn))
-    torch.cuda.synchronize()
+    check_extra(extra)
     for grad in splat_grads:
         grad.release()  # the twin's graph holds the (B, P, V) pair tensors
+    splat_exactness(*splat_blob(groups))
 
     blocks = {}  # name -> (kernel path, twin path) closures, for phase 4
     for fast in (False, True):
@@ -2671,14 +2950,7 @@ def main() -> int:
     # ---- 4. timing
     print(f"phase 4: CUDA-event times {tag}")
     time_groups(groups, rows, tag)
-    for case, kfn, pfn in extra:
-        km = min(case.timer(lambda: case.call(kfn)) for _ in range(2))
-        pm = min(case.timer(lambda: case.call(pfn)) for _ in range(2))
-        lib = ("none" if case.library is None else
-               f"{min(case.timer(case.library) for _ in range(2)):.4f} ms")
-        print(f"    {case.label:<34s} kernel {km:.4f} ms, plain {pm:.4f} ms, "
-              f"library {lib}, bound "
-              f"{max(*case.bound(case.call(pfn))):.4f} ms {tag}")
+    time_extra(extra, tag)
     # what the twin of K2 costs in memory: it stores the (B, P, V) tensors
     from hands_tpu_torch.ops import rasterizer as ras
     fwd_case = groups[-1][2]["splat_fwd"][2][0]
