@@ -120,13 +120,18 @@ PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12,
 # redesigned kernels: the design each replaced and that design's time on an
 # H100 at 700 W (PERF.md), printed beside the new time and kept out of the
 # kernels line, which holds this run's readings. ms per ViT-H block at 3072
-# rows (the LayerNorm's through a CUDA graph), K8's per launch at 49,152 rows
+# rows (the row passes' through a CUDA graph), K8's per launch at 49,152
+# rows (heads_split's by events)
+ROW_BLOCK = "a 256-thread block per row"
 ATTN_BEFORE, GEMM_BF16_BEFORE, GEMM_I8_BEFORE = (
     "the f32 CUDA-core attention loop", "wmma 16x16x16 + cp.async ring",
     "mma.sync m16n8k32 + cp.async ring")
 EARLIER_MS = {"splat_fwd": ("dense loop", 1.3606),
               "splat_bwd": ("dense loop", 2.4476),
-              "vit_layernorm": ("a 256-thread block per row", 0.0192),
+              "vit_layernorm": (ROW_BLOCK, 0.0192),
+              "ln_quant_dynamic": (ROW_BLOCK, 0.0294),
+              "ln_quant_static": (ROW_BLOCK, 0.0239),
+              "heads_split": ("a thread per 4 bytes", 0.6132),
               "attention_i8": ("dp4a, a warp per query row", 1.9415),
               "vit_attention": (ATTN_BEFORE, 0.4681),
               "qkv_attention_dynamic": (ATTN_BEFORE, 0.4360),
@@ -162,6 +167,19 @@ ATTN_SWEEP = ((1, 50, 64), (1, 50, 80), (1, 145, 64), (1, 145, 80),
 ATTN_I8_SWEEP = ATTN_SWEEP + ((1, 50, 20), (2, 193, 36))
 # LayerNorm off its rows a thread block: (rows, widths)
 LN_RAGGED = ((1, 13, 3077), (128, 160, 768, 1280))
+# the passes that give a row to a warp (csrc/common.cuh), graph-timed at
+# every size
+ROW_PASSES = ("vit_layernorm", "ln_quant_dynamic", "ln_quant_static")
+# ln_quant's rows whose mean is large against their spread: the fast variance
+# E[x^2] - E[x]^2 cancels, so the kernel's sum order (lane partials, then a
+# butterfly) and the twin's part most there. Means in units of the spread (6):
+# 16 for the static form (E[x^2] is 257 times the variance); 1 for the
+# dynamic one, whose row scale carries half the variance's relative error
+# and is held to 1e-6 (at 16 the two orders' scales part by 3e-5 to 8e-5:
+# tests/test_torch_rowpass.py's emulation)
+LNQ_CANCEL_MEAN = {False: 16.0, True: 1.0}
+# heads_split off the 256-crop shape: (B, N, H, D); D 6 takes the 4-byte form
+SPLIT_RAGGED = ((1, 13, 3, 80), (1, 13, 3, 6), (1, 13, 3, 64))
 
 
 def card_line() -> str:
@@ -626,10 +644,11 @@ def kernel_cases(x, p, p32):
     # us on the host: time every case, its twin and its library call through
     # a CUDA graph, so that the host's cost is not read as the card's (10
     # calls a graph: outputs stay in the graph's pool)
-    if rows <= ROWS:
-        for case in [c for _, _, ks in groups for *_, cs in ks.values()
-                     for c in cs] + [e[0] for e in extra]:
-            case.timer = short_ms
+    # (the row passes at every size: 0.01-0.1 ms a launch)
+    for case in [c for _, _, ks in groups for k, (*_, cs) in ks.items()
+                 for c in cs if rows <= ROWS or k in ROW_PASSES] + [
+                     e[0] for e in extra if rows <= ROWS]:
+        case.timer = short_ms
     # the int8 blocks' attention lives in the attention library
     sources = {"qkv_attention_dynamic": SRC_ATTN,
                "qkv_attention_static": SRC_ATTN}
@@ -1136,11 +1155,81 @@ def layernorm_ragged_check(gen, dev) -> None:
                     lambda: vb.layernorm(x, ones, ones))
 
 
+def ln_quant_ragged_check(gen, dev) -> None:
+    """K5/K6's LayerNorm + quantise at :data:`LN_RAGGED`, both forms, bf16
+    and f32 rows, against its twin; at 3077 rows every other row has a mean
+    large against its spread (:data:`LNQ_CANCEL_MEAN`); a width the kernel
+    does not take is refused."""
+    from hands_tpu_torch.ops import vit_block_int8 as v8
+
+    counts, widths = LN_RAGGED
+    for c in widths:
+        scale = 1.0 + 0.1 * torch.randn(c, generator=gen, device=dev)
+        bias = 0.1 * torch.randn(c, generator=gen, device=dev)
+        for r in counts:
+            x = 3.0 * torch.randn((r, c), generator=gen, device=dev) + 0.5
+            spread = 6.0 * torch.randn((r, c), generator=gen, device=dev)
+            for dynamic in (True, False):
+                form = "dynamic" if dynamic else "static"
+                # the static form's scale and bias arrive divided by an
+                # activation scale (1/30 here): values over the int8 range
+                mul = 1.0 if dynamic else 30.0
+                xr = x.clone()
+                if r >= counts[-1]:
+                    xr[::2] = spread[::2] + 6.0 * LNQ_CANCEL_MEAN[dynamic]
+                for dtype in (torch.bfloat16, torch.float32):
+                    xt = xr.to(dtype)
+                    compare_int8(
+                        f"ln_quant {form} {str(dtype)[6:]} rows {r} C {c}",
+                        v8.ln_quant(xt, scale * mul, bias * mul, dynamic),
+                        v8.ln_quant_plain(xt, scale * mul, bias * mul,
+                                          dynamic))
+    torch.cuda.synchronize()
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.zeros((4, 1284), dtype=dtype, device=dev)
+        ones = torch.ones(1284, device=dev)
+        require_refused(f"ln_quant {str(dtype)[6:]} C 1284",
+                        lambda: v8.ln_quant(x, ones, ones, True))
+
+
+def heads_split_case(qkv3, heads) -> Case:
+    """K8's head-major relayout of a (B, N, 3C) qkv, bit-equal to its twin,
+    timed through a CUDA graph beside ``permute().contiguous()``."""
+    B, N, c3 = qkv3.shape
+    t5 = qkv3.view(B, N, 3, heads, c3 // 3 // heads).permute(2, 0, 3, 1, 4)
+    return Case("attn_merged: qkv to head-major",
+                lambda f: f(qkv3, heads), [qkv3], 0, "f32",
+                lambda: t5.contiguous(), check=compare_equal, timer=short_ms)
+
+
+def heads_split_check(gen, dev) -> None:
+    """K8's ``heads_split`` at :data:`SPLIT_RAGGED`, from an input that
+    starts 4 bytes past a 16-byte boundary (it must take the 4-byte form),
+    bit-equal to its twin; an odd head dim is refused."""
+    from hands_tpu_torch.ops import vit_block_ablation as abl
+
+    for b, n, h, d in SPLIT_RAGGED:
+        size = b * n * 3 * h * d
+        buf = torch.randn(size + 8, generator=gen, device=dev).to(
+            torch.bfloat16)
+        for off in (0, 2):  # bf16 elements: 0 and 4 bytes past the boundary
+            qkv = buf[off:off + size].view(b, n, 3 * h * d)
+            width = abl.split_vector_bytes(d, qkv.data_ptr())
+            require(width == (16 if d % 8 == 0 and off == 0 else 4),
+                    f"heads_split D {d} offset {off}: {width}-byte form")
+            compare_equal(f"heads_split B {b} N {n} H {h} D {d} +{2 * off} B "
+                          f"({width}-byte form)", abl.heads_split(qkv, h),
+                          abl.heads_split_plain(qkv, h).contiguous())
+    torch.cuda.synchronize()
+    qkv = torch.zeros((1, 13, 3 * 3 * 5), dtype=torch.bfloat16, device=dev)
+    require_refused("heads_split D 5", lambda: abl.heads_split(qkv, 3))
+
+
 def gemm_serving_phase(gen, dev, tag,
-                       names=GEMM_KERNELS + ("vit_layernorm",)) -> None:
-    """The serving GEMMs and K3's LayerNorm (or the kernels of ``names``) at
-    the bs64 batch (:data:`GEMM_SERVE_BATCH` crops, 24,576 rows) against
-    their twins, timed beside the library call; their lines stay out of the
+                       names=GEMM_KERNELS + ROW_PASSES) -> None:
+    """The serving GEMMs and the LayerNorm passes (or the kernels of
+    ``names``) at the bs64 batch (:data:`GEMM_SERVE_BATCH` crops, 24,576
+    rows) against their twins, timed beside the library call; their lines stay out of the
     kernels JSON (per ViT-H block at 3072 rows)."""
     x, p, p32 = block_inputs(gen, dev, GEMM_SERVE_BATCH, N_TOK, C, HIDDEN)
     groups, sources, extra, _ = kernel_cases(x, p, p32)
@@ -1866,9 +1955,8 @@ def ablation_cases(x, op):
         one("qslice_quant", abl.qslice_quant, abl.qslice_quant_plain, Case(
             "no_attn: q third, quantise", lambda f: f(qkv3, inv),
             [qkv3[..., :c], inv], 2 * rows_n * c, "f32", check=compare_equal)),
-        one("heads_split", abl.heads_split, abl.heads_split_plain, Case(
-            "attn_merged: qkv to head-major", lambda f: f(qkv3, HEADS),
-            [qkv3], 0, "f32", lambda: t5.contiguous(), check=compare_equal)),
+        one("heads_split", abl.heads_split, abl.heads_split_plain,
+            heads_split_case(qkv3, HEADS)),
         one("heads_merge_quant", abl.heads_merge_quant,
             abl.heads_merge_quant_plain, Case(
                 "attn_merged: heads back, quantise",
@@ -2569,6 +2657,55 @@ def kernels_alone() -> int:
     return 0
 
 
+def rowpass_alone(check: bool = True) -> int:
+    """The warp-per-row passes: K5/K6's ``ln_quant`` and K3's LayerNorm at
+    ViT-H, 3072 and 24,576 rows, and K8's ``heads_split`` at 49,152 rows
+    (256 crops), each against its twin and graph-timed beside its twin and
+    its library call; with ``check`` also at their ragged shapes, the
+    narrow form and the refused shapes::
+
+        python3 -c "import sys, chip_smoke as cs; sys.exit(cs.rowpass_alone())"
+
+    ``check=False`` times a tree from before the warp-per-row designs (no
+    refusals, no narrow form) behind this script.
+    """
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from hands_tpu_torch.ops import vit_block as vb
+    from hands_tpu_torch.ops import vit_block_ablation as abl
+    from hands_tpu_torch.ops import vit_block_int8 as v8
+    from hands_tpu_torch.ops.cuda_build import build_all
+
+    tag = f"[{card_line()}]"
+    t0 = time.time()
+    print_ptxas(build_all([vb.LIBRARY, v8.LIBRARY, abl.LIBRARY]))
+    print(f"built {SRC_K3}, {SRC_I8}, {SRC_ABL} in {time.time() - t0:.1f} s")
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    x, p, p32 = block_inputs(gen, DEV, BATCH, N_TOK, C, HIDDEN)
+    groups, sources, _, _ = kernel_cases(x, p, p32)
+    groups = only(groups, ROW_PASSES)
+    rows = {}
+    check_groups(groups, sources, rows)
+    if check:
+        layernorm_ragged_check(gen, DEV)
+        ln_quant_ragged_check(gen, DEV)
+        heads_split_check(gen, DEV)
+    time_groups(groups, rows, tag)
+    del groups, x, p, p32
+    gemm_serving_phase(gen, DEV, tag, ROW_PASSES)
+    qkv3 = torch.randn((ABL_BATCH, N_TOK, 3 * C), generator=gen,
+                       device=DEV).to(torch.bfloat16)
+    split = [(K8, SRC_ABL, {"heads_split": (
+        abl.heads_split, abl.heads_split_plain,
+        [heads_split_case(qkv3, HEADS)])})]
+    print(f"  heads_split at {ABL_BATCH * N_TOK} rows ({ABL_BATCH} crops)")
+    check_groups(split, {}, rows)
+    time_groups(split, rows, tag)
+    print(json.dumps({"kernels": list(rows.values())}))
+    return 0
+
+
 def gemm_alone() -> int:
     """The GEMM kernels alone (csrc/gemm_sm90.cuh): phase 2's GEMM checks at
     ViT-H (3072 rows), every epilogue off every tile, their times beside the
@@ -2804,6 +2941,8 @@ def main() -> int:
     torch.cuda.synchronize()
     attention_phase(dev, *attention_inputs(groups))
     layernorm_ragged_check(gen, dev)
+    ln_quant_ragged_check(gen, dev)
+    heads_split_check(gen, dev)
     gemm_ragged_check(gen, dev)
 
     # ---- 3. serve requests through full-width ViT-H, kernels on

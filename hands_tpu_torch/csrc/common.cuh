@@ -78,6 +78,80 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// --------------------------------------------------- a warp per row
+// The LayerNorm passes (vit_block.cu's layernorm_kernel, vit_block_int8.cu's
+// ln_quant_kernel) give each row to one warp, WARP_ROWS rows a block, and
+// hold it in registers: lane l keeps NV vectors of 4 values (8 bytes of
+// bf16 or 16 of f32), vector i being the row's values 4 (32 i + l) ... +
+// 3; vectors past the row's end are zeros. The row is read once; the
+// statistics are warp shuffles, with no shared memory and no barrier.
+constexpr int WARP_ROWS = 8;
+constexpr int WARP_ROW_MAX_C = 2048;  // the widest row the registers hold
+
+__device__ __forceinline__ void load4(const bf16* p, float* v) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const bf16* e = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) v[j] = __bfloat162float(e[j]);
+}
+
+__device__ __forceinline__ void load4(const float* p, float* v) {
+  const float4 raw = *reinterpret_cast<const float4*>(p);
+  v[0] = raw.x, v[1] = raw.y, v[2] = raw.z, v[3] = raw.w;
+}
+
+// Reads row `xr` of C values (C a multiple of 4) into v and returns the
+// flax LayerNorm statistics in its f32 rounding order: E[.] = sum * RN(1/C)
+// (XLA compiles jnp.mean's division by the constant C so), fast variance
+// max(E[x^2] - E[x]^2, 0) with each product rounded, r = rsqrt(var + eps).
+// The sums run in the order of PyTorch's CUDA row reduction, the twins' on
+// the card, for C > 128 and 16 rows or more: each lane keeps one
+// accumulator a vector element (x * x rounded before its add) and combines
+// them as ((a0 + a1) + a2) + a3; the 32 lane sums meet in warp_sum's xor
+// butterfly over 16, 8, 4, 2, 1 (lane l with l + 16 first, as shfl_down
+// does; every step gives all lanes the same sum). Then chip_smoke.py finds
+// ln_quant and the LayerNorm bit-equal to their twins; in another order an
+// int8 step in 1e6 moved, and each moved step of the first LayerNorm
+// reaches a whole image through the attention.
+template <typename T, int NV>
+__device__ __forceinline__ void warp_row_stats(const T* __restrict__ xr,
+                                               int C, float eps,
+                                               float (&v)[NV][4], float& mu,
+                                               float& r) {
+  const int lane = threadIdx.x % 32, nvec = C / 4;
+  float a[4] = {0.f, 0.f, 0.f, 0.f}, aa[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int vi = i * 32 + lane;
+    if (vi < nvec) {
+      load4(xr + (size_t)vi * 4, v[i]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[i][j] = 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      a[j] = __fadd_rn(a[j], v[i][j]);
+      aa[j] = __fadd_rn(aa[j], __fmul_rn(v[i][j], v[i][j]));
+    }
+  }
+  const float s = warp_sum(
+      __fadd_rn(__fadd_rn(__fadd_rn(a[0], a[1]), a[2]), a[3]));
+  const float ss = warp_sum(
+      __fadd_rn(__fadd_rn(__fadd_rn(aa[0], aa[1]), aa[2]), aa[3]));
+  const float inv_c = 1.f / (float)C;
+  mu = __fmul_rn(s, inv_c);
+  const float var =
+      fmaxf(__fsub_rn(__fmul_rn(ss, inv_c), __fmul_rn(mu, mu)), 0.f);
+  r = rsqrtf(var + eps);
+}
+
+// (x - mu) * (r * scale) + bias, each step rounded (no contraction)
+__device__ __forceinline__ float ln_affine(float x, float mu, float r,
+                                          float scale, float bias) {
+  return __fadd_rn(__fmul_rn(__fsub_rn(x, mu), __fmul_rn(r, scale)), bias);
+}
+
 constexpr int ROW_THREADS = 256;
 
 // Sum (IS_MAX = false) or maximum over the thread block; every thread gets

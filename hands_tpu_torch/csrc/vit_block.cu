@@ -94,66 +94,40 @@ __device__ __forceinline__ float gelu_tanh_bf16(float x) {
 }
 
 // ------------------------------------------------------------- LayerNorm
-// One warp per row, LN_ROWS rows a block. flax LayerNorm to its f32
-// rounding order: fast variance var = max(E[x^2] - E[x]^2, 0), mul =
-// rsqrt(var + eps) * scale applied as one multiplier, y = (x - mu) * mul +
-// bias, rounded to bf16. The row is read once, with 16-byte loads, and held
-// in registers (NV vectors of 8 bf16 a lane: 5 at C = 1280); its two sums
-// are warp shuffles, with no shared memory and no barrier; scale and bias
-// come as float4 pairs and the output leaves as 16-byte stores. C is a
-// multiple of 8 up to LN_MAX_C.
-constexpr int LN_ROWS = 8;  // warps, one row each, a block
-constexpr int LN_MAX_C = 2048;
-
+// One warp per row, WARP_ROWS rows a block (common.cuh's warp_row_stats).
+// flax LayerNorm to its f32 rounding order: fast variance var = max(E[x^2] -
+// E[x]^2, 0), mul = rsqrt(var + eps) * scale applied as one multiplier, y =
+// (x - mu) * mul + bias, rounded to bf16. The row is read once, with 8-byte
+// loads of 4 values, and held in registers (NV vectors a lane: 10 at C =
+// 1280); its two sums are warp shuffles, with no shared memory and no
+// barrier; scale and bias come as float4 and the output leaves as 8-byte
+// stores. C is a multiple of 8 up to WARP_ROW_MAX_C.
 template <int NV>
-__global__ void __launch_bounds__(LN_ROWS * 32) layernorm_kernel(
+__global__ void __launch_bounds__(WARP_ROWS * 32) layernorm_kernel(
     const bf16* __restrict__ x, const float* __restrict__ scale,
     const float* __restrict__ bias, bf16* __restrict__ out, int rows, int C,
     float eps) {
   const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * LN_ROWS + threadIdx.x / 32;
+  const int row = blockIdx.x * WARP_ROWS + threadIdx.x / 32;
   if (row >= rows) return;  // warp-uniform
-  const int nvec = C / 8;
-  const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)row * C);
-  float v[NV][8];
-  float s = 0.f, ss = 0.f;
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    const int vi = i * 32 + lane;
-    const uint4 raw = vi < nvec ? xr[vi] : make_uint4(0u, 0u, 0u, 0u);
-    const bf16* e = reinterpret_cast<const bf16*>(&raw);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      v[i][j] = __bfloat162float(e[j]);
-      s += v[i][j];
-      ss += v[i][j] * v[i][j];
-    }
-  }
-  s = warp_sum(s);
-  ss = warp_sum(ss);
-  const float mu = s / (float)C;
-  const float var = fmaxf(ss / (float)C - mu * mu, 0.f);
-  const float r = rsqrtf(var + eps);
-  const float4* sc = reinterpret_cast<const float4*>(scale);
-  const float4* bi = reinterpret_cast<const float4*>(bias);
-  uint4* outr = reinterpret_cast<uint4*>(out + (size_t)row * C);
+  const int nvec = C / 4;
+  float v[NV][4], mu, r;
+  warp_row_stats<bf16, NV>(x + (size_t)row * C, C, eps, v, mu, r);
+  uint2* outr = reinterpret_cast<uint2*>(out + (size_t)row * C);
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
     const int vi = i * 32 + lane;
     if (vi < nvec) {
-      const float4 s0 = sc[2 * vi], s1 = sc[2 * vi + 1];
-      const float4 b0 = bi[2 * vi], b1 = bi[2 * vi + 1];
-      const float m[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-      uint32_t y[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const __nv_bfloat162 p = __floats2bfloat162_rn(
-            (v[i][2 * j] - mu) * (r * m[2 * j]) + b[2 * j],
-            (v[i][2 * j + 1] - mu) * (r * m[2 * j + 1]) + b[2 * j + 1]);
-        y[j] = *reinterpret_cast<const uint32_t*>(&p);
-      }
-      outr[vi] = make_uint4(y[0], y[1], y[2], y[3]);
+      const float4 m = reinterpret_cast<const float4*>(scale)[vi];
+      const float4 b = reinterpret_cast<const float4*>(bias)[vi];
+      const __nv_bfloat162 y0 = __floats2bfloat162_rn(
+          ln_affine(v[i][0], mu, r, m.x, b.x),
+          ln_affine(v[i][1], mu, r, m.y, b.y));
+      const __nv_bfloat162 y1 = __floats2bfloat162_rn(
+          ln_affine(v[i][2], mu, r, m.z, b.z),
+          ln_affine(v[i][3], mu, r, m.w, b.w));
+      outr[vi] = make_uint2(*reinterpret_cast<const uint32_t*>(&y0),
+                            *reinterpret_cast<const uint32_t*>(&y1));
     }
   }
 }
@@ -162,8 +136,8 @@ template <int NV>
 int launch_layernorm(const void* x, const void* scale, const void* bias,
                      void* out, int rows, int C, float eps,
                      cudaStream_t stream) {
-  layernorm_kernel<NV><<<(rows + LN_ROWS - 1) / LN_ROWS, LN_ROWS * 32, 0,
-                         stream>>>((const bf16*)x, (const float*)scale,
+  layernorm_kernel<NV><<<(rows + WARP_ROWS - 1) / WARP_ROWS, WARP_ROWS * 32,
+                         0, stream>>>((const bf16*)x, (const float*)scale,
                                    (const float*)bias, (bf16*)out, rows, C,
                                    eps);
   return (int)cudaGetLastError();
@@ -245,18 +219,24 @@ int vit_layernorm(int device, const void* x, const void* scale,
                   void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (rows < 1 || C < 8 || C > LN_MAX_C || C % 8)
+  if (rows < 1 || C < 8 || C > WARP_ROW_MAX_C || C % 8)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  // vectors of 8 a lane: the row's C / 8 over 32 lanes
-  switch ((C / 8 + 31) / 32) {
+  // vectors of 4 a lane: the row's C / 4 over 32 lanes
+  switch ((C / 4 + 31) / 32) {
     case 1: return launch_layernorm<1>(x, scale, bias, out, rows, C, eps, s);
     case 2: return launch_layernorm<2>(x, scale, bias, out, rows, C, eps, s);
     case 3: return launch_layernorm<3>(x, scale, bias, out, rows, C, eps, s);
     case 4: return launch_layernorm<4>(x, scale, bias, out, rows, C, eps, s);
     case 5: return launch_layernorm<5>(x, scale, bias, out, rows, C, eps, s);
     case 6: return launch_layernorm<6>(x, scale, bias, out, rows, C, eps, s);
-    default: return launch_layernorm<8>(x, scale, bias, out, rows, C, eps, s);
+    case 7:
+    case 8: return launch_layernorm<8>(x, scale, bias, out, rows, C, eps, s);
+    case 9:
+    case 10: return launch_layernorm<10>(x, scale, bias, out, rows, C, eps, s);
+    case 11:
+    case 12: return launch_layernorm<12>(x, scale, bias, out, rows, C, eps, s);
+    default: return launch_layernorm<16>(x, scale, bias, out, rows, C, eps, s);
   }
 }
 

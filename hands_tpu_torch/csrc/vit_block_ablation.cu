@@ -33,9 +33,13 @@
 // GEMM; the int8 attention by its bytes too (bf16 q, k, v in, int8 out:
 // 4*N*N*D integer operations a head are 0.024 ms of int8 tensor-core time
 // at 256 crops against 0.13 ms of bytes), as long as the softmax between
-// its two products keeps up. What the design does about it: one thread per
-// element (pair) in the passes; the attention kernels' MMA geometry (see
-// attention_kernel.cuh) for every attention mode, int8 included.
+// its two products keeps up. What the design does about it: heads_split is
+// a warp per token row moving whole head segments with 16-byte loads and
+// stores (4-byte ones when D or the pointers do not allow 16), one division
+// per row; the LayerNorm knock-outs are still one thread block per row and
+// the other passes one thread per element; the attention kernels' MMA
+// geometry (see attention_kernel.cuh) for every attention mode, int8
+// included.
 
 #include "attention_kernel.cuh"
 #include "gemm_sm90.cuh"
@@ -100,20 +104,52 @@ __global__ void qslice_quant_kernel(const bf16* __restrict__ qkv,
   out[i] = (int8_t)quant_clip(to_float(qkv[r * 3 * C + c]) * inv[c]);
 }
 
-// (B, N, 3, H, D) -> (3, B*H, N, D), two bf16 values a thread (D is even)
-__global__ void heads_split_kernel(const uint32_t* __restrict__ qkv,
-                                   uint32_t* __restrict__ out, int B, int N,
-                                   int H, int D2) {
-  const size_t total = (size_t)3 * B * H * N * D2;
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  size_t r = i;
-  const int d = (int)(r % D2); r /= D2;
-  const int n = (int)(r % N); r /= N;
-  const int h = (int)(r % H); r /= H;
-  const int b = (int)(r % B); r /= B;
-  const int which = (int)r;
-  out[i] = qkv[((((size_t)b * N + n) * 3 + which) * H + h) * D2 + d];
+// (B, N, 3, H, D) -> (3, B*H, N, D). A token row (b, n) of qkv is 3H
+// segments of D values back to back; segment seg = which * H + h lands
+// contiguously at row ((which * B + b) * H + h) * N + n of the output. One
+// warp per token row, SPLIT_ROWS rows a block: the warp reads its row as V
+// vectors (uint4: D % 8 == 0 and both pointers 16-byte aligned; else
+// uint32_t, D even), lane l taking vectors l, l + 32, ..., so the reads are
+// coalesced across the row and the writes across each segment. Each lane
+// divides once for its first (segment, vector) and then steps 32 vectors a
+// time by adds; SPLIT_UNROLL loads are in flight before their stores.
+constexpr int SPLIT_ROWS = 8;
+constexpr int SPLIT_UNROLL = 4;
+
+template <typename V>
+__global__ void __launch_bounds__(SPLIT_ROWS * 32) heads_split_kernel(
+    const V* __restrict__ qkv, V* __restrict__ out, int B, int N, int H,
+    int segv) {
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * SPLIT_ROWS + threadIdx.x / 32;
+  if (row >= B * N) return;  // warp-uniform
+  const int b = row / N, n = row - b * N;
+  const int per_row = 3 * H * segv;  // vectors of a token row
+  const V* in = qkv + (size_t)row * per_row;
+  // output vector of (which, h, v): which * which_stride + h * head_stride
+  // + row_off + v
+  const size_t head_stride = (size_t)N * segv;
+  const size_t which_stride = (size_t)B * H * head_stride;
+  const size_t row_off = (size_t)b * H * head_stride + (size_t)n * segv;
+  int seg = lane / segv, v = lane - seg * segv;
+  const int dseg = 32 / segv, dv = 32 - dseg * segv;
+  for (int base = lane; base < per_row; base += 32 * SPLIT_UNROLL) {
+    V r[SPLIT_UNROLL];
+    size_t dst[SPLIT_UNROLL];
+#pragma unroll
+    for (int u = 0; u < SPLIT_UNROLL; ++u) {
+      if (base + 32 * u < per_row) r[u] = in[base + 32 * u];
+      const int which = seg >= 2 * H ? 2 : (seg >= H ? 1 : 0);
+      dst[u] = which * which_stride + (size_t)(seg - which * H) * head_stride +
+               row_off + v;
+      seg += dseg;
+      v += dv;
+      if (v >= segv) v -= segv, ++seg;
+    }
+#pragma unroll
+    for (int u = 0; u < SPLIT_UNROLL; ++u)
+      if (base + 32 * u < per_row) out[dst[u]] = r[u];
+  }
 }
 
 // f32 (B*H, N, D) -> int8 (B, N, H*D): clip(round(o * inv[h*D + d]))
@@ -274,15 +310,26 @@ int abl_qslice_quant(int device, const void* qkv, const void* inv, void* out,
   return (int)cudaGetLastError();
 }
 
+// vec_bytes 16 (D % 8 == 0, both pointers 16-byte aligned) or 4 (D even,
+// both pointers 4-byte aligned): the width of the copy's vectors, picked by
+// the caller (ops/vit_block_ablation.py:split_vector_bytes)
 int abl_heads_split(int device, const void* qkv, void* out, int B, int N,
-                    int H, int D, void* stream) {
+                    int H, int D, int vec_bytes, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (D % 2) return (int)cudaErrorInvalidValue;
-  const size_t total = (size_t)3 * B * H * N * (D / 2);
-  heads_split_kernel<<<pass_blocks(total), PASS_THREADS, 0,
-                       (cudaStream_t)stream>>>(
-      (const uint32_t*)qkv, (uint32_t*)out, B, N, H, D / 2);
+  const uintptr_t ptrs = (uintptr_t)qkv | (uintptr_t)out;
+  if (B < 1 || N < 1 || H < 1 || D < 2 || D % 2 ||
+      (vec_bytes != 16 && vec_bytes != 4) || ptrs % vec_bytes ||
+      (vec_bytes == 16 && D % 8))
+    return (int)cudaErrorInvalidValue;
+  const int blocks = (int)(((size_t)B * N + SPLIT_ROWS - 1) / SPLIT_ROWS);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (vec_bytes == 16)
+    heads_split_kernel<uint4><<<blocks, SPLIT_ROWS * 32, 0, s>>>(
+        (const uint4*)qkv, (uint4*)out, B, N, H, D / 8);
+  else
+    heads_split_kernel<uint32_t><<<blocks, SPLIT_ROWS * 32, 0, s>>>(
+        (const uint32_t*)qkv, (uint32_t*)out, B, N, H, D / 2);
   return (int)cudaGetLastError();
 }
 

@@ -45,56 +45,138 @@
 // 128-byte K tiles into a four-stage mbarrier ring, two MMA warpgroups on
 // wgmma m64n128k32 with s32 accumulators, epilogue warps that finish one
 // tile while the next one's products run); each of the seven dequantising
-// epilogues below is a type, storing pairs of adjacent outputs. The row
-// passes are one thread block per row.
+// epilogues below is a type, storing pairs of adjacent outputs. The
+// LayerNorm + quantise pass is a warp per row: 16-byte loads, the row in
+// registers, shuffles only, the int8 row leaving in 8-byte stores, so that
+// its bytes (x in, q out, and the row scales) are all it waits on;
+// quant_rows is still one thread block per row.
 
 #include "common.cuh"
 #include "gemm_sm90.cuh"
 
 namespace {
 
+// clip(round(y)) to [-127, 127] as an int: round half to even (F2I.RN, as
+// rintf), then integer clamps
+__device__ __forceinline__ int quant_i8(float y) {
+  return min(max(__float2int_rn(y), -127), 127);
+}
+
+// quant_i8(y / s) of the IEEE quotient, given inv = RN(1 / s), for |y| <=
+// 127.01 s (s = max|y| / 127 + 1e-12). t = RN(y * inv) is within 127.01 *
+// (2^-23 + 2^-48) < 2^-16 of y / s, and RN(y / s) within 2^-18 of it (half
+// an ulp below 128), so the two are less than 2^-15 apart: where t is
+// farther than that from a half-integer, both round to the same integer;
+// nearer (about 2^-14 of the values), the IEEE division decides.
+__device__ __forceinline__ int quant_div(float y, float s, float inv) {
+  const float t = y * inv;
+  float k = rintf(t);
+  if (fabsf(t - k) >= 0.5f - 0x1p-15f) k = y / s;
+  return quant_i8(k);
+}
+
 // ---------------------------------------------------- LayerNorm + quantise
-// One block per row. flax LayerNorm to its f32 rounding order (fast variance
-// max(E[x^2] - E[x]^2, 0); mul = rsqrt(var + eps) * scale as one multiplier;
-// y = (x - mu) * mul + bias), then
-//   DYNAMIC: s = max|y| / 127 + 1e-12, q = clip(round(y / s)); writes q and s
+// One warp per row, WARP_ROWS rows a block, the row in registers (common.cuh's
+// warp_row_stats: NV vectors of 4 values a lane, 8 bytes of bf16 or 16 of
+// f32; 10 at C = 1280); every sum and the maximum are warp shuffles, with
+// no shared memory and no barrier. flax LayerNorm to its f32 rounding order
+// (fast variance max(E[x^2] - E[x]^2, 0); mul = rsqrt(var + eps) * scale as
+// one multiplier; y = (x - mu) * mul + bias), then
+//   DYNAMIC: s = max|y| / 127 + 1e-12, q = clip(round(y / s)) of the IEEE
+//            quotient (quant_div below); writes q and s
 //   static:  q = clip(round(y)) (scale and bias arrive pre-divided)
-template <typename T, bool DYNAMIC>
-__global__ void __launch_bounds__(ROW_THREADS) ln_quant_kernel(
+// scale and bias come as float4 loads; a vector's 4 int8 results leave as
+// one 4-byte store. At the serving size (3072 rows) every row is in flight
+// at once, so a warp's instructions between its loads and its stores add
+// to the time: the quantisation is one F2I and two integer clamps, and the
+// division runs only where it decides.
+template <typename T, bool DYNAMIC, int NV>
+__global__ void __launch_bounds__(WARP_ROWS * 32) ln_quant_kernel(
     const T* __restrict__ x, const float* __restrict__ scale,
     const float* __restrict__ bias, int8_t* __restrict__ q,
-    float* __restrict__ s_out, int C, float eps) {
-  extern __shared__ float ybuf[];  // C values of this row
-  __shared__ float red[ROW_THREADS / 32];
-  const T* xr = x + (size_t)blockIdx.x * C;
-  int8_t* qr = q + (size_t)blockIdx.x * C;
-
-  float s = 0.f, ss = 0.f;
-  for (int c = threadIdx.x; c < C; c += ROW_THREADS) {
-    const float v = to_float(xr[c]);
-    ybuf[c] = v;
-    s += v;
-    ss += v * v;
+    float* __restrict__ s_out, int rows, int C, float eps) {
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * WARP_ROWS + threadIdx.x / 32;
+  if (row >= rows) return;  // warp-uniform
+  const int nvec = C / 4;
+  float v[NV][4], mu, r;
+  warp_row_stats<T, NV>(x + (size_t)row * C, C, eps, v, mu, r);
+  float amax = 0.f;  // padding vectors stay out of it
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int vi = i * 32 + lane;
+    if (vi < nvec) {
+      const float4 m = reinterpret_cast<const float4*>(scale)[vi];
+      const float4 b = reinterpret_cast<const float4*>(bias)[vi];
+      v[i][0] = ln_affine(v[i][0], mu, r, m.x, b.x);
+      v[i][1] = ln_affine(v[i][1], mu, r, m.y, b.y);
+      v[i][2] = ln_affine(v[i][2], mu, r, m.z, b.z);
+      v[i][3] = ln_affine(v[i][3], mu, r, m.w, b.w);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) amax = fmaxf(amax, fabsf(v[i][j]));
+    }
   }
-  s = block_reduce<false>(s, red);
-  ss = block_reduce<false>(ss, red);
-  const float mu = s / (float)C;
-  const float var = fmaxf(ss / (float)C - mu * mu, 0.f);
-  const float r = rsqrtf(var + eps);
-  float amax = 0.f;
-  for (int c = threadIdx.x; c < C; c += ROW_THREADS) {
-    const float y = (ybuf[c] - mu) * (r * scale[c]) + bias[c];
-    ybuf[c] = y;
-    amax = fmaxf(amax, fabsf(y));
-  }
-  float sc = 1.f;
+  float sc = 1.f, inv = 1.f;
   if (DYNAMIC) {
-    amax = block_reduce<true>(amax, red);
-    sc = fmaf(amax, INV127, 1e-12f);
-    if (threadIdx.x == 0) s_out[blockIdx.x] = sc;
+    sc = fmaf(warp_max(amax), INV127, 1e-12f);
+    inv = 1.f / sc;
+    if (lane == 0) s_out[row] = sc;
   }
-  for (int c = threadIdx.x; c < C; c += ROW_THREADS)
-    qr[c] = (int8_t)quant_clip(DYNAMIC ? ybuf[c] / sc : ybuf[c]);
+  uint32_t* qr = reinterpret_cast<uint32_t*>(q + (size_t)row * C);
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int vi = i * 32 + lane;
+    if (vi < nvec) {
+      uint32_t packed = 0u;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int qv = DYNAMIC ? quant_div(v[i][j], sc, inv)
+                               : quant_i8(v[i][j]);
+        packed |= (uint32_t)(qv & 0xff) << (8 * j);
+      }
+      qr[vi] = packed;
+    }
+  }
+}
+
+// NV: the 4-value vectors a lane holds, C / 4 over 32 lanes
+template <int NV, bool DYNAMIC>
+int launch_ln_quant(const void* x, bool x_is_f32, const float* scale,
+                    const float* bias, int8_t* q, float* s_out, int rows,
+                    int C, float eps, cudaStream_t s) {
+  const int blocks = (rows + WARP_ROWS - 1) / WARP_ROWS;
+  if (x_is_f32)
+    ln_quant_kernel<float, DYNAMIC, NV><<<blocks, WARP_ROWS * 32, 0, s>>>(
+        (const float*)x, scale, bias, q, s_out, rows, C, eps);
+  else
+    ln_quant_kernel<bf16, DYNAMIC, NV><<<blocks, WARP_ROWS * 32, 0, s>>>(
+        (const bf16*)x, scale, bias, q, s_out, rows, C, eps);
+  return (int)cudaGetLastError();
+}
+
+template <bool DYNAMIC>
+int dispatch_ln_quant(const void* x, bool x_is_f32, const float* scale,
+                      const float* bias, int8_t* q, float* s_out, int rows,
+                      int C, float eps, cudaStream_t s) {
+#define LNQ(NV) \
+  launch_ln_quant<NV, DYNAMIC>(x, x_is_f32, scale, bias, q, s_out, rows, C, \
+                               eps, s)
+  switch ((C / 4 + 31) / 32) {
+    case 1: return LNQ(1);
+    case 2: return LNQ(2);
+    case 3: return LNQ(3);
+    case 4: return LNQ(4);
+    case 5: return LNQ(5);
+    case 6: return LNQ(6);
+    case 7:
+    case 8: return LNQ(8);
+    case 9:
+    case 10: return LNQ(10);
+    case 11:
+    case 12: return LNQ(12);
+    default: return LNQ(16);
+  }
+#undef LNQ
 }
 
 // ------------------------------------------------------- per-row quantise
@@ -214,32 +296,24 @@ int int8_gemm(const void* a, const void* w, const void* row_scale,
 // the launch's cudaGetLastError() (0 = success) and never synchronises.
 extern "C" {
 
-// s_out == NULL selects the static form (q = clip(round(LN'(x)))).
+// s_out == NULL selects the static form (q = clip(round(LN'(x)))). C is a
+// multiple of 8 up to WARP_ROW_MAX_C, as the bf16 LayerNorm's.
 int i8_ln_quant(int device, const void* x, int x_is_f32, const void* scale,
                 const void* bias, void* q, void* s_out, int rows, int C,
                 float eps, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  if (rows < 1 || C < 8 || C > WARP_ROW_MAX_C || C % 8)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const size_t smem = (size_t)C * sizeof(float);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   const float* sc = (const float*)scale;
   const float* bi = (const float*)bias;
   int8_t* qo = (int8_t*)q;
   float* so = (float*)s_out;
-  if (x_is_f32 && so)
-    ln_quant_kernel<float, true><<<rows, ROW_THREADS, smem, s>>>(
-        (const float*)x, sc, bi, qo, so, C, eps);
-  else if (x_is_f32)
-    ln_quant_kernel<float, false><<<rows, ROW_THREADS, smem, s>>>(
-        (const float*)x, sc, bi, qo, so, C, eps);
-  else if (so)
-    ln_quant_kernel<bf16, true><<<rows, ROW_THREADS, smem, s>>>(
-        (const bf16*)x, sc, bi, qo, so, C, eps);
-  else
-    ln_quant_kernel<bf16, false><<<rows, ROW_THREADS, smem, s>>>(
-        (const bf16*)x, sc, bi, qo, so, C, eps);
-  return (int)cudaGetLastError();
+  return so ? dispatch_ln_quant<true>(x, x_is_f32, sc, bi, qo, so, rows, C,
+                                      eps, s)
+            : dispatch_ln_quant<false>(x, x_is_f32, sc, bi, qo, so, rows, C,
+                                       eps, s);
 }
 
 int i8_quant_rows(int device, const void* a, int a_is_f32, void* q,

@@ -60,17 +60,19 @@ LIBRARY = CudaLibrary("vit_block", _bind, "vit_error_string")
 
 # csrc/attention_kernel.cuh: a row of logits stays in registers
 ATTN_MAX_N, ATTN_MAX_D = 256, 128
-# csrc/vit_block.cu: a LayerNorm row stays in one warp's registers
+# csrc/common.cuh (WARP_ROW_MAX_C): a row of the LayerNorm kernels (this
+# block's and the int8 blocks' ln_quant) stays in one warp's registers
 LN_MAX_C = 2048
 
 
 def check_layernorm_width(C: int) -> None:
-    """Raise unless the LayerNorm kernel takes rows of ``C`` channels: a
-    multiple of 8 (16-byte loads) up to :data:`LN_MAX_C`."""
+    """Raise unless the LayerNorm kernels (this block's and ``ln_quant``)
+    take rows of ``C`` channels: a multiple of 8 (aligned vectors of 4
+    values) up to :data:`LN_MAX_C`."""
     if C % 8 or not 8 <= C <= LN_MAX_C:
         raise ValueError(f"LayerNorm kernel needs a width that is a multiple "
-                         f"of 8 up to {LN_MAX_C} (16-byte loads, the row in "
-                         f"one warp's registers), got {C}")
+                         f"of 8 up to {LN_MAX_C} (vectors of 4 values, the "
+                         f"row in one warp's registers), got {C}")
 
 
 def check_attention_shape(N: int, D: int) -> None:

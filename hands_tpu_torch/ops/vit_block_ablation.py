@@ -106,7 +106,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.abl_ln.argtypes = [i, p, p, p, p, i, i, f, i, i, p]
     lib.abl_cast_rows.argtypes = [i, p, p, ll, p]
     lib.abl_qslice_quant.argtypes = [i, p, p, p, ll, i, p]
-    lib.abl_heads_split.argtypes = [i, p, p, i, i, i, i, p]
+    lib.abl_heads_split.argtypes = [i, p, p, i, i, i, i, i, p]
     lib.abl_heads_merge_quant.argtypes = [i, p, p, p, i, i, i, i, p]
     lib.abl_gemm.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, i, p]
     lib.abl_attention.argtypes = [i, p, p, p, p, p, i, i, i, i, ll, ll, f, i,
@@ -399,16 +399,38 @@ def attention_i8(qkv, num_heads: int, inv_out) -> torch.Tensor:
     return out
 
 
+def split_vector_bytes(head_dim: int, *ptrs: int) -> int:
+    """The width of :func:`heads_split`'s copy: 16-byte vectors when a head
+    segment is a whole number of them (``head_dim % 8 == 0``) and every
+    pointer is 16-byte aligned, else 4 bytes (the kernel's narrow form)."""
+    wide = head_dim % 8 == 0 and all(p % 16 == 0 for p in ptrs)
+    return 16 if wide else 4
+
+
 def heads_split(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """See :func:`heads_split_plain`; the copy is a kernel of this module."""
+    """See :func:`heads_split_plain`; the copy is a kernel of this module.
+    ``qkv`` is contiguous bf16 starting at a 4-byte boundary, its head dim
+    even."""
     if on_cpu(qkv):
         return heads_split_plain(qkv, num_heads).contiguous()
     B, N, C3 = qkv.shape
-    _, _, D = _qkv_views(qkv, num_heads)
+    if C3 % 3 or C3 // 3 % num_heads:
+        raise ValueError(f"heads_split needs 3C columns, got {C3} columns, "
+                         f"{num_heads} heads")
+    D = C3 // 3 // num_heads
+    if D % 2:
+        raise ValueError(f"heads_split kernel needs an even head dim (4-byte "
+                         f"vectors), got {D}")
+    if (qkv.dtype != _BF16 or not qkv.is_contiguous()
+            or qkv.data_ptr() % 4):
+        raise ValueError(f"qkv: want contiguous bf16 at a 4-byte boundary, "
+                         f"got {qkv.dtype} at {qkv.data_ptr():#x} "
+                         f"(contiguous={qkv.is_contiguous()})")
     out = torch.empty((3, B * num_heads, N, D), dtype=_BF16,
                       device=qkv.device)
     LIBRARY.launch("abl_heads_split", qkv.device, qkv.data_ptr(),
-                   out.data_ptr(), B, N, num_heads, D)
+                   out.data_ptr(), B, N, num_heads, D,
+                   split_vector_bytes(D, qkv.data_ptr(), out.data_ptr()))
     launches["heads_split"] += 1
     return out
 

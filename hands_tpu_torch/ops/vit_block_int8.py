@@ -33,7 +33,8 @@ from hands_tpu_torch.ops import quant
 from hands_tpu_torch.ops.attention import qkv_attention, qkv_attention_plain
 from hands_tpu_torch.ops.cuda_build import (CudaLibrary, check,
                                            check_gemm_operands, on_cpu)
-from hands_tpu_torch.ops.vit_block import gelu, layernorm_f32
+from hands_tpu_torch.ops.vit_block import (check_layernorm_width, gelu,
+                                           layernorm_f32)
 
 _BF16, _F32, _I8 = torch.bfloat16, torch.float32, torch.int8
 
@@ -128,6 +129,7 @@ def ln_quant(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     dev = x.device
     if x.dtype not in (_BF16, _F32):
         raise ValueError(f"ln_quant takes bf16 or f32 rows, got {x.dtype}")
+    check_layernorm_width(C)
     check(x, "x", x.dtype, (R, C), dev)
     check(scale, "scale", _F32, (C,), dev)
     check(bias, "bias", _F32, (C,), dev)
