@@ -121,7 +121,7 @@ PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12,
 # H100 at 700 W (PERF.md), printed beside the new time and kept out of the
 # kernels line, which holds this run's readings. ms per ViT-H block at 3072
 # rows (the row passes' through a CUDA graph), K8's per launch at 49,152
-# rows (heads_split's by events)
+# rows by events
 ROW_BLOCK = "a 256-thread block per row"
 ATTN_BEFORE, GEMM_BF16_BEFORE, GEMM_I8_BEFORE = (
     "the f32 CUDA-core attention loop", "wmma 16x16x16 + cp.async ring",
@@ -132,6 +132,9 @@ EARLIER_MS = {"splat_fwd": ("dense loop", 1.3606),
               "ln_quant_dynamic": (ROW_BLOCK, 0.0294),
               "ln_quant_static": (ROW_BLOCK, 0.0239),
               "heads_split": ("a thread per 4 bytes", 0.6132),
+              "ln_affine_quant": (ROW_BLOCK, 0.0893),
+              "ln_cast": (ROW_BLOCK, 0.1558),
+              "heads_merge_quant": ("a thread an element", 0.3444),
               "attention_i8": ("dp4a, a warp per query row", 1.9415),
               "vit_attention": (ATTN_BEFORE, 0.4681),
               "qkv_attention_dynamic": (ATTN_BEFORE, 0.4360),
@@ -178,8 +181,19 @@ ROW_PASSES = ("vit_layernorm", "ln_quant_dynamic", "ln_quant_static")
 # and is held to 1e-6 (at 16 the two orders' scales part by 3e-5 to 8e-5:
 # tests/test_torch_rowpass.py's emulation)
 LNQ_CANCEL_MEAN = {False: 16.0, True: 1.0}
-# heads_split off the 256-crop shape: (B, N, H, D); D 6 takes the 4-byte form
+# heads_split and heads_merge_quant off the 256-crop shape: (B, N, H, D); D 6
+# takes the 4-byte form
 SPLIT_RAGGED = ((1, 13, 3, 80), (1, 13, 3, 6), (1, 13, 3, 64))
+# the kernels of K8's launches in the profiler's names (substrings): the
+# LayerNorm passes, the GEMMs by epilogue (int8 static: 4 qkv, 5 the two
+# residual ones, 6 GELU; AblationEpilogue: the knocked-out ones), the
+# attention, the head relayouts
+K8_KERNEL_NAMES = ("ln_quant_kernel", "ln_ablation_kernel", "Epilogue<4",
+                   "Epilogue<5", "Epilogue<6", "AblationEpilogue",
+                   "attention_mma_kernel", "heads_split_kernel",
+                   "heads_merge_quant_kernel")
+# the modes whose difference from full is accounted launch by launch
+K8_ACCOUNTED = ("no_ln", "no_quant", "attn_merged")
 
 
 def card_line() -> str:
@@ -279,15 +293,17 @@ def compare_int8(name, got, ref) -> float:
     d = (got.int() - ref.int()).abs()
     worst, share = int(d.max()), float((d > 0).float().mean())
     ok = worst <= INT8_MAX_STEP and share <= INT8_MAX_SHARE
+    status = "FAIL" if not ok else "bit-equal" if worst == 0 else "ok"
     print(f"  {name:<34s} max step {worst} (<= {INT8_MAX_STEP})  share moved "
-          f"{share:.3e} (<= {INT8_MAX_SHARE:g})  {'ok' if ok else 'FAIL'}")
+          f"{share:.3e} (<= {INT8_MAX_SHARE:g})  {status}")
     require(ok, f"{name}: kernel disagrees with its twin")
     return float(worst)
 
 
 def compare_equal(name, got, ref) -> float:
-    """An int8 GEMM on the same int8 inputs: int32 sums are exact and the
-    f32 epilogue is evaluated op by op on both sides, so every bit agrees."""
+    """Every bit agrees: an int8 GEMM on the same int8 inputs (int32 sums
+    are exact and the f32 epilogue is evaluated op by op on both sides), a
+    relayout, a row pass that sums in its twin's order."""
     if got.dtype == torch.int8:
         d = (got.int() - ref.int()).abs().float()
     else:
@@ -295,7 +311,7 @@ def compare_equal(name, got, ref) -> float:
     worst, moved = float(d.max()), int((d > 0).sum())
     print(f"  {name:<34s} max|d| {worst:.3e}, {moved} of {d.numel()} differ  "
           f"{'bit-equal' if moved == 0 else 'FAIL'}")
-    require(moved == 0, f"{name}: int8 GEMM is not bit-equal to its twin")
+    require(moved == 0, f"{name}: not bit-equal to its twin")
     return worst
 
 
@@ -1133,6 +1149,18 @@ def require_refused(name, call) -> None:
     raise AssertionError(f"{name}: the wrapper took a shape past its limits")
 
 
+def require_c_refused(name, call) -> None:
+    """``call``, a C entry through ``LIBRARY.launch`` past the wrapper,
+    returns cudaErrorInvalidValue before it launches anything."""
+    try:
+        call()
+    except RuntimeError as err:
+        require("invalid argument" in str(err), f"{name}: {err}")
+        print(f"  {name:<34s} refused by the C entry: {err}")
+        return
+    raise AssertionError(f"{name}: the C entry took a shape past its limits")
+
+
 def layernorm_ragged_check(gen, dev) -> None:
     """K3's LayerNorm at :data:`LN_RAGGED` against its twin; a width it does
     not take is refused."""
@@ -1158,8 +1186,13 @@ def layernorm_ragged_check(gen, dev) -> None:
 def ln_quant_ragged_check(gen, dev) -> None:
     """K5/K6's LayerNorm + quantise at :data:`LN_RAGGED`, both forms, bf16
     and f32 rows, against its twin; at 3077 rows every other row has a mean
-    large against its spread (:data:`LNQ_CANCEL_MEAN`); a width the kernel
-    does not take is refused."""
+    large against its spread (:data:`LNQ_CANCEL_MEAN`); K8's ``ln_cast``
+    and ``ln_affine_quant`` on the same bf16 rows, bit-equal wherever the
+    twin's reduction takes a warp per row (C > 128, 16 rows or more; else
+    within one int8 step, bit-equality reported) and ``ln_affine_quant``
+    everywhere; a width the kernels do not take is refused by the wrappers
+    and by the C entries."""
+    from hands_tpu_torch.ops import vit_block_ablation as abl
     from hands_tpu_torch.ops import vit_block_int8 as v8
 
     counts, widths = LN_RAGGED
@@ -1184,12 +1217,35 @@ def ln_quant_ragged_check(gen, dev) -> None:
                         v8.ln_quant(xt, scale * mul, bias * mul, dynamic),
                         v8.ln_quant_plain(xt, scale * mul, bias * mul,
                                           dynamic))
+            # K8's knock-outs on the static form's rows, values over the
+            # range of the cast and of the quantisation
+            xt = xr.to(torch.bfloat16)
+            in_order = r >= 16 and c > 128
+            for name, no_ln, cast in (("ln_cast", False, True),
+                                      ("ln_affine_quant", True, False)):
+                check = compare_equal if in_order or no_ln else compare_int8
+                check(f"{name} rows {r} C {c}",
+                      abl.ln_ablation(xt, scale * 30.0, bias * 30.0, no_ln,
+                                      cast),
+                      abl.ln_ablation_plain(xt, scale * 30.0, bias * 30.0,
+                                            no_ln, cast))
     torch.cuda.synchronize()
     for dtype in (torch.bfloat16, torch.float32):
         x = torch.zeros((4, 1284), dtype=dtype, device=dev)
         ones = torch.ones(1284, device=dev)
         require_refused(f"ln_quant {str(dtype)[6:]} C 1284",
                         lambda: v8.ln_quant(x, ones, ones, True))
+    x = torch.zeros((4, 1284), dtype=torch.bfloat16, device=dev)
+    q = torch.empty((4, 1284), dtype=torch.int8, device=dev)
+    for name, no_ln, cast in (("ln_cast", False, True),
+                              ("ln_affine_quant", True, False)):
+        require_refused(f"{name} C 1284",
+                        lambda: abl.ln_ablation(x, ones, ones, no_ln, cast))
+        require_c_refused(f"abl_ln ({name}) C 1284",
+                          lambda: abl.LIBRARY.launch(
+                              "abl_ln", x.device, x.data_ptr(),
+                              ones.data_ptr(), ones.data_ptr(), q.data_ptr(),
+                              4, 1284, 1e-6, int(no_ln), int(cast)))
 
 
 def heads_split_case(qkv3, heads) -> Case:
@@ -1203,9 +1259,12 @@ def heads_split_case(qkv3, heads) -> Case:
 
 
 def heads_split_check(gen, dev) -> None:
-    """K8's ``heads_split`` at :data:`SPLIT_RAGGED`, from an input that
-    starts 4 bytes past a 16-byte boundary (it must take the 4-byte form),
-    bit-equal to its twin; an odd head dim is refused."""
+    """K8's ``heads_split`` and ``heads_merge_quant`` at
+    :data:`SPLIT_RAGGED`, each also from an input that starts 4 bytes past a
+    16-byte boundary (it must take the 4-byte form), bit-equal to their
+    twins; an odd head dim (split) and head rows that do not divide into the
+    heads (merge) are refused, and the merge's C entry refuses 16-byte reads
+    from that input."""
     from hands_tpu_torch.ops import vit_block_ablation as abl
 
     for b, n, h, d in SPLIT_RAGGED:
@@ -1220,9 +1279,42 @@ def heads_split_check(gen, dev) -> None:
             compare_equal(f"heads_split B {b} N {n} H {h} D {d} +{2 * off} B "
                           f"({width}-byte form)", abl.heads_split(qkv, h),
                           abl.heads_split_plain(qkv, h).contiguous())
+        c = h * d
+        inv = 10.0 + 50.0 * torch.rand(c, generator=gen, device=dev)
+        buf = 3.0 * torch.randn(size // 3 + 4, generator=gen, device=dev)
+        for off in (0, 1):  # f32 elements: 0 and 4 bytes past the boundary
+            o = buf[off:off + size // 3].view(b * h, n, d)
+            width = abl.merge_vector_bytes(d, o.data_ptr(), inv.data_ptr())
+            require(width == (16 if d % 4 == 0 and off == 0 else 4),
+                    f"heads_merge_quant D {d} offset {off}: {width}-byte form")
+            compare_equal(f"heads_merge_quant B {b} N {n} H {h} D {d} "
+                          f"+{4 * off} B ({width}-byte form)",
+                          abl.heads_merge_quant(o, inv, h),
+                          abl.heads_merge_quant_plain(o, inv, h))
     torch.cuda.synchronize()
     qkv = torch.zeros((1, 13, 3 * 3 * 5), dtype=torch.bfloat16, device=dev)
     require_refused("heads_split D 5", lambda: abl.heads_split(qkv, 3))
+    o = torch.zeros((4, 13, 80), device=dev)
+    inv = torch.ones(3 * 80, device=dev)
+    require_refused("heads_merge_quant 4 head rows, 3 heads",
+                    lambda: abl.heads_merge_quant(o, inv, 3))
+    out = torch.empty((1, 13, 3 * 80), dtype=torch.int8, device=dev)
+    require_c_refused("abl_heads_merge_quant 16 B at +4 B",
+                      lambda: abl.LIBRARY.launch(
+                          "abl_heads_merge_quant", dev, o.data_ptr() + 4,
+                          inv.data_ptr(), out.data_ptr(), 1, 13, 3, 80, 16))
+
+
+def one_crop_check(x, op_dynamic) -> None:
+    """K5's whole dynamic int8 block at one crop (192 rows: PyTorch's row
+    reductions still give a row to a warp, in ``warp_row_stats``' order)
+    against its twin, to the whole-block limits (mean 1e-3)."""
+    from hands_tpu_torch.ops import vit_block_int8 as v8
+
+    x1 = x[:1]
+    compare(f"whole dynamic int8 block, one crop ({x1.shape[1]} rows)",
+            v8.vit_block_fused_int8(x1, op_dynamic, num_heads=HEADS),
+            v8.vit_block_int8_plain(x1, op_dynamic, HEADS), rel=BLOCK_REL)
 
 
 def gemm_serving_phase(gen, dev, tag,
@@ -1900,6 +1992,41 @@ def trainable_block_phase(rows, x, p32, tag) -> None:
         "backward_bound_by": "operations" if b_ops > b_bytes else "bytes"}
 
 
+def k8_row_cases(x2, ln_s, ln_b, oh, inv, heads, exact=True):
+    """K8's LayerNorm knock-outs on token rows ``x2`` and its merge of the
+    attention's f32 heads ``oh`` (B*H, N, D) back to tokens, in the format
+    of :func:`kernel_cases`' dicts, bit-equal to their twins and timed
+    through a CUDA graph (the merge beside ``permute().contiguous()``,
+    which does not quantise); ``exact=False`` holds ``ln_cast`` within one
+    int8 step (a design from before its twin's sum order)."""
+    from hands_tpu_torch.ops import vit_block_ablation as abl
+
+    rows_n, c = x2.shape
+    g, n, d = oh.shape
+
+    def case(label, call, inputs, ops, library=None, check=compare_equal):
+        return [Case(label, call, inputs, ops, "f32", library, check,
+                     timer=short_ms)]
+
+    return {
+        "ln_affine_quant": (abl.ln_ablation, abl.ln_ablation_plain, case(
+            "no_ln: x*s+b, quantise",
+            lambda f: f(x2, ln_s, ln_b, True, False), [x2, ln_s, ln_b],
+            3 * rows_n * c)),
+        "ln_cast": (abl.ln_ablation, abl.ln_ablation_plain, case(
+            "no_quant: LayerNorm, bare cast",
+            lambda f: f(x2, ln_s, ln_b, False, True), [x2, ln_s, ln_b],
+            8 * rows_n * c,
+            check=compare_equal if exact else compare_int8)),
+        "heads_merge_quant": (abl.heads_merge_quant,
+                              abl.heads_merge_quant_plain, case(
+            "attn_merged: heads back, quantise",
+            lambda f: f(oh, inv, heads), [oh, inv], 2 * oh.numel(),
+            lambda: oh.view(g // heads, heads, n, d).permute(
+                0, 2, 1, 3).contiguous())),
+    }
+
+
 def ablation_cases(x, op):
     """K8's own kernels at the shapes the ablation probe gives them, in the
     format of :func:`kernel_cases`; the inputs of each are the twin's
@@ -1938,17 +2065,10 @@ def ablation_cases(x, op):
     def one(name, kfn, pfn, case):
         return name, (kfn, pfn, [case])
 
+    rowpasses = k8_row_cases(x2, op["ln1_s"], op["ln1_b"], oh, inv, HEADS)
     kernels = dict([
-        one("ln_affine_quant", abl.ln_ablation, abl.ln_ablation_plain, Case(
-            "no_ln: x*s+b, quantise",
-            lambda f: f(x2, op["ln1_s"], op["ln1_b"], True, False),
-            [x2, op["ln1_s"], op["ln1_b"]], 3 * rows_n * c, "f32",
-            check=compare_int8)),
-        one("ln_cast", abl.ln_ablation, abl.ln_ablation_plain, Case(
-            "no_quant: LayerNorm, bare cast",
-            lambda f: f(x2, op["ln1_s"], op["ln1_b"], False, True),
-            [x2, op["ln1_s"], op["ln1_b"]], 8 * rows_n * c, "f32",
-            check=compare_int8)),
+        ("ln_affine_quant", rowpasses["ln_affine_quant"]),
+        ("ln_cast", rowpasses["ln_cast"]),
         one("cast_rows", abl.cast_rows, abl.cast_rows_plain, Case(
             "mm_only: bare cast of the tokens", lambda f: f(x2), [x2],
             rows_n * c, "f32", check=compare_equal)),
@@ -1957,12 +2077,7 @@ def ablation_cases(x, op):
             [qkv3[..., :c], inv], 2 * rows_n * c, "f32", check=compare_equal)),
         one("heads_split", abl.heads_split, abl.heads_split_plain,
             heads_split_case(qkv3, HEADS)),
-        one("heads_merge_quant", abl.heads_merge_quant,
-            abl.heads_merge_quant_plain, Case(
-                "attn_merged: heads back, quantise",
-                lambda f: f(oh, inv, HEADS), [oh, inv], 2 * rows_n * c, "f32",
-                lambda: oh.view(B, HEADS, N, HEAD_DIM).permute(
-                    0, 2, 1, 3).contiguous(), check=compare_equal)),
+        ("heads_merge_quant", rowpasses["heads_merge_quant"]),
         one("gemm_i8_gelu_cast", abl.gemm_i8_ablation,
             abl.gemm_i8_ablation_plain, Case(
                 "no_quant: mlp1+gelu_tanh, bare cast",
@@ -2035,13 +2150,13 @@ def ablation_phase(rows, dev, tag) -> None:
         return abl.vit_block_ablation_plain(xs, ops, HEADS, mode)
 
     # every mode against its twin, with its launches counted. Each kernel was
-    # held to its twin above on the same inputs; here a LayerNorm value that
-    # lands one int8 step apart (the row statistics are summed in another
-    # order; mode no_ln agrees bit for bit) moves its whole row of qkv and
-    # reaches the output through three more quantisations, on tokens of
-    # magnitude 0.5. So the whole block is held to the static block's mean
-    # bound, to BLOCK_REL on all but 1e-4 of its 6.3e7 elements, and to 4x
-    # BLOCK_REL on every element.
+    # held to its twin above on the same inputs, the row passes bit for bit;
+    # the attention kernels sum on the tensor cores in another order than
+    # their twins, and a value that lands one int8 step apart moves its row
+    # of the attention output and reaches the block's output through two
+    # more quantisations, on tokens of magnitude 0.5. So the whole block is
+    # held to the static block's mean bound, to BLOCK_REL on all but 1e-4 of
+    # its 6.3e7 elements, and to 4x BLOCK_REL on every element.
     outs = {}
     for mode in abl.MODES:
         reset_launch_counts()
@@ -2142,9 +2257,38 @@ def ablation_phase(rows, dev, tag) -> None:
     print(f"  int8 bound of the four products: {int8_ops:.3e} operations, "
           f"{floor:.3f} ms; mm_only is {times['mm_only'] / floor:.1f}x that, "
           f"full {times['full'] / floor:.1f}x {tag}")
+    ablation_account(kernels, times, tag)
     time_groups(groups, rows, tag)
     del x, op
     torch.cuda.empty_cache()
+
+
+def ablation_account(kernels, times, tag, calls: int = 3) -> None:
+    """``full - mode`` of :data:`K8_ACCOUNTED`, launch by launch: the device
+    time of each kernel of :data:`K8_KERNEL_NAMES` in one block (mean of
+    ``calls``, ``torch.profiler``), its difference from ``full``, and what
+    the entry point's events reading (``times``) leaves over."""
+    busy = {}
+    for mode in ("full",) + K8_ACCOUNTED:
+        total, part = device_busy_ms(
+            lambda m=mode: [kernels(m) for _ in range(calls)],
+            K8_KERNEL_NAMES)
+        if total is None:
+            print("  device time by kernel: not measured (the profiler saw "
+                  "none)")
+            return
+        busy[mode] = {k: v / calls for k, v in part.items()}
+        busy[mode]["other"] = total / calls - sum(busy[mode].values())
+        print(f"  mode {mode}, device ms a block by kernel: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in busy[mode].items() if v) + f" {tag}")
+    for mode in K8_ACCOUNTED:
+        diff = {k: busy["full"][k] - busy[mode][k] for k in busy["full"]}
+        device = sum(diff.values())
+        wall = times["full"] - times[mode]
+        print(f"  full - {mode}: {wall:+.4f} ms/block = device "
+              f"{device:+.4f} (" + ", ".join(
+                  f"{k} {v:+.4f}" for k, v in diff.items() if v) +
+              f") + left over {wall - device:+.4f} {tag}")
 
 
 def training_runtime_phase(rows, dev, tag) -> None:
@@ -2659,15 +2803,17 @@ def kernels_alone() -> int:
 
 def rowpass_alone(check: bool = True) -> int:
     """The warp-per-row passes: K5/K6's ``ln_quant`` and K3's LayerNorm at
-    ViT-H, 3072 and 24,576 rows, and K8's ``heads_split`` at 49,152 rows
+    ViT-H, 3072 and 24,576 rows, and K8's row passes (``heads_split``,
+    ``ln_affine_quant``, ``ln_cast``, ``heads_merge_quant``) at 49,152 rows
     (256 crops), each against its twin and graph-timed beside its twin and
     its library call; with ``check`` also at their ragged shapes, the
-    narrow form and the refused shapes::
+    narrow forms, the refused shapes and K5's block at one crop::
 
         python3 -c "import sys, chip_smoke as cs; sys.exit(cs.rowpass_alone())"
 
     ``check=False`` times a tree from before the warp-per-row designs (no
-    refusals, no narrow form) behind this script.
+    refusals, no narrow forms, ``ln_cast`` within one int8 step of its
+    twin) behind this script.
     """
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2683,7 +2829,7 @@ def rowpass_alone(check: bool = True) -> int:
     print(f"built {SRC_K3}, {SRC_I8}, {SRC_ABL} in {time.time() - t0:.1f} s")
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     x, p, p32 = block_inputs(gen, DEV, BATCH, N_TOK, C, HIDDEN)
-    groups, sources, _, _ = kernel_cases(x, p, p32)
+    groups, sources, _, operands = kernel_cases(x, p, p32)
     groups = only(groups, ROW_PASSES)
     rows = {}
     check_groups(groups, sources, rows)
@@ -2691,18 +2837,56 @@ def rowpass_alone(check: bool = True) -> int:
         layernorm_ragged_check(gen, DEV)
         ln_quant_ragged_check(gen, DEV)
         heads_split_check(gen, DEV)
+        one_crop_check(x, operands["dynamic"])
     time_groups(groups, rows, tag)
-    del groups, x, p, p32
+    del groups, x, p, p32, operands
     gemm_serving_phase(gen, DEV, tag, ROW_PASSES)
+    # K8 at 256 crops: tokens of the probe's magnitude with LayerNorm
+    # parameters over the int8 range, the attention's f32 heads
+    n_rows = ABL_BATCH * N_TOK
     qkv3 = torch.randn((ABL_BATCH, N_TOK, 3 * C), generator=gen,
                        device=DEV).to(torch.bfloat16)
-    split = [(K8, SRC_ABL, {"heads_split": (
+    x2 = (0.5 * torch.randn((n_rows, C), generator=gen, device=DEV)).to(
+        torch.bfloat16)
+    ln_s = 30.0 * (1.0 + 0.1 * torch.randn(C, generator=gen, device=DEV))
+    ln_b = 3.0 * torch.randn(C, generator=gen, device=DEV)
+    oh = torch.randn((ABL_BATCH * HEADS, N_TOK, HEAD_DIM), generator=gen,
+                     device=DEV)
+    inv = 10.0 + 50.0 * torch.rand(C, generator=gen, device=DEV)
+    k8 = [(K8, SRC_ABL, {"heads_split": (
         abl.heads_split, abl.heads_split_plain,
-        [heads_split_case(qkv3, HEADS)])})]
-    print(f"  heads_split at {ABL_BATCH * N_TOK} rows ({ABL_BATCH} crops)")
-    check_groups(split, {}, rows)
-    time_groups(split, rows, tag)
+        [heads_split_case(qkv3, HEADS)]),
+        **k8_row_cases(x2, ln_s, ln_b, oh, inv, HEADS, exact=check)})]
+    print(f"  K8's row passes at {n_rows} rows ({ABL_BATCH} crops)")
+    check_groups(k8, {}, rows)
+    time_groups(k8, rows, tag)
     print(json.dumps({"kernels": list(rows.values())}))
+    return 0
+
+
+def ablation_alone(iters: int = 30) -> int:
+    """K8's nine modes at 256 crops through ``cli.int8_ablation`` (``iters``
+    timed calls a mode, no twins) and the launch-by-launch account of
+    ``full - mode``; runs behind an older tree too::
+
+        python3 -c "import sys, chip_smoke as cs; sys.exit(cs.ablation_alone())"
+    """
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from hands_tpu_torch.cli import int8_ablation as cli
+    from hands_tpu_torch.ops import attention as at
+    from hands_tpu_torch.ops import vit_block_ablation as abl
+    from hands_tpu_torch.ops import vit_block_int8 as v8
+    from hands_tpu_torch.ops.cuda_build import build_all
+
+    tag = f"[{card_line()}]"
+    build_all([v8.LIBRARY, at.LIBRARY, abl.LIBRARY])
+    x, op = cli.make_probe(ABL_BATCH, DEV, c=C, hidden=HIDDEN, n_tok=N_TOK)
+    times = cli.run_ablation(ABL_BATCH, iters, abl.MODES, DEV, probe=(x, op),
+                             heads=HEADS, out=lambda line: print("  " + line))
+    ablation_account(lambda m: abl.vit_block_ablation(
+        x, op, num_heads=HEADS, mode=m), times, tag)
     return 0
 
 
@@ -2900,6 +3084,7 @@ def main() -> int:
                 x, operands["static"], HEADS, f))
     for name, (kern, twin) in blocks.items():
         compare(f"whole {name}", kern(), twin(), rel=BLOCK_REL)
+    one_crop_check(x, operands["dynamic"])
     torch.cuda.synchronize()
 
     # shapes that are no multiples of the GEMM tiles (128 x 128 x 64) or of

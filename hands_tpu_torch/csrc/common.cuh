@@ -13,6 +13,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 typedef __nv_bfloat16 bf16;
 
 namespace {
@@ -80,10 +82,11 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // --------------------------------------------------- a warp per row
 // The LayerNorm passes (vit_block.cu's layernorm_kernel, vit_block_int8.cu's
-// ln_quant_kernel) give each row to one warp, WARP_ROWS rows a block, and
-// hold it in registers: lane l keeps NV vectors of 4 values (8 bytes of
-// bf16 or 16 of f32), vector i being the row's values 4 (32 i + l) ... +
-// 3; vectors past the row's end are zeros. The row is read once; the
+// ln_quant_kernel, vit_block_ablation.cu's ln_ablation_kernel) give each row
+// to one warp, WARP_ROWS rows a block, and hold it in registers: lane l
+// keeps NV vectors of 4 values (8 bytes of bf16 or 16 of f32), vector i
+// being the row's values 4 (32 i + l) ... + 3; vectors past the row's end
+// are zeros. The row is read once; the
 // statistics are warp shuffles, with no shared memory and no barrier.
 constexpr int WARP_ROWS = 8;
 constexpr int WARP_ROW_MAX_C = 2048;  // the widest row the registers hold
@@ -144,6 +147,28 @@ __device__ __forceinline__ void warp_row_stats(const T* __restrict__ xr,
   const float var =
       fmaxf(__fsub_rn(__fmul_rn(ss, inv_c), __fmul_rn(mu, mu)), 0.f);
   r = rsqrtf(var + eps);
+}
+
+// Returns f(std::integral_constant<int, NV>()) for the NV that holds a row
+// of C values (C / 4 vectors over 32 lanes), rounded up to the sizes that
+// are compiled: 1-6, 8, 10, 12, 16
+template <typename F>
+int with_row_vectors(int C, F f) {
+  switch ((C / 4 + 31) / 32) {
+    case 1: return f(std::integral_constant<int, 1>());
+    case 2: return f(std::integral_constant<int, 2>());
+    case 3: return f(std::integral_constant<int, 3>());
+    case 4: return f(std::integral_constant<int, 4>());
+    case 5: return f(std::integral_constant<int, 5>());
+    case 6: return f(std::integral_constant<int, 6>());
+    case 7:
+    case 8: return f(std::integral_constant<int, 8>());
+    case 9:
+    case 10: return f(std::integral_constant<int, 10>());
+    case 11:
+    case 12: return f(std::integral_constant<int, 12>());
+    default: return f(std::integral_constant<int, 16>());
+  }
 }
 
 // (x - mu) * (r * scale) + bias, each step rounded (no contraction)

@@ -222,22 +222,10 @@ int vit_layernorm(int device, const void* x, const void* scale,
   if (rows < 1 || C < 8 || C > WARP_ROW_MAX_C || C % 8)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  // vectors of 4 a lane: the row's C / 4 over 32 lanes
-  switch ((C / 4 + 31) / 32) {
-    case 1: return launch_layernorm<1>(x, scale, bias, out, rows, C, eps, s);
-    case 2: return launch_layernorm<2>(x, scale, bias, out, rows, C, eps, s);
-    case 3: return launch_layernorm<3>(x, scale, bias, out, rows, C, eps, s);
-    case 4: return launch_layernorm<4>(x, scale, bias, out, rows, C, eps, s);
-    case 5: return launch_layernorm<5>(x, scale, bias, out, rows, C, eps, s);
-    case 6: return launch_layernorm<6>(x, scale, bias, out, rows, C, eps, s);
-    case 7:
-    case 8: return launch_layernorm<8>(x, scale, bias, out, rows, C, eps, s);
-    case 9:
-    case 10: return launch_layernorm<10>(x, scale, bias, out, rows, C, eps, s);
-    case 11:
-    case 12: return launch_layernorm<12>(x, scale, bias, out, rows, C, eps, s);
-    default: return launch_layernorm<16>(x, scale, bias, out, rows, C, eps, s);
-  }
+  return with_row_vectors(C, [&](auto nv) {
+    return launch_layernorm<decltype(nv)::value>(x, scale, bias, out, rows,
+                                                 C, eps, s);
+  });
 }
 
 int vit_gemm(int device, const void* a, const void* w, const void* bias,

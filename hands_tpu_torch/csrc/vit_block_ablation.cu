@@ -33,13 +33,14 @@
 // GEMM; the int8 attention by its bytes too (bf16 q, k, v in, int8 out:
 // 4*N*N*D integer operations a head are 0.024 ms of int8 tensor-core time
 // at 256 crops against 0.13 ms of bytes), as long as the softmax between
-// its two products keeps up. What the design does about it: heads_split is
-// a warp per token row moving whole head segments with 16-byte loads and
-// stores (4-byte ones when D or the pointers do not allow 16), one division
-// per row; the LayerNorm knock-outs are still one thread block per row and
-// the other passes one thread per element; the attention kernels' MMA
-// geometry (see attention_kernel.cuh) for every attention mode, int8
-// included.
+// its two products keeps up. What the design does about it: the LayerNorm
+// knock-outs are ln_quant's layout (a warp per row, the row in registers,
+// common.cuh's warp_row_stats, 4 int8 results a 4-byte store); heads_split
+// and heads_merge_quant are a warp per token row moving whole head segments
+// in 16-byte vectors (4-byte ones when D or the pointers do not allow 16),
+// one division per row; cast_rows and qslice_quant are still one thread per
+// element; the attention kernels' MMA geometry (see attention_kernel.cuh)
+// for every attention mode, int8 included.
 
 #include "attention_kernel.cuh"
 #include "gemm_sm90.cuh"
@@ -47,41 +48,65 @@
 namespace {
 
 // ------------------------------------------------- LayerNorm knock-outs
-// One block per bf16 row. NO_LN: y = x * s + b; else the static block's
-// LayerNorm (flax's f32 rounding order). CAST: the bare cast; else round and
-// clip.
-template <bool NO_LN, bool CAST>
-__global__ void __launch_bounds__(ROW_THREADS) ln_ablation_kernel(
+// The static block's ln_quant (vit_block_int8.cu) with one piece knocked
+// out, on its layout: one warp per bf16 row, WARP_ROWS rows a block, the row
+// in registers as NV vectors of 4 values a lane (8-byte loads), shuffles
+// only, no shared memory and no barrier. NO_LN (ln_affine_quant): y = x * s
+// + b, each step rounded, no statistics, then round and clip; else
+// (ln_cast) flax's LayerNorm (warp_row_stats: the twin's sum order and E[.]
+// = sum * RN(1/C); ln_affine), then the bare cast. A vector's 4 int8
+// results leave as one 4-byte store.
+template <bool NO_LN, int NV>
+__global__ void __launch_bounds__(WARP_ROWS * 32) ln_ablation_kernel(
     const bf16* __restrict__ x, const float* __restrict__ scale,
-    const float* __restrict__ bias, int8_t* __restrict__ q, int C, float eps) {
-  extern __shared__ float ybuf[];  // C values of this row
-  __shared__ float red[ROW_THREADS / 32];
-  const bf16* xr = x + (size_t)blockIdx.x * C;
-  int8_t* qr = q + (size_t)blockIdx.x * C;
-
-  if (NO_LN) {
-    for (int c = threadIdx.x; c < C; c += ROW_THREADS) {
-      const float y = to_float(xr[c]) * scale[c] + bias[c];
-      qr[c] = CAST ? cast_i8(y) : (int8_t)quant_clip(y);
+    const float* __restrict__ bias, int8_t* __restrict__ q, int rows, int C,
+    float eps) {
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * WARP_ROWS + threadIdx.x / 32;
+  if (row >= rows) return;  // warp-uniform
+  const int nvec = C / 4;
+  const bf16* xr = x + (size_t)row * C;
+  float v[NV][4], mu = 0.f, r = 0.f;
+  if constexpr (NO_LN) {
+#pragma unroll
+    for (int i = 0; i < NV; ++i)
+      if (i * 32 + lane < nvec) load4(xr + (size_t)(i * 32 + lane) * 4, v[i]);
+  } else {
+    warp_row_stats<bf16, NV>(xr, C, eps, v, mu, r);
+  }
+  uint32_t* qr = reinterpret_cast<uint32_t*>(q + (size_t)row * C);
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int vi = i * 32 + lane;
+    if (vi < nvec) {
+      const float4 m4 = reinterpret_cast<const float4*>(scale)[vi];
+      const float4 b4 = reinterpret_cast<const float4*>(bias)[vi];
+      const float m[4] = {m4.x, m4.y, m4.z, m4.w};
+      const float b[4] = {b4.x, b4.y, b4.z, b4.w};
+      uint32_t packed = 0u;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float y = NO_LN ? __fadd_rn(__fmul_rn(v[i][j], m[j]), b[j])
+                              : ln_affine(v[i][j], mu, r, m[j], b[j]);
+        const int qv = NO_LN ? (int)quant_clip(y) : (int)cast_i8(y);
+        packed |= (uint32_t)(qv & 0xff) << (8 * j);
+      }
+      qr[vi] = packed;
     }
-    return;
   }
-  float s = 0.f, ss = 0.f;
-  for (int c = threadIdx.x; c < C; c += ROW_THREADS) {
-    const float v = to_float(xr[c]);
-    ybuf[c] = v;
-    s += v;
-    ss += v * v;
-  }
-  s = block_reduce<false>(s, red);
-  ss = block_reduce<false>(ss, red);
-  const float mu = s / (float)C;
-  const float var = fmaxf(ss / (float)C - mu * mu, 0.f);
-  const float r = rsqrtf(var + eps);
-  for (int c = threadIdx.x; c < C; c += ROW_THREADS) {
-    const float y = (ybuf[c] - mu) * (r * scale[c]) + bias[c];
-    qr[c] = CAST ? cast_i8(y) : (int8_t)quant_clip(y);
-  }
+}
+
+template <bool NO_LN>
+int launch_ln_ablation(const void* x, const void* scale, const void* bias,
+                       void* q, int rows, int C, float eps, cudaStream_t s) {
+  const int blocks = (rows + WARP_ROWS - 1) / WARP_ROWS;
+  return with_row_vectors(C, [&](auto nv) {
+    ln_ablation_kernel<NO_LN, decltype(nv)::value>
+        <<<blocks, WARP_ROWS * 32, 0, s>>>(
+            (const bf16*)x, (const float*)scale, (const float*)bias,
+            (int8_t*)q, rows, C, eps);
+    return (int)cudaGetLastError();
+  });
 }
 
 // ------------------------------------------------------ elementwise passes
@@ -152,21 +177,60 @@ __global__ void __launch_bounds__(SPLIT_ROWS * 32) heads_split_kernel(
   }
 }
 
-// f32 (B*H, N, D) -> int8 (B, N, H*D): clip(round(o * inv[h*D + d]))
-__global__ void heads_merge_quant_kernel(const float* __restrict__ o,
-                                         const float* __restrict__ inv,
-                                         int8_t* __restrict__ out, int B,
-                                         int N, int H, int D) {
-  const size_t total = (size_t)B * N * H * D;
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  size_t r = i;
-  const int d = (int)(r % D); r /= D;
-  const int h = (int)(r % H); r /= H;
-  const int n = (int)(r % N); r /= N;
-  const int b = (int)r;
-  const float v = o[(((size_t)b * H + h) * N + n) * D + d];
-  out[i] = (int8_t)quant_clip(__fmul_rn(v, inv[h * D + d]));
+// f32 (B*H, N, D) -> int8 (B, N, H*D): clip(round(o * inv[h*D + d])), the
+// inverse of heads_split. Output token row (b, n) is H segments of D values;
+// segment h comes from row (b*H + h)*N + n of o. One warp per output row,
+// MERGE_ROWS rows a block: lane l takes the row's vectors l, l + 32, ...
+// (V = float4 with 4 int8 results packed into one 4-byte store Q: D % 4 ==
+// 0, o and inv 16-byte aligned; else V = float, one byte a store), so the
+// reads are coalesced along each segment and the writes along the output
+// row. Each lane divides once for its first (segment, vector) and then
+// steps 32 vectors a time by adds; MERGE_UNROLL loads are in flight before
+// their stores.
+constexpr int MERGE_ROWS = 8;
+constexpr int MERGE_UNROLL = 4;
+
+__device__ __forceinline__ int8_t merge_quant(float v, float inv) {
+  return (int8_t)quant_clip(__fmul_rn(v, inv));
+}
+
+__device__ __forceinline__ uint32_t merge_quant(float4 v, float4 inv) {
+  return (uint32_t)(uint8_t)merge_quant(v.x, inv.x) |
+         (uint32_t)(uint8_t)merge_quant(v.y, inv.y) << 8 |
+         (uint32_t)(uint8_t)merge_quant(v.z, inv.z) << 16 |
+         (uint32_t)(uint8_t)merge_quant(v.w, inv.w) << 24;
+}
+
+template <typename V, typename Q>
+__global__ void __launch_bounds__(MERGE_ROWS * 32) heads_merge_quant_kernel(
+    const V* __restrict__ o, const V* __restrict__ inv, Q* __restrict__ out,
+    int B, int N, int H, int segv) {
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * MERGE_ROWS + threadIdx.x / 32;
+  if (row >= B * N) return;  // warp-uniform
+  const int b = row / N, n = row - b * N;
+  const int per_row = H * segv;  // vectors of an output row
+  Q* dst = out + (size_t)row * per_row;
+  // input vector of (segment h, v): src + h * head_stride + v
+  const size_t head_stride = (size_t)N * segv;
+  const V* src = o + ((size_t)b * H * N + n) * segv;
+  int seg = lane / segv, v = lane - seg * segv;
+  const int dseg = 32 / segv, dv = 32 - dseg * segv;
+  for (int base = lane; base < per_row; base += 32 * MERGE_UNROLL) {
+    V r[MERGE_UNROLL];
+#pragma unroll
+    for (int u = 0; u < MERGE_UNROLL; ++u) {
+      if (base + 32 * u < per_row) r[u] = src[seg * head_stride + v];
+      seg += dseg;
+      v += dv;
+      if (v >= segv) v -= segv, ++seg;
+    }
+#pragma unroll
+    for (int u = 0; u < MERGE_UNROLL; ++u) {
+      const int k = base + 32 * u;
+      if (k < per_row) dst[k] = merge_quant(r[u], inv[k]);
+    }
+  }
 }
 
 // --------------------------------------------------------- GEMM knock-outs
@@ -264,30 +328,18 @@ int launch_i8(const void* q, const void* k, const void* v, void* out,
 // the launch's cudaGetLastError() (0 = success) and never synchronises.
 extern "C" {
 
+// exactly one of no_ln (ln_affine_quant) and cast (ln_cast): neither is the
+// serving ln_quant; C a multiple of 8 up to WARP_ROW_MAX_C, as ln_quant's
 int abl_ln(int device, const void* x, const void* scale, const void* bias,
            void* q, int rows, int C, float eps, int no_ln, int cast,
            void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  if (rows < 1 || C < 8 || C > WARP_ROW_MAX_C || C % 8 || !no_ln == !cast)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const size_t smem = (size_t)C * sizeof(float);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  const bf16* xi = (const bf16*)x;
-  const float* sc = (const float*)scale;
-  const float* bi = (const float*)bias;
-  int8_t* qo = (int8_t*)q;
-  if (no_ln && cast)
-    ln_ablation_kernel<true, true><<<rows, ROW_THREADS, smem, s>>>(
-        xi, sc, bi, qo, C, eps);
-  else if (no_ln)
-    ln_ablation_kernel<true, false><<<rows, ROW_THREADS, smem, s>>>(
-        xi, sc, bi, qo, C, eps);
-  else if (cast)
-    ln_ablation_kernel<false, true><<<rows, ROW_THREADS, smem, s>>>(
-        xi, sc, bi, qo, C, eps);
-  else
-    return (int)cudaErrorInvalidValue;  // that is the serving kernel
-  return (int)cudaGetLastError();
+  return no_ln ? launch_ln_ablation<true>(x, scale, bias, q, rows, C, eps, s)
+               : launch_ln_ablation<false>(x, scale, bias, q, rows, C, eps, s);
 }
 
 int abl_cast_rows(int device, const void* x, void* q, long long n,
@@ -333,15 +385,29 @@ int abl_heads_split(int device, const void* qkv, void* out, int B, int N,
   return (int)cudaGetLastError();
 }
 
+// vec_bytes 16 (D % 4 == 0, o and inv 16-byte aligned, out 4-byte aligned)
+// or 4 (o and inv 4-byte aligned): the width of the reads, picked by the
+// caller (ops/vit_block_ablation.py:merge_vector_bytes)
 int abl_heads_merge_quant(int device, const void* o, const void* inv,
                           void* out, int B, int N, int H, int D,
-                          void* stream) {
+                          int vec_bytes, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const size_t total = (size_t)B * N * H * D;
-  heads_merge_quant_kernel<<<pass_blocks(total), PASS_THREADS, 0,
-                             (cudaStream_t)stream>>>(
-      (const float*)o, (const float*)inv, (int8_t*)out, B, N, H, D);
+  const uintptr_t ptrs = (uintptr_t)o | (uintptr_t)inv;
+  if (B < 1 || N < 1 || H < 1 || D < 1 ||
+      (vec_bytes != 16 && vec_bytes != 4) || ptrs % vec_bytes ||
+      (vec_bytes == 16 && (D % 4 || (uintptr_t)out % 4)))
+    return (int)cudaErrorInvalidValue;
+  const int blocks = (int)(((size_t)B * N + MERGE_ROWS - 1) / MERGE_ROWS);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (vec_bytes == 16)
+    heads_merge_quant_kernel<float4, uint32_t>
+        <<<blocks, MERGE_ROWS * 32, 0, s>>>((const float4*)o,
+                                            (const float4*)inv,
+                                            (uint32_t*)out, B, N, H, D / 4);
+  else
+    heads_merge_quant_kernel<float, int8_t><<<blocks, MERGE_ROWS * 32, 0, s>>>(
+        (const float*)o, (const float*)inv, (int8_t*)out, B, N, H, D);
   return (int)cudaGetLastError();
 }
 

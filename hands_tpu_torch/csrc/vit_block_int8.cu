@@ -158,25 +158,10 @@ template <bool DYNAMIC>
 int dispatch_ln_quant(const void* x, bool x_is_f32, const float* scale,
                       const float* bias, int8_t* q, float* s_out, int rows,
                       int C, float eps, cudaStream_t s) {
-#define LNQ(NV) \
-  launch_ln_quant<NV, DYNAMIC>(x, x_is_f32, scale, bias, q, s_out, rows, C, \
-                               eps, s)
-  switch ((C / 4 + 31) / 32) {
-    case 1: return LNQ(1);
-    case 2: return LNQ(2);
-    case 3: return LNQ(3);
-    case 4: return LNQ(4);
-    case 5: return LNQ(5);
-    case 6: return LNQ(6);
-    case 7:
-    case 8: return LNQ(8);
-    case 9:
-    case 10: return LNQ(10);
-    case 11:
-    case 12: return LNQ(12);
-    default: return LNQ(16);
-  }
-#undef LNQ
+  return with_row_vectors(C, [&](auto nv) {
+    return launch_ln_quant<decltype(nv)::value, DYNAMIC>(
+        x, x_is_f32, scale, bias, q, s_out, rows, C, eps, s);
+  });
 }
 
 // ------------------------------------------------------- per-row quantise

@@ -52,7 +52,8 @@ from hands_tpu_torch.ops.attention import (_strides, qkv_attention,
 from hands_tpu_torch.ops.cuda_build import (CudaLibrary, check,
                                            check_gemm_operands, on_cpu)
 from hands_tpu_torch.ops.vit_block import (ATTN_MAX_D, ATTN_MAX_N, bf16_const,
-                                           check_attention_shape, gelu,
+                                           check_attention_shape,
+                                           check_layernorm_width, gelu,
                                            layernorm_f32)
 
 _BF16, _F32, _I8 = torch.bfloat16, torch.float32, torch.int8
@@ -107,7 +108,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.abl_cast_rows.argtypes = [i, p, p, ll, p]
     lib.abl_qslice_quant.argtypes = [i, p, p, p, ll, i, p]
     lib.abl_heads_split.argtypes = [i, p, p, i, i, i, i, i, p]
-    lib.abl_heads_merge_quant.argtypes = [i, p, p, p, i, i, i, i, p]
+    lib.abl_heads_merge_quant.argtypes = [i, p, p, p, i, i, i, i, i, p]
     lib.abl_gemm.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, i, p]
     lib.abl_attention.argtypes = [i, p, p, p, p, p, i, i, i, i, ll, ll, f, i,
                                   p]
@@ -250,14 +251,18 @@ def heads_merge_quant_plain(o: torch.Tensor, inv_out: torch.Tensor,
 # ------------------------------------------------------- kernel wrappers
 def ln_ablation(x, scale, bias, no_ln: bool, cast: bool, eps: float = 1e-6
                 ) -> torch.Tensor:
-    """See :func:`ln_ablation_plain`; ``no_ln`` or ``cast`` must be set (the
-    rest is the static block's ``ln_quant``)."""
-    if not (no_ln or cast):
-        raise ValueError("ln_ablation without a knock-out is ln_quant")
+    """See :func:`ln_ablation_plain`; exactly one of ``no_ln``
+    (``ln_affine_quant``) and ``cast`` (``ln_cast``) is set: without a
+    knock-out it is the static block's ``ln_quant``. The kernel takes
+    ``ln_quant``'s widths: a multiple of 8 up to 2048."""
+    if no_ln == cast:
+        raise ValueError("ln_ablation takes one knock-out, no_ln or cast "
+                         "(without one it is ln_quant)")
     if on_cpu(x):
         return ln_ablation_plain(x, scale, bias, no_ln, cast, eps)
     R, C = x.shape
     dev = x.device
+    check_layernorm_width(C)
     check(x, "x", _BF16, (R, C), dev)
     check(scale, "scale", _F32, (C,), dev)
     check(bias, "bias", _F32, (C,), dev)
@@ -399,12 +404,24 @@ def attention_i8(qkv, num_heads: int, inv_out) -> torch.Tensor:
     return out
 
 
+def _vector_bytes(segment_bytes: int, ptrs) -> int:
+    wide = segment_bytes % 16 == 0 and all(p % 16 == 0 for p in ptrs)
+    return 16 if wide else 4
+
+
 def split_vector_bytes(head_dim: int, *ptrs: int) -> int:
     """The width of :func:`heads_split`'s copy: 16-byte vectors when a head
     segment is a whole number of them (``head_dim % 8 == 0``) and every
     pointer is 16-byte aligned, else 4 bytes (the kernel's narrow form)."""
-    wide = head_dim % 8 == 0 and all(p % 16 == 0 for p in ptrs)
-    return 16 if wide else 4
+    return _vector_bytes(2 * head_dim, ptrs)
+
+
+def merge_vector_bytes(head_dim: int, *ptrs: int) -> int:
+    """The width of :func:`heads_merge_quant`'s reads: 16-byte vectors of 4
+    f32 values (their 4 int8 results one 4-byte store) when a head segment
+    is a whole number of them (``head_dim % 4 == 0``) and every pointer is
+    16-byte aligned, else 4 bytes, one value (the kernel's narrow form)."""
+    return _vector_bytes(4 * head_dim, ptrs)
 
 
 def heads_split(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -455,18 +472,23 @@ def attention_heads(qkvh: torch.Tensor) -> torch.Tensor:
 
 def heads_merge_quant(o: torch.Tensor, inv_out: torch.Tensor, num_heads: int
                       ) -> torch.Tensor:
-    """See :func:`heads_merge_quant_plain`."""
+    """See :func:`heads_merge_quant_plain`; the relayout is a kernel of this
+    module. ``o`` is contiguous f32 (any 4-byte boundary)."""
     if on_cpu(o):
         return heads_merge_quant_plain(o, inv_out, num_heads)
     G, N, D = o.shape
     if G % num_heads:
         raise ValueError(f"{G} head rows do not divide into {num_heads} heads")
     B, dev = G // num_heads, o.device
-    check(o, "o", _F32, (G, N, D), dev)
+    if o.dtype != _F32 or not o.is_contiguous():
+        raise ValueError(f"o: want contiguous f32, got {o.dtype} "
+                         f"(contiguous={o.is_contiguous()})")
     check(inv_out, "inv_out", _F32, (num_heads * D,), dev)
     out = torch.empty((B, N, num_heads * D), dtype=_I8, device=dev)
     LIBRARY.launch("abl_heads_merge_quant", dev, o.data_ptr(),
-                   inv_out.data_ptr(), out.data_ptr(), B, N, num_heads, D)
+                   inv_out.data_ptr(), out.data_ptr(), B, N, num_heads, D,
+                   merge_vector_bytes(D, o.data_ptr(), inv_out.data_ptr(),
+                                      out.data_ptr()))
     launches["heads_merge_quant"] += 1
     return out
 
