@@ -37,6 +37,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+import math
 import re
 import subprocess
 import sys
@@ -135,6 +136,8 @@ EARLIER_MS = {"splat_fwd": ("dense loop", 1.3606),
               "ln_affine_quant": (ROW_BLOCK, 0.0893),
               "ln_cast": (ROW_BLOCK, 0.1558),
               "heads_merge_quant": ("a thread an element", 0.3444),
+              "cast_rows": ("a thread an element", 0.1727),
+              "qslice_quant": ("a thread an element", 0.2204),
               "attention_i8": ("dp4a, a warp per query row", 1.9415),
               "vit_attention": (ATTN_BEFORE, 0.4681),
               "qkv_attention_dynamic": (ATTN_BEFORE, 0.4360),
@@ -184,6 +187,19 @@ LNQ_CANCEL_MEAN = {False: 16.0, True: 1.0}
 # heads_split and heads_merge_quant off the 256-crop shape: (B, N, H, D); D 6
 # takes the 4-byte form
 SPLIT_RAGGED = ((1, 13, 3, 80), (1, 13, 3, 6), (1, 13, 3, 64))
+# K8's cast_rows off the 256-crop shape: value counts (13 x 1283 as a 2-D
+# tensor), each also from x 2 and 4 bytes past a 16-byte boundary
+CAST_RAGGED = (1, 7, 9, (13, 1283), (ABL_BATCH * N_TOK, C))
+# the bare cast's edges in bf16: NaN, infinities, signed zeros, at and past
+# the int8 range, huge values, subnormals (2^-133 is bf16's least)
+CAST_EDGES = (float("nan"), float("inf"), float("-inf"), 0.0, -0.0, 127.5,
+              -127.5, 128.0, -128.0, 129.0, -129.0, 1e30, -1e30, 2.0**-133,
+              -(2.0**-133), 2.0**-127)
+# K8's qslice_quant off the 256-crop shape: (token rows, qkv widths C3 and
+# the form each takes); C = C3 // 3 is 8, 128, 1280 (16-byte form), 1284,
+# 130 (4-byte form) or 3 (a value a step); 392 and 385 are no 3C
+QSLICE_RAGGED = ((1, 13, 192), {24: 16, 384: 16, 3840: 16, 3852: 4, 390: 4,
+                                 9: 2, 392: 4, 385: 2})
 # the kernels of K8's launches in the profiler's names (substrings): the
 # LayerNorm passes, the GEMMs by epilogue (int8 static: 4 qkv, 5 the two
 # residual ones, 6 GELU; AblationEpilogue: the knocked-out ones), the
@@ -191,9 +207,13 @@ SPLIT_RAGGED = ((1, 13, 3, 80), (1, 13, 3, 6), (1, 13, 3, 64))
 K8_KERNEL_NAMES = ("ln_quant_kernel", "ln_ablation_kernel", "Epilogue<4",
                    "Epilogue<5", "Epilogue<6", "AblationEpilogue",
                    "attention_mma_kernel", "heads_split_kernel",
-                   "heads_merge_quant_kernel")
+                   "heads_merge_quant_kernel", "cast_rows_kernel",
+                   "qslice_quant_kernel")
 # the modes whose difference from full is accounted launch by launch
-K8_ACCOUNTED = ("no_ln", "no_quant", "attn_merged")
+K8_ACCOUNTED = ("no_ln", "no_quant", "attn_merged", "no_attn", "mm_only")
+# K8's modes made of bare casts, timed also on inputs that fill the int8
+# range (ablation_alone(wide=True)), beside full
+K8_WIDE_MODES = ("full", "no_quant", "mm_only")
 
 
 def card_line() -> str:
@@ -340,12 +360,17 @@ def nbytes(*tensors) -> int:
 
 class Case:
     """One launch shape of a kernel: how to call the wrapper or the twin
-    (``call(fn)``), the library call, the bytes the function must move (each
-    input once, each output once) and the operations it does."""
+    (``call(fn)``), the library call (the same function), a yardstick
+    (``(label, fn)``: a PyTorch call that moves the same bytes but computes
+    another function, printed and kept out of the kernels line), the bytes
+    the function must move (each input once, each output once) and the
+    operations it does."""
 
     def __init__(self, label, call, inputs, ops, kind, library=None,
-                 check=compare, timer=cuda_ms, saved_bytes=0, dense_ops=None):
+                 check=compare, timer=cuda_ms, saved_bytes=0, dense_ops=None,
+                 yardstick=None):
         self.label, self.call, self.library = label, call, library
+        self.yardstick = yardstick
         self.inputs, self.ops, self.kind, self.check = inputs, ops, kind, check
         # where the work depends on the data, ``ops`` counts what these
         # inputs need and ``dense_ops`` what a dense evaluation does
@@ -979,14 +1004,20 @@ def time_groups(groups, rows, tag, earlier=True) -> None:
                 return [None if c.library is None else c.timer(c.library)
                         for c in cases]
 
-            # in turns: plain, kernel, library, library, kernel, plain; the
-            # better of each pair of reads
-            a, b, lb, lb2, b2, a2 = (each(pfn), each(kfn), library(),
-                                     library(), each(kfn), each(pfn))
+            def yardstick():
+                return [None if c.yardstick is None
+                        else c.timer(c.yardstick[1]) for c in cases]
+
+            # in turns: plain, kernel, library and yardstick twice, kernel,
+            # plain; the better of each pair of reads
+            a, b, lb, ys, lb2, ys2, b2, a2 = (
+                each(pfn), each(kfn), library(), yardstick(), library(),
+                yardstick(), each(kfn), each(pfn))
             k_ms = [min(u, v) for u, v in zip(b, b2)]
             p_ms = [min(u, v) for u, v in zip(a, a2)]
             l_ms = [None if u is None else min(u, v) for u, v in zip(lb, lb2)]
-            for case, km, pm, lm in zip(cases, k_ms, p_ms, l_ms):
+            y_ms = [None if u is None else min(u, v) for u, v in zip(ys, ys2)]
+            for case, km, pm, lm, ym in zip(cases, k_ms, p_ms, l_ms, y_ms):
                 bound = max(*case.bound(case.call(pfn)))
                 lib = "none" if lm is None else f"{lm:.4f} ms"
                 unit = "TOP/s" if case.kind == "int8" else "TFLOP/s"
@@ -1000,10 +1031,12 @@ def time_groups(groups, rows, tag, earlier=True) -> None:
                         f" (library {ev[1]:.4f} ms)" if len(ev) > 1 else "")
                         + f", host {host_ms(lambda c=case: c.call(kfn)):.4f}"
                         f" ms a call")
+                yard = ("" if ym is None else f", yardstick {ym:.4f} ms "
+                        f"({case.yardstick[0]}: not the same function)")
                 print(f"    {case.label:<34s} kernel {km:.4f} ms "
                       f"({case.ops / km / 1e9:.1f} {unit}, {bound / km:.1%} "
-                      f"of the bound), plain {pm:.4f} ms, library {lib}, "
-                      f"bound {bound:.4f} ms"
+                      f"of the bound), plain {pm:.4f} ms, library {lib}"
+                      f"{yard}, bound {bound:.4f} ms"
                       f"{case.dense_bound(case.call(pfn))}{host}")
             # per block: the sum over this kernel's launch shapes
             row = rows[kname]
@@ -1303,6 +1336,71 @@ def heads_split_check(gen, dev) -> None:
                       lambda: abl.LIBRARY.launch(
                           "abl_heads_merge_quant", dev, o.data_ptr() + 4,
                           inv.data_ptr(), out.data_ptr(), 1, 13, 3, 80, 16))
+
+
+def k8_vector_check(gen, dev) -> None:
+    """K8's ``cast_rows`` and ``qslice_quant`` off the 256-crop shape,
+    bit-equal to their twins: ``cast_rows`` at :data:`CAST_RAGGED` on
+    values that hold :data:`CAST_EDGES`, each also from ``x`` 2 and 4 bytes
+    past a 16-byte boundary (it must take the 2- and 4-byte forms);
+    ``qslice_quant`` at :data:`QSLICE_RAGGED`, products past +-127 and on
+    exact .5 ties, in the form each width takes. A wrapper refuses what it
+    does not take, and each C entry a width that the pointers or C do not
+    allow."""
+    from hands_tpu_torch.ops import vit_block_ablation as abl
+
+    edges = torch.tensor(CAST_EDGES, device=dev)
+    for shape in CAST_RAGGED:
+        shape = shape if isinstance(shape, tuple) else (shape,)
+        n = math.prod(shape)
+        v = 150.0 * torch.randn(n + 8, generator=gen, device=dev)
+        k = v[::3].numel()
+        v[::3] = edges.repeat(k // edges.numel() + 1)[:k]
+        buf = v.to(torch.bfloat16)
+        for off, width in ((0, 16), (1, 2), (2, 4)):  # bf16 elements
+            x = buf[off:off + n].view(shape)
+            got = abl.cast_vector_bytes(x.data_ptr(), 16)
+            require(got == width, f"cast_rows +{2 * off} B: {got}-byte form")
+            compare_equal(f"cast_rows {'x'.join(map(str, shape))} +{2 * off} "
+                          f"B ({width}-byte form)", abl.cast_rows(x),
+                          abl.cast_rows_plain(x))
+    counts, widths = QSLICE_RAGGED
+    for c3, width in widths.items():
+        c = c3 // 3
+        inv = 0.5 + 5.5 * torch.rand(c, generator=gen, device=dev)
+        inv[::3] = 1.0
+        for r in counts:
+            v = 40.0 * torch.randn((1, r, c3), generator=gen, device=dev)
+            half = torch.randint(-127, 127, v.view(-1)[::5].shape,
+                                 generator=gen, device=dev)
+            v.view(-1)[::5] = half + 0.5
+            qkv = v.to(torch.bfloat16)
+            got = abl.qslice_vector_bytes(c, c3, qkv.data_ptr(),
+                                          inv.data_ptr(), 0)
+            require(got == width, f"qslice_quant C3 {c3}: {got}-byte form")
+            y = qkv[..., :c].float() * inv
+            compare_equal(f"qslice_quant rows {r} C {c} C3 {c3} ({width}-"
+                          f"byte form; {int((y.abs() > 127.5).sum())} past "
+                          f"127, {int((y.frac().abs() == 0.5).sum())} ties)",
+                          abl.qslice_quant(qkv, inv),
+                          abl.qslice_quant_plain(qkv, inv))
+    torch.cuda.synchronize()
+    x = torch.zeros((1283, 13), dtype=torch.bfloat16, device=dev)
+    q = torch.empty(1283 * 13 + 16, dtype=torch.int8, device=dev)
+    require_refused("cast_rows of a transposed x",
+                    lambda: abl.cast_rows(x.t()))
+    require_c_refused("abl_cast_rows 16 B at +2 B",
+                      lambda: abl.LIBRARY.launch(
+                          "abl_cast_rows", dev, x.data_ptr() + 2,
+                          q.data_ptr(), 1283 * 13 - 1, 16))
+    qkv = torch.zeros(13 * 3852 + 8, dtype=torch.bfloat16, device=dev)
+    inv = torch.ones(1284, device=dev)
+    require_refused("qslice_quant qkv at +4 B", lambda: abl.qslice_quant(
+        qkv[2:2 + 13 * 3852].view(1, 13, 3852), inv))
+    require_c_refused("abl_qslice_quant 16 B at C 1284",
+                      lambda: abl.LIBRARY.launch(
+                          "abl_qslice_quant", dev, qkv.data_ptr(),
+                          inv.data_ptr(), q.data_ptr(), 13, 1284, 3852, 16))
 
 
 def one_crop_check(x, op_dynamic) -> None:
@@ -1992,21 +2090,24 @@ def trainable_block_phase(rows, x, p32, tag) -> None:
         "backward_bound_by": "operations" if b_ops > b_bytes else "bytes"}
 
 
-def k8_row_cases(x2, ln_s, ln_b, oh, inv, heads, exact=True):
-    """K8's LayerNorm knock-outs on token rows ``x2`` and its merge of the
-    attention's f32 heads ``oh`` (B*H, N, D) back to tokens, in the format
-    of :func:`kernel_cases`' dicts, bit-equal to their twins and timed
-    through a CUDA graph (the merge beside ``permute().contiguous()``,
-    which does not quantise); ``exact=False`` holds ``ln_cast`` within one
-    int8 step (a design from before its twin's sum order)."""
+def k8_row_cases(x2, ln_s, ln_b, oh, qkv3, inv, heads, exact=True):
+    """K8's LayerNorm knock-outs and bare cast on token rows ``x2``, its
+    merge of the attention's f32 heads ``oh`` (B*H, N, D) back to tokens and
+    its quantised q third of ``qkv3`` (B, N, 3C), in the format of
+    :func:`kernel_cases`' dicts, bit-equal to their twins and timed through
+    a CUDA graph, each of the last three beside a yardstick that moves the
+    same bytes (``permute().contiguous()``, ``.to(torch.int8)``: no
+    quantisation, and ``to`` wraps where the bare cast saturates);
+    ``exact=False`` holds ``ln_cast`` within one int8 step (a design from
+    before its twin's sum order)."""
     from hands_tpu_torch.ops import vit_block_ablation as abl
 
     rows_n, c = x2.shape
     g, n, d = oh.shape
 
-    def case(label, call, inputs, ops, library=None, check=compare_equal):
-        return [Case(label, call, inputs, ops, "f32", library, check,
-                     timer=short_ms)]
+    def case(label, call, inputs, ops, yardstick=None, check=compare_equal):
+        return [Case(label, call, inputs, ops, "f32", check=check,
+                     timer=short_ms, yardstick=yardstick)]
 
     return {
         "ln_affine_quant": (abl.ln_ablation, abl.ln_ablation_plain, case(
@@ -2022,8 +2123,16 @@ def k8_row_cases(x2, ln_s, ln_b, oh, inv, heads, exact=True):
                               abl.heads_merge_quant_plain, case(
             "attn_merged: heads back, quantise",
             lambda f: f(oh, inv, heads), [oh, inv], 2 * oh.numel(),
-            lambda: oh.view(g // heads, heads, n, d).permute(
-                0, 2, 1, 3).contiguous())),
+            ("permute().contiguous()", lambda: oh.view(
+                g // heads, heads, n, d).permute(0, 2, 1, 3).contiguous()))),
+        "cast_rows": (abl.cast_rows, abl.cast_rows_plain, case(
+            "mm_only: bare cast of the tokens", lambda f: f(x2), [x2],
+            rows_n * c, ("x.to(torch.int8)", lambda: x2.to(torch.int8)))),
+        "qslice_quant": (abl.qslice_quant, abl.qslice_quant_plain, case(
+            "no_attn: q third, quantise", lambda f: f(qkv3, inv),
+            [qkv3[..., :c], inv], 2 * rows_n * c,
+            ("qkv[..., :C].to(torch.int8)",
+             lambda: qkv3[..., :c].to(torch.int8)))),
     }
 
 
@@ -2065,16 +2174,13 @@ def ablation_cases(x, op):
     def one(name, kfn, pfn, case):
         return name, (kfn, pfn, [case])
 
-    rowpasses = k8_row_cases(x2, op["ln1_s"], op["ln1_b"], oh, inv, HEADS)
+    rowpasses = k8_row_cases(x2, op["ln1_s"], op["ln1_b"], oh, qkv3, inv,
+                             HEADS)
     kernels = dict([
         ("ln_affine_quant", rowpasses["ln_affine_quant"]),
         ("ln_cast", rowpasses["ln_cast"]),
-        one("cast_rows", abl.cast_rows, abl.cast_rows_plain, Case(
-            "mm_only: bare cast of the tokens", lambda f: f(x2), [x2],
-            rows_n * c, "f32", check=compare_equal)),
-        one("qslice_quant", abl.qslice_quant, abl.qslice_quant_plain, Case(
-            "no_attn: q third, quantise", lambda f: f(qkv3, inv),
-            [qkv3[..., :c], inv], 2 * rows_n * c, "f32", check=compare_equal)),
+        ("cast_rows", rowpasses["cast_rows"]),
+        ("qslice_quant", rowpasses["qslice_quant"]),
         one("heads_split", abl.heads_split, abl.heads_split_plain,
             heads_split_case(qkv3, HEADS)),
         ("heads_merge_quant", rowpasses["heads_merge_quant"]),
@@ -2189,13 +2295,7 @@ def ablation_phase(rows, dev, tag) -> None:
     del outs, static
     # the probe's bare casts truncate nearly everything to 0: hold the two
     # modes made of casts also on inputs that spread over the int8 range
-    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
-    xw = (x[:BATCH].float() * 160.0).to(torch.bfloat16)
-    opw = dict(op)
-    for k in ("bqkv", "bproj", "b1", "b2"):
-        opw[k] = torch.randn(op[k].shape, generator=gen, device=dev) * 60.0
-    for k in ("ln1_s", "ln2_s"):
-        opw[k] = op[k] * 2.0
+    xw, opw = wide_probe(x[:BATCH], op, dev)
     # no_quant's attention sums on the tensor cores, in another order than
     # its twin: on these inputs it is held to its twin within one int8 step
     # (compare_int8), and the mode's bare casts, which this check is for, to
@@ -2263,13 +2363,47 @@ def ablation_phase(rows, dev, tag) -> None:
     torch.cuda.empty_cache()
 
 
-def ablation_account(kernels, times, tag, calls: int = 3) -> None:
-    """``full - mode`` of :data:`K8_ACCOUNTED`, launch by launch: the device
-    time of each kernel of :data:`K8_KERNEL_NAMES` in one block (mean of
-    ``calls``, ``torch.profiler``), its difference from ``full``, and what
-    the entry point's events reading (``times``) leaves over."""
+def wide_probe(x, op, dev):
+    """The probe's tokens and operands scaled so that the values meeting
+    K8's bare casts spread over the int8 range and past it (on the probe
+    they truncate to 0): tokens x 160, biases of std 60, LayerNorm scales
+    doubled."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    xw = (x.float() * 160.0).to(torch.bfloat16)
+    opw = dict(op)
+    for k in ("bqkv", "bproj", "b1", "b2"):
+        opw[k] = torch.randn(op[k].shape, generator=gen, device=dev) * 60.0
+    for k in ("ln1_s", "ln2_s"):
+        opw[k] = op[k] * 2.0
+    return xw, opw
+
+
+def cast_chain_zeros(x, op) -> list:
+    """The share of zeros in each int8 operand of ``mm_only``'s four
+    products (the bare cast of the tokens, then three GEMMs' bare casts),
+    through the kernels."""
+    from hands_tpu_torch.ops import vit_block_ablation as abl
+
+    c = x.shape[-1]
+    a = abl.cast_rows(x.reshape(-1, c))
+    shares = [float((a == 0).float().mean())]
+    for w, d, b, keep in (("wqkv_q", "dqkv", "bqkv", c),
+                          ("wproj_q", "dproj", "bproj", None),
+                          ("w1_q", "d1", "b1", None)):
+        a = abl.gemm_i8_ablation(a, op[w], op[d], op[b], "cast",
+                                 keep_cols=keep)
+        shares.append(float((a == 0).float().mean()))
+    return shares
+
+
+def ablation_account(kernels, times, tag, calls: int = 3,
+                     modes=K8_ACCOUNTED) -> None:
+    """``full - mode`` of ``modes``, launch by launch: the device time of
+    each kernel of :data:`K8_KERNEL_NAMES` in one block (mean of ``calls``,
+    ``torch.profiler``), its difference from ``full``, and what the entry
+    point's events reading (``times``) leaves over."""
     busy = {}
-    for mode in ("full",) + K8_ACCOUNTED:
+    for mode in ("full",) + tuple(modes):
         total, part = device_busy_ms(
             lambda m=mode: [kernels(m) for _ in range(calls)],
             K8_KERNEL_NAMES)
@@ -2281,7 +2415,7 @@ def ablation_account(kernels, times, tag, calls: int = 3) -> None:
         busy[mode]["other"] = total / calls - sum(busy[mode].values())
         print(f"  mode {mode}, device ms a block by kernel: " + ", ".join(
             f"{k} {v:.4f}" for k, v in busy[mode].items() if v) + f" {tag}")
-    for mode in K8_ACCOUNTED:
+    for mode in modes:
         diff = {k: busy["full"][k] - busy[mode][k] for k in busy["full"]}
         device = sum(diff.values())
         wall = times["full"] - times[mode]
@@ -2803,11 +2937,13 @@ def kernels_alone() -> int:
 
 def rowpass_alone(check: bool = True) -> int:
     """The warp-per-row passes: K5/K6's ``ln_quant`` and K3's LayerNorm at
-    ViT-H, 3072 and 24,576 rows, and K8's row passes (``heads_split``,
-    ``ln_affine_quant``, ``ln_cast``, ``heads_merge_quant``) at 49,152 rows
+    ViT-H, 3072 and 24,576 rows, and K8's row and vector passes
+    (``heads_split``, ``ln_affine_quant``, ``ln_cast``,
+    ``heads_merge_quant``, ``cast_rows``, ``qslice_quant``) at 49,152 rows
     (256 crops), each against its twin and graph-timed beside its twin and
-    its library call; with ``check`` also at their ragged shapes, the
-    narrow forms, the refused shapes and K5's block at one crop::
+    its library call or yardstick; with ``check`` also at their ragged
+    shapes, the narrow forms, the refused shapes and K5's block at one
+    crop::
 
         python3 -c "import sys, chip_smoke as cs; sys.exit(cs.rowpass_alone())"
 
@@ -2837,6 +2973,7 @@ def rowpass_alone(check: bool = True) -> int:
         layernorm_ragged_check(gen, DEV)
         ln_quant_ragged_check(gen, DEV)
         heads_split_check(gen, DEV)
+        k8_vector_check(gen, DEV)
         one_crop_check(x, operands["dynamic"])
     time_groups(groups, rows, tag)
     del groups, x, p, p32, operands
@@ -2856,7 +2993,7 @@ def rowpass_alone(check: bool = True) -> int:
     k8 = [(K8, SRC_ABL, {"heads_split": (
         abl.heads_split, abl.heads_split_plain,
         [heads_split_case(qkv3, HEADS)]),
-        **k8_row_cases(x2, ln_s, ln_b, oh, inv, HEADS, exact=check)})]
+        **k8_row_cases(x2, ln_s, ln_b, oh, qkv3, inv, HEADS, exact=check)})]
     print(f"  K8's row passes at {n_rows} rows ({ABL_BATCH} crops)")
     check_groups(k8, {}, rows)
     time_groups(k8, rows, tag)
@@ -2864,10 +3001,12 @@ def rowpass_alone(check: bool = True) -> int:
     return 0
 
 
-def ablation_alone(iters: int = 30) -> int:
+def ablation_alone(iters: int = 30, wide: bool = False) -> int:
     """K8's nine modes at 256 crops through ``cli.int8_ablation`` (``iters``
     timed calls a mode, no twins) and the launch-by-launch account of
-    ``full - mode``; runs behind an older tree too::
+    ``full - mode``; with ``wide`` also :data:`K8_WIDE_MODES` on
+    :func:`wide_probe`'s inputs, beside the probe's readings. Runs behind an
+    older tree too::
 
         python3 -c "import sys, chip_smoke as cs; sys.exit(cs.ablation_alone())"
     """
@@ -2887,6 +3026,20 @@ def ablation_alone(iters: int = 30) -> int:
                              heads=HEADS, out=lambda line: print("  " + line))
     ablation_account(lambda m: abl.vit_block_ablation(
         x, op, num_heads=HEADS, mode=m), times, tag)
+    if wide:
+        xw, opw = wide_probe(x, op, DEV)
+        wide_ms = cli.run_ablation(ABL_BATCH, iters, K8_WIDE_MODES, DEV,
+                                   probe=(xw, opw), heads=HEADS,
+                                   out=lambda line: None)
+        for mode in K8_WIDE_MODES:
+            print(f"  mode {mode:9s} wide inputs {wide_ms[mode]:.3f} ms/block"
+                  f", probe {times[mode]:.3f} {tag}")
+        ablation_account(lambda m: abl.vit_block_ablation(
+            xw, opw, num_heads=HEADS, mode=m), wide_ms, f"(wide inputs) {tag}",
+            modes=K8_WIDE_MODES[1:])
+        print("  zeros in mm_only's four int8 operands: probe " + ", ".join(
+            f"{z:.3f}" for z in cast_chain_zeros(x, op)) + "; wide " +
+            ", ".join(f"{z:.3f}" for z in cast_chain_zeros(xw, opw)))
     return 0
 
 
@@ -3128,6 +3281,7 @@ def main() -> int:
     layernorm_ragged_check(gen, dev)
     ln_quant_ragged_check(gen, dev)
     heads_split_check(gen, dev)
+    k8_vector_check(gen, dev)
     gemm_ragged_check(gen, dev)
 
     # ---- 3. serve requests through full-width ViT-H, kernels on

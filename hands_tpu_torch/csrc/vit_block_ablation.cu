@@ -38,9 +38,12 @@
 // common.cuh's warp_row_stats, 4 int8 results a 4-byte store); heads_split
 // and heads_merge_quant are a warp per token row moving whole head segments
 // in 16-byte vectors (4-byte ones when D or the pointers do not allow 16),
-// one division per row; cast_rows and qslice_quant are still one thread per
-// element; the attention kernels' MMA geometry (see attention_kernel.cuh)
-// for every attention mode, int8 included.
+// one division per row; cast_rows and qslice_quant move vectors of 8 bf16
+// (a 16-byte load, its 8 int8 results one 8-byte store; 2 or 1 value where
+// the pointers or C do not allow 8), cast_rows as a grid of the blocks the
+// card holds at once striding over the vectors, qslice_quant as a warp per
+// token row with no division; the attention kernels' MMA geometry (see
+// attention_kernel.cuh) for every attention mode, int8 included.
 
 #include "attention_kernel.cuh"
 #include "gemm_sm90.cuh"
@@ -109,24 +112,157 @@ int launch_ln_ablation(const void* x, const void* scale, const void* bias,
   });
 }
 
-// ------------------------------------------------------ elementwise passes
-// q[i] = cast(f32(x[i])): the first link of the mm_only chain
-__global__ void cast_rows_kernel(const bf16* __restrict__ x,
-                                 int8_t* __restrict__ q, size_t n) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) q[i] = cast_i8(to_float(x[i]));
+// ------------------------------------------------ bf16 -> int8 passes
+// cast_rows and qslice_quant read bf16 and write int8, 3 bytes a value and a
+// handful of operations: they are bound by bytes. Both move vectors of W
+// bf16 values, W = 8 (a 16-byte load; its 8 int8 results leave as one
+// 8-byte store), 2 (a 4-byte load, a 2-byte store) or 1, the widest that the
+// pointers and the widths allow; the caller picks it
+// (ops/vit_block_ablation.py:cast_vector_bytes, qslice_vector_bytes).
+template <int W>
+struct BfVec;  // W bf16 values in, W int8 values out
+template <>
+struct BfVec<8> { using In = uint4; using Out = uint2; };
+template <>
+struct BfVec<2> { using In = uint32_t; using Out = uint16_t; };
+template <>
+struct BfVec<1> { using In = uint16_t; using Out = uint8_t; };
+
+// f(j, f32(value j)) of a loaded vector, the W int8 results packed for one
+// store
+template <int W, typename F>
+__device__ __forceinline__ typename BfVec<W>::Out narrow(
+    typename BfVec<W>::In raw, F f) {
+  const bf16* e = reinterpret_cast<const bf16*>(&raw);
+  uint32_t word[(W + 3) / 4] = {};
+#pragma unroll
+  for (int j = 0; j < W; ++j)
+    word[j / 4] |= (uint32_t)(uint8_t)f(j, __bfloat162float(e[j]))
+                   << (8 * (j % 4));
+  if constexpr (W == 8)
+    return make_uint2(word[0], word[1]);
+  else
+    return (typename BfVec<W>::Out)word[0];
 }
 
-// out[r, c] = clip(round(f32(qkv[r, c]) * inv[c])) for c < C of 3C columns
-__global__ void qslice_quant_kernel(const bf16* __restrict__ qkv,
-                                    const float* __restrict__ inv,
-                                    int8_t* __restrict__ out, size_t rows,
-                                    int C) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= rows * C) return;
-  const size_t r = i / C;
-  const int c = (int)(i % C);
-  out[i] = (int8_t)quant_clip(to_float(qkv[r * 3 * C + c]) * inv[c]);
+// q[i] = cast(f32(x[i])), the first link of the mm_only chain, over n
+// values: n / W vectors, then the n % W values of the tail. A grid of the
+// blocks the card holds at once strides over the vectors, neighbouring
+// threads on neighbouring vectors; each thread has CAST_UNROLL loads in
+// flight before their stores. Thread g < n % W of the grid takes tail value
+// g.
+constexpr int CAST_THREADS = 256;
+constexpr int CAST_UNROLL = 4;
+
+template <int W>
+__global__ void __launch_bounds__(CAST_THREADS) cast_rows_kernel(
+    const typename BfVec<W>::In* __restrict__ x,
+    typename BfVec<W>::Out* __restrict__ q, size_t nvec, int tail) {
+  const auto cast = [](int, float v) { return cast_i8(v); };
+  const size_t stride = (size_t)gridDim.x * CAST_THREADS;
+  const size_t first = (size_t)blockIdx.x * CAST_THREADS + threadIdx.x;
+  size_t i = first;
+  for (; i + (CAST_UNROLL - 1) * stride < nvec; i += CAST_UNROLL * stride) {
+    typename BfVec<W>::In r[CAST_UNROLL];
+#pragma unroll
+    for (int u = 0; u < CAST_UNROLL; ++u) r[u] = x[i + u * stride];
+#pragma unroll
+    for (int u = 0; u < CAST_UNROLL; ++u)
+      q[i + u * stride] = narrow<W>(r[u], cast);
+  }
+  for (; i < nvec; i += stride) q[i] = narrow<W>(x[i], cast);
+  if (first < (size_t)tail) {
+    const bf16* xt = reinterpret_cast<const bf16*>(x + nvec);
+    reinterpret_cast<int8_t*>(q + nvec)[first] =
+        cast_i8(__bfloat162float(xt[first]));
+  }
+}
+
+// The grid is every SM times the blocks one holds
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), asked once per device and
+// form, or fewer blocks where there are fewer vectors.
+template <int W>
+int launch_cast_rows(int device, const void* x, void* q, size_t n,
+                     cudaStream_t s) {
+  static int resident[64] = {};
+  if (device < 0 || device >= 64) return (int)cudaErrorInvalidValue;
+  if (resident[device] == 0) {
+    int sms = 0, per_sm = 0;
+    cudaError_t err = cudaDeviceGetAttribute(
+        &sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, cast_rows_kernel<W>, CAST_THREADS, 0);
+    if (err != cudaSuccess) return (int)err;
+    resident[device] = sms * per_sm;
+  }
+  const size_t nvec = n / W;
+  const size_t need = (nvec + CAST_THREADS - 1) / CAST_THREADS;
+  const int blocks =
+      need < 1 ? 1 : (need < (size_t)resident[device] ? (int)need
+                                                      : resident[device]);
+  cast_rows_kernel<W><<<blocks, CAST_THREADS, 0, s>>>(
+      (const typename BfVec<W>::In*)x, (typename BfVec<W>::Out*)q, nvec,
+      (int)(n % W));
+  return (int)cudaGetLastError();
+}
+
+// inv's W f32 values at p (two float4 for W = 8)
+template <int W>
+__device__ __forceinline__ void load_f32(const float* p, float* v) {
+  if constexpr (W == 8) {
+    const float4 a = reinterpret_cast<const float4*>(p)[0];
+    const float4 b = reinterpret_cast<const float4*>(p)[1];
+    v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+    v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+  } else if constexpr (W == 2) {
+    const float2 a = *reinterpret_cast<const float2*>(p);
+    v[0] = a.x, v[1] = a.y;
+  } else {
+    v[0] = *p;
+  }
+}
+
+// out[r, c] = clip(round(f32(qkv[r, c]) * inv[c])) for c < C: the q third of
+// each qkv row (rows row_stride values apart) times inv_proj, one f32
+// product, rounded half to even and clipped. One warp per token row,
+// QSLICE_ROWS rows a block: lane l takes the row's vectors l, l + 32, ... of
+// W values (at ViT-H and W = 8, 160 vectors a row, 5 a lane), all its
+// QSLICE_UNROLL loads in flight before their stores, and reads inv's W
+// values beside each (5 KB at ViT-H, held in L1). Row and column come from
+// the warp's row and the lane's vector: no division.
+constexpr int QSLICE_ROWS = 8;
+constexpr int QSLICE_UNROLL = 8;
+
+template <int W>
+__global__ void __launch_bounds__(QSLICE_ROWS * 32) qslice_quant_kernel(
+    const bf16* __restrict__ qkv, const float* __restrict__ inv,
+    int8_t* __restrict__ out, long long rows, int C, long long row_stride) {
+  using In = typename BfVec<W>::In;
+  using Out = typename BfVec<W>::Out;
+  const int lane = threadIdx.x % 32;
+  const long long row = (long long)blockIdx.x * QSLICE_ROWS + threadIdx.x / 32;
+  if (row >= rows) return;  // warp-uniform
+  const int nvec = C / W;
+  const In* src = reinterpret_cast<const In*>(qkv + row * row_stride);
+  Out* dst = reinterpret_cast<Out*>(out + row * C);
+  for (int base = lane; base < nvec; base += 32 * QSLICE_UNROLL) {
+    In r[QSLICE_UNROLL];
+#pragma unroll
+    for (int u = 0; u < QSLICE_UNROLL; ++u)
+      if (base + 32 * u < nvec) r[u] = src[base + 32 * u];
+#pragma unroll
+    for (int u = 0; u < QSLICE_UNROLL; ++u) {
+      const int k = base + 32 * u;
+      if (k < nvec) {
+        float m[W];
+        load_f32<W>(inv + (size_t)k * W, m);
+        dst[k] = narrow<W>(r[u], [&](int j, float v) {
+          return (int8_t)quant_clip(__fmul_rn(v, m[j]));
+        });
+      }
+    }
+  }
 }
 
 // (B, N, 3, H, D) -> (3, B*H, N, D). A token row (b, n) of qkv is 3H
@@ -284,12 +420,6 @@ struct AblationEpilogue {
   }
 };
 
-constexpr int PASS_THREADS = 256;
-
-unsigned pass_blocks(size_t n) {
-  return (unsigned)((n + PASS_THREADS - 1) / PASS_THREADS);
-}
-
 // One launch of the int8 route; cudaErrorInvalidValue for a shape past the
 // limits (the wrapper refuses those first): N up to ATTN_MAX_N, D a multiple
 // of 4 up to ATTN_MAX_D, strides of whole 8-byte words.
@@ -342,23 +472,51 @@ int abl_ln(int device, const void* x, const void* scale, const void* bias,
                : launch_ln_ablation<false>(x, scale, bias, q, rows, C, eps, s);
 }
 
+// vec_bytes 16 (x 16-byte and q 8-byte aligned), 4 (x 4-byte and q 2-byte
+// aligned) or 2: the width of the loads, picked by the caller
+// (ops/vit_block_ablation.py:cast_vector_bytes)
 int abl_cast_rows(int device, const void* x, void* q, long long n,
-                  void* stream) {
+                  int vec_bytes, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  cast_rows_kernel<<<pass_blocks((size_t)n), PASS_THREADS, 0,
-                     (cudaStream_t)stream>>>((const bf16*)x, (int8_t*)q,
-                                             (size_t)n);
-  return (int)cudaGetLastError();
+  if (n < 1 || (vec_bytes != 16 && vec_bytes != 4 && vec_bytes != 2) ||
+      (uintptr_t)x % vec_bytes || (uintptr_t)q % (vec_bytes / 2))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (vec_bytes == 16) return launch_cast_rows<8>(device, x, q, n, s);
+  if (vec_bytes == 4) return launch_cast_rows<2>(device, x, q, n, s);
+  return launch_cast_rows<1>(device, x, q, n, s);
 }
 
+// vec_bytes 16 (C and row_stride multiples of 8, qkv and inv 16-byte and out
+// 8-byte aligned), 4 (C and row_stride even, qkv 4-byte, inv 8-byte and out
+// 2-byte aligned) or 2: the width of the loads, picked by the caller
+// (ops/vit_block_ablation.py:qslice_vector_bytes)
 int abl_qslice_quant(int device, const void* qkv, const void* inv, void* out,
-                     long long rows, int C, void* stream) {
+                     long long rows, int C, long long row_stride,
+                     int vec_bytes, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  qslice_quant_kernel<<<pass_blocks((size_t)rows * C), PASS_THREADS, 0,
-                        (cudaStream_t)stream>>>(
-      (const bf16*)qkv, (const float*)inv, (int8_t*)out, (size_t)rows, C);
+  const int w = vec_bytes / 2;  // values a vector
+  if (rows < 1 || C < 1 || row_stride < C ||
+      (vec_bytes != 16 && vec_bytes != 4 && vec_bytes != 2) || C % w ||
+      row_stride % w || (uintptr_t)qkv % vec_bytes ||
+      (uintptr_t)inv % (w == 8 ? 16 : 4 * w) || (uintptr_t)out % w)
+    return (int)cudaErrorInvalidValue;
+  const int blocks = (int)((rows + QSLICE_ROWS - 1) / QSLICE_ROWS);
+  cudaStream_t s = (cudaStream_t)stream;
+  const bf16* x = (const bf16*)qkv;
+  const float* m = (const float*)inv;
+  int8_t* o = (int8_t*)out;
+  if (w == 8)
+    qslice_quant_kernel<8><<<blocks, QSLICE_ROWS * 32, 0, s>>>(
+        x, m, o, rows, C, row_stride);
+  else if (w == 2)
+    qslice_quant_kernel<2><<<blocks, QSLICE_ROWS * 32, 0, s>>>(
+        x, m, o, rows, C, row_stride);
+  else
+    qslice_quant_kernel<1><<<blocks, QSLICE_ROWS * 32, 0, s>>>(
+        x, m, o, rows, C, row_stride);
   return (int)cudaGetLastError();
 }
 

@@ -105,8 +105,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     p, i, f, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                    ctypes.c_longlong)
     lib.abl_ln.argtypes = [i, p, p, p, p, i, i, f, i, i, p]
-    lib.abl_cast_rows.argtypes = [i, p, p, ll, p]
-    lib.abl_qslice_quant.argtypes = [i, p, p, p, ll, i, p]
+    lib.abl_cast_rows.argtypes = [i, p, p, ll, i, p]
+    lib.abl_qslice_quant.argtypes = [i, p, p, p, ll, i, ll, i, p]
     lib.abl_heads_split.argtypes = [i, p, p, i, i, i, i, i, p]
     lib.abl_heads_merge_quant.argtypes = [i, p, p, p, i, i, i, i, i, p]
     lib.abl_gemm.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, i, p]
@@ -274,20 +274,59 @@ def ln_ablation(x, scale, bias, no_ln: bool, cast: bool, eps: float = 1e-6
     return q
 
 
+def _narrowing_bytes(widths, bf16_ptrs, i8_ptrs, f32_ptrs=()) -> int:
+    """The widest load of a bf16 -> int8 pass: 16 bytes (8 values), 4 (2)
+    or 2 (1), the first that every width (in values) divides into and every
+    pointer allows: bf16 inputs at the load's width, int8 outputs at half of
+    it, f32 operands at twice it up to 16 bytes."""
+    for vec in (16, 4):
+        w = vec // 2
+        if (all(n % w == 0 for n in widths)
+                and all(ptr % vec == 0 for ptr in bf16_ptrs)
+                and all(ptr % w == 0 for ptr in i8_ptrs)
+                and all(ptr % min(4 * w, 16) == 0 for ptr in f32_ptrs)):
+            return vec
+    return 2
+
+
+def cast_vector_bytes(x_ptr: int, q_ptr: int) -> int:
+    """The width of :func:`cast_rows`' loads: 16 bytes of 8 bf16 values
+    (their 8 int8 results one 8-byte store) from a 16-byte aligned ``x``
+    into an 8-byte aligned ``q``, else 4 bytes of 2 values, else 1 value
+    (the kernel's narrow forms); any count of values, the last ``n % 8``
+    (or ``n % 2``) a tail."""
+    return _narrowing_bytes((), (x_ptr,), (q_ptr,))
+
+
+def qslice_vector_bytes(C: int, row_stride: int, qkv_ptr: int, inv_ptr: int,
+                        out_ptr: int) -> int:
+    """The width of :func:`qslice_quant`'s loads: 16 bytes of 8 bf16 values
+    (inv's 8 values two float4, the 8 int8 results one 8-byte store) where
+    ``C`` and the row stride of ``qkv`` are multiples of 8 and the pointers
+    allow it, else 4 bytes of 2 values (both even), else 1 value."""
+    return _narrowing_bytes((C, row_stride), (qkv_ptr,), (out_ptr,),
+                            (inv_ptr,))
+
+
 def cast_rows(x: torch.Tensor) -> torch.Tensor:
-    """bf16 -> int8 by the bare cast, elementwise."""
+    """bf16 -> int8 by the bare cast, elementwise; ``x`` is contiguous bf16
+    (at any address: :func:`cast_vector_bytes` picks the kernel's form)."""
     if on_cpu(x):
         return cast_rows_plain(x)
-    check(x, "x", _BF16, x.shape, x.device)
+    if x.dtype != _BF16 or not x.is_contiguous():
+        raise ValueError(f"x: want contiguous bf16, got {x.dtype} "
+                         f"(contiguous={x.is_contiguous()})")
     q = torch.empty(x.shape, dtype=_I8, device=x.device)
     LIBRARY.launch("abl_cast_rows", x.device, x.data_ptr(), q.data_ptr(),
-                   x.numel())
+                   x.numel(), cast_vector_bytes(x.data_ptr(), q.data_ptr()))
     launches["cast_rows"] += 1
     return q
 
 
 def qslice_quant(qkv: torch.Tensor, inv_out: torch.Tensor) -> torch.Tensor:
-    """See :func:`qslice_quant_plain`."""
+    """See :func:`qslice_quant_plain`; any width, the first ``C3 // 3``
+    columns of each (B, N, C3) row (:func:`qslice_vector_bytes` picks the
+    kernel's form)."""
     if on_cpu(qkv):
         return qslice_quant_plain(qkv, inv_out)
     B, N, C3 = qkv.shape
@@ -297,7 +336,9 @@ def qslice_quant(qkv: torch.Tensor, inv_out: torch.Tensor) -> torch.Tensor:
     check(inv_out, "inv_out", _F32, (C,), dev)
     out = torch.empty((B, N, C), dtype=_I8, device=dev)
     LIBRARY.launch("abl_qslice_quant", dev, qkv.data_ptr(),
-                   inv_out.data_ptr(), out.data_ptr(), B * N, C)
+                   inv_out.data_ptr(), out.data_ptr(), B * N, C, C3,
+                   qslice_vector_bytes(C, C3, qkv.data_ptr(),
+                                       inv_out.data_ptr(), out.data_ptr()))
     launches["qslice_quant"] += 1
     return out
 
