@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: builds the port's CUDA
-kernels (the bf16 ViT block, the two W8A8 ViT blocks and their knock-out
-variants, the fused attention, the fused skinning, the splat silhouette
-forward and backward), holds each
+kernels (the bf16 ViT block and its backward, the two W8A8 ViT blocks and
+their knock-out variants, the fused attention, the fused skinning, the
+splat silhouette forward and backward), holds each
 against its plain PyTorch twin at the shapes its path gives it, serves
 requests through HaMeR at full ViT-H width and depth in its bf16,
 dynamic-int8 and calibrated static-int8 configurations (and one backbone
@@ -9,8 +9,10 @@ forward with the fused attention), serves and evaluates WildHands at full
 width (two ResNet-50s, 224^2 crops, requests of 8 and 64 images; f32, bf16
 and int8-convolution serving; the evaluation forward with the silhouette
 render and the grasp classifier on, without and with gradients), holds the
-trainable ViT block (the bf16 block's kernels forward, a backward that keeps
-only the block's input and parameters) against autograd of its twin, takes
+trainable ViT block (the bf16 block's kernels forward; a backward that keeps
+only the block's input and parameters and runs the attention, LayerNorm and
+GELU backward kernels) against autograd of its twin and of the block in
+f64, takes
 optimiser steps with HaMeR ViT-H (64 crops a step) and with WildHands (two
 ResNet-50s, 64 images a step) on synthetic batches and runs one eval step
 with its metrics, runs the nine knock-out modes of the static int8 block at
@@ -100,10 +102,40 @@ TRAIN_VIT_BATCH = 32  # images of a HaMeR train step: 64 crops
 TRAIN_WH_BATCH = 64  # images of a WildHands train step: 128 crops + 64 images
 TRAIN_STEPS = 3
 TINY_TRAIN = dict(img_res=160, img_res_ds=160)  # the CPU comparison's size
-# K4's gradients against autograd of the twin: the backward IS that
-# computation on the same inputs, so only the order of a library's sums may
-# differ from run to run; relative to each leaf's largest entry
+# K4's backward (ops/vit_block.vit_block_backward) on the twins' pieces
+# against autograd of the twin: the same computation on the same inputs, so
+# only the order of a library's sums may differ from run to run; relative to
+# each leaf's largest entry
 K4_GRAD_REL = 1e-3
+# K4's backward on its kernels against autograd of the twin: another
+# computation (K3's kernels recompute the block, the backward kernels sum in
+# other orders), so a leaf may move by bf16 ulps of single entries: max |d|
+# and mean |d| relative to each leaf's largest entry. Both routes are also
+# held to autograd of the block in f64: the kernels' mean error may be at
+# most K4_F64_RATIO times the twin's
+K4_GRAD_MAX, K4_GRAD_MEAN, K4_F64_RATIO = 1e-2, 1e-3, 1.5
+SRC_BWD = "hands_tpu_torch/csrc/vit_block_bwd.cu"
+TRAIN_ROWS = 2 * TRAIN_VIT_BATCH * N_TOK  # token rows a block of the step
+# one block's launches: K4's forward; its backward (the recompute LN1, qkv,
+# attention, proj, LN2, MLP1 without its GELU, then the three backward
+# kernels, layernorm_bwd twice with its column-sum launch)
+K4_FWD_LAUNCHES = {"vit_layernorm": 2, "vit_gemm": 4, "vit_attention": 1}
+K4_BWD_LAUNCHES = {"vit_layernorm": 2, "vit_gemm": 3, "vit_attention": 1,
+                   "attention_bwd": 1, "layernorm_bwd": 2,
+                   "layernorm_bwd_sums": 2, "gelu_bwd": 1}
+BWD_KERNELS = ("attention_bwd", "layernorm_bwd", "gelu_bwd")
+# the kernels of K4's backward in the profiler's names (substrings, the
+# first match counts): K3's kernels (the recompute), the backward kernels,
+# the products (cuBLAS), the bias sums, the casts
+K4_ACCOUNT = (("recompute", ("layernorm_kernel", "BlockEpilogue",
+                             "attention_mma_kernel")),
+              ("attention_bwd", ("attention_bwd_kernel",)),
+              ("layernorm_bwd", ("layernorm_bwd_kernel",
+                                 "column_sums_kernel")),
+              ("gelu_bwd", ("gelu_bwd_kernel",)),
+              ("products", ("gemm", "nvjet", "xmma", "cutlass", "cublas")),
+              ("bias sums", ("reduce_kernel",)),
+              ("casts", ("elementwise",)))
 LBS_ABS = 1e-5  # K1 vs twin: f32 sums of 16 and 4 terms in another order
 MASK_ABS = 2e-5  # K2 forward vs twin (the sum over vertices runs in order)
 # K2 backward vs the twin's autograd under a mean L1 mask loss. The kernel is
@@ -352,6 +384,68 @@ def compare_gelu_gemm(name, got, ref) -> float:
           f"{'bit-equal' if share == 0 else 'ok' if ok else 'FAIL'}")
     require(ok, f"{name}: kernel disagrees with its twin")
     return float((got.float() - ref.float()).abs().max())
+
+
+def compare_grad(name, got, ref, rel_max=K4_GRAD_MAX,
+                 rel_mean=K4_GRAD_MEAN) -> float:
+    """Gradients: max |d| and mean |d| relative to the reference's largest
+    entry (a gradient's entries span decades; an absolute bound per entry
+    says nothing)."""
+    g, r = got.float(), ref.float()
+    scale = float(r.abs().max())
+    err = (g - r).abs()
+    worst, avg = float(err.max()) / scale, float(err.mean()) / scale
+    ok = (bool(torch.isfinite(g).all()) and scale > 0 and worst <= rel_max
+          and avg <= rel_mean)
+    print(f"  {name:<34s} max|d|/max|ref| {worst:.3e} (<= {rel_max:g})  "
+          f"mean {avg:.3e} (<= {rel_mean:g})  {'ok' if ok else 'FAIL'}")
+    require(ok, f"{name}: kernel disagrees with its twin")
+    return float(err.max())
+
+
+def compare_dqkv(name, got, ref) -> float:
+    """The attention backward's dq, dk and dv, each against its own scale."""
+    c = got.shape[-1] // 3
+    return max(compare_grad(f"{name} {part}", got[..., i * c:(i + 1) * c],
+                            ref[..., i * c:(i + 1) * c])
+               for i, part in enumerate(("dq", "dk", "dv")))
+
+
+def compare_ln_bwd(name, got, ref) -> float:
+    """(dx bf16, dscale, dbias f32): dx as a gradient; the column sums of
+    3072 to 12,288 f32 terms in another order than PyTorch's, to 1e-4 of
+    the largest."""
+    return max(compare_grad(f"{name} dx", got[0], ref[0]),
+               compare_grad(f"{name} dscale", got[1], ref[1], 1e-4, 1e-5),
+               compare_grad(f"{name} dbias", got[2], ref[2], 1e-4, 1e-5))
+
+
+def bf16_ulps(got, ref) -> torch.Tensor:
+    """|got - ref| in bf16 units in the last place, per entry (the order of
+    the bit patterns; +0 and -0 are 0 apart)."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+
+    return (ordered(got) - ordered(ref)).abs()
+
+
+def compare_ulps(name, got, ref) -> float:
+    """bf16 outputs of an elementwise chain (``gelu_bwd``: du, h): bit-equal
+    to the twin unless the card's ``expf`` / ``erfcf`` / ``tanhf`` builds
+    differ in the last place; then at most one bf16 ulp, the entries apart
+    counted."""
+    worst = 0.0
+    for part, a, b in zip(("du", "h"), got, ref):
+        d = bf16_ulps(a, b)
+        moved, top = int((d > 0).sum()), int(d.max())
+        ok = top <= 1 and bool(torch.isfinite(a.float()).all())
+        print(f"  {name + ' ' + part:<34s} {moved} of {d.numel()} entries "
+              f"apart, max {top} ulp (<= 1)  "
+              f"{'bit-equal' if moved == 0 else 'ok' if ok else 'FAIL'}")
+        require(ok, f"{name} {part}: kernel disagrees with its twin")
+        worst = max(worst, float((a.float() - b.float()).abs().max()))
+    return worst
 
 
 def nbytes(*tensors) -> int:
@@ -695,6 +789,88 @@ def kernel_cases(x, p, p32):
                "qkv_attention_static": SRC_ATTN}
     operands = {"dynamic": d, "static": s}
     return groups, sources, extra, operands
+
+
+def bwd_cases(x, p, gen):
+    """K4's backward kernels (``csrc/vit_block_bwd.cu``) at the shapes one
+    block's backward gives them for the crops of ``x`` (B, 192, 1280), on
+    the block's own activations (the twin's forward) and random gradients:
+    groups in the format of :func:`kernel_cases`, and the tanh GELU's
+    backward as an extra case."""
+    from hands_tpu_torch.ops import vit_block as vb
+
+    bf = torch.bfloat16
+    batch = x.shape[0]
+    rows = batch * N_TOK
+    x2 = x.reshape(rows, C)
+
+    def grad(*shape):
+        return (0.1 * torch.randn(shape, generator=gen,
+                                  device=x.device)).to(bf)
+
+    y1 = vb.layernorm_plain(x2, p["ln1_scale"], p["ln1_bias"])
+    qkv3 = vb.gemm_plain(y1, p["wqkv"], p["bqkv"]).view(batch, N_TOK, 3 * C)
+    o = vb.attention_plain(qkv3, HEADS).view(rows, C)
+    x1 = vb.gemm_plain(o, p["wproj"], p["bproj"], "residual", x2)
+    u = vb.gemm_plain(vb.layernorm_plain(x1, p["ln2_scale"], p["ln2_bias"]),
+                      p["w1"], p["b1"])
+    g2, dy2, dx1, dy1 = (grad(rows, C) for _ in range(4))
+    dh, do = grad(rows, HIDDEN), grad(batch, N_TOK, C)
+    # the minimum work: the products s, dp, dq, dk, dv of every head
+    attn_ops = 10 * batch * HEADS * N_TOK * N_TOK * HEAD_DIM
+    ln_ops = 20 * rows * C
+
+    def flash_bwd():
+        sc = vb.bf16_const(HEAD_DIM**-0.5)
+        t = qkv3.view(batch, N_TOK, 3, HEADS, HEAD_DIM).permute(2, 0, 3, 1, 4)
+        out, lse, cq, ck, mq, mk, seed, off = (
+            torch.ops.aten._scaled_dot_product_flash_attention(
+                t[0], t[1], t[2], 0.0, False, False, scale=sc)[:8])
+        go = do.view(batch, N_TOK, HEADS, HEAD_DIM).transpose(1, 2)
+        return lambda: (
+            torch.ops.aten._scaled_dot_product_flash_attention_backward(
+                go, t[0], t[1], t[2], out, lse, cq, ck, mq, mk, 0.0, False,
+                seed, off, scale=sc))
+
+    def ln_bwd(xin, scale, dy):
+        w = scale.to(bf)
+        b = torch.zeros_like(w)
+        _, mean, rstd = torch.ops.aten.native_layer_norm(xin, (C,), w, b,
+                                                        1e-6)
+        return lambda: torch.ops.aten.native_layer_norm_backward(
+            dy, xin, (C,), mean, rstd, w, b, (True, True, True))
+
+    def gelu_case(fast):
+        return Case(f"gelu backward ({'tanh' if fast else 'erf'})",
+                    lambda f: f(u, dh, fast), [u, dh],
+                    (1 if fast else 2) * rows * HIDDEN, "sfu",
+                    lambda: torch.ops.aten.gelu_backward(
+                        dh, u, approximate="tanh" if fast else "none"),
+                    compare_ulps)
+
+    kernels = {
+        "attention_bwd": (vb.attention_bwd, vb.attention_bwd_plain, [
+            Case("attention backward", lambda f: f(qkv3, do, HEADS),
+                 [qkv3, do], attn_ops, "bf16", flash_bwd(), compare_dqkv)]),
+        "layernorm_bwd": (vb.layernorm_bwd, vb.layernorm_bwd_plain, [
+            Case("layernorm backward LN2",
+                 lambda f: f(x1, dy2, p["ln2_scale"], g2),
+                 [x1, dy2, p["ln2_scale"], g2], ln_ops, "f32",
+                 ln_bwd(x1, p["ln2_scale"], dy2), compare_ln_bwd),
+            Case("layernorm backward LN1",
+                 lambda f: f(x2, dy1, p["ln1_scale"], dx1),
+                 [x2, dy1, p["ln1_scale"], dx1], ln_ops, "f32",
+                 ln_bwd(x2, p["ln1_scale"], dy1), compare_ln_bwd)]),
+        "gelu_bwd": (vb.gelu_bwd, vb.gelu_bwd_plain, [gelu_case(False)]),
+    }
+    # every launch through a CUDA graph: the wrappers' host time (two
+    # launches and three allocations for layernorm_bwd) is as long as a
+    # launch at 3072 rows
+    cases = [c for _, _, cs in kernels.values() for c in cs]
+    extra = [(gelu_case(True), vb.gelu_bwd, vb.gelu_bwd_plain)]
+    for case in cases + [extra[0][0]]:
+        case.timer = short_ms
+    return [(K4, SRC_BWD, kernels)], extra
 
 
 def skinning_inputs(gen, dev, batch):
@@ -1216,6 +1392,54 @@ def layernorm_ragged_check(gen, dev) -> None:
                     lambda: vb.layernorm(x, ones, ones))
 
 
+def bwd_ragged_check(gen, dev) -> None:
+    """K4's backward kernels off the ViT-H shapes, against their twins:
+    ``attention_bwd`` at :data:`ATTN_SWEEP` (two heads), ``layernorm_bwd``
+    at :data:`LN_RAGGED`, ``gelu_bwd`` on value counts off its vectors of 8
+    (both forms); then the shapes each refuses."""
+    from hands_tpu_torch.ops import vit_block as vb
+
+    bf = torch.bfloat16
+
+    def randn(*shape, std=1.0):
+        return (std * torch.randn(shape, generator=gen, device=dev)).to(bf)
+
+    for b, n, d in ATTN_SWEEP:
+        qkv, do = randn(b, n, 6 * d), randn(b, n, 2 * d, std=0.1)
+        compare_dqkv(f"attention_bwd B {b} N {n} D {d}",
+                     vb.attention_bwd(qkv, do, 2),
+                     vb.attention_bwd_plain(qkv, do, 2))
+    counts, widths = LN_RAGGED
+    for c in widths:
+        scale = 1.0 + 0.1 * torch.randn(c, generator=gen, device=dev)
+        for r in counts:
+            x = (3.0 * torch.randn((r, c), generator=gen, device=dev)
+                 + 0.5).to(bf)
+            dy, g = randn(r, c, std=0.1), randn(r, c, std=0.1)
+            compare_ln_bwd(f"layernorm_bwd rows {r} C {c}",
+                           vb.layernorm_bwd(x, dy, scale, g),
+                           vb.layernorm_bwd_plain(x, dy, scale, g))
+    for shape in ((7,), (13, 1283)):
+        u, dh = randn(*shape, std=2.5), randn(*shape, std=0.1)
+        for fast in (False, True):
+            compare_ulps(f"gelu_bwd {shape} {'tanh' if fast else 'erf'}",
+                         vb.gelu_bwd(u, dh, fast),
+                         vb.gelu_bwd_plain(u, dh, fast))
+    torch.cuda.synchronize()
+    big = randn(1, 257, 384)
+    require_refused("attention_bwd N 257", lambda: vb.attention_bwd(
+        big, big[..., :128].contiguous(), 2))
+    odd = randn(1, 13, 120)
+    require_refused("attention_bwd D 20", lambda: vb.attention_bwd(
+        odd, odd[..., :40].contiguous(), 2))
+    x = torch.zeros((4, 1284), dtype=bf, device=dev)
+    ones = torch.ones(1284, device=dev)
+    require_refused("layernorm_bwd C 1284",
+                    lambda: vb.layernorm_bwd(x, x, ones, x))
+    require_refused("gelu_bwd f32", lambda: vb.gelu_bwd(
+        ones, ones.to(bf), False))
+
+
 def ln_quant_ragged_check(gen, dev) -> None:
     """K5/K6's LayerNorm + quantise at :data:`LN_RAGGED`, both forms, bf16
     and f32 rows, against its twin; at 3077 rows every other row has a mean
@@ -1611,6 +1835,7 @@ def counted_modules():
 def launch_counts() -> dict:
     vb, *others = counted_modules()
     out = {f"vit_{k}": v for k, v in vb.launches.items()}
+    out.update(vb.bwd_launches)
     for mod in others:
         out.update(mod.launches)
     return out
@@ -1953,12 +2178,155 @@ def peak_ms(fn, iters: int = 5, warmup: int = 1):
     return ms, (torch.cuda.max_memory_allocated() - base) / 1e9
 
 
+def block_f64(x, p, num_heads):
+    """The bf16 block's function in f64 with no rounding at all, on the
+    values the bf16 routes compute with (``p``: the bf16 casts of the
+    masters and the f32 LayerNorm parameters, as f64) and the bf16 attention
+    scale, exact GELU: the reference of both routes' gradients."""
+    from hands_tpu_torch.ops import vit_block as vb
+
+    B, N, Cx = x.shape
+    D = Cx // num_heads
+    x2 = x.reshape(B * N, Cx)
+
+    def ln(t, s, b):
+        mu = t.mean(-1, keepdim=True)
+        var = (t * t).mean(-1, keepdim=True) - mu * mu
+        return (t - mu) * (torch.rsqrt(var.clamp(min=0.0) + 1e-6) * s) + b
+
+    def dense(t, k):
+        return t @ p["w" + k].t() + p["b" + k]
+
+    t = dense(ln(x2, p["ln1_scale"], p["ln1_bias"]), "qkv").view(
+        B, N, 3, num_heads, D).permute(2, 0, 3, 1, 4)
+    a = torch.softmax((t[0] * vb.bf16_const(D**-0.5))
+                      @ t[1].transpose(-1, -2), dim=-1)
+    x1 = x2 + dense((a @ t[2]).permute(0, 2, 1, 3).reshape(B * N, Cx),
+                    "proj")
+    u = dense(ln(x1, p["ln2_scale"], p["ln2_bias"]), "1")
+    h = 0.5 * u * torch.special.erfc(-u * 2.0**-0.5)
+    return (x1 + dense(h, "2")).view(B, N, Cx)
+
+
+def k4_leaves(x, p32):
+    """Fresh leaves: (x, {name: parameter}, [x, parameters in order])."""
+    from hands_tpu_torch.ops import vit_block as vb
+
+    xs = x.detach().clone().requires_grad_(True)
+    ps = {k: v.detach().clone().requires_grad_(True) for k, v in p32.items()}
+    return xs, ps, [xs] + [ps[k] for k in vb.PARAM_ORDER]
+
+
+def k4_routes():
+    """(K4, the twin) as functions of (x, f32 masters)."""
+    from hands_tpu_torch.ops import vit_block as vb
+
+    def k4(xs, ps):
+        return vb.vit_block_fused_trainable(xs, ps, HEADS)
+
+    def plain(xs, ps):
+        return vb.vit_block_plain(xs, vb._cast_params(ps), HEADS)
+
+    return k4, plain
+
+
+def k4_backward_ms(x, p32, g, tag) -> dict:
+    """K4's forward and backward on one block at the rows of ``x``, read in
+    turns: the backward alone (its forward kept), and what the backward ran
+    before its kernels (the twin's forward kept for autograd, then its
+    backward), each read twice in the order a b b a. Uses only what the
+    port has had since K4, so it times an older tree too."""
+    k4, plain = k4_routes()
+
+    def bwd_only():
+        xs, ps, lv = k4_leaves(x, p32)
+        out = k4(xs, ps)
+        return lambda: torch.autograd.grad(out, lv, g, retain_graph=True)
+
+    def twin_recompute():
+        xs, ps, lv = k4_leaves(x, p32)
+        return lambda: torch.autograd.grad(plain(xs, ps), lv, g)
+
+    with torch.no_grad():
+        fwd = min(cuda_ms(lambda: k4(x, p32)) for _ in range(2))
+    makers = {"k4": bwd_only, "twin": twin_recompute}
+    reads = {k: [] for k in makers}
+    for name in ("k4", "twin", "twin", "k4"):
+        reads[name].append(cuda_ms(makers[name](), iters=5))
+    out = {"forward": fwd, "backward": min(reads["k4"]),
+           "twin recompute + backward": min(reads["twin"])}
+    print(f"  K4 at {x.shape[0] * N_TOK} rows: forward {fwd:.4f} ms, "
+          f"backward {reads['k4'][0]:.4f} / {reads['k4'][1]:.4f} ms, the "
+          f"twin's forward kept for autograd + its backward "
+          f"{reads['twin'][0]:.4f} / {reads['twin'][1]:.4f} ms {tag}")
+    return out
+
+
+def device_account(fn, groups, calls: int = 3):
+    """Device ms a call of ``fn`` by kernel (``torch.profiler``, after a
+    warm-up call): each kernel goes to the first of ``groups`` ((label,
+    name substrings), ...) whose substring its name holds, else to
+    "other". Returns ({label: ms}, {label: [(ms, name), ...]}), or None
+    where the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    times = [(e.key, e.self_device_time_total / 1e3 / calls)
+             for e in prof.key_averages()]
+    if sum(t for _, t in times) <= 0.0:
+        return None
+    labels = [label for label, _ in groups] + ["other"]
+    ms = {label: 0.0 for label in labels}
+    names = {label: [] for label in labels}
+    for key, t in times:
+        label = next((lab for lab, subs in groups
+                      if any(sub in key for sub in subs)), "other")
+        ms[label] += t
+        names[label].append((t, key))
+    return ms, names
+
+
+def k4_backward_account(x, p32, g, wall_ms, tag) -> None:
+    """K4's backward on one block by kernel (:data:`K4_ACCOUNT`): the
+    recompute, the three backward kernels, the products, the bias sums, the
+    casts and the rest, beside its events reading ``wall_ms``."""
+    k4, _ = k4_routes()
+    xs, ps, lv = k4_leaves(x, p32)
+    out = k4(xs, ps)
+    got = device_account(
+        lambda: torch.autograd.grad(out, lv, g, retain_graph=True),
+        K4_ACCOUNT)
+    if got is None:
+        print("  K4 backward by kernel: not measured (the profiler saw no "
+              "device time)")
+        return
+    ms, names = got
+    busy = sum(ms.values())
+    print(f"  K4 backward at {x.shape[0] * N_TOK} rows by kernel, device ms "
+          f"a block: " + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+          + f"; device {busy:.4f} of {wall_ms:.4f} ms by events {tag}")
+    for label in ("products", "casts", "other"):
+        top = sorted(names[label], reverse=True)[:4]
+        if top:
+            print(f"    {label}: " + "; ".join(
+                f"{t:.4f} {k[:70]}" for t, k in top))
+
+
 def trainable_block_phase(rows, x, p32, tag) -> None:
     """K4, ``vit_block_fused_trainable``, at ViT-H shapes: the forward (the
-    bf16 block's kernels) against the twin, the gradients of the Function
-    against autograd of the twin for x and each of the twelve f32 master
-    parameters, and the time and peak memory of forward and backward beside
-    the plain block's."""
+    bf16 block's kernels) against the twin; the backward's launches; the
+    gradients of the Function (its backward on the kernels) against
+    autograd of the twin for x and each of the twelve f32 master
+    parameters, the backward on the twins' pieces against the same, and
+    both routes against autograd of the block in f64; the time and peak
+    memory of forward and backward beside the plain block's; then the three
+    backward kernels against their twins at the train step's 12,288 rows
+    and at ragged shapes, and their times."""
     from hands_tpu_torch.ops import vit_block as vb
 
     print(f"phase 6: K4 vit_block_fused_trainable, rows={ROWS} C={C} "
@@ -1967,86 +2335,82 @@ def trainable_block_phase(rows, x, p32, tag) -> None:
     g = (torch.randn(x.shape, generator=gen, device=x.device) * 0.1).to(
         torch.bfloat16)
     names = ["x"] + list(vb.PARAM_ORDER)
-
-    def leaves():
-        xs = x.detach().clone().requires_grad_(True)
-        ps = {k: v.detach().clone().requires_grad_(True)
-              for k, v in p32.items()}
-        return xs, ps, [xs] + [ps[k] for k in vb.PARAM_ORDER]
-
-    def k4(xs, ps):
-        return vb.vit_block_fused_trainable(xs, ps, HEADS)
-
-    def plain(xs, ps):
-        return vb.vit_block_plain(xs, vb._cast_params(ps), HEADS)
+    k4, plain = k4_routes()
 
     reset_launch_counts()
-    xs, ps, lv = leaves()
+    xs, ps, lv = k4_leaves(x, p32)
     out = k4(xs, ps)
     counts = launch_counts()
-    check_launches("K4 forward", counts, {
-        "vit_layernorm": 2, "vit_gemm": 4, "vit_attention": 1}, 1)
+    check_launches("K4 forward", counts, K4_FWD_LAUNCHES, 1)
     saved = out.grad_fn.saved_tensors
     require(len(saved) == 13 and saved[0].data_ptr() == xs.data_ptr()
             and all(t.data_ptr() == ps[k].data_ptr()
                     for t, k in zip(saved[1:], vb.PARAM_ORDER)),
             "K4 saves only x and the parameters")
-    xt, pt, lt = leaves()
+    xt, pt, lt = k4_leaves(x, p32)
     ref = plain(xt, pt)
     fwd_err = compare("K4 forward vs twin", out.detach(), ref.detach(),
                       rel=BLOCK_REL)
+    reset_launch_counts()
     got = torch.autograd.grad(out, lv, g)
+    torch.cuda.synchronize()
+    check_launches("K4 backward", launch_counts(), K4_BWD_LAUNCHES, 1)
     want = torch.autograd.grad(ref, lt, g)
-    require(launch_counts() == counts, "K4's backward launched a block kernel")
-    worst = 0.0
-    for name, a, b in zip(names, got, want):
-        require(a.dtype == b.dtype and a.shape == b.shape
+    twin_route = vb.vit_block_backward(x, p32, g, HEADS, f=vb.PLAIN)
+    xf, pf, lf = k4_leaves(x.double(), {
+        k: v.double() for k, v in vb._cast_params(p32).items()})
+    f64 = torch.autograd.grad(block_f64(xf, pf, HEADS), lf, g.double())
+    worst, worst_twin, ratio = 0.0, 0.0, 0.0
+    for name, a, b, t, r in zip(names, got, want, twin_route, f64):
+        require(a.dtype == b.dtype == t.dtype and a.shape == b.shape
                 and (name == "x" or a.dtype == torch.float32),
                 f"K4 gradient of {name}: dtype or shape")
         scale = float(b.float().abs().max())
-        err = float((a.float() - b.float()).abs().max()) / scale
-        require(scale > 0 and err <= K4_GRAD_REL,
-                f"K4 gradient of {name} differs from the twin's by {err}")
-        worst = max(worst, err)
-    print(f"  K4 gradients of x and 12 parameters vs autograd of the twin: "
-          f"max|d| / max|ref| {worst:.3e} (<= {K4_GRAD_REL:g}), f32 masters "
-          f"get f32 gradients, 13 tensors saved: ok")
-    del out, ref, got, want, saved
+        rel = float((t.float() - b.float()).abs().max()) / scale
+        require(scale > 0 and rel <= K4_GRAD_REL,
+                f"K4 twin route: gradient of {name} differs from autograd "
+                f"of the twin by {rel}")
+        worst_twin = max(worst_twin, rel)
+        worst = max(worst, compare_grad(f"K4 gradient of {name}", a, b)
+                    / scale)
+        # mean |d| against the f64 gradient, over its largest entry
+        r_scale = float(r.abs().max())
+        e_k = float((a.double() - r).abs().mean()) / r_scale
+        e_t = float((b.double() - r).abs().mean()) / r_scale
+        ratio = max(ratio, e_k / e_t)
+        print(f"    against f64 (mean|d|/max|f64|): kernels {e_k:.3e}, "
+              f"twin {e_t:.3e}, ratio {e_k / e_t:.3f} (<= {K4_F64_RATIO})")
+        require(e_k <= K4_F64_RATIO * e_t,
+                f"K4 gradient of {name}: {e_k / e_t:.3f} times the twin's "
+                f"distance from the f64 gradient")
+    print(f"  K4 gradients of x and 12 parameters: kernels vs autograd of "
+          f"the twin max|d| / max|ref| {worst:.3e} (<= {K4_GRAD_MAX:g}); the "
+          f"backward on the twins' pieces vs the same {worst_twin:.3e} (<= "
+          f"{K4_GRAD_REL:g}); kernels' mean distance from f64 at most "
+          f"{ratio:.3f} x the twin's; f32 masters get f32 gradients, 13 "
+          f"tensors saved: ok")
+    del out, ref, got, want, twin_route, f64, saved, xf, pf, lf
 
     # times: forward without a graph, forward kept for backward + backward
     def fwd_bwd(fn):
-        xs, ps, lv = leaves()
+        xs, ps, lv = k4_leaves(x, p32)
         torch.autograd.grad(fn(xs, ps), lv, g)
 
     def bwd_only(fn):
-        xs, ps, lv = leaves()
+        xs, ps, lv = k4_leaves(x, p32)
         out = fn(xs, ps)
         return lambda: torch.autograd.grad(out, lv, g, retain_graph=True)
 
-    def twin_recompute():
-        """What K4's backward runs: the twin's forward kept for autograd,
-        from the f32 masters, and its backward."""
-        xs, ps, lv = leaves()
-        return lambda: torch.autograd.grad(plain(xs, ps), lv, g)
-
     with torch.no_grad():
         f_plain = min(cuda_ms(lambda: plain(x, p32)) for _ in range(2))
-        f_k4 = min(cuda_ms(lambda: k4(x, p32)) for _ in range(2))
     fb_plain, gb_plain = peak_ms(lambda: fwd_bwd(plain))
     fb_k4, gb_k4 = peak_ms(lambda: fwd_bwd(k4))
-    # K4's backward, the twin's recompute-and-backward and the twin's
-    # backward alone, each read twice in the order a b c c b a
-    makers = {"k4": lambda: bwd_only(k4), "recompute": twin_recompute,
-              "plain": lambda: bwd_only(plain)}
-    reads = {k: [] for k in makers}
-    for name in ("k4", "recompute", "plain", "plain", "recompute", "k4"):
-        reads[name].append(cuda_ms(makers[name](), iters=5))
-    b_k4, b_rec, b_plain = (min(reads[k]) for k in ("k4", "recompute",
-                                                     "plain"))
+    k4_ms = k4_backward_ms(x, p32, g, tag)
+    b_plain = min(cuda_ms(bwd_only(plain), iters=5) for _ in range(2))
 
     def kept(fn):
         """GB a forward holds for its backward, beyond leaves and output."""
-        xs, ps, _ = leaves()
+        xs, ps, _ = k4_leaves(x, p32)
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         out = fn(xs, ps)
@@ -2064,10 +2428,12 @@ def trainable_block_phase(rows, x, p32, tag) -> None:
     b_ops = 3 * (prod_ops + attn_ops) / PEAK_OPS_S["bf16"] * 1e3
     f_bound = sum(rows[k]["bound_ms"] for k in
                   ("vit_layernorm", "vit_gemm", "vit_attention"))
-    print(f"  K4 forward {f_k4:.4f} ms (twin forward {f_plain:.4f} ms, bound "
-          f"{f_bound:.4f} ms); K4 backward {b_k4:.4f} ms (what it runs, the "
-          f"twin's forward kept for autograd and its backward, {b_rec:.4f} "
-          f"ms; the twin's backward alone {b_plain:.4f} ms; bound "
+    print(f"  K4 forward {k4_ms['forward']:.4f} ms (twin forward "
+          f"{f_plain:.4f} ms, bound {f_bound:.4f} ms); K4 backward "
+          f"{k4_ms['backward']:.4f} ms (the parent's design, the twin's "
+          f"forward kept for autograd and its backward, "
+          f"{k4_ms['twin recompute + backward']:.4f} ms; the twin's "
+          f"backward alone {b_plain:.4f} ms; bound "
           f"{max(b_bytes, b_ops):.4f} ms by "
           f"{'operations' if b_ops > b_bytes else 'bytes'}) {tag}")
     print(f"  forward + backward: K4 {fb_k4:.4f} ms, peak +{gb_k4:.3f} GB; "
@@ -2079,15 +2445,30 @@ def trainable_block_phase(rows, x, p32, tag) -> None:
     rows["vit_block_fused_trainable"] = {
         "name": "vit_block_fused_trainable", "route": "cuda",
         "source": SRC_K3, "replaces": K4, "launches": 0,
-        "max_abs_err": fwd_err, "ms": f_k4, "plain_ms": f_plain,
+        "max_abs_err": fwd_err, "ms": k4_ms["forward"], "plain_ms": f_plain,
         "bound_ms": f_bound, "bound_by": "operations", "library_ms": None,
-        # the backward has no kernel (the TPU kernel has none): autograd of
-        # the twin, timed beside the twin's own backward
-        "grad_max_rel_err": worst, "backward_ms": b_k4,
-        "backward_plain_ms": b_plain, "backward_recompute_plain_ms": b_rec,
+        # the backward: K3's kernels recompute, the products, the backward
+        # kernels (their own lines), timed beside the twin's backward
+        "grad_max_rel_err": worst, "backward_ms": k4_ms["backward"],
+        "backward_plain_ms": b_plain,
+        "backward_recompute_plain_ms": k4_ms["twin recompute + backward"],
         "backward_library_ms": None,
         "backward_bound_ms": max(b_bytes, b_ops),
         "backward_bound_by": "operations" if b_ops > b_bytes else "bytes"}
+
+    # the backward kernels at the train step's shape: 64 crops a block
+    batch = 2 * TRAIN_VIT_BATCH
+    print(f"  K4's backward kernels at {batch * N_TOK} rows ({batch} crops, "
+          f"the HaMeR bs{TRAIN_VIT_BATCH} step's block)")
+    xb, pb, _ = block_inputs(gen, x.device, batch, N_TOK, C, HIDDEN)
+    groups, extra = bwd_cases(xb, pb, gen)
+    check_groups(groups, {}, rows)
+    check_extra(extra)
+    bwd_ragged_check(gen, x.device)
+    time_groups(groups, rows, tag, earlier=False)
+    time_extra(extra, tag)
+    for k in BWD_KERNELS:
+        rows[k]["rows"] = batch * N_TOK
 
 
 def k8_row_cases(x2, ln_s, ln_b, oh, qkv3, inv, heads, exact=True):
@@ -2663,8 +3044,11 @@ def hamer_train_phase(rows, dev, tag) -> None:
           f"batch made in {time.time() - t0:.1f} s; allocated "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
     depth = len(model.net.backbone.blocks)
-    per_step = {"vit_layernorm": 2 * depth, "vit_gemm": 4 * depth,
-                "vit_attention": depth, "lbs_apply": 4}
+    # K4's forward and backward in every block; the skinning of both hands
+    # for the 2D and 3D losses, twice
+    per_step = {k: depth * (K4_FWD_LAUNCHES.get(k, 0) + n)
+                for k, n in K4_BWD_LAUNCHES.items()}
+    per_step["lbs_apply"] = 4
 
     model.cfg = cfg
     step = make_train_step(model, cfg)
@@ -2676,8 +3060,13 @@ def hamer_train_phase(rows, dev, tag) -> None:
     require(losses[-1] < losses[0], "the loss did not fall on a repeated batch")
     require(state.step == TRAIN_STEPS and state.tx.count == TRAIN_STEPS,
             "step counters")
+    # K4's line: K3's kernels, forward and recompute; each backward kernel
+    # its own (layernorm_bwd with its column-sum launches beside)
     rows["vit_block_fused_trainable"]["launches"] = sum(
         total[k] for k in ("vit_layernorm", "vit_gemm", "vit_attention"))
+    for k in BWD_KERNELS:
+        rows[k]["launches"] = total[k]
+    rows["layernorm_bwd"]["sum_launches"] = total["layernorm_bwd_sums"]
 
     # one more step with the mask loss on: K2 forward and backward twice
     model.cfg = cfg_mask
@@ -3163,6 +3552,136 @@ def wildhands_alone() -> int:
     return 0
 
 
+def k4_step_alone() -> int:
+    """K4 on one block and in the HaMeR step: forward and backward at 3072
+    and 12,288 rows a block (:func:`k4_backward_ms`), and the HaMeR ViT-H
+    bs32 train step's ms and peak GB, best of two steps after a warm-up.
+    Uses only what the port has had since K4, so it times an older tree
+    behind this script (unpack it into ``_chipcheck/<x>``, copy this file
+    in, run it from there)::
+
+        python3 -c "import sys, chip_smoke as cs; sys.exit(cs.k4_step_alone())"
+    """
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from hands_tpu_torch.config import default_config
+    from hands_tpu_torch.data.synthetic import make_batch
+    from hands_tpu_torch.models.registry import fetch_model
+    from hands_tpu_torch.ops import vit_block as vb
+    from hands_tpu_torch.ops.cuda_build import build_all
+    from hands_tpu_torch.train.state import create_train_state
+    from hands_tpu_torch.train.step import make_train_step
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    tag = f"[{card_line()}]"
+    t0 = time.time()
+    # a tree from before the backward kernels has no BWD_LIBRARY
+    build_all([vb.LIBRARY] + [getattr(vb, "BWD_LIBRARY", vb.LIBRARY)])
+    print(f"built in {time.time() - t0:.1f} s")
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    for batch in (BATCH, 2 * TRAIN_VIT_BATCH):
+        x, _, p32 = block_inputs(gen, DEV, batch, N_TOK, C, HIDDEN)
+        g = (torch.randn(x.shape, generator=gen, device=DEV) * 0.1).to(
+            torch.bfloat16)
+        k4_backward_ms(x, p32, g, tag)
+        del x, p32, g
+    torch.cuda.empty_cache()
+    bs = TRAIN_VIT_BATCH
+    cfg = default_config("hamer_light", compute_dtype="bfloat16",
+                         fused_block=True, use_render_seg_loss=False, lr=1e-6)
+    model = fetch_model(cfg, device=DEV, seed=SEED, vit_variant=VIT,
+                        param_dtype=torch.float32)
+    batch = make_batch(cfg, bs, seed=SEED, device=DEV)
+    state = create_train_state(cfg, model)
+    step = make_train_step(model, cfg)
+    state, _ = step(state, batch, None)
+    ms, gb = steps_ms(step, state, batch)
+    print(f"  hamer_light train step bs{bs}, K4 (fused_block): {ms:.1f} ms "
+          f"({2 * bs / ms * 1e3:.1f} crops/s), peak +{gb:.2f} GB over "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB held {tag}")
+    step_peaks(model, cfg, state, batch)
+    return 0
+
+
+def step_peaks(model, cfg, state, batch) -> None:
+    """Where a train step reaches its peak: the step's parts run one by
+    one as ``train.step`` runs them (the forward and losses, the
+    gradients, the optimiser), each part's peak and what it leaves
+    allocated, over what was held before the step (GB)."""
+    from hands_tpu_torch.core.precision import f32_exact
+    from hands_tpu_torch.train.step import forward_and_loss
+
+    def mark():
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated()
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    parts = []
+    with f32_exact():
+        torch.cuda.reset_peak_memory_stats()
+        model.train()
+        total, *_ = forward_and_loss(model, cfg, batch, None)
+        parts.append(("forward and losses", *mark()))
+        torch.cuda.reset_peak_memory_stats()
+        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(
+            torch.autograd.grad(total, state.params, allow_unused=True),
+            state.params)]
+        parts.append(("gradients", *mark()))
+        torch.cuda.reset_peak_memory_stats()
+        state.apply_gradients(grads)
+        parts.append(("optimiser", *mark()))
+    print("  the step's peak by part, GB over what was held: " + "; ".join(
+        f"{name} +{(peak - base) / 1e9:.4f} (then +{(now - base) / 1e9:.4f})"
+        for name, peak, now in parts))
+
+
+def vit_block_bwd_alone() -> int:
+    """K4's backward: its three kernels against their twins at ViT-H, 3072
+    and 12,288 rows, and at ragged shapes (:func:`bwd_ragged_check`),
+    graph-timed beside their twins, bounds and library calls (flash
+    attention's backward, ``native_layer_norm_backward``,
+    ``gelu_backward``); K4's whole backward at both shapes beside what it
+    ran before its kernels (:func:`k4_backward_ms`) and its account by
+    kernel (:func:`k4_backward_account`)::
+
+        python3 -c "import sys, chip_smoke as cs; sys.exit(cs.vit_block_bwd_alone())"
+    """
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from hands_tpu_torch.ops import vit_block as vb
+    from hands_tpu_torch.ops.cuda_build import build_all
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    tag = f"[{card_line()}]"
+    t0 = time.time()
+    print_ptxas(build_all([vb.LIBRARY, vb.BWD_LIBRARY]))
+    print(f"built {SRC_K3}, {SRC_BWD} in {time.time() - t0:.1f} s")
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    bwd_ragged_check(gen, DEV)
+    for batch in (BATCH, 2 * TRAIN_VIT_BATCH):
+        print(f"  at {batch * N_TOK} rows ({batch} crops)")
+        x, p, p32 = block_inputs(gen, DEV, batch, N_TOK, C, HIDDEN)
+        groups, extra = bwd_cases(x, p, gen)
+        rows = {}
+        check_groups(groups, {}, rows)
+        check_extra(extra)
+        time_groups(groups, rows, tag, earlier=False)
+        time_extra(extra, tag)
+        del groups, extra
+        g = (torch.randn(x.shape, generator=gen, device=DEV) * 0.1).to(
+            torch.bfloat16)
+        k4_ms = k4_backward_ms(x, p32, g, tag)
+        k4_backward_account(x, p32, g, k4_ms["backward"], tag)
+        print(json.dumps({"rows": batch * N_TOK,
+                          "kernels": list(rows.values())}))
+        del x, p, p32, g
+        torch.cuda.empty_cache()
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3191,12 +3710,13 @@ def main() -> int:
     t0 = time.time()
     from hands_tpu_torch.ops import vit_block_ablation as abl
     libraries = [vb.LIBRARY, v8.LIBRARY, at.LIBRARY, mano_lbs.LIBRARY,
-                 rasterizer.LIBRARY, abl.LIBRARY]
+                 rasterizer.LIBRARY, abl.LIBRARY, vb.BWD_LIBRARY]
     reports = build_all(libraries)
     for lib in libraries:
         lib.lib()
     print(f"phase 1: built {SRC_K3}, {SRC_I8}, {SRC_ATTN}, {SRC_LBS}, "
-          f"{SRC_SPLAT}, {SRC_ABL} side by side in {time.time() - t0:.1f} s")
+          f"{SRC_SPLAT}, {SRC_ABL}, {SRC_BWD} side by side in "
+          f"{time.time() - t0:.1f} s")
     print_ptxas(reports)
 
     # ---- 2. each kernel against its twin at ViT-H shapes

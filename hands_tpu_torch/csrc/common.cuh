@@ -103,24 +103,22 @@ __device__ __forceinline__ void load4(const float* p, float* v) {
   v[0] = raw.x, v[1] = raw.y, v[2] = raw.z, v[3] = raw.w;
 }
 
-// Reads row `xr` of C values (C a multiple of 4) into v and returns the
-// flax LayerNorm statistics in its f32 rounding order: E[.] = sum * RN(1/C)
-// (XLA compiles jnp.mean's division by the constant C so), fast variance
-// max(E[x^2] - E[x]^2, 0) with each product rounded, r = rsqrt(var + eps).
-// The sums run in the order of PyTorch's CUDA row reduction, the twins' on
-// the card, for C > 128 and 16 rows or more: each lane keeps one
-// accumulator a vector element (x * x rounded before its add) and combines
-// them as ((a0 + a1) + a2) + a3; the 32 lane sums meet in warp_sum's xor
-// butterfly over 16, 8, 4, 2, 1 (lane l with l + 16 first, as shfl_down
-// does; every step gives all lanes the same sum). Then chip_smoke.py finds
-// ln_quant and the LayerNorm bit-equal to their twins; in another order an
-// int8 step in 1e6 moved, and each moved step of the first LayerNorm
-// reaches a whole image through the attention.
+// Reads row `xr` of C values (C a multiple of 4) into v and returns its
+// mean and the mean of its squares in flax LayerNorm's f32 rounding order:
+// E[.] = sum * RN(1/C) (XLA compiles jnp.mean's division by the constant C
+// so), each square rounded before its add. The sums run in the order of
+// PyTorch's CUDA row reduction, the twins' on the card, for C > 128 and 16
+// rows or more: each lane keeps one accumulator a vector element and
+// combines them as ((a0 + a1) + a2) + a3; the 32 lane sums meet in
+// warp_sum's xor butterfly over 16, 8, 4, 2, 1 (lane l with l + 16 first, as
+// shfl_down does; every step gives all lanes the same sum). Then
+// chip_smoke.py finds ln_quant and the LayerNorm bit-equal to their twins;
+// in another order an int8 step in 1e6 moved, and each moved step of the
+// first LayerNorm reaches a whole image through the attention.
 template <typename T, int NV>
-__device__ __forceinline__ void warp_row_stats(const T* __restrict__ xr,
-                                               int C, float eps,
-                                               float (&v)[NV][4], float& mu,
-                                               float& r) {
+__device__ __forceinline__ void warp_row_moments(const T* __restrict__ xr,
+                                                 int C, float (&v)[NV][4],
+                                                 float& mu, float& m2) {
   const int lane = threadIdx.x % 32, nvec = C / 4;
   float a[4] = {0.f, 0.f, 0.f, 0.f}, aa[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
@@ -144,8 +142,19 @@ __device__ __forceinline__ void warp_row_stats(const T* __restrict__ xr,
       __fadd_rn(__fadd_rn(__fadd_rn(aa[0], aa[1]), aa[2]), aa[3]));
   const float inv_c = 1.f / (float)C;
   mu = __fmul_rn(s, inv_c);
-  const float var =
-      fmaxf(__fsub_rn(__fmul_rn(ss, inv_c), __fmul_rn(mu, mu)), 0.f);
+  m2 = __fmul_rn(ss, inv_c);
+}
+
+// warp_row_moments, then the fast variance max(E[x^2] - E[x]^2, 0) (the
+// product rounded) and r = rsqrt(var + eps)
+template <typename T, int NV>
+__device__ __forceinline__ void warp_row_stats(const T* __restrict__ xr,
+                                               int C, float eps,
+                                               float (&v)[NV][4], float& mu,
+                                               float& r) {
+  float m2;
+  warp_row_moments<T, NV>(xr, C, v, mu, m2);
+  const float var = fmaxf(__fsub_rn(m2, __fmul_rn(mu, mu)), 0.f);
   r = rsqrtf(var + eps);
 }
 

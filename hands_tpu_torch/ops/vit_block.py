@@ -15,16 +15,25 @@ tensor on any other device, or one the kernel does not take, raises.
 
 :func:`vit_block_fused_trainable` (port of the JAX function of that name) is
 the block for training: the same seven launches forward, and a backward that
-keeps only the block's input and parameters and differentiates the twin.
+keeps only the block's input and parameters (:func:`vit_block_backward`). It
+recomputes the block through the same kernels up to the MLP's pre-GELU
+activation, takes the gradient products with ``torch.matmul``, and runs the
+attention, LayerNorm and GELU backward through three more kernels
+(``csrc/vit_block_bwd.cu``: :func:`attention_bwd`, :func:`layernorm_bwd`,
+:func:`gelu_bwd`, counted in :data:`bwd_launches`). Their twins
+(``*_bwd_plain``) are autograd of the forward twins written out op by op,
+so on the CPU the backward is bit for bit autograd of
+:func:`vit_block_plain`.
 
-The shared library is built with ``nvcc`` at first use
+The shared libraries are built with ``nvcc`` at first use
 (:mod:`hands_tpu_torch.ops.cuda_build`).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+import math
+from typing import Dict, NamedTuple
 
 import numpy as np
 import torch
@@ -39,11 +48,16 @@ _BF16 = torch.bfloat16
 
 # kernel launches per wrapper since the last reset (CPU twin runs not counted)
 launches: Dict[str, int] = {"layernorm": 0, "gemm": 0, "attention": 0}
+# the same for the backward's kernels; layernorm_bwd_sums is the second
+# launch of layernorm_bwd (the column sums of its blocks' partial sums)
+bwd_launches: Dict[str, int] = {"attention_bwd": 0, "layernorm_bwd": 0,
+                                "layernorm_bwd_sums": 0, "gelu_bwd": 0}
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, bwd_launches):
+        for k in counts:
+            counts[k] = 0
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -56,6 +70,21 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 
 LIBRARY = CudaLibrary("vit_block", _bind, "vit_error_string")
+
+
+def _bind_bwd(lib: ctypes.CDLL) -> None:
+    p, i, f, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                   ctypes.c_longlong)
+    lib.vbb_attention_bwd.argtypes = [i, p, p, p, i, i, i, i, f, p]
+    lib.vbb_layernorm_bwd.argtypes = [i, p, p, p, p, p, p, i, i, i, f, p]
+    lib.vbb_column_sums.argtypes = [i, p, p, i, i, p]
+    lib.vbb_gelu_bwd.argtypes = [i, p, p, p, p, ll, i, p]
+    for fn in (lib.vbb_attention_bwd, lib.vbb_layernorm_bwd,
+               lib.vbb_column_sums, lib.vbb_gelu_bwd):
+        fn.restype = ctypes.c_int
+
+
+BWD_LIBRARY = CudaLibrary("vit_block_bwd", _bind_bwd, "vbb_error_string")
 
 
 # csrc/attention_kernel.cuh: a row of logits stays in registers
@@ -163,6 +192,103 @@ def attention_plain(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     return o.permute(0, 2, 1, 3).reshape(B, N, C).to(_BF16)
 
 
+# ----------------------------------------------------- backward twins
+# Each is autograd of its forward twin written out: the ops autograd records
+# and runs, in the order its engine adds up the gradients that reach one
+# tensor (the node created last runs first). Where several terms meet in
+# one tensor the order fixes the rounding; a reduction is the same torch
+# call autograd makes (``sum_to``), so on the CPU the results are bit for
+# bit those of ``torch.autograd.grad`` (tests/test_torch_vit_block_bwd.py).
+def _sum_rows(t: torch.Tensor) -> torch.Tensor:
+    """(R, C) -> (C,): the gradient of a bias broadcast over rows, as
+    autograd reduces it (``at::sum_to``)."""
+    return t.sum(0, keepdim=True).view(-1)
+
+
+def layernorm_bwd_plain(x, dy, scale, g_res, eps: float = 1e-6):
+    """The backward of :func:`layernorm_plain` beside a residual branch:
+    ``x`` (R, C) bf16 the LayerNorm's input, ``dy`` (R, C) bf16 the gradient
+    of its output, ``g_res`` (R, C) bf16 the gradient that reaches ``x``
+    around it. Returns (``g_res + bf16(dx_ln)`` bf16, dscale, dbias f32)."""
+    R, C = x.shape
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    dvar = torch.mean(x32 * x32, dim=-1, keepdim=True) - mu * mu
+    r = torch.rsqrt(torch.clamp(dvar, min=0.0) + eps)
+    mul = r * scale
+    dy32 = dy.float()
+    dbias = _sum_rows(dy32)
+    g_xc = dy32 * mul
+    g_mul = dy32 * (x32 - mu)
+    g_mu = (-g_xc).sum(-1, keepdim=True)
+    g_r = (g_mul * scale).sum(-1, keepdim=True)
+    dscale = _sum_rows(g_mul * r)
+    # rsqrt: -0.5 g r^3; clamp(min=0): the gradient where dvar >= 0
+    g_dvar = torch.where(dvar >= 0, -0.5 * g_r * r.pow(3), 0.0)
+    g_mumu = -g_dvar
+    g_mu = (g_mu + g_mumu * mu) + g_mumu * mu
+    g_sq = g_dvar.expand(R, C) / C
+    dx32 = ((g_xc + g_sq * x32) + g_sq * x32) + g_mu.expand(R, C) / C
+    return g_res + dx32.to(_BF16), dscale, dbias
+
+
+def gelu_bwd_plain(u: torch.Tensor, dh: torch.Tensor, fast: bool):
+    """The backward of :func:`gelu` (``fast``: the tanh form) at ``u`` with
+    the gradient ``dh``, both bf16. Returns (du, h = gelu(u)), bf16."""
+    if fast:
+        c = float(torch.tensor((2.0 / np.pi) ** 0.5, dtype=u.dtype))
+        k = float(torch.tensor(0.044715, dtype=u.dtype))
+        xx = u * u
+        x3 = u * xx
+        t32 = torch.tanh((c * (u + k * x3)).float())
+        cdf = 0.5 * (1.0 + t32.to(u.dtype))
+        g_cdf = dh * u
+        g_inner = torch.ops.aten.tanh_backward((g_cdf * 0.5).float(), t32)
+        g_s = g_inner.to(u.dtype) * c
+        g_x3 = g_s * k
+        g_xx = g_x3 * u
+        du = (((dh * cdf + g_s) + g_x3 * xx) + g_xx * u) + g_xx * u
+        return du, u * cdf
+    sqrt_half = float(torch.tensor(2.0**-0.5, dtype=u.dtype))
+    half_x = u * 0.5
+    d32 = ((-u) * sqrt_half).float()
+    e = torch.special.erfc(d32).to(u.dtype)
+    # erfc: -2/sqrt(pi) exp(-d^2) g
+    g_d = ((-2.0 / math.sqrt(math.pi)) * torch.exp(-(d32.pow(2)))
+           * (dh * half_x).float()).to(u.dtype)
+    return -(g_d * sqrt_half) + (dh * e) * 0.5, half_x * e
+
+
+def attention_bwd_plain(qkv: torch.Tensor, do: torch.Tensor,
+                        num_heads: int) -> torch.Tensor:
+    """The backward of :func:`attention_plain`: (B, N, 3C) bf16 qkv and the
+    (B, N, C) bf16 gradient of its output -> (B, N, 3C) bf16 dqkv. The
+    products take the operands ``torch.matmul`` hands ``bmm`` in the
+    forward, with their strides."""
+    B, N, C3 = qkv.shape
+    C = C3 // 3
+    D = C // num_heads
+    BH = B * num_heads
+    t = qkv.view(B, N, 3, num_heads, D).permute(2, 0, 3, 1, 4)
+    sc = bf16_const(D**-0.5)
+    q3 = (t[0] * sc).reshape(BH, N, D)
+    kt3 = t[1].transpose(-1, -2).reshape(BH, D, N)
+    v3 = t[2].float().reshape(BH, N, D)
+    p = torch.softmax(torch.bmm(q3, kt3).view(B, num_heads, N, N).float(),
+                      dim=-1)
+    p3 = p.view(BH, N, N)
+    go3 = do.float().view(B, N, num_heads, D).permute(0, 2, 1, 3).reshape(
+        BH, N, D)
+    dp = torch.bmm(go3, v3.transpose(1, 2)).view(B, num_heads, N, N)
+    dv = torch.bmm(p3.transpose(1, 2), go3).to(_BF16)
+    ds = torch._softmax_backward_data(dp, p, -1, torch.float32).to(
+        _BF16).view(BH, N, N)
+    dq = torch.bmm(ds, kt3.transpose(1, 2)) * sc
+    dk = torch.bmm(q3.transpose(1, 2), ds).transpose(1, 2)
+    return torch.stack([dq, dk, dv]).view(3, B, num_heads, N, D).permute(
+        1, 3, 0, 2, 4).reshape(B, N, C3)
+
+
 # ------------------------------------------------------- kernel wrappers
 def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
               eps: float = 1e-6) -> torch.Tensor:
@@ -232,25 +358,129 @@ def attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     return out
 
 
+# csrc/vit_block_bwd.cu's LayerNorm backward: rows a block takes at once (a
+# warp a row, common.cuh's WARP_ROWS), blocks an SM holds (its launch bounds)
+_LN_BWD_ROWS, _LN_BWD_PER_SM = 8, 2
+
+
+def _ln_bwd_blocks(device: torch.device, rows: int) -> int:
+    """Thread blocks of a LayerNorm backward launch: the blocks the card
+    holds at once, fewer where there are fewer rows. Each writes one row
+    of partial column sums."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return min(-(-rows // _LN_BWD_ROWS), _LN_BWD_PER_SM * sms)
+
+
+def layernorm_bwd(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
+                  g_res: torch.Tensor, eps: float = 1e-6):
+    """The backward of :func:`layernorm` beside a residual branch: (R, C)
+    bf16 ``x``, ``dy``, ``g_res``, f32 (C,) ``scale`` -> (dx bf16, dscale,
+    dbias f32); see :func:`layernorm_bwd_plain`. Two launches: the rows
+    (with per-block column sums), then the sums of those in block order."""
+    if _on_cpu(x):
+        return layernorm_bwd_plain(x, dy, scale, g_res, eps)
+    R, C = x.shape
+    dev = x.device
+    check_layernorm_width(C)
+    for name, t in (("x", x), ("dy", dy), ("g_res", g_res)):
+        _check(t, name, _BF16, (R, C), dev)
+    _check(scale, "scale", torch.float32, (C,), dev)
+    blocks = _ln_bwd_blocks(dev, R)
+    dx = torch.empty_like(x)
+    partial = torch.empty((blocks, 2, C), dtype=torch.float32, device=dev)
+    sums = torch.empty((2, C), dtype=torch.float32, device=dev)
+    BWD_LIBRARY.launch("vbb_layernorm_bwd", dev, x.data_ptr(), dy.data_ptr(),
+                       scale.data_ptr(), g_res.data_ptr(), dx.data_ptr(),
+                       partial.data_ptr(), R, C, blocks, eps)
+    bwd_launches["layernorm_bwd"] += 1
+    BWD_LIBRARY.launch("vbb_column_sums", dev, partial.data_ptr(),
+                       sums.data_ptr(), blocks, 2 * C)
+    bwd_launches["layernorm_bwd_sums"] += 1
+    return dx, sums[0], sums[1]
+
+
+def gelu_bwd(u: torch.Tensor, dh: torch.Tensor, fast: bool):
+    """The backward of :func:`gelu` at the bf16 pre-activation ``u`` with
+    the bf16 gradient ``dh`` (any shape, contiguous): (du, h = gelu(u))."""
+    if _on_cpu(u):
+        return gelu_bwd_plain(u, dh, fast)
+    dev = u.device
+    _check(u, "u", _BF16, u.shape, dev)
+    _check(dh, "dh", _BF16, u.shape, dev)
+    du, h = torch.empty_like(u), torch.empty_like(u)
+    BWD_LIBRARY.launch("vbb_gelu_bwd", dev, u.data_ptr(), dh.data_ptr(),
+                       du.data_ptr(), h.data_ptr(), u.numel(), int(fast))
+    bwd_launches["gelu_bwd"] += 1
+    return du, h
+
+
+def attention_bwd(qkv: torch.Tensor, do: torch.Tensor,
+                  num_heads: int) -> torch.Tensor:
+    """The backward of :func:`attention`: (B, N, 3C) bf16 qkv and the (B, N,
+    C) bf16 gradient of its output -> (B, N, 3C) bf16 dqkv."""
+    if _on_cpu(qkv):
+        return attention_bwd_plain(qkv, do, num_heads)
+    B, N, C3 = qkv.shape
+    C = C3 // 3
+    D = C // num_heads
+    dev = qkv.device
+    if C3 % 3 or C % num_heads:
+        raise ValueError(f"attention kernel needs 3C columns, got {C3} "
+                         f"columns, {num_heads} heads")
+    check_attention_shape(N, D)
+    _check(qkv, "qkv", _BF16, (B, N, C3), dev)
+    _check(do, "do", _BF16, (B, N, C), dev)
+    dqkv = torch.empty_like(qkv)
+    BWD_LIBRARY.launch("vbb_attention_bwd", dev, qkv.data_ptr(),
+                       do.data_ptr(), dqkv.data_ptr(), B, N, num_heads, D,
+                       bf16_const(D**-0.5))
+    bwd_launches["attention_bwd"] += 1
+    return dqkv
+
+
 # ------------------------------------------------------------------ block
-def _block(x, p, num_heads, fast_gelu, ln, mm, attn):
+class Pieces(NamedTuple):
+    """The functions a block and its backward are assembled from."""
+    ln: object
+    mm: object
+    attn: object
+    ln_bwd: object
+    gelu_bwd: object
+    attn_bwd: object
+
+
+# the kernels' wrappers (their twins for CPU tensors), and the twins
+KERNELS = Pieces(layernorm, gemm, attention, layernorm_bwd, gelu_bwd,
+                 attention_bwd)
+PLAIN = Pieces(layernorm_plain, gemm_plain, attention_plain,
+               layernorm_bwd_plain, gelu_bwd_plain, attention_bwd_plain)
+
+
+def _block_front(x2, p, B, N, num_heads, f: Pieces, epilogue):
+    """The block up to its MLP hidden layer on (B*N, C) rows ``x2``: (y1,
+    qkv, o, x1, y2, MLP1 with ``epilogue``). The forward and the backward's
+    recompute share it."""
+    y1 = f.ln(x2, p["ln1_scale"], p["ln1_bias"])
+    qkv = f.mm(y1, p["wqkv"], p["bqkv"])
+    o = f.attn(qkv.view(B, N, -1), num_heads).view(x2.shape)
+    x1 = f.mm(o, p["wproj"], p["bproj"], "residual", x2)
+    y2 = f.ln(x1, p["ln2_scale"], p["ln2_bias"])
+    return y1, qkv, o, x1, y2, f.mm(y2, p["w1"], p["b1"], epilogue)
+
+
+def _block(x, p, num_heads, fast_gelu, f: Pieces):
     B, N, C = x.shape
     x2 = x.reshape(B * N, C)
-    y = ln(x2, p["ln1_scale"], p["ln1_bias"])
-    qkv = mm(y, p["wqkv"], p["bqkv"])
-    o = attn(qkv.view(B, N, 3 * C), num_heads).view(B * N, C)
-    x1 = mm(o, p["wproj"], p["bproj"], "residual", x2)
-    y2 = ln(x1, p["ln2_scale"], p["ln2_bias"])
-    h = mm(y2, p["w1"], p["b1"], "gelu_tanh" if fast_gelu else "gelu")
-    return mm(h, p["w2"], p["b2"], "residual", x1).view(B, N, C)
+    *_, x1, _, h = _block_front(x2, p, B, N, num_heads, f,
+                                "gelu_tanh" if fast_gelu else "gelu")
+    return f.mm(h, p["w2"], p["b2"], "residual", x1).view(B, N, C)
 
 
 def vit_block_plain(x: torch.Tensor, params: dict, num_heads: int,
                     fast_gelu: bool = False) -> torch.Tensor:
     """The plain PyTorch twin of the whole block (port of ``block_math``
     with the kernel's rounding points)."""
-    return _block(x, params, num_heads, fast_gelu, layernorm_plain,
-                  gemm_plain, attention_plain)
+    return _block(x, params, num_heads, fast_gelu, PLAIN)
 
 
 def vit_block_fused(x: torch.Tensor, params: dict, *, num_heads: int,
@@ -260,8 +490,7 @@ def vit_block_fused(x: torch.Tensor, params: dict, *, num_heads: int,
     layout, biases bf16, LayerNorm scale/bias f32). CUDA tensors run the
     kernels (7 launches), CPU tensors the twin. ``fast_gelu`` takes the
     tanh-approximate GELU in the MLP epilogue."""
-    return _block(x.to(_BF16), params, num_heads, fast_gelu, layernorm, gemm,
-                  attention)
+    return _block(x.to(_BF16), params, num_heads, fast_gelu, KERNELS)
 
 
 PARAM_ORDER = ("ln1_scale", "ln1_bias", "wqkv", "bqkv", "wproj", "bproj",
@@ -276,11 +505,81 @@ def _cast_params(params: dict) -> dict:
             for k, v in params.items()}
 
 
+def vit_block_backward(x: torch.Tensor, params: dict, g: torch.Tensor,
+                       num_heads: int, fast_gelu: bool = False, needs=None,
+                       f: Pieces = KERNELS) -> tuple:
+    """The gradients of :func:`vit_block_fused_trainable` from its input
+    ``x`` and parameters ``params`` as given and the output's gradient
+    ``g``: (dx, then one per :data:`PARAM_ORDER`), each in the dtype of what
+    it differentiates; None where ``needs`` (13 flags) says no.
+
+    Recomputes the block through ``f`` up to the MLP's pre-GELU activation
+    (6 launches with :data:`KERNELS`), then: the gradient products with
+    ``torch.matmul`` (the operand order of autograd's ``mm`` backward),
+    ``f.gelu_bwd``, ``f.ln_bwd`` twice (each adds the residual's gradient)
+    and ``f.attn_bwd`` once. With :data:`PLAIN`, or on CPU tensors, this is
+    autograd of :func:`vit_block_plain` op by op."""
+    names = ("x",) + PARAM_ORDER
+    want = dict(zip(names, needs if needs is not None else (True,) * 13))
+    p = _cast_params(params)
+    B, N, C = x.shape
+    x2 = x.to(_BF16).reshape(B * N, C)
+    g2 = g.to(_BF16).reshape(B * N, C)
+    # The parameters' gradients live until the optimiser has used them: one
+    # allocation for the block's (one a dtype), each gradient a view of it
+    # that is cast into as soon as it is made, so the caching allocator
+    # rounds one block up, not twelve
+    slots = {}
+    for dtype in dict.fromkeys(params[k].dtype for k in PARAM_ORDER
+                               if want[k]):
+        group = [k for k in PARAM_ORDER
+                 if want[k] and params[k].dtype == dtype]
+        sizes = [params[k].numel() for k in group]
+        flat = torch.empty(sum(sizes), dtype=dtype, device=x.device)
+        for k, t in zip(group, flat.split(sizes)):
+            slots[k] = t.view(params[k].shape)
+    y1, qkv, o, x1, y2, u = _block_front(x2, p, B, N, num_heads, f, None)
+    out = {}
+
+    def keep(name, grad):
+        """A parameter's gradient, cast into its slot, where it is wanted."""
+        if want[name]:
+            out[name] = slots[name].copy_(grad)
+
+    def dense(name, dy, a):
+        """The gradients of ``a @ w.T + b`` for the gradient ``dy``."""
+        if want["w" + name]:
+            keep("w" + name, dy.t().mm(a))
+        if want["b" + name]:
+            keep("b" + name, _sum_rows(dy))
+        return dy.mm(p["w" + name])
+
+    du, h = f.gelu_bwd(u, g2.mm(p["w2"]), fast_gelu)
+    del u
+    if want["w2"]:
+        keep("w2", g2.t().mm(h))
+    if want["b2"]:
+        keep("b2", _sum_rows(g2))
+    del h
+    dx1, dscale, dbias = f.ln_bwd(x1, dense("1", du, y2), p["ln2_scale"], g2)
+    keep("ln2_scale", dscale)
+    keep("ln2_bias", dbias)
+    del du, x1, y2
+    dqkv = f.attn_bwd(qkv.view(B, N, 3 * C),
+                      dense("proj", dx1, o).view(B, N, C), num_heads)
+    del qkv, o
+    dx, dscale, dbias = f.ln_bwd(
+        x2, dense("qkv", dqkv.view(B * N, 3 * C), y1), p["ln1_scale"], dx1)
+    keep("ln1_scale", dscale)
+    keep("ln1_bias", dbias)
+    out["x"] = dx.view(x.shape).to(x.dtype)
+    return tuple(out.get(k) if want[k] else None for k in names)
+
+
 class _VitBlockTrainable(torch.autograd.Function):
     """Forward: the kernels (the twin for CPU tensors). Saved for backward:
     the input and the parameters as given, no activation of the block.
-    Backward: recompute the block through :func:`vit_block_plain`, dtype
-    preparation included, and take autograd's gradients of it, so f32 master
+    Backward: :func:`vit_block_backward` on the kernels, so f32 master
     parameters receive f32 gradients through the cast."""
 
     @staticmethod
@@ -292,17 +591,10 @@ class _VitBlockTrainable(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        # no backward kernel (the TPU kernel has none): differentiate the twin
-        needs = ctx.needs_input_grad[2:]
-        with torch.enable_grad():
-            ins = [t.detach().requires_grad_(n)
-                   for t, n in zip(ctx.saved_tensors, needs)]
-            out = vit_block_plain(
-                ins[0].to(_BF16), _cast_params(dict(zip(PARAM_ORDER, ins[1:]))),
-                ctx.num_heads, ctx.fast_gelu)
-            got = iter(torch.autograd.grad(
-                out, [t for t, n in zip(ins, needs) if n], g.to(_BF16)))
-        return (None, None) + tuple(next(got) if n else None for n in needs)
+        x, *flat = ctx.saved_tensors
+        return (None, None) + vit_block_backward(
+            x, dict(zip(PARAM_ORDER, flat)), g, ctx.num_heads,
+            ctx.fast_gelu, ctx.needs_input_grad[2:])
 
 
 def vit_block_fused_trainable(x: torch.Tensor, params: dict, num_heads: int,
@@ -314,7 +606,8 @@ def vit_block_fused_trainable(x: torch.Tensor, params: dict, num_heads: int,
     Only ``x`` and the parameters are kept between forward and backward, the
     residuals a per-block checkpoint would keep, so do not wrap it in
     ``torch.utils.checkpoint``: a training step costs the kernels' forward,
-    then the twin's forward and backward."""
+    then :func:`vit_block_backward` (a recompute and the backward
+    kernels)."""
     return _VitBlockTrainable.apply(num_heads, fast_gelu, x,
                                     *(params[k] for k in PARAM_ORDER))
 
