@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: builds the port's CUDA
 kernels (the bf16 ViT block and its backward, the two W8A8 ViT blocks and
-their knock-out variants, the fused attention, the fused skinning, the
-splat silhouette forward and backward), holds each
+their knock-out variants, the fused attention, the fused skinning and its
+gradient, the splat silhouette forward and backward), holds each
 against its plain PyTorch twin at the shapes its path gives it, serves
 requests through HaMeR at full ViT-H width and depth in its bf16,
 dynamic-int8 and calibrated static-int8 configurations (and one backbone
@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import hashlib
 import json
 import math
 import re
@@ -137,6 +138,17 @@ K4_ACCOUNT = (("recompute", ("layernorm_kernel", "BlockEpilogue",
               ("bias sums", ("reduce_kernel",)),
               ("casts", ("elementwise",)))
 LBS_ABS = 1e-5  # K1 vs twin: f32 sums of 16 and 4 terms in another order
+# K1 a train step: four MANO decodes (the predicted and the ground-truth
+# hands; the latter under detach), the gradient of the predicted two
+K1_STEP_LAUNCHES = {"lbs_apply": 4, "lbs_apply_bwd": 2}
+# K1's gradient against the exact one (autograd of the twin in f64): abs +
+# rel on every entry (and against the f32 twins that much plus their own
+# error: each sums 778 vertices in its own order); its mean distance from
+# the exact gradient at most LBS_F64_RATIO times the f32 twin's
+LBS_GRAD_ABS, LBS_GRAD_REL, LBS_F64_RATIO = 1e-5, 1e-5, 1.5
+# K1's shapes: hands per MANO decode of the WildHands paths (64), a large
+# batch (512) and a small one (3)
+LBS_BATCHES = (64, 512, 3)
 MASK_ABS = 2e-5  # K2 forward vs twin (the sum over vertices runs in order)
 # K2 backward vs the twin's autograd under a mean L1 mask loss. The kernel is
 # also held to the twin evaluated in f64, relative to the largest entry: in
@@ -159,7 +171,9 @@ ROW_BLOCK = "a 256-thread block per row"
 ATTN_BEFORE, GEMM_BF16_BEFORE, GEMM_I8_BEFORE = (
     "the f32 CUDA-core attention loop", "wmma 16x16x16 + cp.async ring",
     "mma.sync m16n8k32 + cp.async ring")
-EARLIER_MS = {"splat_fwd": ("dense loop", 1.3606),
+EARLIER_MS = {"lbs_apply": ("a thread per (sample, vertex), A staged per "
+                            "block", 0.0031),
+              "splat_fwd": ("dense loop", 1.3606),
               "splat_bwd": ("dense loop", 2.4476),
               "vit_layernorm": (ROW_BLOCK, 0.0192),
               "ln_quant_dynamic": (ROW_BLOCK, 0.0294),
@@ -456,15 +470,16 @@ class Case:
     """One launch shape of a kernel: how to call the wrapper or the twin
     (``call(fn)``), the library call (the same function), a yardstick
     (``(label, fn)``: a PyTorch call that moves the same bytes but computes
-    another function, printed and kept out of the kernels line), the bytes
-    the function must move (each input once, each output once) and the
+    another function, printed and kept out of the kernels line), the path
+    the kernel replaced (``(label, fn)``, printed beside it), the bytes the
+    function must move (each input once, each output once) and the
     operations it does."""
 
     def __init__(self, label, call, inputs, ops, kind, library=None,
                  check=compare, timer=cuda_ms, saved_bytes=0, dense_ops=None,
-                 yardstick=None):
+                 yardstick=None, replaced=None):
         self.label, self.call, self.library = label, call, library
-        self.yardstick = yardstick
+        self.yardstick, self.replaced = yardstick, replaced
         self.inputs, self.ops, self.kind, self.check = inputs, ops, kind, check
         # where the work depends on the data, ``ops`` counts what these
         # inputs need and ``dense_ops`` what a dense evaluation does
@@ -1002,24 +1017,119 @@ class SplatGrad:
         self._lm = None
 
 
+def lbs_weights(dev):
+    from hands_tpu_torch.ops import mano as manolib
+
+    return manolib.load_mano(True, device=dev).lbs_weights
+
+
+def lbs_bwd_replaced(v_posed, W, A, g):
+    """K1's backward as it ran before its kernel: autograd of the twin,
+    recomputed from the saved inputs."""
+    from hands_tpu_torch.ops import mano_lbs as ml
+
+    with torch.enable_grad():
+        v, a = (t.detach().requires_grad_(True) for t in (v_posed, A))
+        return torch.autograd.grad(ml.lbs_apply_plain(v, W, a), (v, a), g)
+
+
+def lbs_grad_check(v_posed, W, A, g):
+    """The check of K1's backward on these inputs. ``got`` (the kernel's
+    (dv, dA)) within 1e-5 abs + 1e-5 rel of the exact gradient (autograd of
+    the twin in f64) on every entry; within that plus the f32 twin's own
+    distance from the exact one of autograd of the twin in f32 and of the
+    plain backward (``ref``): each sums the 778 vertices of an entry of dA
+    in its own order, and the f32 twins themselves miss 1e-5 of the exact
+    value on some entries; its mean distance from the exact gradient at
+    most 1.5x the f32 twin's; a second run bit-equal."""
+    from hands_tpu_torch.ops import mano_lbs as ml
+
+    def check(name, got, ref):
+        twin = lbs_bwd_replaced(v_posed, W, A, g)
+        exact = lbs_bwd_replaced(*(t.double() for t in (v_posed, W, A, g)))
+        again = ml.lbs_apply_bwd(v_posed, W, A, g)
+        worst = 0.0
+        for part, k, p, t, x, k2 in zip(("d v_posed", "d A"), got, ref, twin,
+                                        exact, again):
+            compare_abs(f"{name} {part} vs exact", k, x, LBS_GRAD_ABS,
+                        LBS_GRAD_REL)
+            for label, t32 in (("autograd of the twin", t), ("plain", p)):
+                d = (k.double() - t32).abs()
+                bare = LBS_GRAD_ABS + LBS_GRAD_REL * t32.double().abs()
+                own = (t32 - x).abs()
+                ok = bool((d <= bare + own).all())
+                print(f"  {name} {part} vs {label}: max|d| {float(d.max()):.3e};"
+                      f" {int((d > bare).sum())} entries past 1e-5 + 1e-5|ref|"
+                      f" (the f32 {label} itself misses the exact value by "
+                      f"that much on {int((own > bare).sum())}), none past it "
+                      f"plus the f32 one's own error: {'ok' if ok else 'FAIL'}")
+                require(ok, f"{name} {part}: kernel disagrees with {label}")
+            worst = max(worst, float((k - t).abs().max()))
+            dk, dt = ((y.double() - x).abs() for y in (k, t))
+            ratio = float(dk.mean()) / max(float(dt.mean()), 1e-300)
+            print(f"  {name} {part} vs exact: mean|d| {float(dk.mean()):.3e}"
+                  f" (f32 twin {float(dt.mean()):.3e}, {ratio:.2f}x <= "
+                  f"{LBS_F64_RATIO:g}x), max|d| {float(dk.max()):.3e} (f32 "
+                  f"twin {float(dt.max()):.3e})")
+            require(ratio <= LBS_F64_RATIO,
+                    f"{name} {part}: farther from the f64 twin than the f32 "
+                    f"twin is")
+            require(torch.equal(k, k2), f"{name} {part}: two runs differ")
+        print(f"  {name}: two runs bit-equal")
+        return worst
+    return check
+
+
+def lbs_cases(gen, dev):
+    """K1's forward and backward at :data:`LBS_BATCHES`, in the format of
+    :func:`kernel_cases`: (the group at 64 hands, the extra shapes)."""
+    from hands_tpu_torch.ops import mano_lbs as ml
+
+    W = lbs_weights(dev)
+
+    def cases(b):
+        v_posed, A = skinning_inputs(gen, dev, b)
+        g = torch.randn(v_posed.shape, generator=gen, device=dev)
+        fwd = Case(
+            f"lbs_apply B={b}", lambda f: f(v_posed, W, A), [v_posed, W, A],
+            b * N_VERTS * (2 * 16 * 12 + 2 * 9), "f32",
+            lambda: ml.lbs_apply_plain(v_posed, W, A),
+            lambda n, got, r: compare_abs(n, got, r, LBS_ABS),
+            timer=graph_ms)
+        # the blend's 3x3 part and its transpose applied; the products
+        # g_r vh_c and the sum of the 192 entries of dA over the vertices
+        bwd = Case(
+            f"lbs_apply_bwd B={b}", lambda f: f(v_posed, W, A, g),
+            [v_posed, W, A, g],
+            b * N_VERTS * (2 * 16 * 9 + 2 * 9 + 12 + 2 * 16 * 12), "f32",
+            None, lbs_grad_check(v_posed, W, A, g), timer=graph_ms,
+            replaced=("autograd of the twin",
+                      lambda: lbs_bwd_replaced(v_posed, W, A, g)))
+        return fwd, bwd
+
+    fwd, bwd = cases(LBS_BATCHES[0])
+    group = (K1, SRC_LBS, {
+        "lbs_apply": (ml.lbs_apply, ml.lbs_apply_plain, [fwd]),
+        "lbs_apply_bwd": (ml.lbs_apply_bwd, ml.lbs_apply_bwd_plain, [bwd])})
+    extra = []
+    for b in LBS_BATCHES[1:]:
+        fwd, bwd = cases(b)
+        extra += [(fwd, ml.lbs_apply, ml.lbs_apply_plain),
+                  (bwd, ml.lbs_apply_bwd, ml.lbs_apply_bwd_plain)]
+    return group, extra
+
+
 def geometry_cases(gen, dev, batch):
     """K1 and K2 at the shapes the WildHands paths give them (``batch``
     hands per MANO decode and per render), in the format of
     :func:`kernel_cases`; plus the shapes that are no multiple of any tile.
     Returns (groups, extra, the SplatGrad objects to release)."""
-    from hands_tpu_torch.ops import mano as manolib
     from hands_tpu_torch.ops import mano_lbs as ml
     from hands_tpu_torch.ops import rasterizer as ras
 
-    W = manolib.load_mano(True, device=dev).lbs_weights
-
-    def lbs_case(b):
-        v_posed, A = skinning_inputs(gen, dev, b)
-        return Case(
-            f"lbs_apply B={b}", lambda f: f(v_posed, W, A), [v_posed, W, A],
-            b * N_VERTS * (2 * 16 * 12 + 2 * 9), "f32",
-            lambda: ml.lbs_apply_plain(v_posed, W, A),
-            lambda n, g, r: compare_abs(n, g, r, LBS_ABS), timer=graph_ms)
+    require(batch == LBS_BATCHES[0], "K1's main shape is the WildHands batch")
+    W = lbs_weights(dev)
+    lbs_group, lbs_extra = lbs_cases(gen, dev)
 
     def mask_check(n, g, r):
         return compare_abs(n, g, r, MASK_ABS)
@@ -1055,14 +1165,11 @@ def geometry_cases(gen, dev, batch):
     fwd_s, bwd_s, grad_s = splat_cases(3, 50, 20, 2.0)
     fused, plain = ras.splat_silhouette_fused, ras.splat_silhouette_plain
     groups = [
-        (K1, SRC_LBS, {"lbs_apply": (ml.lbs_apply, ml.lbs_apply_plain,
-                                     [lbs_case(batch)])}),
+        lbs_group,
         (K2, SRC_SPLAT, {"splat_fwd": (fused, plain, [fwd]),
                          "splat_bwd": (fused, plain, [bwd])}),
     ]
-    extra = [(lbs_case(512), ml.lbs_apply, ml.lbs_apply_plain),
-             (lbs_case(3), ml.lbs_apply, ml.lbs_apply_plain),
-             (fwd_s, fused, plain), (bwd_s, fused, plain)]
+    extra = lbs_extra + [(fwd_s, fused, plain), (bwd_s, fused, plain)]
 
     # K2's gradient against the twin in f64, at 8 hands (the f64 pair tensors
     # of 64 would take 30 GB)
@@ -1090,13 +1197,29 @@ def geometry_cases(gen, dev, batch):
     f64_check(8, N_VERTS, RENDER_RES, RENDER_SIGMA)
     f64_check(3, 50, 20, 2.0)
 
-    # K1's gradient: the kernel forward, the twin recomputed in the backward
+    # K1's gradient through autograd: both kernels against the twin's; the
+    # backward is one launch of lbs_apply_bwd and no product of the twin
+    from torch.profiler import ProfilerActivity, profile
+
     v_posed, A = skinning_inputs(gen, dev, 3)
     g_out = torch.randn(v_posed.shape, generator=gen, device=dev)
     grads = []
     for fn in (ml.lbs_apply, ml.lbs_apply_plain):
         v, a = (t.clone().requires_grad_(True) for t in (v_posed, A))
-        grads.append(torch.autograd.grad(fn(v, W, a), (v, a), g_out))
+        out = fn(v, W, a)
+        reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            grads.append(torch.autograd.grad(out, (v, a), g_out))
+        if fn is ml.lbs_apply:
+            torch.cuda.synchronize()
+            check_launches("lbs_apply backward", launch_counts(),
+                           {"lbs_apply_bwd": 1}, 1)
+            ops = sorted({e.key for e in prof.key_averages()
+                          if e.key.startswith("aten::")})
+            products = [k for k in ops if k in (
+                "aten::einsum", "aten::bmm", "aten::mm", "aten::matmul")]
+            print(f"  lbs_apply backward's aten ops: {', '.join(ops)}")
+            require(not products, f"K1's backward ran the twin's {products}")
     for name, got, ref in zip(("d v_posed", "d A"), *grads):
         compare_abs(f"lbs_apply gradient {name}", got, ref, 1e-5, 1e-5)
 
@@ -1122,6 +1245,15 @@ def check_extra(extra) -> None:
     torch.cuda.synchronize()
 
 
+def replaced_note(case) -> str:
+    """The time of the path ``case``'s kernel replaced, best of two."""
+    if case.replaced is None:
+        return ""
+    label, fn = case.replaced
+    return (f", replaced path ({label}) "
+            f"{min(case.timer(fn) for _ in range(2)):.4f} ms")
+
+
 def time_extra(extra, tag) -> None:
     """Time each extra shape's kernel beside its twin and library call."""
     for case, kfn, pfn in extra:
@@ -1132,8 +1264,9 @@ def time_extra(extra, tag) -> None:
         ref = case.call(pfn)
         bound = max(*case.bound(ref))
         print(f"    {case.label:<34s} kernel {km:.4f} ms ({bound / km:.1%} "
-              f"of the bound), plain {pm:.4f} ms, library {lib}, bound "
-              f"{bound:.4f} ms{case.dense_bound(ref)} {tag}")
+              f"of the bound), plain {pm:.4f} ms, library {lib}"
+              f"{replaced_note(case)}, bound {bound:.4f} ms"
+              f"{case.dense_bound(ref)} {tag}")
         del ref
         if isinstance(case.call, SplatGrad):
             case.call.release()
@@ -1212,7 +1345,7 @@ def time_groups(groups, rows, tag, earlier=True) -> None:
                 print(f"    {case.label:<34s} kernel {km:.4f} ms "
                       f"({case.ops / km / 1e9:.1f} {unit}, {bound / km:.1%} "
                       f"of the bound), plain {pm:.4f} ms, library {lib}"
-                      f"{yard}, bound {bound:.4f} ms"
+                      f"{yard}{replaced_note(case)}, bound {bound:.4f} ms"
                       f"{case.dense_bound(case.call(pfn))}{host}")
             # per block: the sum over this kernel's launch shapes
             row = rows[kname]
@@ -2076,8 +2209,10 @@ def wildhands_phases(rows, dev, tag) -> None:
     torch.cuda.synchronize()
     counts = launch_counts()
     check_launches(f"hands_light mask-loss gradient bs{WH_GRAD_BATCH}", counts,
-                   {"lbs_apply": 2, "splat_fwd": 2, "splat_bwd": 2}, 1)
-    rows["splat_bwd"]["launches"] = counts["splat_bwd"]
+                   {"lbs_apply": 2, "lbs_apply_bwd": 2, "splat_fwd": 2,
+                    "splat_bwd": 2}, 1)
+    for k in ("lbs_apply_bwd", "splat_bwd"):
+        rows[k]["launches"] = counts[k]
     with geometry_twins():
         want = mask_loss_grads()
     for k, g, w in zip(watch, got, want):
@@ -2854,8 +2989,8 @@ def training_runtime_phase(rows, dev, tag) -> None:
 
     # sanity validation + the epoch's steps + one validation batch
     def expect(n_steps):
-        return {"lbs_apply": 4 * (n_steps + 2), "splat_fwd": 2 * (n_steps + 2),
-                "splat_bwd": 2 * n_steps}
+        return {"lbs_apply": 4 * (n_steps + 2), "lbs_apply_bwd": 2 * n_steps,
+                "splat_fwd": 2 * (n_steps + 2), "splat_bwd": 2 * n_steps}
 
     with tempfile.TemporaryDirectory() as tmp, mock.patch.dict(
             SyntheticRecordDataset._SPLIT_LEN, {"train": bs * steps}), \
@@ -2909,7 +3044,7 @@ def training_runtime_phase(rows, dev, tag) -> None:
         require(state2.step == 2 * steps and state2.tx.count == 2 * steps,
                 f"the resumed run ended at step {state2.step}")
         check_launches("cli.train, resumed epoch 2", counts2, expect(steps), 1)
-        for k in ("lbs_apply", "splat_fwd", "splat_bwd"):
+        for k in ("lbs_apply", "lbs_apply_bwd", "splat_fwd", "splat_bwd"):
             rows[k]["launches"] = counts2[k]
         require(sorted(os.listdir(root)) == ["evaluate", "smoke"],
                 "the resumed run reused its experiment key")
@@ -3045,10 +3180,11 @@ def hamer_train_phase(rows, dev, tag) -> None:
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
     depth = len(model.net.backbone.blocks)
     # K4's forward and backward in every block; the skinning of both hands
-    # for the 2D and 3D losses, twice
+    # for the 2D and 3D losses, twice (predicted and ground-truth hands), and
+    # its gradient for the predicted ones
     per_step = {k: depth * (K4_FWD_LAUNCHES.get(k, 0) + n)
                 for k, n in K4_BWD_LAUNCHES.items()}
-    per_step["lbs_apply"] = 4
+    per_step.update(K1_STEP_LAUNCHES)
 
     model.cfg = cfg
     step = make_train_step(model, cfg)
@@ -3089,7 +3225,7 @@ def hamer_train_phase(rows, dev, tag) -> None:
         reset_launch_counts()
         results[name] = steps_ms(step, state, batch)
         check_launches(f"hamer_light train, {name}", launch_counts(),
-                       {"lbs_apply": 4}, 2)
+                       K1_STEP_LAUNCHES, 2)
     for blk in blocks:
         blk.fused = blk.fused_train = True
     model.net.backbone.use_checkpoint = False
@@ -3133,7 +3269,7 @@ def wildhands_train_phase(rows, dev, tag) -> None:
     step = make_train_step(model, cfg)
     bn = model.net.hand_backbone.bn_stem
     mean0, var0 = bn.running_mean.clone(), bn.running_var.clone()
-    per_step = {"lbs_apply": 4, "splat_fwd": 2, "splat_bwd": 2}
+    per_step = dict(K1_STEP_LAUNCHES, splat_fwd=2, splat_bwd=2)
     losses, times, total = run_steps(step, state, batch, TRAIN_STEPS, per_step,
                                      "hands_light train", gen)
     print(f"  losses of {TRAIN_STEPS} steps on one batch at lr {cfg.lr:g}: "
@@ -3546,9 +3682,127 @@ def wildhands_alone() -> int:
 
     tag = f"[{card_line()}]"
     print_ptxas(build_all([ras.LIBRARY, mano_lbs.LIBRARY]))
-    rows = {k: {} for k in ("lbs_apply", "splat_fwd", "splat_bwd")}
+    rows = {k: {} for k in ("lbs_apply", "lbs_apply_bwd", "splat_fwd",
+                            "splat_bwd")}
     wildhands_phases(rows, DEV, tag)
     wildhands_train_phase(rows, DEV, tag)
+    return 0
+
+
+def lbs_floor(gen, tag) -> None:
+    """What a launch of K1's grid costs with nothing in it: the empty kernel
+    and a pass that only moves the forward's bytes (read v_posed, write
+    out), each through a CUDA graph of 50 launches, at 64 and 512 hands."""
+    from hands_tpu_torch.ops import mano_lbs as ml
+
+    for b in LBS_BATCHES[:2]:
+        v_posed, _ = skinning_inputs(gen, DEV, b)
+        out = torch.empty_like(v_posed)
+        empty = [graph_ms(lambda: ml.LIBRARY.launch("lbs_empty", DEV, b,
+                                                    N_VERTS))
+                 for _ in range(2)]
+        copy_ms = [graph_ms(lambda: ml.LIBRARY.launch(
+            "lbs_copy", DEV, v_posed.data_ptr(), out.data_ptr(), b, N_VERTS))
+            for _ in range(2)]
+        require(torch.equal(out, v_posed), "lbs_copy did not copy")
+        print(f"  K1's floor B={b}: empty launch {min(empty):.4f} ms, "
+              f"copy of its {2 * nbytes(v_posed) / 1e6:.2f} MB "
+              f"{min(copy_ms):.4f} ms (a graph of 50) {tag}")
+
+
+def lbs_forward_line(gen, tag) -> None:
+    """The tree's ``lbs_apply`` alone at :data:`LBS_BATCHES`: held to its
+    twin (``LBS_ABS``), timed through a CUDA graph of 50, and a digest of
+    its output bytes (equal digests from two trees: bit-equal results).
+    Uses only what the port has had since K1, so it times an older tree's
+    forward too."""
+    from hands_tpu_torch.ops import mano_lbs as ml
+
+    W = lbs_weights(DEV)
+    for b in LBS_BATCHES:
+        v_posed, A = skinning_inputs(gen, DEV, b)
+        out = ml.lbs_apply(v_posed, W, A)
+        compare_abs(f"lbs_apply B={b}", out,
+                    ml.lbs_apply_plain(v_posed, W, A), LBS_ABS)
+        digest = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()[:16]
+        ms = graph_ms(lambda: ml.lbs_apply(v_posed, W, A))
+        print(f"  lbs_apply B={b}: {ms:.4f} ms (a graph of 50), output "
+              f"sha256 {digest} {tag}")
+
+
+def wildhands_step_line(tag) -> None:
+    """The WildHands train step (two ResNet-50s, 64 images, the default
+    config) on one synthetic batch: its launches, the best of three steps
+    by events (the wall time of the step: the device waits for the host)
+    and one step's device time (:func:`device_busy_ms`). Uses only what the
+    port had before K1's backward kernel, so it times an older tree behind
+    this script too."""
+    from hands_tpu_torch.config import default_config
+    from hands_tpu_torch.data.synthetic import make_batch
+    from hands_tpu_torch.models.registry import fetch_model
+    from hands_tpu_torch.train.state import create_train_state
+    from hands_tpu_torch.train.step import make_train_step
+
+    bs = TRAIN_WH_BATCH
+    cfg = default_config("hands_light", backbone=WH_BACKBONE)
+    model = fetch_model(cfg, device=DEV, seed=SEED)
+    batch = make_batch(cfg, bs, seed=SEED, device=DEV)
+    state = create_train_state(cfg, model)
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    step = make_train_step(model, cfg)
+    step(state, batch, gen)
+    reset_launch_counts()
+    step(state, batch, gen)
+    torch.cuda.synchronize()
+    k1 = {k: v for k, v in launch_counts().items() if k.startswith("lbs")}
+    ms, gb = steps_ms(step, state, batch, n=3, gen=gen)
+    busy, part = device_busy_ms(lambda: step(state, batch, gen),
+                                names=("lbs",))
+    device = "not measured" if busy is None else (
+        f"{busy:.2f} ms (K1's kernels {part['lbs']:.4f} ms)")
+    print(f"  hands_light train step bs{bs}: {ms:.1f} ms, device {device}, "
+          f"peak +{gb:.2f} GB; K1 launches {k1} {tag}")
+    del model, state, step, batch
+    torch.cuda.empty_cache()
+
+
+def lbs_alone(kernels: bool = True, step: bool = True) -> int:
+    """K1 alone: builds ``csrc/lbs.cu`` (and ``csrc/splat.cu`` for the
+    step), times the floor (:func:`lbs_floor`), holds and times both K1
+    kernels at every shape of :data:`LBS_BATCHES` (the backward beside the
+    path it replaced), then the WildHands train step
+    (:func:`wildhands_step_line`).
+    ``kernels=False``: the forward alone (:func:`lbs_forward_line`) and the
+    step, for an older tree behind this script too (unpack it into
+    ``_chipcheck/<x>``, copy this file in, run it there)::
+
+        python3 -c "import sys, chip_smoke as cs; sys.exit(cs.lbs_alone())"
+    """
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from hands_tpu_torch.ops import mano_lbs
+    from hands_tpu_torch.ops import rasterizer as ras
+    from hands_tpu_torch.ops.cuda_build import build_all
+
+    tag = f"[{card_line()}]"
+    t0 = time.time()
+    print_ptxas(build_all([mano_lbs.LIBRARY, ras.LIBRARY]))
+    print(f"built {SRC_LBS}, {SRC_SPLAT} in {time.time() - t0:.1f} s")
+    if kernels:
+        gen = torch.Generator(device=DEV).manual_seed(SEED)
+        lbs_floor(gen, tag)
+        group, extra = lbs_cases(gen, DEV)
+        rows = {}
+        check_groups([group], {}, rows)
+        check_extra(extra)
+        time_groups([group], rows, tag)
+        time_extra(extra, tag)
+        print(json.dumps({"kernels": list(rows.values())}))
+    else:
+        lbs_forward_line(torch.Generator(device=DEV).manual_seed(SEED), tag)
+    if step:
+        wildhands_step_line(tag)
     return 0
 
 
@@ -3949,6 +4203,7 @@ def main() -> int:
     print(f"phase 4: CUDA-event times {tag}")
     time_groups(groups, rows, tag)
     time_extra(extra, tag)
+    lbs_floor(gen, tag)
     # what the twin of K2 costs in memory: it stores the (B, P, V) tensors
     from hands_tpu_torch.ops import rasterizer as ras
     fwd_case = groups[-1][2]["splat_fwd"][2][0]

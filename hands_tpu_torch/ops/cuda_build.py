@@ -126,13 +126,17 @@ def on_cpu(x: torch.Tensor) -> bool:
     raise ValueError(f"no kernel or twin for device {x.device}")
 
 
-def check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
+def check(t: torch.Tensor, name: str, dtype, shape, device,
+          layout: bool = True) -> None:
     """Raise unless ``t`` is a contiguous, 16-byte aligned ``dtype`` tensor of
-    ``shape`` on ``device``: what the kernels take."""
+    ``shape`` on ``device``: what the kernels take. ``layout=False`` skips
+    the contiguity and alignment tests (for a twin, which takes any
+    layout)."""
     if (t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape)
-            or not t.is_contiguous() or t.data_ptr() % 16):
+            or layout and (not t.is_contiguous() or t.data_ptr() % 16)):
+        want = "a contiguous 16-byte-aligned " if layout else "a "
         raise ValueError(
-            f"{name}: want a contiguous 16-byte-aligned {dtype} {tuple(shape)} "
+            f"{name}: want {want}{dtype} {tuple(shape)} "
             f"on {device}, got {t.dtype} {tuple(t.shape)} on {t.device} "
             f"(contiguous={t.is_contiguous()})")
 
