@@ -20,9 +20,14 @@ with its metrics, runs the nine knock-out modes of the static int8 block at
 twins, its launches, the nine times and the attribution), trains, validates
 and checkpoints full-width WildHands through ``cli.train`` (train-mode
 preprocessing, the prefetching loader), evaluates the checkpoint through
-``cli.evaluate`` and resumes the run, checks the launch counts of each path,
-and times kernels, blocks, forwards, serving, train steps and the training
-loop with CUDA events or the host clock around a synchronise.
+``cli.evaluate`` and resumes the run, packs that run's records through
+``cli.pack_records`` and trains an epoch on the packed set (and splits a
+batch of each loader into fetch, stacking, pinning and the device half),
+preprocesses, evaluates and trains WildHands with ``pos_enc="pcl"`` (the
+preprocessing held against the CPU's), splits the HaMeR ViT-H and WildHands
+train steps through ``cli.train_decompose``, checks the launch counts of
+each path, and times kernels, blocks, forwards, serving, train steps and the
+training loop with CUDA events or the host clock around a synchronise.
 
     python3 chip_smoke.py
 
@@ -2941,12 +2946,14 @@ def ablation_account(kernels, times, tag, calls: int = 3,
               f") + left over {wall - device:+.4f} {tag}")
 
 
-def training_runtime_phase(rows, dev, tag) -> None:
+def training_runtime_phase(rows, dev, tag, steps: int = LOOP_STEPS,
+                           split_batches: int = 2) -> None:
     """The training runtime through its entry points: ``cli.train`` on
     full-width WildHands (two ResNet-50s, 224^2, bf16, mask and grasp loss
     on) with the synthetic dataset, 64 images a step, train-mode
     preprocessing and the prefetch thread on; ``cli.evaluate`` on the
-    checkpoint it wrote; a resumed run."""
+    checkpoint it wrote; a resumed run; then the same epoch on the packed
+    set (:func:`packed_loop_phase`)."""
     import os
     import tempfile
 
@@ -2959,7 +2966,7 @@ def training_runtime_phase(rows, dev, tag) -> None:
     from hands_tpu_torch.train.step import make_train_step
     from hands_tpu_torch.train.trainer import Trainer
 
-    bs, steps = TRAIN_WH_BATCH, LOOP_STEPS
+    bs = TRAIN_WH_BATCH
     print(f"phase 10: cli.train / cli.evaluate, WildHands {WH_BACKBONE} x 2, "
           f"{bs} images a step, {steps} steps an epoch, synthetic records "
           f"{tag}")
@@ -3072,13 +3079,250 @@ def training_runtime_phase(rows, dev, tag) -> None:
         n_batches = sum(1 for _ in train_loader)
         torch.cuda.synchronize()
         load_ms = (time.perf_counter() - t0) / n_batches * 1e3
-    print(f"  training loop (resumed epoch, {steps} steps): {loop_ms:.1f} ms "
-          f"a step, {1e3 / loop_ms:.2f} steps/s, {bs * 1e3 / loop_ms:.1f} "
-          f"images/s; the bare step on a batch on the card {bare_ms:.1f} ms, "
-          f"{1e3 / bare_ms:.2f} steps/s, {bs * 1e3 / bare_ms:.1f} images/s; "
-          f"the loop waits for the loader {100 * wait:.1f}% of its time; the "
-          f"loader alone (8 fetch threads, prefetch on, train-mode "
-          f"preprocessing) {load_ms:.1f} ms a batch {tag}")
+        print(f"  training loop (resumed epoch, {steps} steps): {loop_ms:.1f} "
+              f"ms a step, {1e3 / loop_ms:.2f} steps/s, "
+              f"{bs * 1e3 / loop_ms:.1f} images/s; the bare step on a batch "
+              f"on the card {bare_ms:.1f} ms, {1e3 / bare_ms:.2f} steps/s, "
+              f"{bs * 1e3 / bare_ms:.1f} images/s; the loop waits for the "
+              f"loader {100 * wait:.1f}% of its time; the loader alone (8 "
+              f"fetch threads, prefetch on, train-mode preprocessing) "
+              f"{load_ms:.1f} ms a batch {tag}")
+        packed_loop_phase(cfg, model, train_loader.loader, root,
+                          expect(steps), (loop_ms, bare_ms, wait),
+                          split_batches, tag)
+
+
+def loader_split(loader, n_batches: int, tag: str) -> dict:
+    """Where a batch of ``loader`` (a ``DeviceDataLoader``) goes, ms a batch
+    over ``n_batches`` of one epoch's order: the fetch (``dataset[i]`` for
+    each record, sequentially, or one ``stacked_batch``), ``stack_records``
+    (none on the packed path), the pinning (host clock) and the device half
+    ``device_batch`` (copy and preprocessing launches, by CUDA events); then
+    each half of the loader on its own: the host half (``host_batches``,
+    with its fetch threads) and the device half on the batches it made."""
+    from hands_tpu_torch.data.device_pipeline import pin_batch, stack_records
+
+    ds, bs = loader.dataset, loader.batch_size
+    packed = hasattr(ds, "stacked_batch")
+    order, gen = loader.begin_epoch()
+    parts = {k: [] for k in ("fetch", "stack_records", "pinning",
+                             "device_batch")}
+    for b in range(n_batches):
+        idxs = order[b * bs:(b + 1) * bs]
+        t0 = time.perf_counter()
+        if packed:
+            stacked = ds.stacked_batch(idxs)
+            t1 = time.perf_counter()
+        else:
+            recs = [ds[int(i)] for i in idxs]
+            t1 = time.perf_counter()
+            stacked = stack_records(recs)
+        t2 = time.perf_counter()
+        pinned = pin_batch(stacked)
+        t3 = time.perf_counter()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loader.device_batch(pinned, len(idxs), gen)
+        end.record()
+        end.synchronize()
+        for k, v in (("fetch", t1 - t0), ("stack_records", t2 - t1),
+                     ("pinning", t3 - t2)):
+            parts[k].append(v * 1e3)
+        parts["device_batch"].append(start.elapsed_time(end))
+    # each half of the loader on its own: the host half (with its fetch
+    # threads) for n batches, stopped, then the device half on them
+    order, gen = loader.begin_epoch()
+    host, device, items = [], [], []
+    it = loader.host_batches(order)
+    for _ in range(n_batches):
+        t0 = time.perf_counter()
+        items.append(next(it))
+        host.append((time.perf_counter() - t0) * 1e3)
+    it.close()
+    for item in items:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loader.device_batch(*item, gen)
+        end.record()
+        end.synchronize()
+        device.append(start.elapsed_time(end))
+    out = {k: float(np.mean(v)) for k, v in parts.items()}
+    out.update(host_half=float(np.mean(host)),
+               device_half=float(np.mean(device)))
+    name = "packed" if packed else "records"
+    print(f"  loader split ({name}, {bs} images a batch, mean of {n_batches} "
+          f"batches): fetch {out['fetch']:.2f} ms "
+          f"({'one stacked_batch' if packed else 'dataset[i] x ' + str(bs)}),"
+          f" stack_records {out['stack_records']:.2f} ms, pinning "
+          f"{out['pinning']:.2f} ms, device_batch {out['device_batch']:.2f} "
+          f"ms (events); each half on its own: host "
+          f"{out['host_half']:.2f} ms, device {out['device_half']:.2f} ms "
+          f"{tag}")
+    return out
+
+
+def packed_loop_phase(cfg, model, record_loader, root, expected, phase10,
+                      split_batches: int, tag: str) -> None:
+    """Phase 10b: the synthetic train set of phase 10 packed through
+    ``cli.pack_records`` into ``root/packed``, ``stacked_batch`` held bit for
+    bit against ``stack_records`` of the same records, one epoch of
+    ``Trainer.fit`` (with validation) on a ``PrefetchLoader`` over the
+    packed set with phase 10's launch counts, its loop beside phase 10's,
+    and the loader's split for both loaders."""
+    import os
+
+    from hands_tpu_torch.cli import pack_records
+    from hands_tpu_torch.data.datasets import SyntheticRecordDataset
+    from hands_tpu_torch.data.device_pipeline import (DeviceDataLoader,
+                                                      PrefetchLoader,
+                                                      stack_records)
+    from hands_tpu_torch.data.factory import fetch_dataloader
+    from hands_tpu_torch.data.packed import PackedRecordDataset
+    from hands_tpu_torch.train.trainer import Trainer
+    from hands_tpu_torch.utils.experiment import Experiment
+
+    bs, dev = record_loader.batch_size, record_loader.device
+    records = record_loader.dataset
+    n = len(records)
+    pdir = os.path.join(root, "packed_set")
+    t0 = time.time()
+    require(pack_records.main(["--synthetic", str(n), "--split", "train",
+                               "--out", pdir]) == 0, "cli.pack_records")
+    pack_s = time.time() - t0
+    packed = PackedRecordDataset(pdir)
+    require(len(packed) == n and isinstance(records, SyntheticRecordDataset),
+            "the packed set holds phase 10's records")
+    idxs = np.random.RandomState(SEED).permutation(n)[:bs]
+    direct = stack_records([records[int(i)] for i in idxs])
+    fast = packed.stacked_batch(idxs)
+    require(set(direct) == set(fast) and all(
+        direct[k] == fast[k] if isinstance(direct[k], list)
+        else (direct[k].dtype == fast[k].dtype
+              and direct[k].tobytes() == fast[k].tobytes())
+        for k in direct), "stacked_batch equals stack_records bit for bit")
+    size = sum(os.path.getsize(os.path.join(pdir, f))
+               for f in os.listdir(pdir))
+    print(f"phase 10b: {n} records packed by cli.pack_records in "
+          f"{pack_s:.1f} s ({size / 1e6:.1f} MB); stacked_batch of {bs} "
+          f"equals stack_records bit for bit")
+    inner = DeviceDataLoader(packed, cfg, bs, is_train=True, seed=cfg.seed,
+                             device=dev)
+    trainer = Trainer(cfg, model, Experiment(cfg.replace(exp_key="packed"),
+                                             root=root))
+    reset_launch_counts()
+    state = trainer.fit(PrefetchLoader(inner),
+                        fetch_dataloader(cfg, "val", device=dev),
+                        num_epochs=1)
+    torch.cuda.synchronize()
+    steps = trainer.timing["steps"]
+    require(state.step == steps == len(inner), "the packed epoch's steps")
+    check_launches("Trainer.fit on the packed set", launch_counts(),
+                   expected, 1)
+    loop_ms = trainer.timing["loop_s"] / steps * 1e3
+    wait = trainer.timing["data_s"] / trainer.timing["loop_s"]
+    r_loop, bare_ms, r_wait = phase10
+    print(f"  training loop on the packed set ({steps} steps): "
+          f"{loop_ms:.1f} ms a step, {bs * 1e3 / loop_ms:.1f} images/s, "
+          f"waiting for the loader {100 * wait:.1f}% of it; on the records "
+          f"(phase 10) {r_loop:.1f} ms a step, {100 * r_wait:.1f}% waiting; "
+          f"the bare step {bare_ms:.1f} ms {tag}")
+    loader_split(record_loader, split_batches, tag)
+    loader_split(inner, split_batches, tag)
+
+
+PCL_GEOM = 1e-5  # rotations and angles, as tests/test_torch_pcl.py
+PCL_CROP = 2e-4  # the crops on their [0, 1] scale, as there
+DECOMPOSE_ITERS = 3  # timed calls a row of the decompositions
+
+
+def pcl_phase(dev, tag) -> None:
+    """WildHands (two ResNet-50s, 224^2, bf16) with ``pos_enc="pcl"`` at 64
+    images: the preprocessing on the card against the same call on the CPU
+    (crops, rotations, angles), its ms beside the default mode's, one
+    evaluation forward and one train step on the card."""
+    from hands_tpu_torch.config import default_config
+    from hands_tpu_torch.data.datasets import SyntheticRecordDataset
+    from hands_tpu_torch.data.device_pipeline import (DevicePreprocessor,
+                                                      stack_records)
+    from hands_tpu_torch.models.registry import fetch_model, inference_pose
+    from hands_tpu_torch.train.state import create_train_state
+    from hands_tpu_torch.train.step import make_train_step
+
+    bs = TRAIN_WH_BATCH
+    print(f"phase 11: WildHands {WH_BACKBONE} x 2 with pos_enc=pcl, {bs} "
+          f"images {tag}")
+    cfg = default_config("hands_light", backbone=WH_BACKBONE, pos_enc="pcl")
+    records = SyntheticRecordDataset(cfg, "train", length=bs)
+    stacked = stack_records([records[i] for i in range(bs)])
+    pre = DevicePreprocessor(cfg, is_train=False, device=dev)
+    got = pre(stacked)
+    want = DevicePreprocessor(cfg, is_train=False, device="cpu")(stacked)
+    mean = torch.tensor(cfg.img_norm_mean)
+    std = torch.tensor(cfg.img_norm_std)
+    for key in ("r_img", "l_img", "r_rot", "l_rot", "img", "r_center_angle",
+                "r_corner_angle"):
+        a, b = got[0][key].cpu(), want[0][key]
+        if key.endswith("_img"):  # the crops on their [0, 1] scale
+            a, b, atol = a * std + mean, b * std + mean, PCL_CROP
+        else:
+            atol = 2e-4 if key == "img" else PCL_GEOM
+        compare_abs(f"pcl preprocessing {key}, card vs CPU", a, b, atol)
+    compare_abs("pcl intrinsics, card vs CPU", got[2]["intrinsics"].cpu(),
+                want[2]["intrinsics"], 0.0, rtol=1e-6)
+    plain = DevicePreprocessor(default_config("hands_light",
+                                              backbone=WH_BACKBONE),
+                               is_train=False, device=dev)
+    # pcl, default, default, pcl: the better of each pair
+    t = [cuda_ms(lambda p=p: p(stacked), iters=5)
+         for p in (pre, plain, plain, pre)]
+    print(f"  eval preprocessing of {bs} records (320 x 427, host arrays in, "
+          f"the copy included): pcl {min(t[0], t[3]):.2f} ms, the default "
+          f"mode ({plain.cfg.pos_enc}) {min(t[1], t[2]):.2f} ms {tag}")
+
+    model = fetch_model(cfg, device=dev, seed=SEED)
+    inputs, targets, meta = got
+    inference_pose(model, inputs, meta)  # warm-up
+    reset_launch_counts()
+    out = inference_pose(model, inputs, meta)
+    torch.cuda.synchronize()
+    check_launches("hands_light pcl evaluation forward", launch_counts(),
+                   {"lbs_apply": 2, "splat_fwd": 2}, 1)
+    check_outputs([out], bs)
+    train_pre = DevicePreprocessor(cfg, is_train=True, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    tin, ttg, tmeta = train_pre(stacked, generator=gen)
+    require(tin["r_rot"].shape == (bs, 3, 3), "pcl rotations in train mode")
+    state = create_train_state(cfg, model)
+    step = make_train_step(model, cfg)
+    losses, times, _ = run_steps(
+        step, state, (tin, ttg, tmeta), 1,
+        dict(K1_STEP_LAUNCHES, splat_fwd=2, splat_bwd=2),
+        "hands_light pcl train", gen)
+    print(f"  pcl evaluation forward and train step bs{bs} on the card: loss "
+          f"{losses[0]:.4f}, step {times[0]:.1f} ms (the first) {tag}")
+    del model, state, step
+    torch.cuda.empty_cache()
+
+
+def decomposition_phase(dev, tag, iters: int = DECOMPOSE_ITERS) -> None:
+    """``cli.train_decompose`` at HaMeR ViT-H bs32 and WildHands bs64: every
+    row positive, the derived rows printed (a gap that does not close is
+    printed as one)."""
+    from hands_tpu_torch.cli import train_decompose as td
+
+    print(f"phase 12: cli.train_decompose, {iters} timed calls a row {tag}")
+    for method, batch in (("hamer_light", TRAIN_VIT_BATCH),
+                          ("hands_light", TRAIN_WH_BATCH)):
+        out = td.run(method, batch, iters, dev, seed=SEED, vit=VIT,
+                     backbone=WH_BACKBONE)
+        for name, row in out["rows"].items():
+            require(all(math.isfinite(v) and v > 0 for v in row["ms"]),
+                    f"train_decompose {method} {name}: a time not positive")
+            require(row["device_ms"] is not None and row["device_ms"] > 0,
+                    f"train_decompose {method} {name}: no device time")
+        torch.cuda.empty_cache()
 
 
 def run_steps(step, state, batch, n, per_step, path, gen=None):
@@ -3806,6 +4050,56 @@ def lbs_alone(kernels: bool = True, step: bool = True) -> int:
     return 0
 
 
+def loader_alone(steps: int = 2 * LOOP_STEPS, split_batches: int = 6,
+                 pcl: bool = True) -> int:
+    """The training loop alone: phase 10 (``cli.train`` on the records,
+    ``cli.evaluate``, the resumed epoch, the bare step) and phase 10b (the
+    same epoch on the packed set, the loader's split for both loaders) with
+    ``steps`` steps an epoch and the split over ``split_batches`` batches;
+    then the ``pcl`` phase::
+
+        python3 -c "import sys, chip_smoke as cs; sys.exit(cs.loader_alone())"
+    """
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from hands_tpu_torch.ops import mano_lbs
+    from hands_tpu_torch.ops import rasterizer as ras
+    from hands_tpu_torch.ops.cuda_build import build_all
+
+    tag = f"[{card_line()}]"
+    print_ptxas(build_all([mano_lbs.LIBRARY, ras.LIBRARY]))
+    rows = {k: {} for k in ("lbs_apply", "lbs_apply_bwd", "splat_fwd",
+                            "splat_bwd")}
+    training_runtime_phase(rows, DEV, tag, steps=steps,
+                           split_batches=split_batches)
+    if pcl:
+        pcl_phase(DEV, tag)
+    return 0
+
+
+def decompose_alone(iters: int = 10) -> int:
+    """The train-step decompositions alone (``cli.train_decompose`` at HaMeR
+    ViT-H bs32 and WildHands bs64), ``iters`` timed calls a row::
+
+        python3 -c "import sys, chip_smoke as cs; sys.exit(cs.decompose_alone())"
+    """
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from hands_tpu_torch.ops import mano_lbs
+    from hands_tpu_torch.ops import rasterizer as ras
+    from hands_tpu_torch.ops import vit_block as vb
+    from hands_tpu_torch.ops.cuda_build import build_all
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    tag = f"[{card_line()}]"
+    print_ptxas(build_all([vb.LIBRARY, vb.BWD_LIBRARY, mano_lbs.LIBRARY,
+                           ras.LIBRARY]))
+    decomposition_phase(DEV, tag, iters=iters)
+    return 0
+
+
 def k4_step_alone() -> int:
     """K4 on one block and in the HaMeR step: forward and backward at 3072
     and 12,288 rows a block (:func:`k4_backward_ms`), and the HaMeR ViT-H
@@ -4259,6 +4553,8 @@ def main() -> int:
     wildhands_train_phase(rows, dev, tag)
     ablation_phase(rows, dev, tag)
     training_runtime_phase(rows, dev, tag)
+    pcl_phase(dev, tag)
+    decomposition_phase(dev, tag)
 
     print(card)
     print(json.dumps({"kernels": list(rows.values())}))

@@ -12,11 +12,14 @@ gains per image, blurs before the crop, rotates the patch (and the mask and
 depth targets, the GT 3D joints and the global orientation with it), jitters
 the hand boxes and mirrors flipped images with their boxes. Records that carry
 a hand mask or a depth map get their mask and depth targets through a
-nearest-neighbour crop. Only ``pos_enc == "pcl"`` is not ported (ROADMAP
-queue 1 item 3).
+nearest-neighbour crop. With ``pos_enc == "pcl"`` the hand crops are the
+perspective crops of ``ops.preprocess.pcl_crop`` (a virtual camera turned
+toward each hand), and ``inputs`` carries their rotations as ``r_rot`` and
+``l_rot``.
 
-:class:`DeviceDataLoader` turns a dataset of records into a stream of such
-batches; :class:`PrefetchLoader` runs its host half (record fetch, stacking,
+:class:`DeviceDataLoader` turns a dataset of records, or a packed dataset
+that hands out whole stacked batches (``data/packed.py``), into a stream of
+such batches; :class:`PrefetchLoader` runs its host half (fetch, stacking,
 pinning) on a background thread.
 """
 
@@ -128,10 +131,6 @@ class DevicePreprocessor:
     "jitter_l": (B, 2)}`` of raw uniform and normal values."""
 
     def __init__(self, cfg: Config, is_train: bool, device="cuda"):
-        if cfg.pos_enc == "pcl":
-            raise NotImplementedError(
-                "pcl preprocessing (pcl_crop, warp_homography) is not "
-                "ported: ROADMAP queue 1 item 3")
         self.cfg = cfg
         self.is_train = is_train
         self.device = torch.device(device)
@@ -256,11 +255,19 @@ class DevicePreprocessor:
                             1.0 if cfg.use_gt_k else 0.0, batch["use_gt_k"])
         K_patch = torch.where(use_k[:, None, None] > 0, K_gt, K_wp)
 
-        # per-hand crops from the patch
-        r_img = torch.clamp(pp.crop_resize_separable(
-            img, r_cx, r_cy, r_size, cfg.img_res_ds), 0.0, 1.0)
-        l_img = torch.clamp(pp.crop_resize_separable(
-            img, l_cx, l_cy, l_size, cfg.img_res_ds), 0.0, 1.0)
+        # per-hand crops from the patch: a perspective crop through a
+        # virtual camera turned toward the hand (pcl), else axis-aligned
+        rots = {}
+        if cfg.pos_enc == "pcl":
+            r_img, rots["r_rot"] = pp.pcl_crop(img, r_bbox, K_patch,
+                                               cfg.img_res_ds)
+            l_img, rots["l_rot"] = pp.pcl_crop(img, l_bbox, K_patch,
+                                               cfg.img_res_ds)
+        else:
+            r_img = torch.clamp(pp.crop_resize_separable(
+                img, r_cx, r_cy, r_size, cfg.img_res_ds), 0.0, 1.0)
+            l_img = torch.clamp(pp.crop_resize_separable(
+                img, l_cx, l_cy, l_size, cfg.img_res_ds), 0.0, 1.0)
 
         # horizontal flip: pixels mirror; boxes mirror and swap sides (the
         # model's flip-swap un-mirrors the predictions); GT targets stay
@@ -287,6 +294,7 @@ class DevicePreprocessor:
             "l_bbox": l_bbox,
             "r_bbox_og": r_bbox_og,
             "l_bbox_og": l_bbox_og,
+            **rots,
         })
         if cfg.pos_enc is not None:
             for side, box in (("r", r_bbox), ("l", l_bbox)):
@@ -413,6 +421,13 @@ class DevicePreprocessor:
         return inputs, targets, meta_info
 
 
+def pin_batch(stacked: dict) -> dict:
+    """The arrays of a stacked batch as fresh pinned tensors (the ``_``
+    host-side entries stay as they are)."""
+    return {k: (v if k.startswith("_") else torch.from_numpy(
+        np.ascontiguousarray(v)).pin_memory()) for k, v in stacked.items()}
+
+
 class DeviceDataLoader:
     """Host dataset of Records -> stream of device-preprocessed batches
     ``(inputs, targets, meta_info)``.
@@ -427,7 +442,12 @@ class DeviceDataLoader:
     stream). Every host batch gets fresh pinned tensors, so a
     ``non_blocking`` copy never races a reuse of its staging memory.
 
-    A tail batch is padded to ``batch_size`` with copies of its last record
+    A dataset with a ``stacked_batch(indices)`` method (a
+    :class:`~hands_tpu_torch.data.packed.PackedRecordDataset`) hands out each
+    batch already stacked: the host half then fetches no records, and the
+    batch goes through the same pinning and device half.
+
+    A tail batch is padded to ``batch_size`` with copies of its last row
     whose ``is_valid`` / ``right_valid`` / ``left_valid`` are 0 (the metrics
     give NaN there); ``meta["num_valid"]`` counts the real rows.
     """
@@ -441,10 +461,6 @@ class DeviceDataLoader:
             raise NotImplementedError(
                 "the sharded (multi-process) loader path is not ported: "
                 "ROADMAP queue 1 item 11")
-        if hasattr(dataset, "stacked_batch"):
-            raise NotImplementedError(
-                "the packed stacked_batch fast path (data/packed.py) is not "
-                "ported: ROADMAP queue 1 item 2")
         self.dataset = dataset
         self.cfg = cfg
         self.batch_size = batch_size
@@ -522,22 +538,45 @@ class DeviceDataLoader:
                 submit()
                 yield [f.result() for f in futs]
 
-    def host_batches(self, order):
-        """The host half: yields (stacked batch, number of real rows); arrays
-        are pinned tensors when the loader's device is a card."""
-        pin = self.device.type == "cuda"
+    def _iter_record_stacks(self, order):
+        """The record path: yields (stacked padded batch, real rows)."""
         for records in self._iter_record_batches(order):
             n_real = len(records)
             for _ in range(self.batch_size - n_real):
                 pad = copy.copy(records[-1])
                 pad.is_valid = pad.right_valid = pad.left_valid = 0.0
                 records.append(pad)
-            stacked = stack_records(records)
-            if pin:
-                stacked = {
-                    k: (v if k.startswith("_") else torch.from_numpy(
-                        np.ascontiguousarray(v)).pin_memory())
-                    for k, v in stacked.items()}
+            yield stack_records(records), n_real
+
+    def _iter_stacked_batches(self, order):
+        """The packed path: the dataset stacks each batch itself; the tail
+        repeats its last row, invalidated. Yields (stacked, real rows)."""
+        n, step = len(order), self.batch_size
+        for s in range(0, n - (step - 1 if self.drop_last else 0), step):
+            idxs = order[s:s + step]
+            stacked = self.dataset.stacked_batch(idxs)
+            n_real = len(idxs)
+            n_pad = step - n_real
+            if n_pad > 0:
+                for key, val in stacked.items():
+                    if isinstance(val, list):
+                        stacked[key] = val + [val[-1]] * n_pad
+                    else:
+                        stacked[key] = np.concatenate(
+                            [val, np.repeat(val[-1:], n_pad, axis=0)])
+                for key in ("is_valid", "right_valid", "left_valid"):
+                    stacked[key][n_real:] = 0.0
+            yield stacked, n_real
+
+    def host_batches(self, order):
+        """The host half: yields (stacked batch, number of real rows); arrays
+        are pinned tensors when the loader's device is a card."""
+        batches = (self._iter_stacked_batches(order)
+                   if hasattr(self.dataset, "stacked_batch")
+                   else self._iter_record_stacks(order))
+        for stacked, n_real in batches:
+            if self.device.type == "cuda":
+                stacked = pin_batch(stacked)
             yield stacked, n_real
 
     def device_batch(self, stacked: dict, n_real: int, gen: torch.Generator):

@@ -13,8 +13,14 @@ oracle of its three-shear rotation: a per-pixel gather is what a GPU is good
 at, so the shear passes are not ported; the two differ by interpolation
 softness only). Every function that draws takes a ``torch.Generator`` and,
 instead of it, the raw draws themselves (uniform [0, 1) and standard normal
-values), so that a test can feed another framework's. The ``pcl`` resampler
-(``pcl_crop``, ``warp_homography``) is not ported yet.
+values), so that a test can feed another framework's.
+
+``pcl`` (perspective crop layers): :func:`pcl_crop` turns a virtual camera
+toward each hand's box centre and resamples the patch through the
+homography of that camera (:func:`warp_homography`, bilinear, zeros outside
+the image). Its 3x3 inverses are closed-form adjugates (:func:`inverse_3x3`)
+and its 3x3 products and projections elementwise operations: the same
+arithmetic, rounded alike, on every device.
 """
 
 from __future__ import annotations
@@ -86,6 +92,33 @@ def crop_resize_separable(images, cx, cy, src_size, out_res: int,
     return separable_resample(images, y_src, x_src, method)
 
 
+def _gather_pixels(flat: torch.Tensor, H: int, W: int, xi: torch.Tensor,
+                   yi: torch.Tensor) -> torch.Tensor:
+    """Pixels (B, P, C) of ``flat`` (B, H * W, C) at integer coordinates
+    (B, P); zeros outside the image (cv2's constant zero border)."""
+    inb = (xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)
+    idx = yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)
+    vals = torch.gather(flat, 1, idx[..., None].expand(-1, -1, flat.shape[2]))
+    return vals * inb[..., None]
+
+
+def _bilinear_sample(images: torch.Tensor, sx: torch.Tensor,
+                     sy: torch.Tensor) -> torch.Tensor:
+    """Bilinear samples (B, P, C) of (B, H, W, C) at the source coordinates
+    (B, P); the taps outside the image count as zeros."""
+    B, H, W, C = images.shape
+    flat = images.reshape(B, H * W, C)
+    # floor before the integer cast: a cast truncates negatives toward 0
+    x0f, y0f = torch.floor(sx), torch.floor(sy)
+    x0, y0 = x0f.long(), y0f.long()
+    fx, fy = (sx - x0f)[..., None], (sy - y0f)[..., None]
+    top = (_gather_pixels(flat, H, W, x0, y0) * (1 - fx)
+           + _gather_pixels(flat, H, W, x0 + 1, y0) * fx)
+    bot = (_gather_pixels(flat, H, W, x0, y0 + 1) * (1 - fx)
+           + _gather_pixels(flat, H, W, x0 + 1, y0 + 1) * fx)
+    return top * (1 - fy) + bot * fy
+
+
 @f32_matmuls
 def warp_affine(images: torch.Tensor, M_inv: torch.Tensor, out_res: int,
                 method: str = "bilinear") -> torch.Tensor:
@@ -99,23 +132,11 @@ def warp_affine(images: torch.Tensor, M_inv: torch.Tensor, out_res: int,
     dst = torch.stack([xs, ys, torch.ones_like(xs)], dim=-1).reshape(-1, 3)
     src = torch.einsum("bij,pj->bpi", M_inv, dst)  # (B, P, 2)
     sx, sy = src[..., 0], src[..., 1]
-    flat = images.reshape(B, H * W, C)
-
-    def gather(xi, yi):
-        inb = (xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)
-        idx = yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)
-        vals = torch.gather(flat, 1, idx[..., None].expand(-1, -1, C))
-        return vals * inb[..., None]
-
     if method == "nearest":
-        out = gather(torch.round(sx).long(), torch.round(sy).long())
+        out = _gather_pixels(images.reshape(B, H * W, C), H, W,
+                             torch.round(sx).long(), torch.round(sy).long())
     elif method == "bilinear":
-        x0f, y0f = torch.floor(sx), torch.floor(sy)
-        x0, y0 = x0f.long(), y0f.long()
-        fx, fy = (sx - x0f)[..., None], (sy - y0f)[..., None]
-        top = gather(x0, y0) * (1 - fx) + gather(x0 + 1, y0) * fx
-        bot = gather(x0, y0 + 1) * (1 - fx) + gather(x0 + 1, y0 + 1) * fx
-        out = top * (1 - fy) + bot * fy
+        out = _bilinear_sample(images, sx, sy)
     else:
         raise ValueError(method)
     return out.reshape(B, out_res, out_res, C)
@@ -298,6 +319,122 @@ def j2d_crop_transform(kp2d, center, bbox_dim, augm: dict,
     xy = torch.einsum("bij,bnj->bni", A_inv, kp2d[..., :2] - t[:, None, :])
     xy_norm = 2.0 * xy / img_res - 1.0
     return torch.cat([xy_norm, kp2d[..., 2:]], dim=-1)
+
+
+def inverse_3x3(M: torch.Tensor) -> torch.Tensor:
+    """Inverses of (B, 3, 3) matrices as adjugate / determinant: a fixed
+    sequence of f32 operations, where ``torch.linalg.inv`` would call a
+    batched solver."""
+    a, b, c = M[:, 0, 0], M[:, 0, 1], M[:, 0, 2]
+    d, e, f = M[:, 1, 0], M[:, 1, 1], M[:, 1, 2]
+    g, h, i = M[:, 2, 0], M[:, 2, 1], M[:, 2, 2]
+    c00, c01, c02 = e * i - f * h, f * g - d * i, d * h - e * g
+    det = a * c00 + b * c01 + c * c02
+    adj = torch.stack([
+        c00, c * h - b * i, b * f - c * e,
+        c01, a * i - c * g, c * d - a * f,
+        c02, b * g - a * h, a * e - b * d], dim=-1).reshape(-1, 3, 3)
+    return adj / det[:, None, None]
+
+
+def _matmul_3x3(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """A (N, 3, 3) @ B (N, 3, k) as (a0 b0 + a1 b1) + a2 b2: elementwise
+    operations, rounded alike on every device (a library product sums in its
+    own order)."""
+    a0, a1, a2 = (A[:, :, j, None] for j in range(3))
+    return (a0 * B[:, None, 0] + a1 * B[:, None, 1]) + a2 * B[:, None, 2]
+
+
+def _pcl_rotation_from_position(pos: torch.Tensor) -> torch.Tensor:
+    """Virtual-camera rotation R_virt2orig (B, 3, 3) looking along the rays
+    ``pos`` (B, 3) (normalised directions, z = 1)."""
+    x, y = pos[:, 0], pos[:, 1]
+    n1x = torch.sqrt(1 + x * x)
+    d1x = 1.0 / n1x
+    d1xy = 1.0 / torch.sqrt(1 + x * x + y * y)
+    d1xy1x = 1.0 / torch.sqrt((1 + x * x + y * y) * (1 + x * x))
+    zeros = torch.zeros_like(x)
+    R = torch.stack(
+        [d1x, -x * y * d1xy1x, x * d1xy,
+         zeros, n1x * d1xy, y * d1xy,
+         -x * d1x, -y * d1xy1x, d1xy], dim=-1)
+    return R.reshape(-1, 3, 3)
+
+
+def _pcl_virtual_intrinsics(pos: torch.Tensor, K: torch.Tensor,
+                            bbox_wh: torch.Tensor) -> torch.Tensor:
+    """Virtual camera K (B, 3, 3): the focal at the image plane with the slant
+    compensated, in unit [0, 1] image coordinates."""
+    p_len = torch.sqrt(torch.sum(pos * pos, dim=-1))
+    sx = 1.0 / torch.sqrt(pos[:, 0] ** 2 + pos[:, 2] ** 2)
+    sy = torch.sqrt(pos[:, 0] ** 2 + 1) / torch.sqrt(
+        pos[:, 0] ** 2 + pos[:, 1] ** 2 + 1)
+    bbox_comp = bbox_wh * torch.stack([sx, sy], -1)
+    f_orig = torch.stack([K[:, 0, 0], K[:, 1, 1]], -1)
+    f_comp = p_len[:, None] * f_orig / torch.clamp(bbox_comp, min=1e-6)
+    Kv = torch.zeros((pos.shape[0], 3, 3), dtype=pos.dtype,
+                     device=pos.device)
+    Kv[:, 0, 0] = f_comp[:, 0]
+    Kv[:, 1, 1] = f_comp[:, 1]
+    Kv[:, 0, 2] = 0.5
+    Kv[:, 1, 2] = 0.5
+    Kv[:, 2, 2] = 1.0
+    return Kv
+
+
+def _unit_grid(n: int, device) -> torch.Tensor:
+    """``n`` points from 0 to 1 as jitted ``jnp.linspace`` makes them: i times
+    the f32 reciprocal of n - 1, then 1 exactly (``torch.linspace`` steps
+    from both ends and differs at interior points)."""
+    step = float(np.float32(1.0) / np.float32(max(n - 1, 1)))
+    t = torch.arange(n, dtype=torch.float32, device=device) * step
+    if n > 1:
+        t[-1] = 1.0
+    return t
+
+
+def warp_homography(images: torch.Tensor, P: torch.Tensor,
+                    out_res: int) -> torch.Tensor:
+    """Sample (B, H, W, C) images through projective maps ``P`` (B, 3, 3),
+    ``src = P @ [u, v, 1]`` for unit coordinates u, v in [0, 1]: bilinear,
+    zeros outside the image -> (B, out_res, out_res, C). A projected pixel
+    coordinate p samples texel p - 0.5 (``grid_sample``'s pixel-edge
+    convention, ``align_corners=False``)."""
+    B, _, _, C = images.shape
+    t = _unit_grid(out_res, images.device)
+    vs, us = torch.meshgrid(t, t, indexing="ij")
+    us, vs = us.reshape(1, -1), vs.reshape(1, -1)
+    # P @ [u, v, 1] as (P0 u + P1 v) + P2: elementwise operations, rounded
+    # alike on every device
+    x, y, z = ((P[:, i, 0, None] * us + P[:, i, 1, None] * vs)
+               + P[:, i, 2, None] for i in range(3))
+    # the homogeneous divide keeps the sign of z and clamps its size
+    sign = torch.sign(z + 1e-12)
+    den = torch.clamp(torch.abs(z), min=1e-8)
+    sx = x / den * sign - 0.5
+    sy = y / den * sign - 0.5
+    return _bilinear_sample(images, sx, sy).reshape(B, out_res, out_res, C)
+
+
+def pcl_crop(images: torch.Tensor, bbox_xyxy: torch.Tensor, K: torch.Tensor,
+             out_res: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Perspective-crop-layer resample of the patch ``images`` (B, H, W, C)
+    in [0, 1] at the hand boxes ``bbox_xyxy`` (B, 4) with the patch
+    intrinsics ``K`` (B, 3, 3): a virtual camera turned toward the box
+    centre's ray, the homography ``K @ R_virt2orig @ inv(K_virt)``, then
+    :func:`warp_homography`. Returns (crops (B, out_res, out_res, C),
+    R_virt2orig (B, 3, 3)); the model rotates its predicted global
+    orientation by R."""
+    center = (bbox_xyxy[:, :2] + bbox_xyxy[:, 2:]) / 2.0
+    wh = torch.clamp(bbox_xyxy[:, 2:] - bbox_xyxy[:, :2], min=1.0)
+    size = torch.maximum(wh[:, 0], wh[:, 1])
+    bbox_wh = torch.stack([size, size], -1)
+    homo = torch.cat([center, torch.ones_like(center[:, :1])], -1)
+    pos = _matmul_3x3(inverse_3x3(K), homo[:, :, None])[:, :, 0]
+    R = _pcl_rotation_from_position(pos)
+    Kv = _pcl_virtual_intrinsics(pos, K, bbox_wh)
+    P = _matmul_3x3(_matmul_3x3(K, R), inverse_3x3(Kv))
+    return warp_homography(images, P, out_res), R
 
 
 def pose_aug_rotate(pose: torch.Tensor, rot_deg: torch.Tensor) -> torch.Tensor:

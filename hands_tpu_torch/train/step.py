@@ -42,6 +42,19 @@ def _logs(total, loss_dict):
     return logs
 
 
+def loss_and_grads(model, cfg: Config, params, batch,
+                   generator: Optional[torch.Generator] = None):
+    """The train step's forward (train mode) and backward: (total, loss_dict,
+    the gradient of each of ``params``, zeros where a parameter is unused).
+    Call it under ``f32_matmuls``."""
+    model.train()
+    total, loss_dict, _, _ = forward_and_loss(model, cfg, batch, generator)
+    grads = torch.autograd.grad(total, params, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for g, p in zip(grads, params)]
+    return total, loss_dict, grads
+
+
 def make_train_step(model, cfg: Config) -> Callable:
     """Returns ``train_step(state, batch, generator) -> (state, logs)``.
     ``generator`` seeds the dropout masks (WildHands; HaMeR has none). The
@@ -50,12 +63,8 @@ def make_train_step(model, cfg: Config) -> Callable:
 
     @f32_matmuls  # f32 products of the backward pass stay f32 on the card
     def train_step(state: TrainState, batch, generator=None):
-        model.train()
-        total, loss_dict, _, _ = forward_and_loss(model, cfg, batch, generator)
-        grads = list(torch.autograd.grad(total, state.params,
-                                         allow_unused=True))
-        grads = [torch.zeros_like(p) if g is None else g
-                 for g, p in zip(grads, state.params)]
+        total, loss_dict, grads = loss_and_grads(model, cfg, state.params,
+                                                 batch, generator)
         logs = _logs(total, loss_dict)
         logs["grad_norm"] = global_norm(grads)  # before the clip
         return state.apply_gradients(grads), logs

@@ -110,3 +110,25 @@ class StepTimer:
             "p95_ms": float(np.percentile(arr, 95) * 1e3),
             "max_ms": float(arr.max() * 1e3),
         }
+
+
+def device_busy_ms(fn, names=()):
+    """(ms, {name: ms}): the card's time in the kernels that one call of
+    ``fn`` launches (``torch.profiler`` over CUPTI, after a warm-up call),
+    and the part of it in kernels whose name holds each of ``names``;
+    (None, {}) where the profiler saw no device time (on the CPU)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        return None, {}
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    times = [(e.key, e.self_device_time_total / 1e3)
+             for e in prof.key_averages()]
+    total = sum(t for _, t in times)
+    if total <= 0.0:
+        return None, {}
+    return total, {n: sum(t for k, t in times if n in k) for n in names}

@@ -326,8 +326,11 @@ def test_fetch_model_and_evaluation_entry_points():
 
     with pytest.raises(NotImplementedError, match="item 6"):
         fetch_model(cfg.replace(backbone="vit_b_16"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        DevicePreprocessor(cfg.replace(pos_enc="pcl"), False, device="cpu")
+    # pcl preprocesses: perspective crops and the rotations the model reads
+    pcl, _, _ = DevicePreprocessor(cfg.replace(pos_enc="pcl"), False,
+                                   device="cpu")(stack_records(records()))
+    assert pcl["r_img"].shape == inputs["r_img"].shape
+    assert pcl["r_rot"].shape == pcl["l_rot"].shape == (2, 3, 3)
 
 
 def test_demo_command_line_serves_wildhands_by_default(tmp_path):

@@ -5,9 +5,10 @@ preprocessing of each mode's inputs against the JAX functions.
 
 The model inputs of each mode are made by the JAX preprocessing functions
 from the boxes and intrinsics of one JAX pipeline run (``pcl``'s virtual-
-camera rotations by numpy: ``pcl`` preprocessing is not ported, the model's
-handling of its inputs is). Tolerance on every prediction, relative to
-max(|ref|, 1): 1e-4, as test_torch_hands_light.py. Preprocessed KPE inputs:
+camera rotations by numpy: this file holds the model's handling of them;
+the port's ``pcl`` preprocessing is held in test_torch_pcl.py). Tolerance
+on every prediction, relative to max(|ref|, 1): 1e-4, as
+test_torch_hands_light.py. Preprocessed KPE inputs:
 4e-5 absolute (angles from the same f32 boxes agree to 1e-6; the pixel
 coordinates behind ``cam_conv``'s offsets reach 224, where an f32 ulp is
 1.5e-5, and the two ``linspace`` lattices differ by one or two).

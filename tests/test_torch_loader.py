@@ -19,7 +19,8 @@ from hands_tpu_torch.config import default_config
 from hands_tpu_torch.data.datasets import (SyntheticRecordDataset,
                                            fetch_dataset)
 from hands_tpu_torch.data.device_pipeline import (DeviceDataLoader,
-                                                  PrefetchLoader)
+                                                  PrefetchLoader,
+                                                  stack_records)
 from hands_tpu_torch.data.factory import collate_windowed, fetch_dataloader
 
 KW = dict(backbone="resnet18", compute_dtype="float32", img_res=96,
@@ -168,9 +169,20 @@ def test_factory_and_what_is_left_out():
     ds = fetch_dataset(cfg, "synthetic", "minitrain")
     with pytest.raises(NotImplementedError, match="item 11"):
         DeviceDataLoader(ds, cfg, 2, False, shard=(0, 2), device="cpu")
-    ds.stacked_batch = lambda idxs: {}
-    with pytest.raises(NotImplementedError, match="item 2"):
-        DeviceDataLoader(ds, cfg, 2, False, device="cpu")
+    # a dataset that stacks its own batches takes the stacked path
+    asked = []
+
+    def stacked_batch(idxs):
+        asked.append(list(idxs))
+        return stack_records([ds[int(i)] for i in idxs])
+
+    ds.stacked_batch = stacked_batch
+    loader = DeviceDataLoader(ds, cfg, 5, False, drop_last=False,
+                              device="cpu")
+    out = list(loader.host_batches(np.arange(len(ds))))
+    assert asked == [[0, 1, 2, 3, 4], [5, 6, 7, 8, 9], [10, 11]]
+    assert [n for _, n in out] == [5, 5, 2]
+    assert out[-1][0]["is_valid"].tolist() == [1, 1, 0, 0, 0]
 
 
 def test_collate_windowed_concatenates_windows():

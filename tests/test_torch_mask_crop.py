@@ -62,7 +62,7 @@ def test_mask_crop_matches_jax(kind):
         assert set(np.unique(got.numpy())) <= {0.0, 127.0, 255.0}
 
 
-def test_mask_crop_rotation_pass_is_not_ported():
+def test_mask_crop_rotation_pass():
     """The rotation pass was the last piece of ``mask_crop`` to port: with
     zero rotation it is the unrotated crop away from the border, with a
     rotation it moves the mask; a resampling method that does not exist

@@ -9,7 +9,10 @@ with each model family on a synthetic batch (K4's Function, BatchNorm in
 train mode, dropout from a generator, the optimiser, the metrics), time the
 nine modes of the int8 block ablation on a small probe, run a ``--debug``
 epoch through ``cli.train`` (train-mode preprocessing, the prefetching loader,
-the trainer, checkpoints, the experiment log), and check that neither ``jax``, ``flax``, ``optax`` nor ``hands_tpu`` was imported
+the trainer, checkpoints, the experiment log), pack synthetic records through
+``cli.pack_records`` and load them with ``pcl`` preprocessing, time two rows
+of ``cli.train_decompose``, and check that neither ``jax``, ``flax``,
+``optax`` nor ``hands_tpu`` was imported
 along the way. A second test reads the sources:
 no import line of the port or of ``chip_smoke.py`` names them.
 """
@@ -107,9 +110,25 @@ with tempfile.TemporaryDirectory() as tmp:
     assert sorted(os.listdir(os.path.dirname(last))) == [
         "epoch_0000", "last", "scores.json"]
     assert callable(evaluate.main)  # run in tests/test_torch_trainer.py
+from hands_tpu_torch.cli import pack_records, train_decompose
+from hands_tpu_torch.data.device_pipeline import DeviceDataLoader
+from hands_tpu_torch.data.packed import PackedRecordDataset
+with tempfile.TemporaryDirectory() as tmp:
+    assert pack_records.main(["--synthetic", "3", "--out", tmp]) == 0
+    cfgp = default_config("hands_light", pos_enc="pcl", img_res=64,
+                          img_res_ds=64)
+    loader = DeviceDataLoader(PackedRecordDataset(tmp), cfgp, 2, True,
+                              drop_last=False, num_workers=0, device="cpu")
+    (i1, _, m1), (i2, _, m2) = list(loader)
+    assert i1["r_rot"].shape == (2, 3, 3) and m2["num_valid"] == 1
+setup = train_decompose.Setup("hamer_light", 1, "cpu", vit="tiny",
+                              img_res=64)
+rows = train_decompose.measure(setup, 1, rows=["gt_process", "full_step"])
+assert all(r["median"] > 0 for r in rows.values())
 for name in ("ops.vit_block_ablation", "cli.int8_ablation", "cli.train",
              "cli.evaluate", "cli._args", "data.factory", "train.trainer",
-             "train.checkpoint", "utils.experiment", "utils.profiling"):
+             "train.checkpoint", "utils.experiment", "utils.profiling",
+             "data.packed", "cli.pack_records", "cli.train_decompose"):
     assert f"hands_tpu_torch.{name}" in sys.modules, name
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
@@ -149,7 +168,10 @@ def test_port_sources_name_no_jax_import():
             "hands_tpu_torch/train/trainer.py",
             "hands_tpu_torch/train/checkpoint.py",
             "hands_tpu_torch/utils/experiment.py",
-            "hands_tpu_torch/utils/profiling.py"} <= names
+            "hands_tpu_torch/utils/profiling.py",
+            "hands_tpu_torch/data/packed.py",
+            "hands_tpu_torch/cli/pack_records.py",
+            "hands_tpu_torch/cli/train_decompose.py"} <= names
     bad = [f"{f.relative_to(REPO)}:{n}: {line.strip()}"
            for f in files
            for n, line in enumerate(f.read_text().splitlines(), 1)

@@ -134,11 +134,24 @@ def test_crop_resize_and_j2d_transform():
     np.testing.assert_allclose(got, ref, atol=1e-5)
 
 
-def test_train_mode_not_ported():
-    """Of train mode only ``pcl`` is still to port: it raises with its item;
-    every other config builds a train-mode preprocessor."""
+def test_pcl_builds_and_runs_in_eval_mode():
+    """Every ``pos_enc`` mode builds a preprocessor in both modes; ``pcl``
+    runs in eval mode: perspective crops of the configured size and a
+    rotation a hand (test_torch_pcl.py holds them against JAX)."""
     cfg = serving_config()
-    with pytest.raises(NotImplementedError, match="item 3"):
-        DevicePreprocessor(cfg.replace(pos_enc="pcl"), is_train=True,
-                           device="cpu")
+    pcl = cfg.replace(pos_enc="pcl")
     assert DevicePreprocessor(cfg, is_train=True, device="cpu").is_train
+    assert DevicePreprocessor(pcl, is_train=True, device="cpu").is_train
+    recs = _demo_records(np.random.RandomState(2))
+    inputs, targets, meta = DevicePreprocessor(pcl, is_train=False,
+                                               device="cpu")(
+        stack_records(recs))
+    B, res = len(recs), pcl.img_res_ds
+    assert inputs["r_img"].shape == inputs["l_img"].shape == (B, res, res, 3)
+    for side in ("r", "l"):
+        R = inputs[f"{side}_rot"]
+        assert R.shape == (B, 3, 3)
+        torch.testing.assert_close(R @ R.transpose(1, 2),
+                                   torch.eye(3).expand(B, 3, 3),
+                                   rtol=0, atol=1e-6)
+    assert bool(torch.isfinite(inputs["r_img"]).all())

@@ -234,7 +234,19 @@ def test_train_mode_preprocessor_matches_jax(monkeypatch, with_maps):
     assert not torch.equal(a[2]["rot_angle"], c[2]["rot_angle"])
 
 
-def test_pcl_still_raises_in_train_mode():
-    with pytest.raises(NotImplementedError, match="item 3"):
-        DevicePreprocessor(default_config("hands_light", pos_enc="pcl"),
-                           is_train=True, device="cpu")
+def test_pcl_builds_and_runs_in_train_mode():
+    """``pcl`` in train mode on its own generator: flipped crops, rotations
+    a hand, reproducible from the seed (test_torch_pcl.py holds it against
+    JAX with JAX's draws)."""
+    B = 4
+    cfg = default_config("hands_light", pos_enc="pcl", flip_prob=0.5,
+                         img_res=96, img_res_ds=64)
+    pre = DevicePreprocessor(cfg, is_train=True, device="cpu")
+    stacked = stack_records(_records(B, False))
+    a = pre(stacked, generator=torch.Generator().manual_seed(1))
+    b = pre(stacked, generator=torch.Generator().manual_seed(1))
+    assert a[0]["r_img"].shape == (B, 64, 64, 3)
+    assert a[0]["r_rot"].shape == a[0]["l_rot"].shape == (B, 3, 3)
+    assert bool(torch.isfinite(a[0]["l_img"]).all())
+    for k in ("r_img", "l_img", "r_rot"):
+        assert torch.equal(a[0][k], b[0][k]), k

@@ -374,16 +374,11 @@ def _left_out(what):
     """Call what the port has not ported yet; return its message."""
     from hands_tpu_torch.cli.calibrate import serving_config
     from hands_tpu_torch.data.datasets import fetch_dataset
-    from hands_tpu_torch.data.device_pipeline import DevicePreprocessor
 
     cfg = tiny_cfg()
     calls = {
-        "pcl": lambda: DevicePreprocessor(cfg.replace(pos_enc="pcl"), False,
-                                          device="cpu"),
         "dataset": lambda: fetch_dataset(cfg, "epic", "train"),
         "mix": lambda: fetch_dataset(cfg, "synthetic+synthetic", "train"),
-        "packed": lambda: DeviceDataLoader(
-            SimpleNamespace(stacked_batch=None), cfg, 2, False, device="cpu"),
         "shard": lambda: DeviceDataLoader(
             SyntheticRecordDataset(cfg, "val", 2), cfg, 2, False,
             shard=(0, 2), device="cpu"),
@@ -402,8 +397,7 @@ def _left_out(what):
 
 
 @pytest.mark.parametrize("what,title", [
-    ("pcl", "`pcl` preprocessing"), ("dataset", "Real datasets"),
-    ("mix", "Real datasets"), ("packed", "packed-record path"),
+    ("dataset", "Real datasets"), ("mix", "Real datasets"),
     ("shard", "Parallel axes"), ("processes", "Parallel axes"),
     ("vit_b_16", "HaMeR and ViT remainder"),
     ("handoccnet", "HandOccNet and ArcticSF"),
