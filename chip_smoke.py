@@ -25,9 +25,16 @@ preprocessing, the prefetching loader), evaluates the checkpoint through
 batch of each loader into fetch, stacking, pinning and the device half),
 preprocesses, evaluates and trains WildHands with ``pos_enc="pcl"`` (the
 preprocessing held against the CPU's), splits the HaMeR ViT-H and WildHands
-train steps through ``cli.train_decompose``, checks the launch counts of
-each path, and times kernels, blocks, forwards, serving, train steps and the
-training loop with CUDA events or the host clock around a synchronise.
+train steps through ``cli.train_decompose``, builds miniature trees of
+every real dataset family in their upstream layouts and trains full-width
+WildHands on the config's default mix through ``cli.train`` (validated on
+EPIC), evaluates that checkpoint and serves it through ``cli.demo --ckpt``
+(bit-equal to ``restore_params`` + ``serve``), runs the 300-step learning
+check (``cli.numerics_check``) and the int8 drift tool
+(``cli.int8_accuracy``), checks the launch counts of each path, and times
+kernels, blocks, forwards, serving, train steps and the training loop with
+CUDA events or the host clock around a synchronise. An early line names the
+image decoder the machine has (the native libjpeg/libpng build or cv2).
 
     python3 chip_smoke.py
 
@@ -3325,6 +3332,247 @@ def decomposition_phase(dev, tag, iters: int = DECOMPOSE_ITERS) -> None:
         torch.cuda.empty_cache()
 
 
+TREES = "tests/test_torch_datasets.py"  # the miniature dataset trees
+REAL_BATCH = 8  # images a step of the real-layout cli.train run
+LEARN_STEPS = 300  # steps of the learning check
+
+
+def load_trees():
+    """The tree builders and expectations of the port's CPU dataset test,
+    loaded by path (they import neither JAX nor the JAX package)."""
+    import importlib.util
+
+    import os
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_dataset_trees", os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), TREES))
+    trees = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(trees)
+    return trees
+
+
+def decoder_probe() -> str:
+    """Which image decoder this machine has: prints whether ``import cv2``
+    works and whether the port's native wrapper (``native/hands_host.cpp``,
+    libjpeg/libpng) builds, and returns the route ``_read_image`` takes."""
+    from hands_tpu_torch.data.datasets import image_decoder
+    from hands_tpu_torch.utils import native
+
+    try:
+        import cv2
+        cv2_line = f"works (cv2 {cv2.__version__})"
+    except ImportError as err:
+        cv2_line = f"fails ({err})"
+    try:
+        native_line = f"builds ({native.build().name})"
+    except (OSError, RuntimeError, subprocess.SubprocessError) as err:
+        first = [ln for ln in str(err).splitlines()[1:] if "error" in ln]
+        native_line = f"does not build ({(first or [str(err)])[0].strip()})"
+    decoder = image_decoder()
+    print(f"image decoders: import cv2 {cv2_line}; the port's native "
+          f"wrapper {native_line}; _read_image decodes with: {decoder}")
+    return decoder
+
+
+def real_layout_phase(dev, tag, decoder: str) -> None:
+    """Phase 13: the real-layout path at full width. The miniature trees of
+    every family (the builders of the CPU test) under a temporary
+    ``$DATA_DIR``; all twelve names resolved and held to the CPU test's
+    record counts, flags and decoded images; ``cli.train`` of WildHands (two
+    ResNet-50s, 224^2, bf16, mask and grasp losses on) on the config's
+    default mix for one epoch of ``REAL_BATCH`` images a step, validated on
+    ``epic``; ``cli.evaluate --infer_ckpt`` on its ``last``; ``cli.demo
+    --ckpt`` on the tree's images, bit-equal to ``restore_params`` +
+    ``serve`` and unlike random weights."""
+    import glob
+    import os
+    import tempfile
+
+    from hands_tpu_torch.cli import demo as cli_demo
+    from hands_tpu_torch.cli import evaluate as cli_evaluate
+    from hands_tpu_torch.cli import train as cli_train
+    from hands_tpu_torch.config import default_config
+    from hands_tpu_torch.data import datasets as TD
+    from hands_tpu_torch.models.registry import fetch_model
+    from hands_tpu_torch.train.checkpoint import CheckpointManager
+
+    trees = load_trees()
+    print(f"phase 13: the real datasets' layouts, WildHands {WH_BACKBONE} x "
+          f"2, {REAL_BATCH} images a step {tag}")
+    require(decoder != "none", "no image decoder (neither cv2 nor the native "
+            "wrapper): the trees' images cannot be read")
+    bs = REAL_BATCH
+    with tempfile.TemporaryDirectory() as tmp, mock.patch.dict(
+            os.environ, {"DATA_DIR": os.path.join(tmp, "data")}):
+        data = os.environ["DATA_DIR"]
+        t0 = time.time()
+        trees.build_tree(data)
+        over = {"backbone": WH_BACKBONE}  # the config's own on the card
+        cfg = default_config("hands_light", **over)
+        counts = {}
+        for name in sorted(trees.EXPECTED):
+            split = trees.EXPECTED[name][0]
+            trees.check_records(TD.fetch_dataset(cfg, name, split), name)
+            counts[name] = trees.EXPECTED[name][1]
+        mix = TD.fetch_dataset(cfg, trees.TRAIN_MIX, "train")
+        require(cfg.dataset == trees.TRAIN_MIX and isinstance(
+            mix, TD.ConcatDataset) and len(mix) == trees.TRAIN_MIX_LEN,
+            "the config's default mix on the tree")
+        print(f"  built the trees and resolved all {len(counts)} names in "
+              f"{time.time() - t0:.1f} s, images decoded with {decoder}: "
+              f"{counts}; the mix {trees.TRAIN_MIX}: {len(mix)} records")
+
+        steps = len(mix) // bs
+        common = ["--eval_on", "epic", "--test_batch_size", str(bs),
+                  "--num_workers", "4", "--mute", "--no_vis", "--device",
+                  str(dev)]
+        root = os.path.join(tmp, "logs")
+        reset_launch_counts()
+        state = cli_train.main(
+            common + ["--dataset", trees.TRAIN_MIX, "--batch_size", str(bs),
+                      "--num_epoch", "1", "--eval_every_epoch", "1",
+                      "--log_every", "1", "--exp_key", "real"],
+            log_root=root, overrides=over)
+        torch.cuda.synchronize()
+        require(state.step == steps, f"cli.train took {state.step} steps, "
+                f"want {steps}")
+        # sanity validation, the steps, one validation batch (3 EPIC records)
+        check_launches(f"cli.train on {trees.TRAIN_MIX}", launch_counts(), {
+            "lbs_apply": 4 * (steps + 2), "lbs_apply_bwd": 2 * steps,
+            "splat_fwd": 2 * (steps + 2), "splat_bwd": 2 * steps}, 1)
+        print(f"  = per step lbs_apply 4, lbs_apply_bwd 2, splat_fwd 2, "
+              f"splat_bwd 2 over {steps} steps (+ 4 and 2 a validation)")
+        exp_dir = os.path.join(root, "real")
+        logged = [json.loads(ln) for ln in
+                  open(os.path.join(exp_dir, "metrics.jsonl"))]
+        train_rows = [r for r in logged if "loss__train" in r]
+        val_rows = [r for r in logged if "loss__val" in r]
+        require(len(train_rows) == steps and len(val_rows) == 1
+                and all(np.isfinite(v) for r in logged for v in r.values()),
+                "metrics.jsonl: a window a step, one validation, finite")
+        require("loss/mask/r__train" in train_rows[0]
+                and "metric.pix_err/h__val" in val_rows[0],
+                "the mask loss and the EPIC metrics are logged")
+        print("  loss__train " + ", ".join(
+            f"{r['loss__train']:.3f}" for r in train_rows)
+            + f"; loss__val (epic) {val_rows[0]['loss__val']:.4f}, pix_err "
+            f"{val_rows[0]['metric.pix_err/h__val']:.2f} px")
+
+        last = os.path.join(exp_dir, "checkpoints", "last")
+        reset_launch_counts()
+        metrics = cli_evaluate.main(
+            common + ["--infer_ckpt", last, "--exp_key", "evaluate"],
+            log_root=root, overrides=over)
+        torch.cuda.synchronize()
+        check_launches("cli.evaluate --infer_ckpt on epic", launch_counts(),
+                       {"lbs_apply": 4, "splat_fwd": 2}, 1)
+        want = val_rows[0]["loss__val"]
+        err = abs(metrics["loss"] - want) / abs(want)
+        print(f"  cli.evaluate --infer_ckpt last: loss {metrics['loss']:.6f} "
+              f"against loss__val {want:.6f}, relative {err:.2e} (<= 1e-05)")
+        require(err <= 1e-5, "cli.evaluate does not reproduce loss__val")
+
+        # serve the checkpoint: cli.demo against restore_params + serve
+        images = os.path.join(data, "epic_frames")
+        paths = sorted(glob.glob(os.path.join(images, "*.jpg")))
+        argv = ["--dir", images, "--dtype", "bfloat16", "--batch_size",
+                str(len(paths)), "--device", str(dev)]
+        reset_launch_counts()
+        require(cli_demo.main(argv + ["--ckpt", last, "--out",
+                                      os.path.join(tmp, "demo")], over) == 0,
+                "cli.demo --ckpt")
+        torch.cuda.synchronize()
+        check_launches("cli.demo --ckpt", launch_counts(), {"lbs_apply": 2},
+                       1)
+        scfg = cli_demo.serving_config("hands_light", "bfloat16").replace(
+            **over)
+        model = fetch_model(scfg, device=dev, seed=SEED)
+        recs = [cli_demo.make_record(p, TD._read_image(p)[0]) for p in paths]
+        rnd = cli_demo.serve(recs, scfg, model, dev).to_np()
+        left = CheckpointManager(os.path.dirname(last)).restore_params(
+            model, "last")
+        require(left == [], f"restore_params left {left[:4]} at init")
+        out = cli_demo.serve(recs, scfg, model, dev).to_np()
+        n_equal = n_keys = 0
+        for i, p in enumerate(paths):
+            stem = os.path.splitext(os.path.basename(p))[0]
+            got = np.load(os.path.join(tmp, "demo", f"{stem}_pred.npz"))
+            for k in got.files:
+                n_keys += 1
+                n_equal += int(np.array_equal(got[k], out[k][i]))
+            require(not np.array_equal(got["pred.mano.pose.r"],
+                                       rnd["pred.mano.pose.r"][i]),
+                    f"{stem}: the checkpoint serves random-init predictions")
+        print(f"  cli.demo --ckpt last on {len(paths)} images: {n_equal} of "
+              f"{n_keys} prediction arrays bit-equal to restore_params + "
+              f"serve on the card; every image unlike random weights")
+        require(n_equal == n_keys, "cli.demo --ckpt differs from "
+                "restore_params + serve")
+        del state, model
+        torch.cuda.empty_cache()
+
+
+def learning_phase(dev, tag, steps: int = LEARN_STEPS) -> dict:
+    """Phase 14: ``cli.numerics_check``, the learning check: WildHands
+    (ResNet-18, bf16, lr 3e-4) overfits one synthetic batch of 16; the loss
+    must fall more than 10x in ``steps`` steps with a finite pix_err."""
+    from hands_tpu_torch.cli import numerics_check
+
+    print(f"phase 14: cli.numerics_check, {steps} steps bs"
+          f"{numerics_check.BATCH} {tag}")
+    reset_launch_counts()
+    try:
+        out = numerics_check.learning_check(steps, dev)
+    except AssertionError as err:
+        require(False, f"the learning check did not drop the loss 10x: {err}")
+    torch.cuda.synchronize()
+    n = out["train_steps"]
+    # a train step: GT processing and the forward skin twice each; the eval
+    # step's forward and GT processing; no mask loss, so no splat
+    check_launches("cli.numerics_check", launch_counts(),
+                   {"lbs_apply": 4 * n + 4, "lbs_apply_bwd": 2 * n}, 1)
+    require(math.isfinite(out["loss1"]) and math.isfinite(out["pix_err"])
+            and out["loss1"] < out["loss0"] / 10, "learning check numbers")
+    busy = out["busy_share"]
+    print(f"  learning check: loss0 {out['loss0']:.4f} -> loss1 "
+          f"{out['loss1']:.4f} ({out['loss0'] / out['loss1']:.1f}x) in "
+          f"{steps} steps, {out['ms_per_step']:.2f} ms a step, pix_err "
+          f"{out['pix_err']:.2f} px, device busy "
+          + ("not measured" if busy is None else f"{100 * busy:.1f}%")
+          + f" {tag}")
+    return out
+
+
+def int8_drift_phase(dev, tag) -> None:
+    """Phase 15: ``cli.int8_accuracy``, full-depth ViT-H HaMeR on one batch
+    of 32 synthetic records, bf16 (K3) against int8 (K5), without and with
+    the tanh GELU: the drift lines, finite, and each path's launches."""
+    from hands_tpu_torch.cli import int8_accuracy
+
+    print(f"phase 15: cli.int8_accuracy, ViT-{VIT} HaMeR, 32 images {tag}")
+    for fast in (False, True):
+        reset_launch_counts()
+        rows_d = int8_accuracy.drift(fast_gelu=fast, batch=32, device=dev,
+                                     vit=VIT)
+        torch.cuda.synchronize()
+        depth = 32 if VIT == "h" else 2
+        check_launches(f"int8_accuracy{' --fast_gelu' if fast else ''}",
+                       launch_counts(), {
+                           "vit_layernorm": 2 * depth, "vit_gemm": 4 * depth,
+                           "vit_attention": depth, "ln_quant_dynamic":
+                           2 * depth, "quant_rows": 2 * depth,
+                           "gemm_i8_dynamic": 4 * depth,
+                           "qkv_attention_dynamic": depth, "lbs_apply": 4}, 1)
+        require(all(math.isfinite(r["max"]) for r in rows_d.values())
+                and "mano.vertices.r" in rows_d, "int8 drift rows")
+        v = rows_d["mano.vertices.r"]
+        print(f"  int8{' + fast_gelu' if fast else ''} against bf16, "
+              f"vertices.r: max {v['max']:.3e} mean {v['mean']:.3e} m "
+              f"(random weights) {tag}")
+        torch.cuda.empty_cache()
+
+
 def run_steps(step, state, batch, n, per_step, path, gen=None):
     """``n`` train steps on one batch, each with the launch counts set to 0
     before it and checked after it. Returns (losses, ms of each step, the
@@ -4253,6 +4501,7 @@ def main() -> int:
     card = card_line()
     tag = f"[{card}]"
     print(f"torch {torch.__version__} cuda {torch.version.cuda} {tag}")
+    decoder = decoder_probe()
 
     # ---- 1. build: one nvcc per source, all started together
     t0 = time.time()
@@ -4555,6 +4804,9 @@ def main() -> int:
     training_runtime_phase(rows, dev, tag)
     pcl_phase(dev, tag)
     decomposition_phase(dev, tag)
+    real_layout_phase(dev, tag, decoder)
+    learning_phase(dev, tag)
+    int8_drift_phase(dev, tag)
 
     print(card)
     print(json.dumps({"kernels": list(rows.values())}))

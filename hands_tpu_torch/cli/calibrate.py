@@ -13,10 +13,11 @@ built with ``Config.quant_int8_static``:
         [--batches 8] [--batch_size 32] [--margin 1.0] [--device cuda] \\
         -o scales.npz
 
-Weights are random (seed 0): a plumbing smoke run. Calibrate trained
-weights for real serving by passing their ``state_dict`` to
-:func:`calibrate_scales`; loading a checkpoint from the command line is
-ROADMAP queue 1 item 5.
+Weights are random (seed 0), a plumbing smoke run, unless ``--ckpt``
+names a HaMeR checkpoint of ``cli.train`` (``<dir>/last`` or
+``<dir>/epoch_%04d``; it must hold every entry of the model at its shape,
+``train.checkpoint.load_serving_checkpoint``). From Python, pass trained
+weights' ``state_dict`` to :func:`calibrate_scales`.
 """
 
 from __future__ import annotations
@@ -111,6 +112,9 @@ def main(argv=None):
                    help=">1 leaves clip headroom for unseen data")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; fails without a card) or cpu")
+    p.add_argument("--ckpt", default="",
+                   help="HaMeR checkpoint of cli.train: <dir>/last or "
+                        "<dir>/epoch_%%04d (default: random weights)")
     p.add_argument("-o", "--out", default="scales.npz")
     args = p.parse_args(argv)
 
@@ -119,6 +123,11 @@ def main(argv=None):
     cfg = serving_config(args.method)
     model = fetch_model(cfg, device=args.device, seed=0,
                         vit_variant=args.vit_variant)
+    if args.ckpt:
+        from hands_tpu_torch.train.checkpoint import load_serving_checkpoint
+
+        load_serving_checkpoint(model, args.ckpt)
+        print(f"calibrating checkpoint {args.ckpt}")
     batches = synthetic_batches(cfg, args.batch_size, args.batches,
                                 device=args.device)
     scales = calibrate_scales(args.method, model.state_dict(), batches,

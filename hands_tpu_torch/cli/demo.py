@@ -20,7 +20,14 @@ Flow: decoded images -> ``Record`` -> ``stack_records`` -> on-device
 ``DevicePreprocessor`` -> ``fetch_model`` -> ``inference_pose``; writes
 ``<stem>_pred.npz`` per image (MANO pose/betas, 3D joints and vertices,
 camera). :func:`serve` is the same flow on in-memory records, without files.
-Weights are random from ``--seed`` (trained weights: ``load_state_dict``).
+Weights are random from ``--seed``, or ``--ckpt <dir>/last`` (or
+``<dir>/epoch_%04d``) serves a checkpoint that ``cli.train`` wrote; it must
+hold every entry of the served model at its shape
+(``train.checkpoint.load_serving_checkpoint``):
+
+    python -m hands_tpu_torch.cli.demo --dir photos/ \\
+        --ckpt logs/<key>/checkpoints/last
+
 Visualisation is not ported yet (ROADMAP queue 1 item 8).
 """
 
@@ -92,7 +99,9 @@ def serve(records: List[Record], cfg: Config, model, device):
     return inference_pose(model, inputs, meta)
 
 
-def run_demo(argv=None) -> int:
+def run_demo(argv=None, overrides=None) -> int:
+    """The demo on ``argv``; ``overrides`` are ``Config`` fields set from
+    Python (a checkpoint of a narrower model, e.g. in tests)."""
     import glob
 
     from hands_tpu_torch.data.datasets import _read_image
@@ -116,6 +125,9 @@ def run_demo(argv=None) -> int:
     p.add_argument("--device", default="cuda",
                    help="cuda (default; fails without a card) or cpu")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--ckpt", default="",
+                   help="checkpoint of cli.train to serve: <dir>/last or "
+                        "<dir>/epoch_%%04d (default: random weights)")
     p.add_argument("--out", default="demo_out")
     p.add_argument("--r_bbox", default=None, help="x0,y0,x1,y1")
     p.add_argument("--l_bbox", default=None, help="x0,y0,x1,y1")
@@ -132,6 +144,8 @@ def run_demo(argv=None) -> int:
 
     cfg = serving_config(args.method, args.dtype, args.fused_block,
                          quant_int8=args.int8, fast_gelu=args.fast_gelu)
+    if overrides:
+        cfg = cfg.replace(**overrides)
     paths = list(args.img)
     if args.dir:
         for ext in ("jpg", "jpeg", "png", "JPG", "JPEG", "PNG"):
@@ -151,6 +165,11 @@ def run_demo(argv=None) -> int:
 
     os.makedirs(args.out, exist_ok=True)
     model = fetch_model(cfg, device=args.device, seed=args.seed)
+    if args.ckpt:
+        from hands_tpu_torch.train.checkpoint import load_serving_checkpoint
+
+        load_serving_checkpoint(model, args.ckpt)
+        print(f"serving checkpoint {args.ckpt}")
     bs = max(1, min(args.batch_size, len(records)))
     for s in range(0, len(records), bs):
         chunk = list(records[s:s + bs])
@@ -171,8 +190,8 @@ def run_demo(argv=None) -> int:
     return 0
 
 
-def main(argv=None):
-    return run_demo(argv)
+def main(argv=None, overrides=None):
+    return run_demo(argv, overrides)
 
 
 if __name__ == "__main__":

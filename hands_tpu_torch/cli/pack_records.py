@@ -11,8 +11,8 @@ Usage:
   python -m hands_tpu_torch.cli.pack_records --method hands_light \\
       --dataset hands --split train --out /data/packed/hands_train
 
-Only the synthetic dataset is in the port: a real ``--dataset`` name raises
-with ROADMAP queue 1 item 4.
+``--dataset`` takes a registry name or an ``a+b+c`` mix, read from
+``$DATA_DIR`` (``data/datasets.py``).
 """
 
 from __future__ import annotations

@@ -9,8 +9,11 @@ Flags are the JAX package's (``config.construct_args``) plus ``--device``
 (``cuda`` unless the caller names the CPU) and ``--dataset`` (the training
 dataset; ``--eval_on`` names the validation one). ``--debug`` runs one epoch
 on the synthetic datasets with the mask loss off; ``--dataset synthetic``
-keeps the config's losses. Only the synthetic dataset is in the port
-(ROADMAP queue 1 item 4).
+keeps the config's losses. A real dataset or an ``a+b+c`` mix is read from
+the tree under ``$DATA_DIR`` (``data/datasets.py``):
+
+    DATA_DIR=/data python -m hands_tpu_torch.cli.train \
+        --dataset arctic+assembly+epic_seg --eval_on epic
 """
 
 from __future__ import annotations

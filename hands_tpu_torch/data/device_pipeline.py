@@ -43,9 +43,35 @@ from hands_tpu_torch.ops import preprocess as pp
 
 
 def stack_records(records: List[Record]) -> dict:
-    """Host-side: stack records into one dict of numpy arrays (+ names)."""
+    """Host-side: stack records into one dict of numpy arrays (+ names).
+
+    A batch of an ``a+b+c`` mix may hold images of several sizes, and masks,
+    depth maps or per-joint 3D validity on some records only. Images, masks
+    and depth maps are then zero-padded at the bottom and right to the
+    largest height and width (K and the boxes keep their pixels), a record
+    without a mask or depth map gets zeros (its ``mask_valid`` is 0 and its
+    loss flag off), and one without per-joint 3D validity gets ones. The
+    JAX package stacks only batches of one size and of the first record's
+    fields."""
     def st(fn):
         return np.stack([np.asarray(fn(r), np.float32) for r in records])
+
+    max_h = max(r.image.shape[0] for r in records)
+    max_w = max(r.image.shape[1] for r in records)
+
+    def padded(a, dtype):
+        a = np.asarray(a, dtype)
+        if a.shape[:2] == (max_h, max_w):
+            return a
+        out = np.zeros((max_h, max_w) + a.shape[2:], dtype)
+        out[:a.shape[0], :a.shape[1]] = a
+        return out
+
+    def st_maps(fn, dtype):
+        """Per-pixel maps (masks, depth) at the image size; zeros where a
+        record has none."""
+        return np.stack([np.zeros((max_h, max_w), dtype) if fn(r) is None
+                         else padded(fn(r), dtype) for r in records])
 
     def det_boxes(fn):
         boxes = [fn(r) for r in records]
@@ -62,7 +88,7 @@ def stack_records(records: List[Record]) -> dict:
             a = np.asarray(fn(r))
             if a.dtype != np.uint8:
                 a = np.clip(a, 0, 255).astype(np.uint8)
-            arrs.append(a)
+            arrs.append(padded(a, np.uint8))
         return np.stack(arrs)
 
     r_det, r_ok = det_boxes(lambda r: r.r_bbox)
@@ -105,13 +131,19 @@ def stack_records(records: List[Record]) -> dict:
     for flag in LOSS_FLAGS:
         out[flag] = np.asarray(
             [r.loss_flags.get(flag, 0.0) for r in records], np.float32)
-    if records[0].joints3d_valid_r is not None:
-        out["joints3d_valid_r"] = st(lambda r: r.joints3d_valid_r)
-        out["joints3d_valid_l"] = st(lambda r: r.joints3d_valid_l)
-    if records[0].mask is not None:
-        out["mask"] = st_u8(lambda r: r.mask)
-    if records[0].depth is not None:
-        out["depth"] = st(lambda r: r.depth)
+    if any(r.joints3d_valid_r is not None for r in records):
+        ones = np.ones(21, np.float32)
+        for side in ("r", "l"):
+            out[f"joints3d_valid_{side}"] = st(
+                lambda r: ones if getattr(r, f"joints3d_valid_{side}") is None
+                else getattr(r, f"joints3d_valid_{side}"))
+    if any(r.mask is not None for r in records):
+        out["mask"] = st_maps(
+            lambda r: None if r.mask is None
+            else np.clip(np.asarray(r.mask), 0, 255).astype(np.uint8),
+            np.uint8)
+    if any(r.depth is not None for r in records):
+        out["depth"] = st_maps(lambda r: r.depth, np.float32)
     out["_imgnames"] = [r.imgname for r in records]
     out["_dataset"] = [r.dataset for r in records]
     # host-side passthrough (egocam distortion coefficients, NaN if none)

@@ -393,15 +393,11 @@ def _unit_grid(n: int, device) -> torch.Tensor:
     return t
 
 
-def warp_homography(images: torch.Tensor, P: torch.Tensor,
-                    out_res: int) -> torch.Tensor:
-    """Sample (B, H, W, C) images through projective maps ``P`` (B, 3, 3),
-    ``src = P @ [u, v, 1]`` for unit coordinates u, v in [0, 1]: bilinear,
-    zeros outside the image -> (B, out_res, out_res, C). A projected pixel
-    coordinate p samples texel p - 0.5 (``grid_sample``'s pixel-edge
-    convention, ``align_corners=False``)."""
-    B, _, _, C = images.shape
-    t = _unit_grid(out_res, images.device)
+def homography_coords(P: torch.Tensor, out_res: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The texel coordinates (sx, sy), each (B, out_res^2) in row-major
+    order, that :func:`warp_homography` samples through ``P`` (B, 3, 3)."""
+    t = _unit_grid(out_res, P.device)
     vs, us = torch.meshgrid(t, t, indexing="ij")
     us, vs = us.reshape(1, -1), vs.reshape(1, -1)
     # P @ [u, v, 1] as (P0 u + P1 v) + P2: elementwise operations, rounded
@@ -411,8 +407,18 @@ def warp_homography(images: torch.Tensor, P: torch.Tensor,
     # the homogeneous divide keeps the sign of z and clamps its size
     sign = torch.sign(z + 1e-12)
     den = torch.clamp(torch.abs(z), min=1e-8)
-    sx = x / den * sign - 0.5
-    sy = y / den * sign - 0.5
+    return x / den * sign - 0.5, y / den * sign - 0.5
+
+
+def warp_homography(images: torch.Tensor, P: torch.Tensor,
+                    out_res: int) -> torch.Tensor:
+    """Sample (B, H, W, C) images through projective maps ``P`` (B, 3, 3),
+    ``src = P @ [u, v, 1]`` for unit coordinates u, v in [0, 1]: bilinear,
+    zeros outside the image -> (B, out_res, out_res, C). A projected pixel
+    coordinate p samples texel p - 0.5 (``grid_sample``'s pixel-edge
+    convention, ``align_corners=False``)."""
+    B, _, _, C = images.shape
+    sx, sy = homography_coords(P, out_res)
     return _bilinear_sample(images, sx, sy).reshape(B, out_res, out_res, C)
 
 

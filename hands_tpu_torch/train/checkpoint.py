@@ -122,3 +122,23 @@ class CheckpointManager:
 
     def has_checkpoint(self, name: str = "last") -> bool:
         return os.path.exists(os.path.join(self.ckpt_dir, name))
+
+
+def load_serving_checkpoint(model: torch.nn.Module, path: str) -> None:
+    """Serve trained weights: ``path`` is a checkpoint file of ``cli.train``
+    (``<dir>/last`` or ``<dir>/epoch_%04d``), split into directory and name
+    for :meth:`CheckpointManager.restore_params`. Every parameter and
+    running statistic of ``model`` must come from it at its own shape: a
+    checkpoint of another method or width raises ``ValueError`` and leaves
+    nothing at init unannounced. Entries that ``model`` lacks (a head that
+    serving turns off) are ignored."""
+    path = path.rstrip("/")
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"no checkpoint file at '{path}'")
+    left = CheckpointManager(os.path.dirname(path) or ".").restore_params(
+        model, os.path.basename(path))
+    if left:
+        raise ValueError(
+            f"checkpoint '{path}' does not fit the model: {len(left)} of its "
+            f"{len(model.state_dict())} entries are missing or have another "
+            f"shape there (another method or width?), e.g. {left[:4]}")

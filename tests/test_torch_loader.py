@@ -8,6 +8,8 @@ Train mode draws from different generators; what must agree is what comes
 from numpy: the shuffled order of every epoch.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -16,7 +18,8 @@ from hands_tpu.config import default_config as jax_config
 from hands_tpu.data.datasets import SyntheticRecordDataset as JaxSynthetic
 from hands_tpu.data.device_pipeline import DeviceDataLoader as JaxLoader
 from hands_tpu_torch.config import default_config
-from hands_tpu_torch.data.datasets import (SyntheticRecordDataset,
+from hands_tpu_torch.data.datasets import (ConcatDataset, DataNotFoundError,
+                                           SyntheticRecordDataset,
                                            fetch_dataset)
 from hands_tpu_torch.data.device_pipeline import (DeviceDataLoader,
                                                   PrefetchLoader,
@@ -161,9 +164,13 @@ def test_factory_and_what_is_left_out():
     assert len(val) == 2  # minival: 6 records
     with pytest.raises(ValueError):
         fetch_dataloader(cfg, "holdout", device="cpu")
-    for name in ("epic", "hands+assembly", "synthetic+synthetic"):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            fetch_dataset(cfg, name, "train")
+    with pytest.MonkeyPatch.context() as mp:  # an empty $DATA_DIR
+        mp.setenv("DATA_DIR", os.path.join(os.sep, "no_such_data_dir"))
+        with pytest.raises(DataNotFoundError, match="no_such_data_dir"):
+            fetch_dataset(cfg, "epic", "train")
+    mix = fetch_dataset(cfg, "synthetic+synthetic", "minitrain")
+    assert isinstance(mix, ConcatDataset) and len(mix) == 2 * 12
+    assert mix[12].imgname == mix[0].imgname
     with pytest.raises(KeyError):
         fetch_dataset(cfg, "no_such_set", "train")
     ds = fetch_dataset(cfg, "synthetic", "minitrain")

@@ -128,7 +128,9 @@ assert all(r["median"] > 0 for r in rows.values())
 for name in ("ops.vit_block_ablation", "cli.int8_ablation", "cli.train",
              "cli.evaluate", "cli._args", "data.factory", "train.trainer",
              "train.checkpoint", "utils.experiment", "utils.profiling",
-             "data.packed", "cli.pack_records", "cli.train_decompose"):
+             "data.packed", "cli.pack_records", "cli.train_decompose",
+             "data.dataset_utils", "utils.native", "cli.numerics_check",
+             "cli.int8_accuracy"):
     assert f"hands_tpu_torch.{name}" in sys.modules, name
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
@@ -171,7 +173,11 @@ def test_port_sources_name_no_jax_import():
             "hands_tpu_torch/utils/profiling.py",
             "hands_tpu_torch/data/packed.py",
             "hands_tpu_torch/cli/pack_records.py",
-            "hands_tpu_torch/cli/train_decompose.py"} <= names
+            "hands_tpu_torch/cli/train_decompose.py",
+            "hands_tpu_torch/data/dataset_utils.py",
+            "hands_tpu_torch/utils/native.py",
+            "hands_tpu_torch/cli/numerics_check.py",
+            "hands_tpu_torch/cli/int8_accuracy.py"} <= names
     bad = [f"{f.relative_to(REPO)}:{n}: {line.strip()}"
            for f in files
            for n, line in enumerate(f.read_text().splitlines(), 1)

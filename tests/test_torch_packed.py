@@ -32,7 +32,8 @@ from hands_tpu.data import packed as jpk
 from hands_tpu_torch.cli import pack_records
 from hands_tpu_torch.config import default_config
 from hands_tpu_torch.data import packed as tpk
-from hands_tpu_torch.data.datasets import SyntheticRecordDataset
+from hands_tpu_torch.data.datasets import (DataNotFoundError,
+                                           SyntheticRecordDataset)
 from hands_tpu_torch.data.device_pipeline import (DeviceDataLoader,
                                                   PrefetchLoader,
                                                   stack_records)
@@ -251,5 +252,8 @@ def test_pack_records_cli(tmp_path, capsys):
                                 length=6)
     _assert_stacked_equal(stack_records([ds[i] for i in range(6)]),
                           pds.stacked_batch(range(6)))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        pack_records.main(["--dataset", "epic", "--out", str(tmp_path / "e")])
+    with pytest.MonkeyPatch.context() as mp:  # an empty $DATA_DIR
+        mp.setenv("DATA_DIR", str(tmp_path / "no_data"))
+        with pytest.raises(DataNotFoundError, match="no_data"):
+            pack_records.main(["--dataset", "epic", "--out",
+                               str(tmp_path / "e")])

@@ -145,6 +145,67 @@ def test_pcl_crop_matches_jax(seed, res, out):
     np.testing.assert_allclose(crops.numpy(), np.asarray(ref_c), atol=CROP)
 
 
+def _jax_pcl_parts(img, box, K, out):
+    """``jpp.pcl_crop`` written out to return its rotation R, virtual
+    intrinsics Kv, homography P and crops (the same jitted arithmetic)."""
+    with jax.default_matmul_precision("float32"):
+        center = (box[:, :2] + box[:, 2:]) / 2.0
+        wh = jnp.maximum(box[:, 2:] - box[:, :2], 1.0)
+        size = jnp.maximum(wh[:, 0], wh[:, 1])
+        pos = jnp.einsum("bij,bj->bi", jnp.linalg.inv(K),
+                         jpp.to_homo2d(center))
+        R = jpp._pcl_rotation_from_position(pos)
+        Kv = jpp._pcl_virtual_intrinsics(pos, K, jnp.stack([size, size], -1))
+        P = K @ R @ jnp.linalg.inv(Kv)
+        return R, Kv, P, jpp.warp_homography(img, P, out)
+
+
+def _jax_coords(P, out_res):
+    """The texel coordinates of ``jpp.warp_homography``'s sampling."""
+    t = jnp.linspace(0.0, 1.0, out_res)
+    vs, us = jnp.meshgrid(t, t, indexing="ij")
+    grid = jnp.stack([us, vs, jnp.ones_like(us)], -1).reshape(-1, 3)
+    src = jnp.einsum("bij,pj->bpi", P, grid)
+    den = jnp.maximum(jnp.abs(src[..., 2]), 1e-8)
+    sign = jnp.sign(src[..., 2] + 1e-12)
+    return (src[..., 0] / den * sign - 0.5, src[..., 1] / den * sign - 0.5)
+
+
+@pytest.mark.parametrize("seed,res,out", [(0, 96, 32), (1, 224, 64)])
+def test_warp_homography_on_the_jax_rotations_and_intrinsics(seed, res, out):
+    """The JAX package's R and virtual K fed to the port: the port's
+    homography is within 2 f32 ulps of XLA's, its sample coordinates
+    within 4 ulps of jitted ``warp_homography``'s, and its crops within
+    what 4 ulps of a coordinate move a bilinear sample (the largest step
+    between neighbouring pixels, here up to 1). XLA's own op-by-op run lands
+    as far from its jitted one: the crops' gap (and the 2.3e-4 of
+    ``feat_vec`` a model reads from them) is the coordinates' rounding."""
+    B = 6
+    img = np.random.RandomState(seed).rand(B, res, res, 3).astype(np.float32)
+    box, K = _boxes_and_intrinsics(seed, B, res)
+    R, Kv, P, crops = (np.array(a) for a in jax.jit(
+        _jax_pcl_parts, static_argnums=3)(img, box, K, out))
+    np.testing.assert_array_equal(
+        crops, np.asarray(jax.jit(jpp.pcl_crop, static_argnums=3)(
+            img, box, K, out)[0]))
+    Kt, Rt, Kvt = (torch.from_numpy(a) for a in (K, R, Kv))
+    P_port = tpp._matmul_3x3(tpp._matmul_3x3(Kt, Rt), tpp.inverse_3x3(Kvt))
+    ulp_P = np.spacing(np.abs(P).max(axis=(1, 2), keepdims=True))
+    assert np.abs(P_port.numpy() - P).max() <= 2 * ulp_P.max()
+    for a, b in zip(tpp.homography_coords(torch.from_numpy(P), out),
+                    jax.jit(_jax_coords, static_argnums=1)(P, out)):
+        b = np.asarray(b)
+        assert np.max(np.abs(a.numpy() - b) / np.spacing(np.abs(b))) <= 4
+    got = tpp.warp_homography(torch.from_numpy(img), P_port, out).numpy()
+    step = max(np.abs(np.diff(img, axis=a)).max() for a in (1, 2))
+    bound = 4 * np.spacing(np.float32(res)) * step
+    assert np.abs(got - crops).max() <= bound, (np.abs(got - crops).max(),
+                                                bound)
+    with jax.disable_jit():
+        op_by_op = np.asarray(_jax_pcl_parts(img, box, K, out)[3])
+    assert np.abs(op_by_op - crops).max() > 0.5 * np.abs(got - crops).max()
+
+
 def _compare(ref, got, cfg):
     """Every key of the three dicts: crops on their [0, 1] scale at CROP,
     the normalised patch at 2e-4, the rest at GEOM."""

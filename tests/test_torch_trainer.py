@@ -377,8 +377,11 @@ def _left_out(what):
 
     cfg = tiny_cfg()
     calls = {
-        "dataset": lambda: fetch_dataset(cfg, "epic", "train"),
-        "mix": lambda: fetch_dataset(cfg, "synthetic+synthetic", "train"),
+        "shard_mix": lambda: DeviceDataLoader(
+            fetch_dataset(cfg, "synthetic+synthetic", "minival"), cfg, 2,
+            False, shard=(0, 2), device="cpu"),
+        "arctic_sf": lambda: fetch_model(
+            default_config("arctic_sf_light"), "cpu"),
         "shard": lambda: DeviceDataLoader(
             SyntheticRecordDataset(cfg, "val", 2), cfg, 2, False,
             shard=(0, 2), device="cpu"),
@@ -397,7 +400,7 @@ def _left_out(what):
 
 
 @pytest.mark.parametrize("what,title", [
-    ("dataset", "Real datasets"), ("mix", "Real datasets"),
+    ("shard_mix", "Parallel axes"), ("arctic_sf", "HandOccNet and ArcticSF"),
     ("shard", "Parallel axes"), ("processes", "Parallel axes"),
     ("vit_b_16", "HaMeR and ViT remainder"),
     ("handoccnet", "HandOccNet and ArcticSF"),
