@@ -57,6 +57,7 @@ import re
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 from unittest import mock
 
 import numpy as np
@@ -566,6 +567,80 @@ def make_requests(n_batches, batch, seed):
     return batches
 
 
+def k3_cases(x, p, heads):
+    """K3's kernels (the bf16 block's LayerNorm, four GEMMs and attention)
+    at the launch shapes of one block on ``x`` (B, N, C) with ``heads``
+    heads, in the format of :func:`kernel_cases`' dicts; the tanh-GELU
+    epilogue as an extra case; and the plain block's intermediates (``y``,
+    ``qkv``, ``o``, ``h``) with the shape's operation counts and SDPA call,
+    which the other blocks' cases reuse."""
+    from hands_tpu_torch.ops import vit_block as vb
+
+    bf = torch.bfloat16
+    batch, n_tok, c = x.shape
+    hidden = p["w1"].shape[0]
+    rows = batch * n_tok
+    x2 = x.reshape(rows, c)
+    attn_ops = 4 * batch * heads * n_tok * n_tok * (c // heads)
+    ln_ops = 8 * rows * c
+
+    def gemm_ops(n, k):
+        return 2 * rows * n * k
+
+    def sdpa(qkv3):
+        t = qkv3.view(batch, n_tok, 3, heads, c // heads).permute(
+            2, 0, 3, 1, 4)
+        return lambda: F.scaled_dot_product_attention(t[0], t[1], t[2])
+
+    y = vb.layernorm_plain(x2, p["ln1_scale"], p["ln1_bias"])
+    qkv = vb.gemm_plain(y, p["wqkv"], p["bqkv"])
+    qkv3 = qkv.view(batch, n_tok, 3 * c)
+    o = vb.attention_plain(qkv3, heads).view(rows, c)
+    h = vb.gemm_plain(y, p["w1"], p["b1"], "gelu")
+    ln_w, ln_b = p["ln1_scale"].to(bf), p["ln1_bias"].to(bf)
+    k3 = {
+        "vit_layernorm": (vb.layernorm, vb.layernorm_plain, [
+            Case("layernorm LN1",
+                 lambda f: f(x2, p["ln1_scale"], p["ln1_bias"]),
+                 [x2, p["ln1_scale"], p["ln1_bias"]], ln_ops, "f32",
+                 lambda: F.layer_norm(x2, (c,), ln_w, ln_b, 1e-6)),
+            Case("layernorm LN2",
+                 lambda f: f(o, p["ln2_scale"], p["ln2_bias"]),
+                 [o, p["ln2_scale"], p["ln2_bias"]], ln_ops, "f32",
+                 lambda: F.layer_norm(o, (c,), ln_w, ln_b, 1e-6))]),
+        "vit_gemm": (vb.gemm, vb.gemm_plain, [
+            Case("gemm qkv", lambda f: f(y, p["wqkv"], p["bqkv"]),
+                 [y, p["wqkv"], p["bqkv"]], gemm_ops(3 * c, c), "bf16",
+                 lambda: F.linear(y, p["wqkv"], p["bqkv"])),
+            Case("gemm proj+residual",
+                 lambda f: f(o, p["wproj"], p["bproj"], "residual", x2),
+                 [o, p["wproj"], p["bproj"], x2], gemm_ops(c, c), "bf16",
+                 lambda: F.linear(o, p["wproj"], p["bproj"])),
+            Case("gemm mlp1+gelu",
+                 lambda f: f(y, p["w1"], p["b1"], "gelu"),
+                 [y, p["w1"], p["b1"]], gemm_ops(hidden, c), "bf16",
+                 lambda: F.linear(y, p["w1"], p["b1"])),
+            Case("gemm mlp2+residual",
+                 lambda f: f(h, p["w2"], p["b2"], "residual", x2),
+                 [h, p["w2"], p["b2"], x2], gemm_ops(c, hidden), "bf16",
+                 lambda: F.linear(h, p["w2"], p["b2"])),
+        ]),
+        "vit_attention": (vb.attention, vb.attention_plain, [
+            Case("attention", lambda f: f(qkv3, heads), [qkv3], attn_ops,
+                 "bf16", sdpa(qkv3))]),
+    }
+    # the tanh-GELU epilogue: checked against its twin, timed with the block
+    # shapes outside a row's per-block sum: (case, wrapper, twin)
+    extra = [(Case("gemm mlp1+gelu_tanh",
+                   lambda f: f(y, p["w1"], p["b1"], "gelu_tanh"),
+                   [y, p["w1"], p["b1"]], gemm_ops(hidden, c), "bf16",
+                   lambda: F.linear(y, p["w1"], p["b1"])),
+              vb.gemm, vb.gemm_plain)]
+    plain = SimpleNamespace(y=y, qkv=qkv, o=o, h=h, attn_ops=attn_ops,
+                            ln_ops=ln_ops, gemm_ops=gemm_ops, sdpa=sdpa)
+    return k3, extra, plain
+
+
 def kernel_cases(x, p, p32):
     """Every kernel of the port with its launch shapes at ViT-H width for the
     crops of ``x`` (B, 192, 1280): {kernel name: (wrapper, twin, route info,
@@ -580,61 +655,11 @@ def kernel_cases(x, p, p32):
     rows = batch * N_TOK
     x2 = x.reshape(rows, C)
     x32 = x2.float()
-    attn_ops = 4 * batch * HEADS * N_TOK * N_TOK * HEAD_DIM
-    ln_ops = 8 * rows * C
-
-    def gemm_ops(n, k):
-        return 2 * rows * n * k
-
-    def sdpa(qkv3):
-        t = qkv3.view(batch, N_TOK, 3, HEADS, HEAD_DIM).permute(2, 0, 3, 1, 4)
-        return lambda: F.scaled_dot_product_attention(t[0], t[1], t[2])
 
     # ---- K3: bf16 block
-    y = vb.layernorm_plain(x2, p["ln1_scale"], p["ln1_bias"])
-    qkv = vb.gemm_plain(y, p["wqkv"], p["bqkv"])
-    qkv3 = qkv.view(batch, N_TOK, 3 * C)
-    o = vb.attention_plain(qkv3, HEADS).view(rows, C)
-    h = vb.gemm_plain(y, p["w1"], p["b1"], "gelu")
-    ln_w, ln_b = p["ln1_scale"].to(bf), p["ln1_bias"].to(bf)
-    k3 = {
-        "vit_layernorm": (vb.layernorm, vb.layernorm_plain, [
-            Case("layernorm LN1",
-                 lambda f: f(x2, p["ln1_scale"], p["ln1_bias"]),
-                 [x2, p["ln1_scale"], p["ln1_bias"]], ln_ops, "f32",
-                 lambda: F.layer_norm(x2, (C,), ln_w, ln_b, 1e-6)),
-            Case("layernorm LN2",
-                 lambda f: f(o, p["ln2_scale"], p["ln2_bias"]),
-                 [o, p["ln2_scale"], p["ln2_bias"]], ln_ops, "f32",
-                 lambda: F.layer_norm(o, (C,), ln_w, ln_b, 1e-6))]),
-        "vit_gemm": (vb.gemm, vb.gemm_plain, [
-            Case("gemm qkv", lambda f: f(y, p["wqkv"], p["bqkv"]),
-                 [y, p["wqkv"], p["bqkv"]], gemm_ops(3 * C, C), "bf16",
-                 lambda: F.linear(y, p["wqkv"], p["bqkv"])),
-            Case("gemm proj+residual",
-                 lambda f: f(o, p["wproj"], p["bproj"], "residual", x2),
-                 [o, p["wproj"], p["bproj"], x2], gemm_ops(C, C), "bf16",
-                 lambda: F.linear(o, p["wproj"], p["bproj"])),
-            Case("gemm mlp1+gelu",
-                 lambda f: f(y, p["w1"], p["b1"], "gelu"),
-                 [y, p["w1"], p["b1"]], gemm_ops(HIDDEN, C), "bf16",
-                 lambda: F.linear(y, p["w1"], p["b1"])),
-            Case("gemm mlp2+residual",
-                 lambda f: f(h, p["w2"], p["b2"], "residual", x2),
-                 [h, p["w2"], p["b2"], x2], gemm_ops(C, HIDDEN), "bf16",
-                 lambda: F.linear(h, p["w2"], p["b2"])),
-        ]),
-        "vit_attention": (vb.attention, vb.attention_plain, [
-            Case("attention", lambda f: f(qkv3, HEADS), [qkv3], attn_ops,
-                 "bf16", sdpa(qkv3))]),
-    }
-    # the tanh-GELU epilogue: checked against its twin, timed with the block
-    # shapes outside a row's per-block sum: (case, wrapper, twin)
-    extra = [(Case("gemm mlp1+gelu_tanh",
-                   lambda f: f(y, p["w1"], p["b1"], "gelu_tanh"),
-                   [y, p["w1"], p["b1"]], gemm_ops(HIDDEN, C), "bf16",
-                   lambda: F.linear(y, p["w1"], p["b1"])),
-              vb.gemm, vb.gemm_plain)]
+    k3, extra, t = k3_cases(x, p, HEADS)
+    y, qkv, o, h = t.y, t.qkv, t.o, t.h
+    attn_ops, ln_ops, gemm_ops, sdpa = t.attn_ops, t.ln_ops, t.gemm_ops, t.sdpa
 
     # ---- K5: dynamic W8A8 block
     d = quant.prepare_int8(p32)
@@ -3840,6 +3865,561 @@ def wildhands_train_phase(rows, dev, tag) -> None:
                      dev, rel=1e-3, steps=1)
 
 
+# ---- phase 16: the other model families and the ViT remainder
+FAM_SERVE = ((8, 2), (32, 2))  # (images a request, requests)
+FAM_TRAIN_BATCH = 32  # images a train step: 64 crops
+B16_HEADS, B16_TOK, B16_C, B16_HIDDEN = 12, 196, 768, 3072  # 224^2 ViT-B/16
+B16_TRAIN_BATCH = 16  # images of the ViT-B/16 WildHands step: 32 crops
+K3_NAMES = ("vit_layernorm", "vit_gemm", "vit_attention")
+FAMILY_ROWS = K3_NAMES + ("lbs_apply", "lbs_apply_bwd", "splat_fwd",
+                          "splat_bwd", "attention_bwd", "layernorm_bwd",
+                          "gelu_bwd")
+
+
+def note_launches(rows, path, counts) -> None:
+    """Add a path's launch counts to the kernels' lines (``launches_on``)."""
+    for k, n in counts.items():
+        if n and k in rows:
+            rows[k].setdefault("launches_on", {})[path] = n
+
+
+def block_twins():
+    """Every bf16 block kernel of a model swapped for its plain twin."""
+    from hands_tpu_torch.models.backbones import vit as vit_mod
+    from hands_tpu_torch.ops import vit_block as vb
+
+    return mock.patch.object(
+        vit_mod, "vit_block_fused_trainable",
+        lambda x, params, num_heads, fast_gelu=False: vb.vit_block_plain(
+            x.to(torch.bfloat16), vb._cast_params(params), num_heads,
+            fast_gelu))
+
+
+def spread(a, b) -> str:
+    return f"{a:.2f} / {b:.2f} (spread {abs(a - b) / min(a, b):.1%})"
+
+
+def serve_readings(what, batches, cfg, model, dev, tag) -> None:
+    """Serving rate twice (host clock around a synchronise) and one
+    request's device time."""
+    from hands_tpu_torch.cli.demo import serve
+
+    (r1, m1), (r2, m2) = (serve_rate(batches, cfg, model, dev)
+                          for _ in range(2))
+    busy, _ = device_busy_ms(lambda: serve(batches[0], cfg, model, dev))
+    dev_ms = "not measured" if busy is None else f"{busy:.2f} ms"
+    print(f"  {what}: {spread(r1, r2)} crops/s, {min(m1, m2):.2f} ms a "
+          f"request, device busy {dev_ms} a request {tag}")
+
+
+def step_readings(what, step, state, batch, gen, images, tag) -> None:
+    """A train step's ms twice (CUDA events), its peak above what is held,
+    and its device time with the idle share."""
+    (t1, g1), (t2, g2) = (steps_ms(step, state, batch, gen=gen)
+                          for _ in range(2))
+    held = torch.cuda.memory_allocated() / 1e9
+    print(f"  {what} train step bs{images}: {spread(t1, t2)} ms "
+          f"({images / min(t1, t2) * 1e3:.1f} images/s), peak +"
+          f"{max(g1, g2):.2f} GB over {held:.2f} GB held {tag}")
+    busy_line(f"{what} train step bs{images}",
+              lambda: step(state, batch, gen), min(t1, t2), tag)
+
+
+# HandOccNet's gradient at two crops on the card against the exact one on
+# the card's own branches (utils/exact.py): every leaf within
+# max(GRAD_FLOOR, GRAD_CPU_RATIO x the CPU's distance on its own branches)
+# in f32; the median and 95th percentile over the leaves within
+# GRAD_CPU_RATIO_BF16 x the CPU's in bf16
+GRAD_FLOOR, GRAD_CPU_RATIO, GRAD_CPU_RATIO_BF16 = 1e-4, 8.0, 2.0
+
+
+def tiny_grad_check(method, cfg_kw, dev, rel, free=None):
+    """The loss and the gradient at a small size on the card against the
+    CPU, with BatchNorm on its running statistics: with the batch's,
+    HandOccNet's loss is ill-conditioned at two images (its hourglass
+    normalises 1 x 1 maps over four crops, and a 1e-6 relative change of
+    the input moves the loss by 2e-2).
+
+    Each device's loss is held to the exact loss (f64, ``utils/exact.py``)
+    at ``rel``. The gradient jumps where a leaky ReLU's input or a max
+    pool's window is within rounding of its kink: at these sizes the card
+    and the CPU take another side than the f64 run at dozens of entries,
+    which moves most leaves by ~1e-2 on either device. So each device's
+    gradient is held to the exact gradient on the branches that device
+    took (``record_branches``). In f32 every leaf must lie within
+    max(GRAD_FLOOR, GRAD_CPU_RATIO x the CPU's distance on that leaf): the
+    card sums in other orders than the CPU, which weighs most on the
+    worst-conditioned leaves, the FIT gate's (a sigmoid of sums of 1024
+    products). Leaves whose exact gradient is zero by a shift invariance
+    (under 1e-6 of the largest entry) are left out. In bf16 the median and
+    95th percentile over the leaves must lie within GRAD_CPU_RATIO_BF16 x
+    the CPU's.
+
+    ``free`` is what an earlier call returned: its f64 run (on the f64
+    run's own branches) is reused where the weights and the batch are the
+    same, as they are for two compute dtypes. Returns it."""
+    from hands_tpu_torch.config import default_config
+    from hands_tpu_torch.core.precision import f32_exact
+    from hands_tpu_torch.data.synthetic import make_batch
+    from hands_tpu_torch.models.registry import fetch_model
+    from hands_tpu_torch.train.step import forward_and_loss
+    from hands_tpu_torch.utils.exact import exact_grads, record_branches
+
+    cfg = default_config(method, **TINY_TRAIN, **cfg_kw)
+    cpu = fetch_model(cfg, "cpu", seed=SEED)
+    names = [n for n, _ in cpu.named_parameters()]
+    batch = make_batch(cfg, 2, seed=SEED, device="cpu")
+    inputs = [t for t in cpu.state_dict().values()] + [
+        v for d in batch for v in d.values()]
+    if free is None or len(free[0]) != len(inputs) or not all(
+            a.shape == b.shape and torch.equal(a, b)
+            for a, b in zip(free[0], inputs)):
+        free = (inputs, exact_grads(cpu, cfg, batch))
+    exact_loss, _, free_grads = free[1]
+    top = max(float(t.abs().max()) for t in free_grads if t is not None)
+    def distances(grads, ref):
+        return np.array([
+            float((g.double().cpu() - t).abs().max() / t.abs().max())
+            if g is not None and t is not None
+            and float(t.abs().max()) > 1e-6 * top else np.nan
+            for g, t in zip(grads, ref)])
+
+    def summary(d):
+        return "{:.2e} / {:.2e} / {:.2e}".format(
+            *np.nanpercentile(d, [50, 95]), np.nanmax(d))
+
+    losses, dist, taken, free_lines = {}, {}, {}, []
+    for name, where in (("cpu", "cpu"), ("gpu", dev)):
+        model = copy.deepcopy(cpu).to(where)
+        b = tuple({k: v.to(where) for k, v in d.items()} for d in batch)
+        with f32_exact(), record_branches() as sides:
+            total, _, _, _ = forward_and_loss(model, cfg, b)
+            grads = torch.autograd.grad(total, list(model.parameters()),
+                                        allow_unused=True)
+        losses[name] = float(total.detach())
+        taken[name] = sides
+        _, _, exact = exact_grads(cpu, cfg, batch, sides)
+        dist[name] = distances(grads, exact)
+        free_lines.append(
+            f"{name.upper()} {summary(distances(grads, free_grads))}")
+    flips = sum(int((a != b).sum()) for a, b in zip(taken["gpu"],
+                                                    taken["cpu"]))
+    err = {k: abs(v - exact_loss) / abs(exact_loss) for k, v in losses.items()}
+    g, c = dist["gpu"], dist["cpu"]
+    pct = {k: np.nanpercentile(v, [50, 95]) for k, v in dist.items()}
+    print(f"  tiny {method} {cfg.compute_dtype} (running statistics) loss: "
+          f"GPU {losses['gpu']:.6g}, CPU {losses['cpu']:.6g}, exact "
+          f"{exact_loss:.6g}, relative to it {err['gpu']:.3e} and "
+          f"{err['cpu']:.3e} (<= {rel:g}); gradient against the exact one on "
+          f"each device's branches (max|d| / max|exact| a leaf), median / "
+          f"95th percentile / max: GPU {summary(g)}, CPU {summary(c)}; on "
+          f"the f64 run's branches: {', '.join(free_lines)}; "
+          f"{len(taken['gpu'])} kinks, {flips} entries on another side on "
+          f"the card than on the CPU")
+    require(max(err.values()) <= rel,
+            f"tiny {method}: the loss is off the exact one")
+    if cfg.compute_dtype == "float32":
+        bound = np.maximum(GRAD_FLOOR, GRAD_CPU_RATIO * np.nan_to_num(c))
+        over = [(names[i], g[i], c[i]) for i in np.flatnonzero(g > bound)]
+        worst = int(np.nanargmax(g / bound))
+        print(f"    every leaf <= max({GRAD_FLOOR:g}, {GRAD_CPU_RATIO:g} x "
+              f"the CPU's): the closest {names[worst]} at "
+              f"{g[worst] / bound[worst]:.2f} of its bound; "
+              f"{len(over)} over")
+        require(not over, f"tiny {method}: leaves further from the exact "
+                f"gradient on the card than allowed: {over[:5]}")
+    else:
+        print(f"    median and 95th percentile <= {GRAD_CPU_RATIO_BF16:g} x "
+              f"the CPU's")
+        require(bool((pct["gpu"] <= GRAD_CPU_RATIO_BF16 * pct["cpu"]).all()),
+                f"tiny {method}: the card's gradient is further from the "
+                f"exact one than the CPU's allows")
+    return free
+
+
+def family_phase(rows, dev, tag, method, overrides) -> None:
+    """One model family at full width through its entry points: serving
+    (``cli.demo.serve``) in f32, bf16 and bf16 + ``quant_int8`` at requests
+    of 8 and 32 images, K1 against its twin; the evaluation forward with the
+    render and the grasp classifier on; three train steps of the method's
+    default config at 32 images; the train step at a small size against the
+    CPU."""
+    from hands_tpu_torch.cli.demo import serve, serving_config
+    from hands_tpu_torch.config import default_config
+    from hands_tpu_torch.data.device_pipeline import (DevicePreprocessor,
+                                                      stack_records)
+    from hands_tpu_torch.data.synthetic import make_batch
+    from hands_tpu_torch.models.registry import fetch_model, inference_pose
+    from hands_tpu_torch.ops import rasterizer
+    from hands_tpu_torch.train.state import create_train_state
+    from hands_tpu_torch.train.step import make_train_step
+
+    name = method[:-len("_light")]
+    requests = {bs: make_requests(n, bs, SEED + 300 + bs)
+                for bs, n in FAM_SERVE}
+    for label, kw in (("f32", dict(dtype="float32")),
+                      ("bf16", dict(dtype="bfloat16")),
+                      ("bf16 quant_int8", dict(dtype="bfloat16",
+                                               quant_int8=True))):
+        cfg = serving_config(method, **kw).replace(**overrides)
+        model = fetch_model(cfg, device=dev, seed=SEED)
+        for bs, n in FAM_SERVE:
+            batches = requests[bs]
+            serve(batches[0], cfg, model, dev)  # warm-up
+            reset_launch_counts()
+            outs = [serve(recs, cfg, model, dev) for recs in batches]
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            check_launches(f"{name} serve {label} bs{bs}", counts,
+                           {"lbs_apply": 2}, n)
+            note_launches(rows, f"{name} serve bs{bs}, {n} requests", counts)
+            check_outputs(outs, bs)
+            with geometry_twins():
+                ref = serve(batches[0], cfg, model, dev)
+            for side in ("r", "l"):
+                key = f"pred.mano.vertices.{side}"
+                compare_abs(f"{name} serve {label} bs{bs} vertices.{side}",
+                            outs[0][key], ref[key], LBS_ABS)
+            serve_readings(f"{name} {label} serve bs{bs} ({2 * bs} crops)",
+                           batches, cfg, model, dev, tag)
+        del model
+
+    # ---- the evaluation forward: the config's defaults, render and grasp
+    cfg = default_config(method, **overrides)
+    require(cfg.use_render_seg_loss and cfg.use_grasp_loss
+            and cfg.compute_dtype == "bfloat16", f"{name}: the default config")
+    model = fetch_model(cfg, device=dev, seed=SEED)
+    bs = FAM_SERVE[-1][0]
+    pre = DevicePreprocessor(cfg, is_train=False, device=dev)
+    inputs, _, meta = pre(stack_records(requests[bs][0]))
+    inference_pose(model, inputs, meta)  # warm-up
+    reset_launch_counts()
+    out = inference_pose(model, inputs, meta)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check_launches(f"{name} evaluation forward bs{bs}", counts,
+                   {"lbs_apply": 2, "splat_fwd": 2}, 1)
+    note_launches(rows, f"{name} evaluation forward", counts)
+    check_outputs([out], bs)
+    for key, shape in (("pred.render.r", (bs, 224, 224)),
+                       ("pred.grasp.l", (bs, 9))):
+        require(out[key].shape == shape
+                and bool(torch.isfinite(out[key]).all()), f"{key} output")
+    with mock.patch.object(rasterizer, "splat_silhouette_fused",
+                           rasterizer.splat_silhouette_plain):
+        ref = inference_pose(model, inputs, meta)
+    for side in ("r", "l"):
+        compare_abs(f"{name} evaluation render.{side} (K2 vs twin)",
+                    out[f"pred.render.{side}"], ref[f"pred.render.{side}"],
+                    MASK_ABS)
+    f_ms = [peak_ms(lambda: inference_pose(model, inputs, meta), warmup=2)
+            for _ in range(2)]
+    print(f"  {name} evaluation forward bs{bs} ({2 * bs} crops, render and "
+          f"grasp on): {spread(f_ms[0][0], f_ms[1][0])} ms, peak "
+          f"+{max(g for _, g in f_ms):.2f} GB {tag}")
+    busy_line(f"{name} evaluation forward bs{bs}",
+              lambda: inference_pose(model, inputs, meta),
+              min(m for m, _ in f_ms), tag)
+    del model, out, ref
+
+    # ---- train steps: K1 forward and gradient, K2 forward and gradient
+    bs = FAM_TRAIN_BATCH
+    model = fetch_model(cfg, device=dev, seed=SEED)
+    batch = make_batch(cfg, bs, seed=SEED, device=dev)
+    state = create_train_state(cfg, model)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    step = make_train_step(model, cfg)
+    per_step = dict(K1_STEP_LAUNCHES, splat_fwd=2, splat_bwd=2)
+    losses, times, total = run_steps(step, state, batch, TRAIN_STEPS,
+                                     per_step, f"{name} train", gen)
+    note_launches(rows, f"{name} train, {TRAIN_STEPS} steps", total)
+    require(state.step == TRAIN_STEPS, f"{name}: step counter")
+    print(f"  {name}: losses of {TRAIN_STEPS} steps on one batch of {bs} at "
+          f"lr {cfg.lr:g}: " + ", ".join(f"{v:.4f}" for v in losses)
+          + "; ms: " + ", ".join(f"{t:.1f}" for t in times))
+    step_readings(name, step, state, batch, gen, bs, tag)
+    del model, state, step, batch
+    torch.cuda.empty_cache()
+
+
+def vit_b16_phase(rows, dev, tag) -> None:
+    """WildHands with ``backbone="vit_b_16"`` in bf16: K3's kernels at
+    ViT-B/16's shapes (196 tokens, heads of 64, C 768, hidden 3072) against
+    their twins, the whole block and K4 (forward, backward launches,
+    every gradient leaf against autograd of the plain block); the model's
+    serving forward (168 launches of K3's kernels: 2 backbones x 12 blocks
+    x 7) against the same on the twins; one train step on the K4 route with
+    its launches."""
+    from hands_tpu_torch.cli.demo import serve, serving_config
+    from hands_tpu_torch.config import default_config
+    from hands_tpu_torch.data.synthetic import make_batch
+    from hands_tpu_torch.models.registry import fetch_model
+    from hands_tpu_torch.ops import vit_block as vb
+    from hands_tpu_torch.train.state import create_train_state
+    from hands_tpu_torch.train.step import make_train_step
+
+    crops = 2 * FAM_SERVE[0][0]
+    print(f"phase 16c: WildHands vit_b_16, bf16; K3 and K4 at {crops} crops "
+          f"of {B16_TOK} tokens, C {B16_C}, {B16_HEADS} heads {tag}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    x, p, p32 = block_inputs(gen, dev, crops, B16_TOK, B16_C, B16_HIDDEN)
+    k3, extra, _ = k3_cases(x, p, B16_HEADS)
+    groups = [(K3, SRC_K3, k3)]
+    b16 = {}
+    check_groups(groups, {}, b16)
+    check_extra(extra)
+    compare("whole bf16 block (ViT-B/16)",
+            vb.vit_block_fused(x, p, num_heads=B16_HEADS),
+            vb.vit_block_plain(x, p, B16_HEADS), rel=BLOCK_REL)
+    time_groups(groups, b16, tag, earlier=False)
+    for k in K3_NAMES:
+        rows[k]["vit_b16"] = {f: b16[k][f] for f in (
+            "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by")}
+    t = [cuda_ms(lambda: vb.vit_block_plain(x, p, B16_HEADS)),
+         cuda_ms(lambda: vb.vit_block_fused(x, p, num_heads=B16_HEADS))]
+    t += [cuda_ms(lambda: vb.vit_block_fused(x, p, num_heads=B16_HEADS)),
+          cuda_ms(lambda: vb.vit_block_plain(x, p, B16_HEADS))]
+    print(f"  whole ViT-B/16 block ({crops * B16_TOK} rows): kernels "
+          f"{spread(t[1], t[2])} ms, twin {spread(t[0], t[3])} ms {tag}")
+
+    # K4 at these shapes: forward, backward launches, every gradient leaf
+    g = (torch.randn(x.shape, generator=gen, device=dev) * 0.1).to(
+        torch.bfloat16)
+    xs, ps, lv = k4_leaves(x, p32)
+    reset_launch_counts()
+    out = vb.vit_block_fused_trainable(xs, ps, B16_HEADS)
+    check_launches("K4 forward (ViT-B/16)", launch_counts(), K4_FWD_LAUNCHES,
+                   1)
+    xt, pt, lt = k4_leaves(x, p32)
+    ref = vb.vit_block_plain(xt, vb._cast_params(pt), B16_HEADS)
+    compare("K4 forward (ViT-B/16) vs twin", out.detach(), ref.detach(),
+            rel=BLOCK_REL)
+    reset_launch_counts()
+    got = torch.autograd.grad(out, lv, g)
+    torch.cuda.synchronize()
+    check_launches("K4 backward (ViT-B/16)", launch_counts(),
+                   K4_BWD_LAUNCHES, 1)
+    want = torch.autograd.grad(ref, lt, g)
+    for n, a, b in zip(["x"] + list(vb.PARAM_ORDER), got, want):
+        compare_grad(f"K4 (ViT-B/16) gradient of {n}", a, b)
+    del out, ref, got, want
+
+    # the model: serving against the twins, then one train step
+    cfg = serving_config("hands_light", "bfloat16").replace(
+        backbone="vit_b_16")
+    model = fetch_model(cfg, device=dev, seed=SEED)
+    depth = sum(len(getattr(model.net, s).vit.blocks)
+                for s in ("hand_backbone", "glb_backbone"))
+    per_forward = {k: depth * n for k, n in K4_FWD_LAUNCHES.items()}
+    require(sum(per_forward.values()) == 168, "168 K3 launches a forward")
+    per_forward["lbs_apply"] = 2
+    for bs, n in FAM_SERVE:
+        batches = make_requests(n, bs, SEED + 400 + bs)
+        serve(batches[0], cfg, model, dev)  # warm-up
+        reset_launch_counts()
+        outs = [serve(recs, cfg, model, dev) for recs in batches]
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        check_launches(f"vit_b_16 serve bf16 bs{bs}", counts, per_forward, n)
+        note_launches(rows, f"vit_b_16 serve bs{bs}, {n} requests", counts)
+        check_outputs(outs, bs)
+        with block_twins(), geometry_twins():
+            ref = serve(batches[0], cfg, model, dev)
+        for side in ("r", "l"):
+            key = f"pred.mano.vertices.{side}"
+            compare(f"vit_b_16 serve bs{bs} vertices.{side} vs twins",
+                    outs[0][key], ref[key], rel=SERVE_REL, mean=SERVE_REL)
+        serve_readings(f"vit_b_16 bf16 serve bs{bs} ({2 * bs} crops)",
+                       batches, cfg, model, dev, tag)
+    del model
+
+    tcfg = default_config("hands_light", backbone="vit_b_16")
+    require(tcfg.compute_dtype == "bfloat16" and tcfg.use_render_seg_loss,
+            "the default train config")
+    model = fetch_model(tcfg, device=dev, seed=SEED)
+    bs = B16_TRAIN_BATCH
+    batch = make_batch(tcfg, bs, seed=SEED, device=dev)
+    state = create_train_state(tcfg, model)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    step = make_train_step(model, tcfg)
+    per_step = {k: depth * (K4_FWD_LAUNCHES.get(k, 0) + n)
+                for k, n in K4_BWD_LAUNCHES.items()}
+    per_step.update(K1_STEP_LAUNCHES, splat_fwd=2, splat_bwd=2)
+    losses, _, total = run_steps(step, state, batch, 1, per_step,
+                                 "vit_b_16 train", gen)
+    note_launches(rows, "vit_b_16 train, 1 step", total)
+    print(f"  vit_b_16 train step on the K4 route: loss {losses[0]:.4f}, "
+          f"launches {dict((k, v) for k, v in total.items() if v)}")
+    step_readings("vit_b_16", step, state, batch, gen, bs, tag)
+    del model, state, step, batch
+    torch.cuda.empty_cache()
+
+
+def dense_latent_phase(rows, dev, tag) -> None:
+    """HaMeR ViT-H with ``pos_enc="dense_latent"``: one request of 8 images
+    on the kernels (224 launches of K3's, 2 of K1) against the same request
+    on the twins."""
+    from hands_tpu_torch.cli.demo import serve, serving_config
+    from hands_tpu_torch.models.registry import fetch_model
+
+    cfg = serving_config("hamer_light", "bfloat16", fused_block=True).replace(
+        pos_enc="dense_latent")
+    model = fetch_model(cfg, device=dev, seed=SEED, vit_variant=VIT)
+    depth = len(model.net.backbone.blocks)
+    print(f"phase 16d: HaMeR ViT-{VIT} (depth {depth}) with "
+          f"pos_enc=dense_latent {tag}")
+    req = make_requests(1, 8, SEED + 500)[0]
+    serve(req, cfg, model, dev)  # warm-up
+    reset_launch_counts()
+    out = serve(req, cfg, model, dev)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    per_forward = {k: depth * n for k, n in K4_FWD_LAUNCHES.items()}
+    per_forward["lbs_apply"] = 2
+    check_launches("hamer_light dense_latent serve bs8", counts, per_forward,
+                   1)
+    note_launches(rows, "hamer_light dense_latent serve bs8", counts)
+    check_outputs([out], 8)
+    require("inputs.r_dense_angle" in out, "the dense angle map is an input")
+    with block_twins(), geometry_twins():
+        ref = serve(req, cfg, model, dev)
+    for side in ("r", "l"):
+        key = f"pred.mano.vertices.{side}"
+        compare(f"dense_latent vertices.{side} vs twins", out[key], ref[key],
+                rel=SERVE_REL, mean=SERVE_REL)
+    del model
+
+
+def resnet_reference_sd(gen, stages=(3, 4, 6, 3)) -> dict:
+    """Random weights in torchvision's ResNet-50 state-dict layout."""
+    sd = {}
+
+    def draw(name, *shape):
+        t = torch.randn(shape, generator=gen) * 0.05
+        return t.abs() + 0.5 if name.endswith("running_var") else t
+
+    def conv(name, o, i, k):
+        sd[f"{name}.weight"] = draw(name, o, i, k, k)
+
+    def bn(name, c):
+        for leaf in ("weight", "bias", "running_mean", "running_var"):
+            sd[f"{name}.{leaf}"] = draw(f"{name}.{leaf}", c)
+
+    conv("conv1", 64, 3, 7)
+    bn("bn1", 64)
+    cin = 64
+    for i, n in enumerate(stages):
+        width = 64 * 2**i
+        for b in range(n):
+            pre, ci = f"layer{i + 1}.{b}", cin if b == 0 else 4 * width
+            for k, (o, c_in, ks) in enumerate(((width, ci, 1),
+                                               (width, width, 3),
+                                               (4 * width, width, 1))):
+                conv(f"{pre}.conv{k + 1}", o, c_in, ks)
+                bn(f"{pre}.bn{k + 1}", o)
+            if b == 0:
+                conv(f"{pre}.downsample.0", 4 * width, ci, 1)
+                bn(f"{pre}.downsample.1", 4 * width)
+        cin = 4 * width
+    return sd
+
+
+def checkpoint_phase(dev, tag) -> None:
+    """A reference-layout ResNet-50 file through ``cli.convert_ckpt``, then
+    one ``cli.train`` step of full-width WildHands with ``--load_backbone``
+    on it: both backbones hold the file's tensors before the step."""
+    import os
+    import tempfile
+
+    from hands_tpu_torch.cli import convert_ckpt
+    from hands_tpu_torch.cli import train as cli_train
+    from hands_tpu_torch.data.datasets import SyntheticRecordDataset
+    from hands_tpu_torch.train import trainer as trainer_mod
+
+    bs = FAM_SERVE[0][0]
+    print(f"phase 16e: cli.convert_ckpt --arch resnet50, then cli.train "
+          f"--load_backbone, WildHands {WH_BACKBONE} x 2, {bs} images {tag}")
+    sd = resnet_reference_sd(torch.Generator().manual_seed(SEED + 17))
+    graft = trainer_mod.graft_backbone_variables
+    seen = {}
+
+    def recording_graft(model, converted):
+        scopes = graft(model, converted)
+        seen["scopes"] = scopes
+        seen["state"] = {k: v.detach().cpu().clone()
+                         for k, v in model.state_dict().items()}
+        return scopes
+
+    with tempfile.TemporaryDirectory() as tmp, mock.patch.dict(
+            SyntheticRecordDataset._SPLIT_LEN, {"train": bs}), \
+            mock.patch.object(trainer_mod, "graft_backbone_variables",
+                              recording_graft):
+        src = os.path.join(tmp, "resnet50.pth")
+        out = os.path.join(tmp, "resnet50.pt")
+        torch.save(sd, src)
+        require(convert_ckpt.main(["--src", src, "--arch", "resnet50",
+                                   "--out", out]) == 0, "convert_ckpt")
+        converted = torch.load(out, weights_only=True)
+        for ref_key, key in (("conv1.weight", "conv_stem.weight"),
+                             ("layer4.2.conv3.weight",
+                              "stages.3.2.conv3.weight"),
+                             ("layer2.0.downsample.1.running_var",
+                              "stages.1.0.down_bn.running_var")):
+            require(torch.equal(converted[key], sd[ref_key]),
+                    f"convert_ckpt: {key} is not {ref_key}")
+        reset_launch_counts()
+        t0 = time.time()
+        state = cli_train.main(
+            ["--dataset", "synthetic", "--eval_on", "synthetic", "--valsplit",
+             "smallval", "--trainsplit", "train", "--batch_size", str(bs),
+             "--test_batch_size", str(bs), "--num_epoch", "1",
+             "--eval_every_epoch", "2", "--mute", "--no_vis", "--exp_key",
+             "graft", "--load_backbone", out],
+            log_root=os.path.join(tmp, "logs"))
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+    require(state.step == 1, f"cli.train took {state.step} steps, want 1")
+    # the sanity validation batch and the step
+    check_launches("cli.train --load_backbone", launch_counts(),
+                   {"lbs_apply": 8, "lbs_apply_bwd": 2, "splat_fwd": 4,
+                    "splat_bwd": 2}, 1)
+    require(seen.get("scopes") == ["glb_backbone", "hand_backbone"],
+            f"grafted scopes {seen.get('scopes')}")
+    for scope in seen["scopes"]:
+        for k, v in converted.items():
+            require(torch.equal(seen["state"][f"net.{scope}.{k}"], v),
+                    f"net.{scope}.{k} does not hold the file's tensor")
+    print(f"  {len(converted)} converted tensors grafted into "
+          f"{', '.join(seen['scopes'])} before the first step, bit for bit; "
+          f"one step in {secs:.1f} s with the model build: ok")
+
+
+def families_phase(rows, dev, tag) -> None:
+    """Phase 16: HandOccNet and ArcticSF at full width, WildHands with
+    ViT-B/16, HaMeR with the dense token embedding, and released
+    checkpoints through the converter into ``--load_backbone``."""
+    t0 = time.time()
+    print(f"phase 16a: HandOccNet (leaky ResNet-50 FPN at 256^2, FIT/SET, "
+          f"the hourglass regressor) {tag}")
+    family_phase(rows, dev, tag, "handoccnet_light", {})
+    free = None
+    for dtype, rel in (("float32", 1e-3), ("bfloat16", SERVE_REL)):
+        free = tiny_grad_check("handoccnet_light", dict(
+            compute_dtype=dtype, use_render_seg_loss=False), dev, rel, free)
+    print(f"phase 16b: ArcticSF ({WH_BACKBONE} on the whole image, no "
+          f"crops) {tag}")
+    family_phase(rows, dev, tag, "arctic_sf_light",
+                 {"backbone": WH_BACKBONE})
+    tiny_train_check("arctic_sf_light",
+                     dict(backbone="resnet18", compute_dtype="float32"), {},
+                     dev, rel=1e-3, steps=1)
+    vit_b16_phase(rows, dev, tag)
+    dense_latent_phase(rows, dev, tag)
+    checkpoint_phase(dev, tag)
+    print(f"phase 16 took {time.time() - t0:.1f} s")
+
+
 def kernel_name(mangled: str) -> str:
     """The names inside an Itanium-mangled symbol and its integer template
     arguments: enough to tell the kernels of one library apart."""
@@ -4478,6 +5058,35 @@ def vit_block_bwd_alone() -> int:
     return 0
 
 
+def families_alone() -> int:
+    """Phase 16 alone: HandOccNet and ArcticSF (serving, the evaluation
+    forward, train steps, the small step against the CPU), WildHands with
+    ViT-B/16 (K3 and K4 at its shapes, 168 launches a forward, a train
+    step), HaMeR with ``dense_latent``, and ``--load_backbone`` on a
+    converted file::
+
+        python3 -c "import sys, chip_smoke as cs; sys.exit(cs.families_alone())"
+    """
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from hands_tpu_torch.ops import mano_lbs
+    from hands_tpu_torch.ops import rasterizer as ras
+    from hands_tpu_torch.ops import vit_block as vb
+    from hands_tpu_torch.ops.cuda_build import build_all
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    card = card_line()
+    libraries = [vb.LIBRARY, vb.BWD_LIBRARY, mano_lbs.LIBRARY, ras.LIBRARY]
+    print_ptxas(build_all(libraries))
+    rows = {k: {"name": k} for k in FAMILY_ROWS}
+    families_phase(rows, DEV, f"[{card}]")
+    print(card)
+    print(json.dumps({"launches_on": {k: r.get("launches_on", {})
+                                      for k, r in rows.items()}}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4807,6 +5416,7 @@ def main() -> int:
     real_layout_phase(dev, tag, decoder)
     learning_phase(dev, tag)
     int8_drift_phase(dev, tag)
+    families_phase(rows, dev, tag)
 
     print(card)
     print(json.dumps({"kernels": list(rows.values())}))

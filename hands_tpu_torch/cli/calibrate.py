@@ -43,27 +43,30 @@ def load_scales_npz(path: str) -> Dict[str, torch.Tensor]:
 
 
 def serving_config(method: str, **overrides):
-    """The bf16 serving config calibration runs under."""
+    """The bf16 serving config calibration runs under (``hamer_vith`` is
+    ``hamer_light``)."""
     from hands_tpu_torch.config import default_config
 
-    if method not in ("hamer_vith", "hamer_light"):
-        raise NotImplementedError(
-            f"method '{method}' is not ported: the calibration taps sit on "
-            f"HaMeR's ViT blocks; a ViT in WildHands is ROADMAP queue 1 item "
-            f"6, the other model families item 7")
-    return default_config("hamer_light", compute_dtype="bfloat16",
-                          use_render_seg_loss=False, use_grasp_loss=False,
-                          **overrides)
+    return default_config(
+        "hamer_light" if method == "hamer_vith" else method,
+        compute_dtype="bfloat16", use_render_seg_loss=False,
+        use_grasp_loss=False, **overrides)
 
 
 def build_model(method: str, vit_variant: str, device="cuda", **overrides):
-    """(cfg, model) for a method, without initialised weights (load a
-    ``state_dict``); hamer defaults to the full ViT-H."""
+    """(cfg, model) for a method, in eval mode (load a ``state_dict``):
+    HaMeR at ``vit_variant`` (the full ViT-H by default) without
+    initialised weights, any other method through ``fetch_model``. The taps
+    sit on HaMeR's ViT blocks; a model without them has nothing to
+    calibrate (:func:`calibrate_scales` raises)."""
     from hands_tpu_torch.models.hamer_light import HamerLightModel
+    from hands_tpu_torch.models.registry import fetch_model
 
     cfg = serving_config(method, **overrides)
-    model = HamerLightModel(cfg, vit_variant=vit_variant, device=device)
-    return cfg, model.eval()
+    if method in ("hamer_vith", "hamer_light"):
+        return cfg, HamerLightModel(cfg, vit_variant=vit_variant,
+                                    device=device).eval()
+    return cfg, fetch_model(cfg, device=device)
 
 
 def synthetic_batches(cfg, batch_size: int, n_batches: int, device="cuda"
@@ -94,11 +97,15 @@ def calibrate_scales(method: str, state_dict: dict, batches: Iterable,
 
     _, model_cal = build_model(method, vit_variant, device=device,
                                quant_calibrate=True)
+    backbone = getattr(model_cal.net, "backbone", None)
+    if backbone is None or not hasattr(backbone, "blocks"):
+        raise ValueError(f"method '{method}' has no calibration taps: they "
+                         f"sit on HaMeR's ViT blocks")
     own = model_cal.state_dict()
     model_cal.load_state_dict({k: v for k, v in state_dict.items()
                                if k in own})
     return calib.calibrate(lambda batch: model_cal.net(batch[0]),
-                           model_cal.net.backbone, batches, margin=margin)
+                           backbone, batches, margin=margin)
 
 
 def main(argv=None):

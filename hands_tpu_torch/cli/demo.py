@@ -112,7 +112,8 @@ def run_demo(argv=None, overrides=None) -> int:
     p.add_argument("--dir", default="", help="directory of jpg/png images")
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--method", default="hands_light",
-                   choices=["hands_light", "hamer_light"])
+                   choices=["hands_light", "hamer_light", "arctic_sf_light",
+                            "handoccnet_light"])
     p.add_argument("--fused_block", action="store_true",
                    help="hamer_light: fused ViT-block CUDA kernels (bf16 only)")
     p.add_argument("--dtype", default="float32",

@@ -1,8 +1,11 @@
-"""ViT backbone for HaMeR (port of ``hands_tpu/models/backbones/vit.py``).
+"""ViT backbones for HaMeR and the ``vit_b_16`` WildHands variant (port of
+``hands_tpu/models/backbones/vit.py``).
 
 ViTPose-style, no class token: patchify -> + pos -> [+ KPE tokens] -> blocks
 -> LayerNorm -> (B, H/16, W/16, C) NHWC feature map. The JAX package's
-scan-stacked blocks become an ``nn.ModuleList``.
+scan-stacked blocks become an ``nn.ModuleList``. :class:`VitB16Spatial` puts
+a conv adapter behind ViT-B/16 for WildHands: (B, 224, 224, C_in) ->
+(B, 7, 7, 2048), the map a ResNet-50 gives.
 
 Dtypes follow the Flax modules: LayerNorms compute and return f32, and every
 dense product is rounded to the compute dtype before its bias is added (Flax
@@ -31,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from hands_tpu_torch.models.backbones.resnet import BatchNorm, Conv
 from hands_tpu_torch.ops import quant
 from hands_tpu_torch.ops.attention import mha_fused
 from hands_tpu_torch.ops.vit_block import (block_params, gelu, layernorm_f32,
@@ -41,6 +45,7 @@ from hands_tpu_torch.ops.vit_block_int8 import (vit_block_fused_int8,
 PATCH = 16
 IMG_HW = (256, 192)  # HaMeR's ViT input: 16 x 12 patches
 VIT_CONFIGS = {
+    "b16": dict(embed_dim=768, depth=12, num_heads=12, mlp_ratio=4.0),
     "h": dict(embed_dim=1280, depth=32, num_heads=16, mlp_ratio=4.0),
     # a small variant for tests
     "tiny": dict(embed_dim=128, depth=2, num_heads=2, mlp_ratio=2.0),
@@ -288,8 +293,9 @@ class Block(nn.Module):
 class ViTBackbone(nn.Module):
     """Patchify -> +pos -> [+kpe tokens] -> blocks -> LN -> spatial map.
 
-    Input: (B, 256, 192, 3) NHWC. Output: (B, 16, 12, C) f32. ``kpe_emb``
-    (B, N, C) is added to the patch tokens when given.
+    Input: (B, H, W, in_ch) NHWC with (H, W) = ``img_hw``, (256, 192) for
+    HaMeR. Output: (B, H/16, W/16, C) f32. ``kpe_emb`` (B, N, C) is added to
+    the patch tokens when given.
     """
 
     def __init__(self, variant: str = "h", dtype=torch.float32,
@@ -297,22 +303,19 @@ class ViTBackbone(nn.Module):
                  fast_gelu: bool = False, quant_int8: bool = False,
                  fused_attn: bool = False, quant_static: bool = False,
                  quant_calibrate: bool = False, param_dtype=None,
-                 use_checkpoint: bool = False):
+                 use_checkpoint: bool = False, img_hw=IMG_HW,
+                 in_ch: int = 3):
         super().__init__()
-        if variant not in VIT_CONFIGS:
-            raise NotImplementedError(
-                f"ViT variant {variant!r} is not ported (b16 and "
-                f"VitB16Spatial: ROADMAP queue 1 item 6)")
         cfg = VIT_CONFIGS[variant]
         C = cfg["embed_dim"]
         self.dtype = dtype
         self.use_checkpoint = use_checkpoint
         pd = param_dtype or dtype
         self.embed_dim = C
-        self.grid_hw = (IMG_HW[0] // PATCH, IMG_HW[1] // PATCH)
+        self.grid_hw = (img_hw[0] // PATCH, img_hw[1] // PATCH)
         # explicit 2-px zero padding (ViTPose's PatchEmbed); the bias is
         # added after the product is rounded, as flax nn.Conv does
-        self.patch_embed = nn.Conv2d(3, C, PATCH, stride=PATCH, padding=2,
+        self.patch_embed = nn.Conv2d(in_ch, C, PATCH, stride=PATCH, padding=2,
                                      bias=False, dtype=pd, device=device)
         self.patch_bias = nn.Parameter(torch.zeros(C, dtype=pd,
                                                    device=device))
@@ -350,3 +353,33 @@ class ViTBackbone(nn.Module):
                 y = block(y)
         y = self.last_norm(y)
         return y.reshape(B, hp, wp, self.embed_dim)
+
+
+class VitB16Spatial(nn.Module):
+    """ViT-B/16 + conv adapter -> a ResNet-50-shaped (B, side/32, side/32,
+    2048) map: 2x2 average pool -> 3x3 conv to 2048 channels (``"SAME"``
+    padding, bias) -> BatchNorm -> ReLU. NHWC in (``side`` x ``side`` x
+    ``in_ch``, 224^2 gives 196 tokens) and out, in the compute dtype.
+
+    Parameters are f32 masters, cast per call. In bf16 the blocks take the
+    kernel route (``fused_block``: K3's kernels forward, K4's backward in
+    training), which computes the JAX package's plain block; f32 runs the
+    plain block."""
+
+    def __init__(self, in_ch: int = 3, side: int = 224, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.vit = ViTBackbone("b16", dtype=dtype,
+                               fused_block=dtype == torch.bfloat16,
+                               device=device, param_dtype=torch.float32,
+                               img_hw=(side, side), in_ch=in_ch)
+        C = VIT_CONFIGS["b16"]["embed_dim"]
+        self.adapter_conv = Conv(C, 2048, 3, 1, 1, dtype=dtype, use_bias=True,
+                                 device=device)
+        self.adapter_bn = BatchNorm(2048, dtype=dtype, device=device)
+
+    def forward(self, x):
+        y = F.avg_pool2d(self.vit(x).permute(0, 3, 1, 2), 2, 2)
+        y = F.relu(self.adapter_bn(self.adapter_conv(y)))
+        return y.permute(0, 2, 3, 1)

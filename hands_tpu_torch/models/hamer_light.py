@@ -3,9 +3,10 @@
 
 Right and left crops are stacked along the batch and run through the ViT
 once (the 224^2 crop resized to 256^2, then centre-cropped to 256x192); the
-center+corner KPE embeddings are MLP-encoded and added both to the patch
-tokens and to the conditioning features; a single-query cross-attention
-decoder reads out MANO parameters, decoded per side with that side's MANO.
+KPE embeddings (centre + corner, or the dense angle map per token) are
+MLP-encoded and added both to the patch tokens and to the conditioning
+features; a single-query cross-attention decoder reads out MANO parameters,
+decoded per side with that side's MANO.
 
 Train mode is ``model.train()``: the int8 and calibration sub-paths of the
 backbone go off, and a ViT-H without the fused block recomputes each block in
@@ -30,23 +31,44 @@ from hands_tpu_torch.models.heads.hamer_head import ManoTransformerDecoderHead
 from hands_tpu_torch.models.heads.mano_head import ManoBuffers, mano_head
 from hands_tpu_torch.ops import mano as manolib
 from hands_tpu_torch.ops.rasterizer import render_silhouette
+from hands_tpu_torch.ops.resize import resize
 
 
 class KpeTokenEmbed(nn.Module):
-    """center+corner angles -> one embedding broadcast over the tokens
-    (2-layer ReLU MLP over the sinusoidal encodings)."""
+    """Intrinsics angles -> per-token embeddings (a 2-layer ReLU MLP over
+    the sinusoidal encodings). ``center+corner_latent``: one vector from the
+    centre and corner angles, broadcast over the tokens. ``dense_latent``:
+    the per-pixel angle map encoded at the token grid's height
+    (``kpe.dense_pos_enc``), resized to the (16, 12) token grid (the JAX
+    ``jax.image.resize`` bilinear, which antialiases this shrink) and
+    embedded token by token."""
 
-    def __init__(self, feat_dim: int, n_freq: int, n_tokens: int, device=None):
+    def __init__(self, feat_dim: int, n_freq: int, n_tokens: int,
+                 mode: str = "center+corner_latent", token_hw=(16, 12),
+                 device=None):
         super().__init__()
         self.n_freq = n_freq
         self.n_tokens = n_tokens
-        self.fc1 = Dense(4 * n_freq + 16 * n_freq, feat_dim, device=device)
+        self.mode = mode
+        self.token_hw = token_hw
+        in_dim = 4 * n_freq if mode == "dense_latent" else 20 * n_freq
+        self.fc1 = Dense(in_dim, feat_dim, device=device)
         self.fc2 = Dense(feat_dim, feat_dim, device=device)
 
-    def forward(self, center_angle, corner_angle):
+    def mlp(self, enc):
+        return F.relu(self.fc2(F.relu(self.fc1(enc))))
+
+    def forward(self, center_angle=None, corner_angle=None,
+                dense_angle=None, dense_mask=None):
+        if self.mode == "dense_latent":
+            th, tw = self.token_hw
+            enc = kpe.dense_pos_enc(dense_angle, dense_mask, self.n_freq, th)
+            enc = resize(enc, th, tw, "bilinear")
+            x = self.mlp(enc)
+            return x.reshape(x.shape[0], th * tw, x.shape[-1])
         enc = torch.cat([kpe.center_pos_enc(center_angle, self.n_freq),
                          kpe.corner_pos_enc(corner_angle, self.n_freq)], -1)
-        x = F.relu(self.fc2(F.relu(self.fc1(enc))))
+        x = self.mlp(enc)
         return x[:, None, :].expand(x.shape[0], self.n_tokens, x.shape[-1])
 
 
@@ -63,10 +85,6 @@ class HamerNet(nn.Module):
     def __init__(self, cfg: Config, vit_variant: str = "h", device=None,
                  param_dtype=None):
         super().__init__()
-        if cfg.pos_enc not in (None, "center+corner_latent"):
-            raise NotImplementedError(
-                f"pos_enc={cfg.pos_enc!r} is not ported for HaMeR (the dense "
-                f"token embedding): ROADMAP queue 1 item 6")
         self.cfg = cfg
         self.dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
                       else torch.float32)
@@ -75,7 +93,7 @@ class HamerNet(nn.Module):
         if cfg.pos_enc is not None:
             self.kpe = KpeTokenEmbed(embed_dim, cfg.n_freq_pos_enc,
                                      n_tokens=(256 // 16) * (192 // 16),
-                                     device=device)
+                                     mode=cfg.pos_enc, device=device)
         # int8 and calibration are inference only: the backbone turns them
         # off in train mode. The fused block rematerialises by construction,
         # so only the plain ViT-H checkpoints its blocks.
@@ -103,10 +121,16 @@ class HamerNet(nn.Module):
 
         kpe_emb = None
         if self.kpe is not None:
-            kpe_emb = torch.cat([
-                self.kpe(inputs["r_center_angle"], inputs["r_corner_angle"]),
-                self.kpe(inputs["l_center_angle"], inputs["l_corner_angle"]),
-            ], dim=0)
+            if self.kpe.mode == "dense_latent":
+                kpe_emb = torch.cat([
+                    self.kpe(dense_angle=inputs[f"{s}_dense_angle"],
+                             dense_mask=inputs[f"{s}_dense_mask"])
+                    for s in ("r", "l")], dim=0)
+            else:
+                kpe_emb = torch.cat([
+                    self.kpe(inputs[f"{s}_center_angle"],
+                             inputs[f"{s}_corner_angle"])
+                    for s in ("r", "l")], dim=0)
 
         feat = self.backbone(x, kpe_emb=kpe_emb).float()  # (2B, 16, 12, C)
         if kpe_emb is not None:

@@ -31,7 +31,7 @@ from hands_tpu_torch.core.xdict import XDict
 from hands_tpu_torch.models import kpe
 from hands_tpu_torch.models.backbones.resnet import (BACKBONE_INFO, Conv,
                                                      resnet18, resnet50)
-from hands_tpu_torch.models.backbones.vit import Dense
+from hands_tpu_torch.models.backbones.vit import Dense, VitB16Spatial
 from hands_tpu_torch.models.heads.hmr import HandHMR
 from hands_tpu_torch.models.heads.mano_head import ManoBuffers, mano_head
 from hands_tpu_torch.ops import mano as manolib
@@ -127,14 +127,16 @@ class RegressionHead(nn.Module):
         return self.layers[2](x)
 
 
-def _build_backbone(name: str, in_ch: int, dtype, quant_int8: bool, device):
+def _build_backbone(name: str, in_ch: int, dtype, quant_int8: bool, device,
+                    side: int = 224):
+    """``side``: the input's height and width, which the ViT's position
+    embedding is made for (the ResNets take any size)."""
     if name == "resnet50":
         return resnet50(in_ch, dtype, quant_int8, device)
     if name == "resnet18":
         return resnet18(in_ch, dtype, quant_int8, device)
     if name == "vit_b_16":
-        raise NotImplementedError(
-            "backbone='vit_b_16' is not ported: ROADMAP queue 1 item 6")
+        return VitB16Spatial(in_ch, side, dtype, device)
     raise ValueError(f"unsupported backbone '{name}'")
 
 
@@ -158,7 +160,7 @@ class HandsLightNet(nn.Module):
         self.glb_backbone = None
         if cfg.use_glb_feat or cfg.no_crops:
             self.glb_backbone = _build_backbone(cfg.backbone, 3, self.dtype,
-                                                q8, device)
+                                                q8, device, cfg.img_res)
         grasp_in = 10 + 16 * 9 + (
             feat_dim if cfg.use_glb_feat_w_grasp
             and self.glb_backbone is not None else 0)
@@ -173,12 +175,15 @@ class HandsLightNet(nn.Module):
                     "center+corner": 20 * L, "dense": 4 * L}.get(pe, 0)
         if cfg.separate_hands:
             self.backbone_r = _build_backbone(cfg.backbone, 3 + in_extra,
-                                              self.dtype, q8, device)
+                                              self.dtype, q8, device,
+                                              cfg.img_res_ds)
             self.backbone_l = _build_backbone(cfg.backbone, 3 + in_extra,
-                                              self.dtype, q8, device)
+                                              self.dtype, q8, device,
+                                              cfg.img_res_ds)
         else:
             self.hand_backbone = _build_backbone(cfg.backbone, 3 + in_extra,
-                                                 self.dtype, q8, device)
+                                                 self.dtype, q8, device,
+                                                 cfg.img_res_ds)
         latent = feat_dim + {"center+corner_latent": 20 * L,
                              "sinusoidal_cc": 20 * L, "dense_latent": 4 * L,
                              "cam_conv": 6}.get(pe, 0)

@@ -1,6 +1,6 @@
 """Model factory keyed by method name (port of
-``hands_tpu/models/registry.py``; ``hands_light`` and ``hamer_light`` so
-far)."""
+``hands_tpu/models/registry.py``): WildHands, ArcticSF, HaMeR and
+HandOccNet."""
 
 from __future__ import annotations
 
@@ -11,14 +11,6 @@ from torch import nn
 
 from hands_tpu_torch.config import Config
 from hands_tpu_torch.core.xdict import XDict
-
-_NOT_PORTED = {
-    "arctic_sf_light": "ROADMAP queue 1 item 7",
-    "arctic_sf": "ROADMAP queue 1 item 7",
-    "handoccnet_light": "ROADMAP queue 1 item 7",
-    "handoccnet": "ROADMAP queue 1 item 7",
-}
-
 
 def _special_inits(model: nn.Module) -> dict:
     """{parameter name: rule} for the parameters that Flax does not draw
@@ -54,8 +46,9 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     lecun-normal dense and conv kernels, zero biases, unit LayerNorm and
     BatchNorm scales (zero for the last BatchNorm of a residual block),
     xavier-uniform attention in-projections and (gain 0.01) HMR decoders,
-    N(0, 0.02) ViT position embeddings, N(0, 1) decoder query embedding,
-    unit static activation scales. Buffers (BatchNorm running statistics)
+    N(0, 0.02) ViT position embeddings, N(0, 1) decoder query embedding and
+    HandOccNet q/k position maps, unit static activation scales and
+    HandOccNet heatmap temperatures (``betas``). Buffers (BatchNorm running statistics)
     keep their constructor values, mean 0 and variance 1."""
     special = _special_inits(model)
 
@@ -68,7 +61,7 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
         rule = special.get(name)
         if rule == "zero" or leaf in ("bias", "patch_bias", "in_proj_bias"):
             p.zero_()
-        elif (rule == "one" or leaf == "scale"
+        elif (rule == "one" or leaf in ("scale", "betas")
               or leaf.startswith("act_scale_")):
             p.fill_(1.0)  # act_scale_*: until calibration fills them
         elif rule is not None:  # xavier-uniform on an (out, in) matrix
@@ -78,7 +71,7 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
         else:
             if leaf == "pos_embed":
                 std = 0.02
-            elif leaf == "pos_embedding":
+            elif leaf in ("pos_embedding", "q_embedding", "k_embedding"):
                 std = 1.0
             else:  # (out, in[, kh, kw]) kernels
                 std = 1.0 / math.sqrt(p[0].numel())
@@ -95,22 +88,28 @@ def fetch_model(cfg: Config, device="cuda", seed: int = 0,
     HaMeR, pass ``param_dtype=torch.float32``: f32 master parameters, cast
     to bf16 per call (WildHands always stores f32)."""
     method = cfg.method
-    if method in ("hands_light", "hands", "hamer_light", "hamer"):
-        if method.startswith("hamer"):
-            from hands_tpu_torch.models.hamer_light import HamerLightModel
+    if method in ("hamer_light", "hamer"):
+        from hands_tpu_torch.models.hamer_light import HamerLightModel
 
-            model = HamerLightModel(cfg, vit_variant=vit_variant,
-                                    device=device, param_dtype=param_dtype)
-        else:
-            from hands_tpu_torch.models.hands_light import HandsLightModel
+        model = HamerLightModel(cfg, vit_variant=vit_variant, device=device,
+                                param_dtype=param_dtype)
+    elif method in ("hands_light", "hands"):
+        from hands_tpu_torch.models.hands_light import HandsLightModel
 
-            model = HandsLightModel(cfg, device=device)
-        gen = torch.Generator(device=device).manual_seed(seed)
-        return init_weights_(model, gen).eval()
-    if method in _NOT_PORTED:
-        raise NotImplementedError(
-            f"method '{method}' is not ported yet: {_NOT_PORTED[method]}")
-    raise KeyError(f"unknown method '{method}'")
+        model = HandsLightModel(cfg, device=device)
+    elif method in ("arctic_sf_light", "arctic_sf"):
+        from hands_tpu_torch.models.arctic_light import ArcticSFLightModel
+
+        model = ArcticSFLightModel(cfg, device=device)
+    elif method in ("handoccnet_light", "handoccnet"):
+        from hands_tpu_torch.models.handoccnet_light import \
+            HandOccNetLightModel
+
+        model = HandOccNetLightModel(cfg, device=device)
+    else:
+        raise KeyError(f"unknown method '{method}'")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return init_weights_(model, gen).eval()
 
 
 @torch.inference_mode()

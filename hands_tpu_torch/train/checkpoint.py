@@ -13,16 +13,15 @@ later in-place optimiser step cannot reach a saved file. ``restore`` copies
 into the live tensors: the model's parameters are the optimiser's, the
 schedule reads ``count`` and the accumulation ``mini_step``.
 
-``graft_backbone_variables`` read a converted orbax directory in the JAX
-package; the converter falls away in the port (ROADMAP queue 1), so
-``--load_backbone`` raises (item 6).
+:func:`graft_backbone_variables` warm-starts backbones from a file that
+``cli.convert_ckpt`` wrote (``--load_backbone``).
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import List
+from typing import Dict, List
 
 import torch
 
@@ -142,3 +141,29 @@ def load_serving_checkpoint(model: torch.nn.Module, path: str) -> None:
             f"checkpoint '{path}' does not fit the model: {len(left)} of its "
             f"{len(model.state_dict())} entries are missing or have another "
             f"shape there (another method or width?), e.g. {left[:4]}")
+
+
+def graft_backbone_variables(model: torch.nn.Module,
+                             converted: Dict[str, torch.Tensor]) -> List[str]:
+    """Warm-start converted backbone weights (``cli.convert_ckpt``'s
+    scope-less keys) into ``model`` in place: every top-level scope of
+    ``model.net`` whose entries hold all the converted keys at their shapes
+    receives them, so one ResNet file fills both ``hand_backbone`` and
+    ``glb_backbone``, and a ViT one lands in HaMeR's ``backbone``. Returns
+    the scopes grafted; raises if none matched."""
+    own = model.state_dict()
+    scopes = dict.fromkeys(k.split(".")[1] for k in own
+                           if k.startswith("net."))
+    grafted = []
+    for scope in scopes:
+        pre = f"net.{scope}."
+        if all(pre + k in own and own[pre + k].shape == v.shape
+               for k, v in converted.items()):
+            model.load_state_dict({pre + k: v for k, v in converted.items()},
+                                  strict=False)
+            grafted.append(scope)
+    if not grafted:
+        raise ValueError(
+            "backbone graft found no matching scope (keys or shapes differ): "
+            "check the --load_backbone arch against the model's backbone")
+    return grafted

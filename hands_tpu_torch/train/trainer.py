@@ -8,8 +8,8 @@ loss check under ``--debug``; ``save_every_steps``; validation every
 ``nanmean``-ed (padded tail rows are NaN) under ``metric.`` / ``__val`` names;
 checkpoint selection on the lowest ``loss__val`` (top 3 plus ``last``); one
 sanity validation batch before training; resume (``resume_ckpt``: optimiser,
-step and epoch) and warm start (``load_ckpt``: parameters only);
-``profile_steps``.
+step and epoch), warm start (``load_ckpt``: parameters only) and pretrained
+backbones (``load_backbone``: a ``cli.convert_ckpt`` file); ``profile_steps``.
 
 Different by construction: the model is an ``nn.Module`` that holds its
 weights, so ``fit`` initialises nothing; the steps switch the module between
@@ -32,7 +32,8 @@ import torch
 
 from hands_tpu_torch.config import Config
 from hands_tpu_torch.core.xdict import device_view
-from hands_tpu_torch.train.checkpoint import CheckpointManager
+from hands_tpu_torch.train.checkpoint import (CheckpointManager,
+                                              graft_backbone_variables)
 from hands_tpu_torch.train.state import create_train_state
 from hands_tpu_torch.train.step import make_eval_step, make_train_step
 from hands_tpu_torch.utils.experiment import Experiment
@@ -71,9 +72,13 @@ class Trainer:
         cfg = self.cfg
         num_epochs = num_epochs or cfg.num_epoch
         if cfg.get("load_backbone", ""):
-            raise NotImplementedError(
-                "--load_backbone read a converted orbax directory; loading "
-                "pretrained backbones is ROADMAP queue 1 item 6")
+            # pretrained backbones from a cli.convert_ckpt file (the
+            # reference's load_state_dict of released weights)
+            grafted = graft_backbone_variables(self.model, torch.load(
+                cfg.load_backbone, map_location=self.device,
+                weights_only=True))
+            print(f"grafted pretrained backbone from {cfg.load_backbone} "
+                  f"into {', '.join(grafted)}")
         state = create_train_state(cfg, self.model,
                                    steps_per_epoch=len(train_loader))
 

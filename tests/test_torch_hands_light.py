@@ -324,8 +324,11 @@ def test_fetch_model_and_evaluation_entry_points():
         assert bool(torch.isfinite(out[k]).all()), k
     assert out["pred.render.l"].shape == (2, 224, 224)
 
-    with pytest.raises(NotImplementedError, match="item 6"):
-        fetch_model(cfg.replace(backbone="vit_b_16"), device="cpu")
+    # the ViT-B/16 backbone builds and serves the same inputs
+    vit = fetch_model(cfg.replace(backbone="vit_b_16"), device="cpu", seed=3)
+    vout = inference_pose(vit, inputs, meta)
+    assert vout["pred.mano.vertices.r"].shape == (2, 778, 3)
+    assert bool(torch.isfinite(vout["pred.render.l"]).all())
     # pcl preprocesses: perspective crops and the rotations the model reads
     pcl, _, _ = DevicePreprocessor(cfg.replace(pos_enc="pcl"), False,
                                    device="cpu")(stack_records(records()))
@@ -352,5 +355,5 @@ def test_demo_command_line_serves_wildhands_by_default(tmp_path):
     assert pred["pred.mano.vertices.r"].shape == (778, 3)
     assert pred["pred.feat_vec"].shape == (2048,)  # two ResNet-50s
     assert np.isfinite(pred["pred.mano.j3d.cam.l"]).all()
-    with pytest.raises(SystemExit):
-        run_demo(["--dir", str(tmp_path), "--method", "handoccnet_light"])
+    with pytest.raises(SystemExit):  # --method takes the registry's four
+        run_demo(["--dir", str(tmp_path), "--method", "nope"])

@@ -43,6 +43,7 @@ from hands_tpu.models.registry import fetch_model as jax_fetch_model
 from hands_tpu.train import trainer as jtrainer
 from hands_tpu.utils.experiment import Experiment as JaxExperiment
 from hands_tpu_torch.cli import evaluate as cli_evaluate
+from hands_tpu_torch.cli.convert_ckpt import main as convert_main
 from hands_tpu_torch.cli import train as cli_train
 from hands_tpu_torch.config import default_config
 from hands_tpu_torch.data.datasets import SyntheticRecordDataset
@@ -52,6 +53,7 @@ from hands_tpu_torch.train.checkpoint import CheckpointManager
 from hands_tpu_torch.train.trainer import Trainer
 from hands_tpu_torch.utils.experiment import Experiment
 from hands_tpu_torch.utils.from_jax import state_dict_from_jax
+from test_torch_ckpt_import import resnet_reference_sd
 from test_torch_hands_light import fill_variables
 
 TINY = dict(backbone="resnet18", compute_dtype="float32", use_glb_feat=False,
@@ -239,9 +241,31 @@ def test_debug_stops_on_a_non_finite_loss_and_what_is_left_out(tmp_path):
         trainer.fit(train_loader, None, num_epochs=1)
     with pytest.raises(NotImplementedError, match="item 8"):
         trainer.visualize(None, None, 0)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        Trainer(tiny_cfg(load_backbone="x"), model, trainer.exp).fit(
-            train_loader)
+    # --load_backbone: a cli.convert_ckpt file of a reference-layout
+    # ResNet-18 fills both backbones before the first step
+    src, out = str(tmp_path / "resnet18.pth"), str(tmp_path / "r18.pt")
+    ref = resnet_reference_sd((2, 2, 2, 2), np.random.RandomState(4))
+    torch.save(ref, src)
+    convert_main(["--src", src, "--arch", "resnet18", "--out", out])
+    gcfg = tiny_cfg(use_glb_feat=True, load_backbone=out)
+    gmodel = fetch_model(gcfg, "cpu")
+    gtrainer = Trainer(gcfg, gmodel, trainer.exp)
+    seen = {}
+    step = gtrainer.train_step
+
+    def spy(state, batch, gen):
+        if not seen:
+            seen.update({k: v.clone() for k, v in gmodel.state_dict().items()})
+        return step(state, batch, gen)
+
+    gtrainer.train_step = spy
+    gtrainer.fit(train_loader, None, num_epochs=1)
+    for scope in ("hand_backbone", "glb_backbone"):
+        torch.testing.assert_close(
+            seen[f"net.{scope}.stages.1.0.down_conv.weight"],
+            ref["layer2.0.downsample.0.weight"], rtol=0, atol=0)
+        torch.testing.assert_close(seen[f"net.{scope}.bn_stem.running_var"],
+                                   ref["bn1.running_var"], rtol=0, atol=0)
     with pytest.raises(NotImplementedError, match="item 11"):
         Trainer(tiny_cfg(fsdp=True), model, trainer.exp)
     with pytest.raises(NotImplementedError, match="item 11"):
@@ -372,7 +396,6 @@ def _queue1_titles():
 
 def _left_out(what):
     """Call what the port has not ported yet; return its message."""
-    from hands_tpu_torch.cli.calibrate import serving_config
     from hands_tpu_torch.data.datasets import fetch_dataset
 
     cfg = tiny_cfg()
@@ -380,16 +403,9 @@ def _left_out(what):
         "shard_mix": lambda: DeviceDataLoader(
             fetch_dataset(cfg, "synthetic+synthetic", "minival"), cfg, 2,
             False, shard=(0, 2), device="cpu"),
-        "arctic_sf": lambda: fetch_model(
-            default_config("arctic_sf_light"), "cpu"),
         "shard": lambda: DeviceDataLoader(
             SyntheticRecordDataset(cfg, "val", 2), cfg, 2, False,
             shard=(0, 2), device="cpu"),
-        "vit_b_16": lambda: fetch_model(cfg.replace(backbone="vit_b_16"),
-                                        "cpu"),
-        "handoccnet": lambda: fetch_model(
-            default_config("handoccnet_light"), "cpu"),
-        "calibrate": lambda: serving_config("hands_light"),
         "processes": lambda: cli_train.main(["--num_processes", "2",
                                              "--device", "cpu"]),
         "visualize": lambda: Trainer.visualize(None, None, None, 0),
@@ -400,11 +416,8 @@ def _left_out(what):
 
 
 @pytest.mark.parametrize("what,title", [
-    ("shard_mix", "Parallel axes"), ("arctic_sf", "HandOccNet and ArcticSF"),
-    ("shard", "Parallel axes"), ("processes", "Parallel axes"),
-    ("vit_b_16", "HaMeR and ViT remainder"),
-    ("handoccnet", "HandOccNet and ArcticSF"),
-    ("calibrate", "HaMeR and ViT remainder"),
+    ("shard_mix", "Parallel axes"), ("shard", "Parallel axes"),
+    ("processes", "Parallel axes"),
     ("visualize", "Demo output and visualisation")])
 def test_what_is_left_out_names_its_roadmap_item(what, title):
     """ROADMAP queue 3, fault 3: every ``NotImplementedError`` of the port
