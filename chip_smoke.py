@@ -31,9 +31,13 @@ WildHands on the config's default mix through ``cli.train`` (validated on
 EPIC), evaluates that checkpoint and serves it through ``cli.demo --ckpt``
 (bit-equal to ``restore_params`` + ``serve``), runs the 300-step learning
 check (``cli.numerics_check``) and the int8 drift tool
-(``cli.int8_accuracy``), checks the launch counts of each path, and times
-kernels, blocks, forwards, serving, train steps and the training loop with
-CUDA events or the host clock around a synchronise. An early line names the
+(``cli.int8_accuracy``), exports the serving program of HaMeR (K3, K5,
+K6) and WildHands through ``torch.export`` (``cli.export``), loads and runs
+it beside live serving, once in a fresh process that imports only the
+kernel ops, and runs ``cli.extract`` and ``cli.build_feat_split``, checks
+the launch counts of each path, and times kernels, blocks, forwards,
+serving, train steps and the training loop with CUDA events or the host
+clock around a synchronise. An early line names the
 image decoder the machine has (the native libjpeg/libpng build or cv2).
 
     python3 chip_smoke.py
@@ -4420,6 +4424,363 @@ def families_phase(rows, dev, tag) -> None:
     print(f"phase 16 took {time.time() - t0:.1f} s")
 
 
+# ---- phase 17: the serving export (cli.export), cli.extract, build_feat_split
+EXPORT_HW = (512, 640)  # raw image of an exported request: make_requests' largest
+EXPORT_BATCHES = {"hamer": (8, 3), "wildhands": (64, 2)}  # (images, requests)
+EXPORT_ITERS = 5  # passes over the requests a timed reading
+
+
+def padded_requests(n, batch, seed):
+    """:func:`make_requests`, every image zero-padded to :data:`EXPORT_HW`
+    (an exported program takes one raw shape, as ``cli.demo --dir`` chunks
+    do)."""
+    requests = make_requests(n, batch, seed)
+    for recs in requests:
+        for r in recs:
+            h, w = r.image.shape[:2]
+            canvas = np.zeros(EXPORT_HW + (3,), np.uint8)
+            canvas[:h, :w] = r.image
+            r.image = canvas
+    return requests
+
+
+def export_input(records, spec, dev):
+    """The stacked batch of ``records`` as an artifact's input
+    (``input_spec`` of its sidecar), on ``dev``: zeros where the example
+    records of the export had a field that requests lack (a hand mask, which
+    no serving path reads)."""
+    from hands_tpu_torch.data.device_pipeline import stack_records
+
+    stacked = stack_records(records)
+    extra = [k for k in stacked if not k.startswith("_") and k not in spec]
+    require(not extra, f"inputs the artifact does not take: {extra}")
+    raw = {}
+    for k, s in spec.items():
+        shape, dtype = tuple(s["shape"]), getattr(torch, s["dtype"])
+        t = (torch.zeros(shape, dtype=dtype) if k not in stacked
+             else torch.from_numpy(np.ascontiguousarray(stacked[k])))
+        require(tuple(t.shape) == shape and t.dtype == dtype,
+                f"artifact input {k}: {tuple(t.shape)} {t.dtype}, want "
+                f"{shape} {dtype}")
+        raw[k] = t.to(dev)
+    return raw
+
+
+def requests_ms(fn, requests, dev) -> float:
+    """Host ms a request of ``fn(records)`` over :data:`EXPORT_ITERS` passes
+    after a warm-up call, each request ending in a synchronise."""
+    fn(requests[0])
+    torch.cuda.synchronize(dev)
+    t = time.perf_counter()
+    for _ in range(EXPORT_ITERS):
+        for recs in requests:
+            fn(recs)
+            torch.cuda.synchronize(dev)
+    return (time.perf_counter() - t) / (EXPORT_ITERS * len(requests)) * 1e3
+
+
+def artifact_check(name, path, cfg, model, per_forward, requests, dev, rel,
+                   tag):
+    """Load the artifact at ``path``; hold its ops, launches and outputs
+    against live serving (``cli.demo.serve``) of ``model`` on the same
+    requests; time both (live, artifact, artifact, live)."""
+    from hands_tpu_torch.cli.demo import serve
+    from hands_tpu_torch.core.precision import f32_exact
+    from hands_tpu_torch.ops.library import graph_ops
+
+    t0 = time.time()
+    program = torch.export.load(path)
+    with open(path + ".json") as f:
+        sidecar = json.load(f)
+    ops = graph_ops(program.graph)
+    run = program.module()
+    load_s = time.time() - t0
+    require(ops == sidecar["kernels"] and ops,
+            f"{name}: loaded graph ops {ops}, sidecar {sidecar['kernels']}")
+    require(sum(ops.values()) == sum(per_forward.values()),
+            f"{name}: {sum(ops.values())} op nodes, live serving launches "
+            f"{sum(per_forward.values())} kernels a forward")
+    print(f"  {name}: loaded in {load_s:.1f} s; graph ops {ops}")
+
+    def artifact(recs):
+        with torch.no_grad(), f32_exact():
+            return run(export_input(recs, sidecar["input_spec"], dev))
+
+    artifact(requests[0])  # warm-up
+    reset_launch_counts()
+    out = artifact(requests[0])
+    torch.cuda.synchronize(dev)
+    check_launches(f"{name} artifact", launch_counts(), per_forward, 1)
+    live = serve(requests[0], cfg, model, dev)
+    bits = all(torch.equal(out[k], live[f"pred.{k}"]) for k in out)
+    worst = max(float(((out[k].float() - live[f"pred.{k}"].float()).abs()
+                       / live[f"pred.{k}"].float().abs().clamp(min=1.0)
+                       ).max()) for k in out)
+    print(f"  {name}: artifact vs live serving over {len(out)} outputs: "
+          f"bit-equal {bits}, max |d|/max(|live|,1) {worst:.3e}")
+    label = name[name.index("(") + 1:-1] if "(" in name else name
+    for side in ("r", "l"):
+        key = f"mano.vertices.{side}"
+        compare(f"{label} artifact {key[5:]}", out[key],
+                live[f"pred.{key}"], rel=rel, mean=rel)
+    check_outputs([{f"pred.{k}": v for k, v in out.items()}],
+                  len(requests[0]))
+
+    def live_serve(recs):
+        serve(recs, cfg, model, dev)
+
+    t = [requests_ms(live_serve, requests, dev),
+         requests_ms(artifact, requests, dev),
+         requests_ms(artifact, requests, dev),
+         requests_ms(live_serve, requests, dev)]
+    crops = 2 * len(requests[0])
+    lv, ar = min(t[0], t[3]), min(t[1], t[2])
+    print(f"  {name}: serve bs{len(requests[0])} ({crops} crops/request): "
+          f"live {lv:.2f} ms/request {crops / lv * 1e3:.1f} crops/s, "
+          f"artifact {ar:.2f} ms/request {crops / ar * 1e3:.1f} crops/s "
+          f"(readings {', '.join(f'{v:.2f}' for v in t)}) {tag}")
+
+
+def start_fresh_process(path, raw, want, tmp):
+    """Start loading and running the artifact at ``path`` on ``raw`` in a
+    new interpreter that imports ``torch`` and the op registrations only;
+    :func:`finish_fresh_process` reads its result."""
+    import os
+
+    raw_p, want_p = os.path.join(tmp, "raw.pt"), os.path.join(tmp, "want.pt")
+    torch.save(raw, raw_p)
+    torch.save(want, want_p)
+    code = (
+        "import json, sys, torch\n"
+        "import hands_tpu_torch.ops.library as L\n"
+        "program = torch.export.load(sys.argv[1]).module()\n"
+        "raw = torch.load(sys.argv[2], weights_only=True)\n"
+        "want = torch.load(sys.argv[3], weights_only=True)\n"
+        "torch.backends.cuda.matmul.allow_tf32 = False\n"
+        "torch.backends.cudnn.allow_tf32 = False\n"
+        "torch.backends.cuda.matmul."
+        "allow_bf16_reduced_precision_reduction = False\n"
+        "with torch.no_grad():\n"
+        "    out = program(raw)\n"
+        "torch.cuda.synchronize()\n"
+        "from hands_tpu_torch.ops import mano_lbs, vit_block\n"
+        "counts = {'vit_' + k: v for k, v in vit_block.launches.items()}\n"
+        "counts.update(mano_lbs.launches)\n"
+        "print(json.dumps({'launches': counts, 'equal': all(torch.equal("
+        "out[k], want[k]) for k in want), 'max_diff': max(float((out[k]."
+        "float() - want[k].float()).abs().max()) for k in want), "
+        "'modules': sorted(m for m in sys.modules if m.startswith("
+        "'hands_tpu'))}))\n")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", code, path, raw_p, want_p],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    return proc, time.time()
+
+
+def finish_fresh_process(started, per_forward) -> None:
+    proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    require(proc.returncode == 0, f"fresh-process load failed:\n{err[-3000:]}")
+    got = json.loads(out.strip().splitlines()[-1])
+    mods = got["modules"]
+    require(not any(m.startswith(("hands_tpu_torch.models",
+                                  "hands_tpu_torch.data",
+                                  "hands_tpu_torch.cli")) or
+                    m == "hands_tpu" or m.startswith("hands_tpu.")
+                    for m in mods), f"the fresh process imported {mods}")
+    for k, n in got["launches"].items():
+        require(n == per_forward.get(k, 0),
+                f"fresh process: {k} launched {n}, want {per_forward.get(k)}")
+    print(f"  fresh `python3 -c` process (imports: {', '.join(mods)}): "
+          f"loaded and ran the K3 artifact, done {time.time() - t0:.1f} s "
+          f"after its start (beside the K5 and K6 exports), launches "
+          f"{got['launches']}, equal to live serving {got['equal']} (max "
+          f"|d| {got['max_diff']:.3e})")
+    require(got["max_diff"] <= SERVE_REL,
+            "fresh-process outputs far from live serving")
+
+
+def op_layer_cost(cfg, model, requests, dev, tag, per_forward) -> None:
+    """The host time the ``torch.library`` route adds to the direct launch
+    (the eager route), in turns (direct, op, op, direct): a call of K3's
+    LayerNorm on 16 rows, where the host's time and not the kernel's is
+    read, scaled by the launches of a forward; then one bs8 HaMeR forward
+    (its wall time, a preprocessed batch already on the card) both ways."""
+    from hands_tpu_torch.data.device_pipeline import (DevicePreprocessor,
+                                                      stack_records)
+    from hands_tpu_torch.ops import cuda_build
+    from hands_tpu_torch.ops import vit_block as vb
+
+    pre = DevicePreprocessor(cfg, is_train=False, device=dev)
+    inputs, _, meta = pre(stack_records(requests[0]))
+    x = torch.ones((16, C), dtype=torch.bfloat16, device=dev)
+    scale = torch.ones(C, device=dev)
+    bias = torch.zeros(C, device=dev)
+
+    def forward():
+        model(inputs, meta)
+        torch.cuda.synchronize(dev)
+
+    def readings(fn, iters):
+        t = []
+        for through_op in (False, True, True, False):
+            with contextlib.ExitStack() as stack:
+                if through_op:
+                    stack.enter_context(mock.patch.object(
+                        cuda_build, "tracing", lambda: True))
+                t.append(host_ms(fn, iters=iters))
+        return min(t[0], t[3]), min(t[1], t[2]), t
+
+    with torch.inference_mode():
+        cd, co, ct = readings(lambda: vb.layernorm(x, scale, bias), 2000)
+        fd, fo, ft = readings(forward, 30)
+    n = sum(per_forward.values())
+    print(f"  op layer: a LayerNorm call (16 x {C}) direct {cd * 1e3:.2f} us,"
+          f" through its op {co * 1e3:.2f} us (+{(co - cd) * 1e3:.2f} us a "
+          f"call, x {n} launches a forward = {(co - cd) * n:+.3f} ms; "
+          f"readings {', '.join(f'{v * 1e3:.2f}' for v in ct)} us); a bs"
+          f"{len(requests[0])} HaMeR forward direct {fd:.3f} ms, through the "
+          f"ops {fo:.3f} ms ({fo - fd:+.3f} ms; readings "
+          f"{', '.join(f'{v:.3f}' for v in ft)}) {tag}")
+
+
+def extract_check(dev, tag) -> None:
+    """``cli.extract`` over the synthetic validation split (six records, one
+    batch of 8) with full-width bf16 WildHands on the card, then
+    ``cli.build_feat_split`` on what it wrote."""
+    import os
+    import tempfile
+
+    from hands_tpu_torch.cli import build_feat_split, extract
+
+    t0 = time.time()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            reset_launch_counts()
+            out_dir = extract.main(
+                ["--method", "hands_light", "--debug", "--test_batch_size",
+                 "8", "--exp_key", "smoke", "--device", dev.type],
+                overrides={"backbone": WH_BACKBONE})
+            torch.cuda.synchronize(dev)
+            check_launches("cli.extract", launch_counts(), {"lbs_apply": 2},
+                           1)
+            packed = build_feat_split.main(["--eval_p", out_dir])
+            data = np.load(packed, allow_pickle=True).item()
+        finally:
+            os.chdir(cwd)
+    n = len(data["imgname"])
+    keys = sorted(k for k in data if k.startswith("pred."))
+    require(n == 6 and all(len(data[k]) == n and np.isfinite(data[k]).all()
+                           for k in keys), f"packed split: {n} rows, {keys}")
+    print(f"  cli.extract + cli.build_feat_split: {n} images, {keys} "
+          f"({data['pred.feat_vec'].shape[1]}-wide feat_vec), finite, in "
+          f"{time.time() - t0:.1f} s {tag}")
+
+
+def export_phase(configs, dev, tag) -> None:
+    """Phase 17: the serving program exported, saved, loaded and run
+    (``cli/export.py``): HaMeR ViT-H in its three serving configurations of
+    phase 3 (``configs``: K3 bf16, K5 ``quant_int8``, K6 static +
+    ``fast_gelu``) at bs8 and WildHands bf16 at bs64 through the CLI.
+    Each artifact's ops, launches and outputs against live serving, and
+    both rates; one artifact in a fresh process that imports only the ops;
+    the op layer's cost; ``cli.extract`` and ``cli.build_feat_split``."""
+    import os
+    import shutil
+    import tempfile
+
+    from hands_tpu_torch.cli import export as ex
+    from hands_tpu_torch.cli.demo import serve, serving_config
+    from hands_tpu_torch.models.registry import fetch_model
+
+    t_phase = time.time()
+    bs, n = EXPORT_BATCHES["hamer"]
+    print(f"phase 17: the serving export (torch.export), HaMeR ViT-{VIT} bs"
+          f"{bs} in three configurations, WildHands {WH_BACKBONE} bf16 bs"
+          f"{EXPORT_BATCHES['wildhands'][0]}, raw {EXPORT_HW[0]}x"
+          f"{EXPORT_HW[1]} {tag}")
+    tmp = tempfile.mkdtemp()
+    fresh = None
+    try:
+        requests = padded_requests(n, bs, SEED + 17)
+        saved = []
+        for name, (cfg, model, per_forward) in configs.items():
+            seen = []
+            hook = model.register_forward_pre_hook(
+                lambda *_: seen.append((torch.compiler.is_exporting(),
+                                        torch.compiler.is_compiling())))
+            path = os.path.join(tmp, f"hamer_{len(saved)}.pt2")
+            t0 = time.time()
+            program, raw, operands = ex.export_serving(cfg, model, bs,
+                                                       EXPORT_HW)
+            export_s = time.time() - t0
+            hook.remove()
+            meta = {"method": "hamer_light", "dtype": "bfloat16",
+                    "fused_block": cfg.fused_block,
+                    "quant_int8": cfg.quant_int8,
+                    "fast_gelu": cfg.fast_gelu, "ckpt": ""}
+            t0 = time.time()
+            sidecar = ex.write_artifact(path, program, raw, operands, meta)
+            del program, raw
+            print(f"  {name}: exported in {export_s:.1f} s (under export "
+                  f"is_exporting, is_compiling = {seen[0]}), saved in "
+                  f"{time.time() - t0:.1f} s: {os.path.getsize(path) / 1e9:.3f}"
+                  f" GB, {len(operands)} prepared int8 operands as state")
+            require(bool(seen) and any(seen[0]),
+                    "neither torch.compiler flag is set under export")
+            require(sidecar["device"] == "cuda", "a CUDA artifact")
+            saved.append((name, path, cfg, model, per_forward))
+            if fresh is None:  # K3, loaded while the others export
+                recs = requests[0]
+                live = serve(recs, cfg, model, dev)
+                fresh = (start_fresh_process(
+                    path, export_input(recs, sidecar["input_spec"], dev),
+                    {k[5:]: v for k, v in live.items()
+                     if k.startswith("pred.")}, tmp), per_forward)
+        finish_fresh_process(*fresh)
+        for name, path, cfg, model, per_forward in saved:
+            rel = SERVE_REL if "K3" in name else INT8_SERVE_REL
+            artifact_check(name, path, cfg, model, per_forward, requests,
+                           dev, rel, tag)
+            if "K3" in name:
+                op_layer_cost(cfg, model, requests, dev, tag, per_forward)
+
+        wbs, wn = EXPORT_BATCHES["wildhands"]
+        path = os.path.join(tmp, "wildhands.pt2")
+        t0 = time.time()
+        require(ex.main(["--method", "hands_light", "--backbone", WH_BACKBONE,
+                         "--dtype", "bfloat16", "--batch_size", str(wbs),
+                         "--raw_hw", f"{EXPORT_HW[0]}x{EXPORT_HW[1]}",
+                         "--device", dev.type, "-o", path]) == 0,
+                "cli.export hands_light")
+        print(f"  WildHands bf16: cli.export (model build, export, save) in "
+              f"{time.time() - t0:.1f} s: {os.path.getsize(path) / 1e9:.3f}"
+              f" GB")
+        cfg = serving_config("hands_light", "bfloat16").replace(
+            backbone=WH_BACKBONE)
+        model = fetch_model(cfg, device=dev, seed=0)
+        artifact_check("WildHands bf16", path, cfg, model,
+                       {"lbs_apply": 2},
+                       padded_requests(wn, wbs, SEED + 170), dev, SERVE_REL,
+                       tag)
+        del model
+        extract_check(dev, tag)
+    finally:
+        if fresh is not None and fresh[0][0].poll() is None:
+            fresh[0][0].kill()  # a check failed before it was read
+            fresh[0][0].wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 17 took {time.time() - t_phase:.1f} s")
+
+
 def kernel_name(mangled: str) -> str:
     """The names inside an Itanium-mangled symbol and its integer template
     arguments: enough to tell the kernels of one library apart."""
@@ -5087,12 +5448,81 @@ def families_alone() -> int:
     return 0
 
 
+def export_alone() -> int:
+    """Phase 17 alone: builds the libraries of K1, K3, K5 and K6 (the
+    attention's too), the three HaMeR serving models of phase 3, and runs
+    :func:`export_phase`."""
+    from hands_tpu_torch.ops import attention as at
+    from hands_tpu_torch.ops import mano_lbs
+    from hands_tpu_torch.ops import vit_block as vb
+    from hands_tpu_torch.ops import vit_block_int8 as v8
+    from hands_tpu_torch.ops.cuda_build import build_all
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    card = card_line()
+    build_all([vb.LIBRARY, v8.LIBRARY, at.LIBRARY, mano_lbs.LIBRARY])
+    export_phase(hamer_configs(DEV), DEV, f"[{card}]")
+    print(card)
+    return 0
+
+
+def hamer_configs(dev):
+    """The three HaMeR ViT-H serving configurations of phase 3, built with
+    random weights and the static one calibrated: {name: (cfg, model,
+    kernel launches per forward)}."""
+    from hands_tpu_torch.cli import calibrate as cal
+    from hands_tpu_torch.cli.demo import serving_config
+    from hands_tpu_torch.models.registry import fetch_model
+    from hands_tpu_torch.ops.calibration import inject_scales
+
+    configs = {}  # name -> (cfg, model, launches per forward)
+    t0 = time.time()
+    cfg = serving_config("hamer_light", "bfloat16", fused_block=True)
+    model = fetch_model(cfg, device=dev, seed=SEED, vit_variant=VIT)
+    depth = len(model.net.backbone.blocks)
+    # per block: LN1, LN2; qkv, proj, MLP1, MLP2; attention (224 for ViT-H);
+    # per forward: the skinning of the right and of the left hand
+    configs["bf16 fused_block (K3)"] = (cfg, model, {
+        "vit_layernorm": 2 * depth, "vit_gemm": 4 * depth,
+        "vit_attention": depth, "lbs_apply": 2})
+    cfg8 = serving_config("hamer_light", "bfloat16", quant_int8=True)
+    require(cfg8.fused_block and cfg8.quant_int8, "quant_int8 implies fused")
+    model8 = fetch_model(cfg8, device=dev, seed=SEED, vit_variant=VIT)
+    # per block: 2 LN+quant, 2 row quants, 4 GEMMs, attention (288)
+    configs["quant_int8 (K5)"] = (cfg8, model8, {
+        "ln_quant_dynamic": 2 * depth, "quant_rows": 2 * depth,
+        "gemm_i8_dynamic": 4 * depth, "qkv_attention_dynamic": depth,
+        "lbs_apply": 2})
+    cfgs = serving_config("hamer_light", "bfloat16", quant_int8_static=True,
+                          fast_gelu=True)
+    require(cfgs.quant_int8 and cfgs.fused_block, "static implies int8")
+    models = fetch_model(cfgs, device=dev, seed=SEED, vit_variant=VIT)
+    print(f"phase 3: three HaMeR ViT-{VIT} models (depth {depth}) built in "
+          f"{time.time() - t0:.1f} s")
+    t0 = time.time()
+    scales = cal.calibrate_scales(
+        "hamer_light", models.state_dict(),
+        cal.synthetic_batches(cfgs, 8, 2, device=dev), vit_variant=VIT,
+        device=dev)
+    inject_scales(models.net.backbone, scales)
+    torch.cuda.synchronize()
+    print(f"  calibrated static scales on 2 synthetic batches of 8 in "
+          f"{time.time() - t0:.1f} s: " + ", ".join(
+              f"{k} [{float(v.min()):.2e}, {float(v.max()):.2e}]"
+              for k, v in scales.items()))
+    # per block: 2 LN+quant, 4 GEMMs, attention (224)
+    configs["quant_int8_static + fast_gelu (K6)"] = (cfgs, models, {
+        "ln_quant_static": 2 * depth, "gemm_i8_static": 4 * depth,
+        "qkv_attention_static": depth, "lbs_apply": 2})
+    return configs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from hands_tpu_torch.cli import calibrate as cal
-    from hands_tpu_torch.cli.demo import serve, serving_config
+    from hands_tpu_torch.cli.demo import serve
     from hands_tpu_torch.data.device_pipeline import (DevicePreprocessor,
                                                       stack_records)
     from hands_tpu_torch.models.backbones import vit as vit_mod
@@ -5229,45 +5659,8 @@ def main() -> int:
         """Every block kernel of the model swapped for its plain twin."""
         return mock.patch.multiple(vit_mod, **twins)
 
-    configs = {}  # name -> (cfg, model, launches per forward)
-    t0 = time.time()
-    cfg = serving_config("hamer_light", "bfloat16", fused_block=True)
-    model = fetch_model(cfg, device=dev, seed=SEED, vit_variant=VIT)
-    depth = len(model.net.backbone.blocks)
-    # per block: LN1, LN2; qkv, proj, MLP1, MLP2; attention (224 for ViT-H);
-    # per forward: the skinning of the right and of the left hand
-    configs["bf16 fused_block (K3)"] = (cfg, model, {
-        "vit_layernorm": 2 * depth, "vit_gemm": 4 * depth,
-        "vit_attention": depth, "lbs_apply": 2})
-    cfg8 = serving_config("hamer_light", "bfloat16", quant_int8=True)
-    require(cfg8.fused_block and cfg8.quant_int8, "quant_int8 implies fused")
-    model8 = fetch_model(cfg8, device=dev, seed=SEED, vit_variant=VIT)
-    # per block: 2 LN+quant, 2 row quants, 4 GEMMs, attention (288)
-    configs["quant_int8 (K5)"] = (cfg8, model8, {
-        "ln_quant_dynamic": 2 * depth, "quant_rows": 2 * depth,
-        "gemm_i8_dynamic": 4 * depth, "qkv_attention_dynamic": depth,
-        "lbs_apply": 2})
-    cfgs = serving_config("hamer_light", "bfloat16", quant_int8_static=True,
-                          fast_gelu=True)
-    require(cfgs.quant_int8 and cfgs.fused_block, "static implies int8")
-    models = fetch_model(cfgs, device=dev, seed=SEED, vit_variant=VIT)
-    print(f"phase 3: three HaMeR ViT-{VIT} models (depth {depth}) built in "
-          f"{time.time() - t0:.1f} s")
-    t0 = time.time()
-    scales = cal.calibrate_scales(
-        "hamer_light", models.state_dict(),
-        cal.synthetic_batches(cfgs, 8, 2, device=dev), vit_variant=VIT,
-        device=dev)
-    inject_scales(models.net.backbone, scales)
-    torch.cuda.synchronize()
-    print(f"  calibrated static scales on 2 synthetic batches of 8 in "
-          f"{time.time() - t0:.1f} s: " + ", ".join(
-              f"{k} [{float(v.min()):.2e}, {float(v.max()):.2e}]"
-              for k, v in scales.items()))
-    # per block: 2 LN+quant, 4 GEMMs, attention (224)
-    configs["quant_int8_static + fast_gelu (K6)"] = (cfgs, models, {
-        "ln_quant_static": 2 * depth, "gemm_i8_static": 4 * depth,
-        "qkv_attention_static": depth, "lbs_apply": 2})
+    configs = hamer_configs(dev)
+    depth = len(configs["bf16 fused_block (K3)"][1].net.backbone.blocks)
 
     served = {}
     for name, (c, m, per_forward) in configs.items():
@@ -5402,9 +5795,10 @@ def main() -> int:
                   f"({min(k_ms, k_ms2):.2f} ms/request), twin {t_rate:.1f} "
                   f"crops/s ({t_ms:.2f} ms/request) {tag}")
 
+    export_phase(configs, dev, tag)
     wildhands_phases(rows, dev, tag)
     # the serving models go before the train steps read the memory they add
-    del configs, served, model, model8, models, c, m
+    del configs, served, c, m
     torch.cuda.empty_cache()
     trainable_block_phase(rows, x, p32, tag)
     hamer_train_phase(rows, dev, tag)

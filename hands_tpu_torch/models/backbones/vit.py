@@ -190,6 +190,7 @@ class Block(nn.Module):
     LayerNorm parameters) are prepared once from the f32 parameters at the
     first forward and kept; :meth:`invalidate_prepared` drops them after the
     parameters change (``load_state_dict`` does so by itself).
+    :meth:`hold_prepared` registers them as buffers for an export.
     """
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float, dtype,
@@ -236,6 +237,17 @@ class Block(nn.Module):
 
     def invalidate_prepared(self) -> None:
         self._prepared = None
+        self._modules.pop("int8_operands", None)
+
+    def hold_prepared(self) -> None:
+        """Keep the int8 kernel's operands as the buffers of a child module
+        ``int8_operands`` (named as :meth:`prepared`'s keys), where an
+        exported program finds them as named state instead of a hidden
+        cache; :meth:`invalidate_prepared` drops them."""
+        holder = nn.Module()
+        for name, t in self.prepared().items():
+            holder.register_buffer(name, t.detach())
+        self.int8_operands = holder
 
     def _apply(self, fn, *args, **kwargs):
         self._prepared = None  # a move or a cast: prepare again there
@@ -243,7 +255,11 @@ class Block(nn.Module):
 
     @torch.no_grad()
     def prepared(self) -> Dict[str, torch.Tensor]:
-        """The operand dict of this block's int8 kernel."""
+        """The operand dict of this block's int8 kernel: the held buffers
+        (:meth:`hold_prepared`) where there are, else prepared once."""
+        held = self._modules.get("int8_operands")
+        if held is not None:
+            return dict(held.named_buffers())
         if self._prepared is None:
             flat = block_params(self)
             if self.quant_static:

@@ -15,8 +15,11 @@ output times ``inv_out`` quantised to int8.
 
 CUDA tensors launch the kernel of ``csrc/attention.cu`` (one launch, counted
 in :data:`launches`): bf16 on the tensor cores, f32 (``mha_fused`` only) on
-the CUDA cores; CPU tensors run the ``*_plain`` twin; anything else raises,
-and so does a shape past the limits of the bf16 route
+the CUDA cores; the int8 blocks' modes are also the op
+``hands_tpu_torch::qkv_attention`` (``cuda_build.KernelOp``), which a
+``torch.export`` of those blocks records; CPU tensors run the ``*_plain``
+twin; anything else raises, and so does a shape past the limits of the bf16
+route
 (:func:`~hands_tpu_torch.ops.vit_block.check_attention_shape`) or past the
 shared memory of the f32 route. q, k and v
 are read in place through their strides, so the slices of a fused qkv
@@ -30,7 +33,8 @@ from typing import Dict, Optional
 
 import torch
 
-from hands_tpu_torch.ops.cuda_build import CudaLibrary, check, on_cpu
+from hands_tpu_torch.ops.cuda_build import (CudaLibrary, KernelOp, check,
+                                           on_cpu)
 from hands_tpu_torch.ops.vit_block import bf16_const, check_attention_shape
 
 _BF16 = torch.bfloat16
@@ -149,12 +153,10 @@ def mha_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-def qkv_attention(qkv: torch.Tensor, num_heads: int,
-                  inv_out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Attention of the int8 blocks on a fused (B, N, 3C) bf16 qkv tensor ->
-    (B, N, C) bf16, or int8 when ``inv_out`` (C,) f32 is given."""
-    if on_cpu(qkv):
-        return qkv_attention_plain(qkv, num_heads, inv_out)
+def launch_qkv_attention(qkv: torch.Tensor, num_heads: int,
+                         inv_out: Optional[torch.Tensor]) -> torch.Tensor:
+    """The launch function of the int8 blocks' attention (checks, launch,
+    count): the body of the op ``hands_tpu_torch::qkv_attention``."""
     B, N, C3 = qkv.shape
     C = C3 // 3
     D = C // num_heads
@@ -175,3 +177,19 @@ def qkv_attention(qkv: torch.Tensor, num_heads: int,
     launches["qkv_attention_static" if static
              else "qkv_attention_dynamic"] += 1
     return out
+
+
+QKV_ATTENTION = KernelOp(
+    "qkv_attention", launch_qkv_attention,
+    lambda qkv, num_heads, inv_out: qkv.new_empty(
+        (*qkv.shape[:2], qkv.shape[2] // 3),
+        dtype=_BF16 if inv_out is None else torch.int8))
+
+
+def qkv_attention(qkv: torch.Tensor, num_heads: int,
+                  inv_out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Attention of the int8 blocks on a fused (B, N, 3C) bf16 qkv tensor ->
+    (B, N, C) bf16, or int8 when ``inv_out`` (C,) f32 is given."""
+    if on_cpu(qkv):
+        return qkv_attention_plain(qkv, num_heads, inv_out)
+    return QKV_ATTENTION(qkv, num_heads, inv_out)

@@ -7,6 +7,13 @@ loaded with ``ctypes``; no PyTorch header is involved, so a build takes
 seconds. Every C entry takes the device index
 first and the stream last, launches on that stream without synchronising,
 and returns the launch's ``cudaGetLastError()``.
+
+:class:`KernelOp` binds a kernel's launch function (its checks, the
+``ctypes`` launch and the launch count) as a CUDA-only ``torch.library`` op
+``hands_tpu_torch::<name>`` with a shape function, so that ``torch.export``
+records the kernel as one graph node and a loaded program launches it
+through the same function. Eager calls skip the dispatcher and call the
+launch function itself.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from typing import Callable, Iterable, Optional, Sequence
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
+OP_NAMESPACE = "hands_tpu_torch"
 BUILD_DIR = CSRC / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -155,3 +163,27 @@ def check_gemm_operands(a: torch.Tensor, w: torch.Tensor) -> None:
             raise ValueError(
                 f"GEMM kernel needs 16-byte aligned base addresses (TMA): "
                 f"{name} starts at {t.data_ptr():#x}")
+
+
+def tracing() -> bool:
+    """True while ``torch.export`` or ``torch.compile`` traces the caller:
+    its tensors are fake, with no storage to launch on."""
+    return torch.compiler.is_exporting() or torch.compiler.is_compiling()
+
+
+class KernelOp:
+    """A kernel's launch function ``launch`` (annotated: the op's schema is
+    read from it) bound as the CUDA-only op ``hands_tpu_torch::<name>``;
+    ``fake`` returns empty tensors of the shapes and dtypes ``launch``
+    returns. A call runs the op while :func:`tracing`, else ``launch``
+    directly: the same kernel, without the dispatcher's host time."""
+
+    def __init__(self, name: str, launch: Callable, fake: Callable):
+        self.name = f"{OP_NAMESPACE}::{name}"
+        self.launch = launch
+        self.op = torch.library.custom_op(self.name, launch, mutates_args=(),
+                                          device_types="cuda")
+        self.op.register_fake(fake)
+
+    def __call__(self, *args):
+        return (self.op if tracing() else self.launch)(*args)

@@ -12,8 +12,11 @@ of ``v_posed`` and ``A`` (backward).
 on CUDA tensors it launches the forward kernel and, in the backward, the
 gradient kernel (one launch each, counted in :data:`launches`); on CPU
 tensors it runs :func:`lbs_apply_plain` and :func:`lbs_apply_bwd_plain`;
-any other device raises. The gradient of ``lbs_weights`` (a buffer of the
-MANO model, asked for by no path) is autograd of the twin on both devices.
+any other device raises. The forward kernel is also the op
+``hands_tpu_torch::lbs_apply`` (``cuda_build.KernelOp``), which a
+``torch.export`` of a MANO decode records. The gradient of ``lbs_weights``
+(a buffer of the MANO model, asked for by no path) is autograd of the twin
+on both devices.
 """
 
 from __future__ import annotations
@@ -24,7 +27,8 @@ from typing import Dict, Tuple
 import torch
 
 from hands_tpu_torch.core.precision import f32_matmuls
-from hands_tpu_torch.ops.cuda_build import CudaLibrary, check, on_cpu
+from hands_tpu_torch.ops.cuda_build import (CudaLibrary, KernelOp, check,
+                                           on_cpu)
 
 NUM_JOINTS = 16
 BWD_MAX_VERTS = 1024  # the backward kernel stages a sample's g and v_posed
@@ -82,7 +86,27 @@ def lbs_apply_bwd_plain(v_posed: torch.Tensor, lbs_weights: torch.Tensor,
     return dv, torch.cat([dA, torch.zeros_like(dA[:, :, :1])], dim=2)
 
 
-def _launch_fwd(v_posed, lbs_weights, A) -> torch.Tensor:
+def _check_operands(v_posed, lbs_weights, A, g=None, layout=True) -> None:
+    """Raise unless the operands are f32 (B, V, 3), (V, 16), (B, 16, 4, 4)
+    [, (B, V, 3)] on one device; ``layout``: also contiguous and 16-byte
+    aligned, as the kernels take them."""
+    if v_posed.dim() != 3:
+        raise ValueError(f"v_posed: want (B, V, 3), got {tuple(v_posed.shape)}")
+    B, V, _ = v_posed.shape
+    named = [("v_posed", v_posed, (B, V, 3)),
+             ("lbs_weights", lbs_weights, (V, NUM_JOINTS)),
+             ("A", A, (B, NUM_JOINTS, 4, 4))]
+    if g is not None:
+        named.append(("grad", g, (B, V, 3)))
+    for name, t, shape in named:
+        check(t, name, torch.float32, shape, v_posed.device, layout=layout)
+
+
+def launch_lbs_apply(v_posed: torch.Tensor, lbs_weights: torch.Tensor,
+                     A: torch.Tensor) -> torch.Tensor:
+    """The forward kernel's launch function (checks, launch, count): the
+    body of the op ``hands_tpu_torch::lbs_apply``."""
+    _check_operands(v_posed, lbs_weights, A)
     B, V, _ = v_posed.shape
     out = torch.empty_like(v_posed)
     LIBRARY.launch("lbs_apply", v_posed.device, v_posed.data_ptr(),
@@ -91,7 +115,13 @@ def _launch_fwd(v_posed, lbs_weights, A) -> torch.Tensor:
     return out
 
 
+LBS_APPLY = KernelOp(
+    "lbs_apply", launch_lbs_apply,
+    lambda v_posed, lbs_weights, A: torch.empty_like(v_posed))
+
+
 def _launch_bwd(v_posed, lbs_weights, A, g):
+    _check_operands(v_posed, lbs_weights, A, g)
     B, V, _ = v_posed.shape
     dv, dA = torch.empty_like(v_posed), torch.empty_like(A)
     LIBRARY.launch("lbs_apply_bwd", v_posed.device, v_posed.data_ptr(),
@@ -105,18 +135,10 @@ def _on_kernel(v_posed, lbs_weights, A, g=None) -> bool:
     """True for CUDA tensors (the kernels), False for CPU tensors (the
     twins); raises on what neither takes: another device, another dtype
     than f32, shapes other than (B, V, 3), (V, 16), (B, 16, 4, 4) [, (B, V,
-    3)], and, for the kernels, tensors not contiguous and 16-byte aligned."""
+    3)]. The launch functions also refuse tensors that are not contiguous
+    and 16-byte aligned (what the kernels take)."""
     cpu = on_cpu(v_posed)
-    if v_posed.dim() != 3:
-        raise ValueError(f"v_posed: want (B, V, 3), got {tuple(v_posed.shape)}")
-    B, V, _ = v_posed.shape
-    named = [("v_posed", v_posed, (B, V, 3)),
-             ("lbs_weights", lbs_weights, (V, NUM_JOINTS)),
-             ("A", A, (B, NUM_JOINTS, 4, 4))]
-    if g is not None:
-        named.append(("grad", g, (B, V, 3)))
-    for name, t, shape in named:
-        check(t, name, torch.float32, shape, v_posed.device, layout=not cpu)
+    _check_operands(v_posed, lbs_weights, A, g, layout=False)
     return not cpu
 
 
@@ -140,7 +162,7 @@ class _LbsApply(torch.autograd.Function):
     def forward(ctx, v_posed, lbs_weights, A):
         ctx.save_for_backward(v_posed, lbs_weights, A)
         if v_posed.is_cuda:
-            return _launch_fwd(v_posed, lbs_weights, A)
+            return LBS_APPLY(v_posed, lbs_weights, A)
         return lbs_apply_plain(v_posed, lbs_weights, A)
 
     @staticmethod

@@ -11,7 +11,10 @@ launched seven times per block; see the note at the top of that file.
 Each wrapper (:func:`layernorm`, :func:`gemm`, :func:`attention`) launches
 its kernel for CUDA tensors and counts the launch in :data:`launches`; for
 CPU tensors it runs its ``*_plain`` twin. Nothing falls back silently: a
-tensor on any other device, or one the kernel does not take, raises.
+tensor on any other device, or one the kernel does not take, raises. The
+three forward kernels are also the ops ``hands_tpu_torch::vit_layernorm``,
+``vit_gemm`` and ``vit_attention`` (``cuda_build.KernelOp``), which a
+``torch.export`` of the block records.
 
 :func:`vit_block_fused_trainable` (port of the JAX function of that name) is
 the block for training: the same seven launches forward, and a backward that
@@ -33,12 +36,12 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from hands_tpu_torch.ops.cuda_build import CudaLibrary
+from hands_tpu_torch.ops.cuda_build import CudaLibrary, KernelOp
 from hands_tpu_torch.ops.cuda_build import check as _check
 from hands_tpu_torch.ops.cuda_build import check_gemm_operands
 from hands_tpu_torch.ops.cuda_build import on_cpu as _on_cpu
@@ -290,11 +293,11 @@ def attention_bwd_plain(qkv: torch.Tensor, do: torch.Tensor,
 
 
 # ------------------------------------------------------- kernel wrappers
-def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-              eps: float = 1e-6) -> torch.Tensor:
-    """(R, C) bf16 -> (R, C) bf16; scale/bias f32 (C,)."""
-    if _on_cpu(x):
-        return layernorm_plain(x, scale, bias, eps)
+# One launch function per kernel: the checks, the launch and its count. It is
+# the body of the kernel's torch.library op (KernelOp), which runs it for a
+# loaded exported program; eager calls run it directly.
+def launch_layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                     eps: float) -> torch.Tensor:
     R, C = x.shape
     dev = x.device
     check_layernorm_width(C)
@@ -306,6 +309,69 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
             bias.data_ptr(), out.data_ptr(), R, C, eps)
     launches["layernorm"] += 1
     return out
+
+
+def launch_gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                residual: Optional[torch.Tensor], epilogue: int
+                ) -> torch.Tensor:
+    M, K = a.shape
+    N = w.shape[0]
+    dev = a.device
+    check_gemm_operands(a, w)
+    _check(a, "a", _BF16, (M, K), dev)
+    _check(w, "w", _BF16, (N, K), dev)
+    _check(bias, "bias", _BF16, (N,), dev)
+    if residual is not None:
+        _check(residual, "residual", _BF16, (M, N), dev)
+    out = torch.empty((M, N), dtype=_BF16, device=dev)
+    LIBRARY.launch("vit_gemm", dev, a.data_ptr(), w.data_ptr(),
+            bias.data_ptr(),
+            None if residual is None else residual.data_ptr(),
+            out.data_ptr(), M, N, K, epilogue)
+    launches["gemm"] += 1
+    return out
+
+
+def _attention_shape(qkv: torch.Tensor, num_heads: int):
+    """(B, N, C, D) of a fused (B, N, 3C) qkv; raises on what the attention
+    kernels do not take."""
+    B, N, C3 = qkv.shape
+    C = C3 // 3
+    if C3 % 3 or C % num_heads:
+        raise ValueError(f"attention kernel needs 3C columns, got {C3} "
+                         f"columns, {num_heads} heads")
+    D = C // num_heads
+    check_attention_shape(N, D)
+    return B, N, C, D
+
+
+def launch_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    B, N, C, D = _attention_shape(qkv, num_heads)
+    dev = qkv.device
+    _check(qkv, "qkv", _BF16, (B, N, 3 * C), dev)
+    out = torch.empty((B, N, C), dtype=_BF16, device=dev)
+    LIBRARY.launch("vit_attention", dev, qkv.data_ptr(), out.data_ptr(),
+            B, N, num_heads, D, bf16_const(D**-0.5))
+    launches["attention"] += 1
+    return out
+
+
+LAYERNORM = KernelOp("vit_layernorm", launch_layernorm,
+                     lambda x, scale, bias, eps: torch.empty_like(x))
+GEMM = KernelOp("vit_gemm", launch_gemm,
+                lambda a, w, bias, residual, epilogue: a.new_empty(
+                    (a.shape[0], w.shape[0])))
+ATTENTION = KernelOp("vit_attention", launch_attention,
+                     lambda qkv, num_heads: qkv.new_empty(
+                         (*qkv.shape[:2], qkv.shape[2] // 3)))
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-6) -> torch.Tensor:
+    """(R, C) bf16 -> (R, C) bf16; scale/bias f32 (C,)."""
+    if _on_cpu(x):
+        return layernorm_plain(x, scale, bias, eps)
+    return LAYERNORM(x, scale, bias, eps)
 
 
 def gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
@@ -320,42 +386,14 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                          "epilogue='residual'")
     if _on_cpu(a):
         return gemm_plain(a, w, bias, epilogue, residual)
-    M, K = a.shape
-    N = w.shape[0]
-    dev = a.device
-    check_gemm_operands(a, w)
-    _check(a, "a", _BF16, (M, K), dev)
-    _check(w, "w", _BF16, (N, K), dev)
-    _check(bias, "bias", _BF16, (N,), dev)
-    if residual is not None:
-        _check(residual, "residual", _BF16, (M, N), dev)
-    out = torch.empty((M, N), dtype=_BF16, device=dev)
-    LIBRARY.launch("vit_gemm", dev, a.data_ptr(), w.data_ptr(),
-            bias.data_ptr(),
-            None if residual is None else residual.data_ptr(),
-            out.data_ptr(), M, N, K, _EPILOGUES[epilogue])
-    launches["gemm"] += 1
-    return out
+    return GEMM(a, w, bias, residual, _EPILOGUES[epilogue])
 
 
 def attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     """(B, N, 3C) bf16 fused qkv -> (B, N, C) bf16 attention output."""
     if _on_cpu(qkv):
         return attention_plain(qkv, num_heads)
-    B, N, C3 = qkv.shape
-    C = C3 // 3
-    D = C // num_heads
-    dev = qkv.device
-    if C3 % 3 or C % num_heads:
-        raise ValueError(f"attention kernel needs 3C columns, got {C3} "
-                         f"columns, {num_heads} heads")
-    check_attention_shape(N, D)
-    _check(qkv, "qkv", _BF16, (B, N, C3), dev)
-    out = torch.empty((B, N, C), dtype=_BF16, device=dev)
-    LIBRARY.launch("vit_attention", dev, qkv.data_ptr(), out.data_ptr(),
-            B, N, num_heads, D, bf16_const(D**-0.5))
-    launches["attention"] += 1
-    return out
+    return ATTENTION(qkv, num_heads)
 
 
 # csrc/vit_block_bwd.cu's LayerNorm backward: rows a block takes at once (a
@@ -420,15 +458,9 @@ def attention_bwd(qkv: torch.Tensor, do: torch.Tensor,
     C) bf16 gradient of its output -> (B, N, 3C) bf16 dqkv."""
     if _on_cpu(qkv):
         return attention_bwd_plain(qkv, do, num_heads)
-    B, N, C3 = qkv.shape
-    C = C3 // 3
-    D = C // num_heads
+    B, N, C, D = _attention_shape(qkv, num_heads)
     dev = qkv.device
-    if C3 % 3 or C % num_heads:
-        raise ValueError(f"attention kernel needs 3C columns, got {C3} "
-                         f"columns, {num_heads} heads")
-    check_attention_shape(N, D)
-    _check(qkv, "qkv", _BF16, (B, N, C3), dev)
+    _check(qkv, "qkv", _BF16, (B, N, 3 * C), dev)
     _check(do, "do", _BF16, (B, N, C), dev)
     dqkv = torch.empty_like(qkv)
     BWD_LIBRARY.launch("vbb_attention_bwd", dev, qkv.data_ptr(),

@@ -18,7 +18,10 @@ would differ from the JAX package's.
 Each wrapper (:func:`ln_quant`, :func:`quant_rows`, :func:`gemm_i8`) launches
 its kernel of ``csrc/vit_block_int8.cu`` for CUDA tensors and counts the
 launch in :data:`launches`; for CPU tensors it runs its ``*_plain`` twin.
-Anything else raises. The attention of both blocks is
+Anything else raises. The kernels are also the ops
+``hands_tpu_torch::i8_ln_quant_dynamic``, ``i8_ln_quant_static``,
+``i8_quant_rows`` and ``i8_gemm`` (``cuda_build.KernelOp``), which a
+``torch.export`` of the blocks records. The attention of both blocks is
 :func:`hands_tpu_torch.ops.attention.qkv_attention`.
 """
 
@@ -31,7 +34,7 @@ import torch
 
 from hands_tpu_torch.ops import quant
 from hands_tpu_torch.ops.attention import qkv_attention, qkv_attention_plain
-from hands_tpu_torch.ops.cuda_build import (CudaLibrary, check,
+from hands_tpu_torch.ops.cuda_build import (CudaLibrary, KernelOp, check,
                                            check_gemm_operands, on_cpu)
 from hands_tpu_torch.ops.vit_block import (check_layernorm_width, gelu,
                                            layernorm_f32)
@@ -71,6 +74,7 @@ _GEMM_MODES = {
     (False, "bias", _BF16): 4, (False, "residual", _BF16): 5,
     (False, "gelu", _I8): 6,
 }
+_MODE_DTYPES = {mode: dtype for (_, _, dtype), mode in _GEMM_MODES.items()}
 
 
 # ------------------------------------------------------------- plain twins
@@ -118,13 +122,10 @@ def gemm_i8_plain(a_q, w_q, col_scale, bias, *, row_scale=None,
 
 
 # ------------------------------------------------------- kernel wrappers
-def ln_quant(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-             dynamic: bool, eps: float = 1e-6
-             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """LayerNorm + quantise of (R, C) bf16 or f32 rows; see
-    :func:`ln_quant_plain`."""
-    if on_cpu(x):
-        return ln_quant_plain(x, scale, bias, dynamic, eps)
+# One launch function per kernel (checks, launch, count); each is the body of
+# its torch.library op (cuda_build.KernelOp). The LayerNorm + quantise kernel
+# has two ops, its dynamic form (rows and scales) and its static form (rows).
+def _launch_ln_quant(x, scale, bias, dynamic: bool, eps: float):
     R, C = x.shape
     dev = x.device
     if x.dtype not in (_BF16, _F32):
@@ -142,10 +143,18 @@ def ln_quant(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return q, s
 
 
-def quant_rows(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-row dynamic int8 quantisation of (R, K) bf16 or f32."""
-    if on_cpu(a):
-        return quant_rows_plain(a)
+def launch_ln_quant_dynamic(x: torch.Tensor, scale: torch.Tensor,
+                            bias: torch.Tensor, eps: float
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _launch_ln_quant(x, scale, bias, True, eps)
+
+
+def launch_ln_quant_static(x: torch.Tensor, scale: torch.Tensor,
+                           bias: torch.Tensor, eps: float) -> torch.Tensor:
+    return _launch_ln_quant(x, scale, bias, False, eps)[0]
+
+
+def launch_quant_rows(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     R, K = a.shape
     dev = a.device
     if a.dtype not in (_BF16, _F32):
@@ -157,6 +166,77 @@ def quant_rows(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
                    q.data_ptr(), s.data_ptr(), R, K)
     launches["quant_rows"] += 1
     return q, s
+
+
+def launch_gemm_i8(a_q: torch.Tensor, w_q: torch.Tensor,
+                   col_scale: torch.Tensor, bias: torch.Tensor,
+                   row_scale: Optional[torch.Tensor],
+                   residual: Optional[torch.Tensor],
+                   inv_next: Optional[torch.Tensor], mode: int,
+                   fast_gelu: bool) -> torch.Tensor:
+    M, K = a_q.shape
+    N = w_q.shape[0]
+    dev = a_q.device
+    dynamic = row_scale is not None
+    check_gemm_operands(a_q, w_q)
+    check(a_q, "a_q", _I8, (M, K), dev)
+    check(w_q, "w_q", _I8, (N, K), dev)
+    check(col_scale, "col_scale", _F32, (N,), dev)
+    check(bias, "bias", _F32, (N,), dev)
+    if dynamic:
+        check(row_scale, "row_scale", _F32, (M, 1), dev)
+    if residual is not None:
+        check(residual, "residual", _F32 if dynamic else _BF16, (M, N), dev)
+    if inv_next is not None:
+        check(inv_next, "inv_next", _F32, (N,), dev)
+    out = torch.empty((M, N), dtype=_MODE_DTYPES[mode], device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    LIBRARY.launch("i8_gemm", dev, a_q.data_ptr(), w_q.data_ptr(),
+                   ptr(row_scale), col_scale.data_ptr(), bias.data_ptr(),
+                   ptr(residual), ptr(inv_next), out.data_ptr(), M, N, K,
+                   mode, int(fast_gelu))
+    launches["gemm_i8_dynamic" if dynamic else "gemm_i8_static"] += 1
+    return out
+
+
+def _rows_and_scales(x, *_):
+    return (x.new_empty(x.shape, dtype=_I8),
+            x.new_empty((x.shape[0], 1), dtype=_F32))
+
+
+LN_QUANT_DYNAMIC = KernelOp("i8_ln_quant_dynamic", launch_ln_quant_dynamic,
+                            _rows_and_scales)
+LN_QUANT_STATIC = KernelOp(
+    "i8_ln_quant_static", launch_ln_quant_static,
+    lambda x, scale, bias, eps: x.new_empty(x.shape, dtype=_I8))
+QUANT_ROWS = KernelOp("i8_quant_rows", launch_quant_rows, _rows_and_scales)
+GEMM_I8 = KernelOp(
+    "i8_gemm", launch_gemm_i8,
+    lambda a_q, w_q, col_scale, bias, row_scale, residual, inv_next, mode,
+    fast_gelu: a_q.new_empty((a_q.shape[0], w_q.shape[0]),
+                             dtype=_MODE_DTYPES[mode]))
+
+
+def ln_quant(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+             dynamic: bool, eps: float = 1e-6
+             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """LayerNorm + quantise of (R, C) bf16 or f32 rows; see
+    :func:`ln_quant_plain`."""
+    if on_cpu(x):
+        return ln_quant_plain(x, scale, bias, dynamic, eps)
+    if dynamic:
+        return LN_QUANT_DYNAMIC(x, scale, bias, eps)
+    return LN_QUANT_STATIC(x, scale, bias, eps), None
+
+
+def quant_rows(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row dynamic int8 quantisation of (R, K) bf16 or f32."""
+    if on_cpu(a):
+        return quant_rows_plain(a)
+    return QUANT_ROWS(a)
 
 
 def gemm_i8(a_q, w_q, col_scale, bias, *, row_scale=None,
@@ -183,31 +263,8 @@ def gemm_i8(a_q, w_q, col_scale, bias, *, row_scale=None,
                              epilogue=epilogue, residual=residual,
                              inv_next=inv_next, out_dtype=out_dtype,
                              fast_gelu=fast_gelu)
-    M, K = a_q.shape
-    N = w_q.shape[0]
-    dev = a_q.device
-    check_gemm_operands(a_q, w_q)
-    check(a_q, "a_q", _I8, (M, K), dev)
-    check(w_q, "w_q", _I8, (N, K), dev)
-    check(col_scale, "col_scale", _F32, (N,), dev)
-    check(bias, "bias", _F32, (N,), dev)
-    if dynamic:
-        check(row_scale, "row_scale", _F32, (M, 1), dev)
-    if residual is not None:
-        check(residual, "residual", _F32 if dynamic else _BF16, (M, N), dev)
-    if inv_next is not None:
-        check(inv_next, "inv_next", _F32, (N,), dev)
-    out = torch.empty((M, N), dtype=out_dtype, device=dev)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    LIBRARY.launch("i8_gemm", dev, a_q.data_ptr(), w_q.data_ptr(),
-                   ptr(row_scale), col_scale.data_ptr(), bias.data_ptr(),
-                   ptr(residual), ptr(inv_next), out.data_ptr(), M, N, K,
-                   mode, int(fast_gelu))
-    launches["gemm_i8_dynamic" if dynamic else "gemm_i8_static"] += 1
-    return out
+    return GEMM_I8(a_q, w_q, col_scale, bias, row_scale, residual, inv_next,
+                   mode, fast_gelu)
 
 
 # ------------------------------------------------------------------ blocks

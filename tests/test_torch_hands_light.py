@@ -83,10 +83,13 @@ def as_np(v):
     return np.array(v, np.float32)  # a writable copy
 
 
-def run_pair(cfg_kw, inputs, meta, seed=1, compiler_options=None):
+def run_pair(cfg_kw, inputs, meta, seed=1, compiler_options=None,
+             with_ref=True):
     """Build both models for ``default_config("hands_light", **cfg_kw)`` (in
     f32 unless ``cfg_kw`` names the compute dtype), fill the JAX variables,
-    carry them over, run both. Returns (ref, got, port model, variables)."""
+    carry them over, run both. Returns (ref, got, port model, variables);
+    ``with_ref=False`` skips compiling and running the JAX model (ref is
+    None) for a caller that reads the port's side only."""
     cfg_kw = dict({"compute_dtype": "float32"}, **cfg_kw)
     jcfg = jax_config("hands_light", **cfg_kw)
     jmodel = JaxHands(jcfg)
@@ -95,9 +98,11 @@ def run_pair(cfg_kw, inputs, meta, seed=1, compiler_options=None):
     shapes = jax.eval_shape(
         lambda: jmodel.init(jax.random.PRNGKey(0), jin, jmeta))
     variables = fill_variables(shapes, seed)
-    fn = jax.jit(lambda v, i, m: dict(jmodel(v, i, m)))
-    ref = fn.lower(variables, jin, jmeta).compile(compiler_options)(
-        variables, jin, jmeta)
+    ref = None
+    if with_ref:
+        fn = jax.jit(lambda v, i, m: dict(jmodel(v, i, m)))
+        ref = fn.lower(variables, jin, jmeta).compile(compiler_options)(
+            variables, jin, jmeta)
 
     model = HandsLightModel(default_config("hands_light", **cfg_kw)).eval()
     model.load_state_dict(state_dict_from_jax(variables, model))
@@ -204,7 +209,7 @@ def test_flip_swap_with_mixed_flags_matches_jax(base):
     ref, got, _, _ = run_pair(kw, inputs, flipped)
     worst, per_key = max_rel(ref, got)
     assert worst <= RTOL, per_key
-    _, plain, _, _ = run_pair(kw, inputs, meta)
+    _, plain, _, _ = run_pair(kw, inputs, meta, with_ref=False)
     # sample 1 is untouched; sample 0's right hand is the mirrored left one
     np.testing.assert_array_equal(got["mano.beta.r"][1].numpy(),
                                   plain["mano.beta.r"][1].numpy())
@@ -254,14 +259,15 @@ def test_bf16_backbones_match_jax(base):
     for k, v in per_key.items():
         if any(p in k for p in ("vertices", "joints3d", "v3d.", "j3d.")):
             assert v <= 2e-2, (k, v)
-    _, exact, _, _ = run_pair(dict(kw, compute_dtype="float32"), inputs, meta)
+    _, exact, _, _ = run_pair(dict(kw, compute_dtype="float32"), inputs, meta,
+                              with_ref=False)
     assert not torch.equal(got["mano.vertices.r"], exact["mano.vertices.r"])
 
 
 def test_from_jax_consumes_every_leaf_and_fills_every_buffer(base):
     _, inputs, meta = base
     kw = dict(backbone="resnet18", use_render_seg_loss=False)
-    _, _, model, variables = run_pair(kw, inputs, meta)
+    _, _, model, variables = run_pair(kw, inputs, meta, with_ref=False)
     sd = state_dict_from_jax(variables, model)
     assert set(sd) == set(model.state_dict())
     assert any(k.endswith("running_var") for k in sd)
