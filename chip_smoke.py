@@ -34,7 +34,13 @@ check (``cli.numerics_check``) and the int8 drift tool
 (``cli.int8_accuracy``), exports the serving program of HaMeR (K3, K5,
 K6) and WildHands through ``torch.export`` (``cli.export``), loads and runs
 it beside live serving, once in a fresh process that imports only the
-kernel ops, and runs ``cli.extract`` and ``cli.build_feat_split``, checks
+kernel ops, and runs ``cli.extract`` and ``cli.build_feat_split``, builds
+ARCTIC's ground truth (``process_seq``: MANO, the object, SMPL-X, 9 views)
+for two 700-frame sequences on the card against the CPU and merges them
+(``build_split``), holds the object templates, the objects' FK, the
+interaction fields, the contact windows and every object metric against
+the CPU, draws the overlays (``Trainer.visualize``, ``cli.demo`` with and
+without ``--no_vis``, ``cli.sample_data``), checks
 the launch counts of each path, and times kernels, blocks, forwards,
 serving, train steps and the training loop with CUDA events or the host
 clock around a synchronise. An early line names the
@@ -3508,7 +3514,7 @@ def real_layout_phase(dev, tag, decoder: str) -> None:
         argv = ["--dir", images, "--dtype", "bfloat16", "--batch_size",
                 str(len(paths)), "--device", str(dev)]
         reset_launch_counts()
-        require(cli_demo.main(argv + ["--ckpt", last, "--out",
+        require(cli_demo.main(argv + ["--ckpt", last, "--no_vis", "--out",
                                       os.path.join(tmp, "demo")], over) == 0,
                 "cli.demo --ckpt")
         torch.cuda.synchronize()
@@ -4781,6 +4787,513 @@ def export_phase(configs, dev, tag) -> None:
     print(f"phase 17 took {time.time() - t_phase:.1f} s")
 
 
+# ---- phase 18: objects, ARCTIC's ground-truth build, the object metrics and
+# the visualisation
+ARCTIC_T = 700  # frames a sequence: ARCTIC's ~2.1 M images / 9 views / 339
+ARCTIC_VIEWS = 9  # 1 egocentric + 8 fixed cameras
+ARCTIC_SIZE = (2800, 2000)  # (w, h) of every view
+OBJ_BATCH = 64  # templates and interaction fields a call
+CPU_FIELD_FRAMES = 128  # frames of the sequence's fields also run on the CPU
+VIS_IMAGES = 8  # images of the demo's request
+M_TOL, PX_TOL, METRIC_REL = 1e-5, 1e-2, 1e-5
+# the object metrics are differences of positions ~1 m out (roots that sum
+# ~3,800 vertices in each device's order): each is held to METRIC_REL plus
+# what a 1e-5 m (M_TOL) move of its points makes of it
+METRIC_ABS = {"mrrpe": 2e3 * M_TOL, "cdev": 2e3 * M_TOL, "avg": 2e3 * M_TOL,
+              "aae": 0.0, "acc": 4 * M_TOL * 30.0**2,
+              "success_rate": 0.1}  # %: a few vertices at alpha x diameter
+
+
+def raw_arctic_sequence(root, name, seed):
+    """A raw ARCTIC-layout sequence ``<root>/raw_seqs/s01/<name>``
+    (``mano.npy``, ``obj.npy``, ``smplx.npy``) and the subject's cameras in
+    ``<root>/raw_seqs/meta/misc.json``, as ``tests/test_arctic_processing.py
+    :_fake_seq`` writes them, at ARCTIC's size. Slow random walks from
+    ``seed``: the object 0.5 m out in the world; the right hand on it for the
+    first two thirds, then 0.3 m away; the left hand on it from T/32 to T/8;
+    the body behind them; every camera 1-1.5 m back, turned by up to ~0.2
+    rad, the egocam (view 0) with 8 distortion coefficients."""
+    import os
+
+    from hands_tpu_torch.core.rot import axis_angle_to_matrix
+
+    T, views = ARCTIC_T, ARCTIC_VIEWS
+    rng = np.random.RandomState(seed)
+    seq = os.path.join(root, "raw_seqs", "s01", name)
+    os.makedirs(seq)
+
+    def walk(n, step):
+        return np.cumsum(rng.randn(T, n) * step, axis=0)
+
+    t = np.arange(T)[:, None]
+    obj_trans = np.float32([0.0, 0.0, 500.0]) + walk(3, 0.5)  # mm
+    obj = np.concatenate([0.4 + 0.3 * np.sin(t / 60.0),
+                          np.float32([0.2, -0.1, 0.3]) + walk(3, 1e-3),
+                          obj_trans], axis=1).astype(np.float32)
+    np.save(os.path.join(seq, "obj.npy"), obj)
+    away = np.float32([0.3, 0.0, 0.0])
+    on = {"right": t < 2 * T // 3, "left": (t >= T // 32) & (t < T // 8)}
+    mano = {}
+    for side in ("right", "left"):
+        trans = obj_trans / 1000.0 + np.where(on[side], 0.0, away)
+        mano[side] = {
+            "rot": (rng.randn(1, 3) * 0.3 + walk(3, 1e-3)).astype(np.float32),
+            "pose": (rng.randn(1, 45) * 0.2 + walk(45, 2e-4)
+                     ).astype(np.float32),
+            "trans": trans.astype(np.float32),
+            "shape": (rng.randn(10) * 0.3).astype(np.float32),
+        }
+    np.save(os.path.join(seq, "mano.npy"), mano)
+    body = {k: (rng.randn(T, n) * s).astype(np.float32) for k, n, s in (
+        ("body_pose", 63, 0.1), ("jaw_pose", 3, 0.05), ("leye_pose", 3, 0.05),
+        ("reye_pose", 3, 0.05), ("left_hand_pose", 45, 0.1),
+        ("right_hand_pose", 45, 0.1))}
+    body["global_orient"] = (np.float32([0.1, 0.0, 0.0]) + walk(3, 1e-3)
+                             ).astype(np.float32)
+    body["transl"] = (np.float32([0.0, 0.2, 0.7]) + walk(3, 1e-3)
+                      ).astype(np.float32)
+    np.save(os.path.join(seq, "smplx.npy"), body)
+
+    meta = os.path.join(root, "raw_seqs", "meta")
+    if not os.path.isdir(meta):
+        w2c = np.tile(np.eye(4), (views, 1, 1))
+        w2c[:, :3, :3] = axis_angle_to_matrix(torch.from_numpy(
+            (rng.randn(views, 3) * 0.1).astype(np.float32))).numpy()
+        w2c[:, :3, 3] = np.c_[rng.randn(views, 2) * 0.1,
+                              1.0 + rng.rand(views) * 0.5]
+        w, h = ARCTIC_SIZE
+        K = np.tile(np.float32([[1200.0, 0, w / 2], [0, 1200.0, h / 2],
+                                [0, 0, 1]]), (views, 1, 1))
+        os.makedirs(meta)
+        with open(os.path.join(meta, "misc.json"), "w") as f:
+            json.dump({"s01": {
+                "world2cam": w2c.tolist(), "intris_mat": K.tolist(),
+                "dist8": (rng.randn(8) * [0.05, 0.01, 1e-3, 1e-3, 1e-3, 0.02,
+                                          5e-3, 1e-3]).tolist(),
+                "image_size": [list(ARCTIC_SIZE)] * views}}, f)
+    return seq
+
+
+def hold_payload(what, got, ref) -> None:
+    """A ground-truth payload of the card against the CPU's: parameters and
+    validity flags equal, 3D within M_TOL m, 2D and box centres within
+    PX_TOL px (box scales within PX_TOL / 200)."""
+    require(set(got) == set(ref) and set(got["2d"]) == set(ref["2d"])
+            and set(got["cam_coord"]) == set(ref["cam_coord"]),
+            f"{what}: the payloads' keys differ")
+    for k in ref["params"]:
+        require(np.array_equal(got["params"][k], ref["params"][k]),
+                f"{what}: params {k} differ")
+    d3 = max(float(np.abs(got["cam_coord"][k] - ref["cam_coord"][k]).max())
+             for k in ref["cam_coord"])
+    d2 = {k: float(np.abs(got["2d"][k] - ref["2d"][k]).max())
+          for k in ref["2d"]}
+    db = float(np.abs((got["bbox"] - ref["bbox"]) * [1, 1, 200]).max())
+    flags = ("joints_valid_r", "joints_valid_l", "right_valid", "left_valid")
+    moved = sum(int((got[k] != ref[k]).sum()) for k in flags)
+    valid = sum(int(ref[k].sum()) for k in flags[:2])
+    print(f"  {what}: cam_coord max|d| {d3:.3e} m (<= {M_TOL:g}); 2D max|d| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in d2.items())
+          + f" px (<= {PX_TOL:g}); boxes {db:.3e} px; {moved} validity flags "
+          f"differ ({valid} valid joints)")
+    require(d3 <= M_TOL and max(d2.values()) <= PX_TOL and db <= PX_TOL
+            and moved == 0, f"{what}: the card's payload differs")
+
+
+def hold_metric(name, got, ref) -> None:
+    """A metric array of the card against the CPU's: NaN in the same places,
+    the rest within METRIC_REL |ref| + its METRIC_ABS."""
+    atol = METRIC_ABS[name.split("/")[0]]
+    g, r = got.detach().cpu().double(), ref.double()
+    fin = ~torch.isnan(r)
+    d = (g[fin] - r[fin]).abs()
+    excess = float((d - METRIC_REL * r[fin].abs()).max()) if d.numel() else 0.0
+    ok = bool((torch.isnan(g) == ~fin).all()) and excess <= atol
+    print(f"  {name:<18s} {int(fin.sum())} finite of {r.numel()}, max|d| "
+          f"{float(d.max()) if d.numel() else 0.0:.3e}, max(|d| - "
+          f"{METRIC_REL:g}|ref|) {excess:.3e} (<= {atol:g}), max|ref| "
+          f"{float(r[fin].abs().max()):.3e}  {'ok' if ok else 'FAIL'}")
+    require(ok, f"{name}: the card's metric differs from the CPU's")
+
+
+def hold_field(key, d_card, i_card, d_cpu, i_cpu, query, points) -> None:
+    """An interaction field of the card against the CPU's on the same
+    points: distances within METRIC_REL; where the nearest point differs,
+    the card's must be as near, in f64, within METRIC_REL."""
+    err = float(((d_card - d_cpu).abs() / d_cpu.clamp(min=1e-9)).max())
+    other = (i_card != i_cpu).nonzero(as_tuple=True)
+    worst = 0.0
+    if other[0].numel():
+        q = query.double()[other[0], other[1]]
+
+        def dist(i):
+            return (points.double()[other[0], i[other]] - q).norm(dim=-1)
+        worst = float(((dist(i_card) - dist(i_cpu)).abs()
+                       / dist(i_cpu).clamp(min=1e-9)).max())
+    ok = err <= METRIC_REL and worst <= METRIC_REL
+    print(f"  interfield {key}: {d_cpu.numel()} distances, max rel "
+          f"{err:.3e}, {other[0].numel()} other nearest points within rel "
+          f"{worst:.3e} (<= {METRIC_REL:g})  {'ok' if ok else 'FAIL'}")
+    require(ok, f"interfield {key}: the card's field differs from the CPU's")
+
+
+def object_phase(rows, dev, tag, world) -> None:
+    """Phase 18b: templates, the object set's FK, the interaction fields
+    over the sequence and every object metric, card against CPU."""
+    from hands_tpu_torch.core.object_tensors import (OBJECTS,
+                                                     build_object_tensors,
+                                                     object_forward_7d)
+    from hands_tpu_torch.core.xdict import XDict
+    from hands_tpu_torch.ops import mano as manolib
+    from hands_tpu_torch.train import metrics_object as mo
+    from hands_tpu_torch.train import process_object as po
+
+    print(f"phase 18b: templates at batch {OBJ_BATCH}, the {len(OBJECTS)} "
+          f"objects' FK, interaction fields and object metrics over "
+          f"{ARCTIC_T} frames {tag}")
+    cpu = torch.device("cpu")
+    tensors = {d: build_object_tensors(device=d) for d in (dev, cpu)}
+    for is_right in (True, False):
+        reset_launch_counts()
+        got = po.prepare_mano_template(
+            OBJ_BATCH, manolib.load_mano(is_right, device=dev), is_right)
+        torch.cuda.synchronize()
+        check_launches(f"prepare_mano_template {'rl'[not is_right]}",
+                       launch_counts(), {"lbs_apply": 1}, 1)
+        note_launches(rows, "prepare_mano_template", launch_counts())
+        ref = po.prepare_mano_template(
+            OBJ_BATCH, manolib.load_mano(is_right), is_right)
+        for i, (g, r) in enumerate(zip(got, ref)):
+            compare_abs(f"mano template {'rl'[not is_right]} {i}", g.cpu(), r,
+                        M_TOL)
+    idx = torch.arange(OBJ_BATCH) % len(OBJECTS)
+    got = po.prepare_object_template(OBJ_BATCH, tensors[dev], idx.to(dev))
+    ref = po.prepare_object_template(OBJ_BATCH, tensors[cpu], idx)
+    for name, g, r in zip(("v_sub", "parts", "v", "mask"), got, ref):
+        compare_abs(f"object template {name}", g.cpu().float(), r.float(),
+                    M_TOL)
+    gen = torch.Generator().manual_seed(SEED)
+    n = len(OBJECTS)
+    args = (torch.rand((n, 1), generator=gen) * 1.5,
+            torch.randn((n, 3), generator=gen) * 0.7,
+            torch.randn((n, 3), generator=gen) * 100.0, torch.arange(n))
+    got = object_forward_7d(tensors[dev], *(a.to(dev) for a in args))
+    ref = object_forward_7d(tensors[cpu], *args)
+    for k in ("v", "v_sub", "bbox3d", "kp3d"):  # mm: M_TOL m is 1e-2 mm
+        compare_abs(f"object_forward_7d {k} (mm)", got[k].cpu(), ref[k],
+                    M_TOL * 1000)
+
+    # the sequence's interaction fields, 64 frames a call
+    T = world["verts.right"].shape[0]
+    obj = OBJECTS.index("box")
+    v_len = torch.full((T,), int(tensors[dev].v_len[obj]), device=dev)
+    targets = XDict({"object.v.cam": world["verts.object"],
+                     "object.v_len": v_len,
+                     "mano.v3d.cam.r": world["verts.right"],
+                     "mano.v3d.cam.l": world["verts.left"]})
+    t0 = time.perf_counter()
+    fields = [po.prepare_interfield(XDict({k: v[s:s + OBJ_BATCH]
+                                           for k, v in targets.items()}))
+              for s in range(0, T, OBJ_BATCH)]
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    keys = [k for k in fields[0] if k.startswith(("dist.", "idx."))]
+    field = {k: torch.cat([f[k] for f in fields]) for k in keys}
+    t0 = time.perf_counter()
+    cpu_fields = [po.prepare_interfield(XDict(
+        {k: v[s:s + OBJ_BATCH].cpu() for k, v in targets.items()}))
+        for s in range(0, CPU_FIELD_FRAMES, OBJ_BATCH)]
+    cpu_s = time.perf_counter() - t0
+    cpu_field = {k: torch.cat([f[k] for f in cpu_fields]) for k in keys}
+    for s in ("r", "l"):
+        hand = targets[f"mano.v3d.cam.{s}"][:CPU_FIELD_FRAMES].cpu()
+        objv = targets["object.v.cam"][:CPU_FIELD_FRAMES].cpu()
+        for key, query, points in ((f"{s}o", hand, objv),
+                                   (f"o{s}", objv, hand)):
+            hold_field(key, field[f"dist.{key}"][:CPU_FIELD_FRAMES].cpu(),
+                       field[f"idx.{key}"][:CPU_FIELD_FRAMES].cpu(),
+                       cpu_field[f"dist.{key}"], cpu_field[f"idx.{key}"],
+                       query, points)
+    print(f"  interaction fields: {T} frames on the card {card_s:.2f} s, "
+          f"{CPU_FIELD_FRAMES} on the CPU {cpu_s:.2f} s {tag}")
+
+    # the contact windows and mdev, host side, from the card's fields
+    vo = (tensors[cpu].v[obj] / 1000.0).numpy()
+    win = {}
+    for src, fl in (("card", field), ("CPU", cpu_field)):
+        win[src] = [mo.find_contact_windows(
+            fl[f"dist.{s}o"][:CPU_FIELD_FRAMES].cpu().numpy(),
+            fl[f"idx.{s}o"][:CPU_FIELD_FRAMES].cpu().numpy(), vo)
+            for s in ("r", "l")]
+    require(all(np.array_equal(a, b) for a, b in zip(win["card"], win["CPU"])),
+            "contact windows of the card's fields differ from the CPU's")
+    require(sum(len(w) for w in win["card"]) > 0,
+            f"no contact window in the first {CPU_FIELD_FRAMES} frames")
+    mdev = {}
+    for s, name in (("r", "right"), ("l", "left")):
+        w = mo.find_contact_windows(field[f"dist.{s}o"].cpu().numpy(),
+                                    field[f"idx.{s}o"].cpu().numpy(), vo)
+        mdev[name] = (len(w), mo.compute_mdev(
+            world[f"verts.{name}"].cpu().numpy(),
+            world["verts.object"].cpu().numpy(), w))
+    print(f"  contact windows in the first {CPU_FIELD_FRAMES} frames, card "
+          f"and CPU fields: {[len(w) for w in win['card']]}, equal; over "
+          f"{T} frames: " + ", ".join(
+              f"{k} {n} windows, mdev {v:.4f} mm" for k, (n, v) in
+              mdev.items()))
+
+    # every object metric on the sequence, card against CPU
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    tgt = {"object.v.cam": world["verts.object"],
+           "mano.v3d.cam.r": world["verts.right"],
+           "mano.v3d.cam.l": world["verts.left"],
+           "mano.j3d.cam.r": world["joints.right"],
+           "mano.j3d.cam.l": world["joints.left"],
+           "object.radian": world["object.radian"],
+           "is_valid": torch.ones(T, device=dev),
+           "right_valid": (torch.arange(T, device=dev) % 50 != 7).float(),
+           "left_valid": (torch.arange(T, device=dev) % 70 != 3).float()}
+    tgt.update(field)
+    pred = {k: v + 3e-3 * torch.randn(v.shape, generator=g, device=dev)
+            for k, v in tgt.items()
+            if k.startswith(("object.v.", "mano.", "dist."))}
+    pred["object.radian"] = tgt["object.radian"] + 0.05
+    meta = {"object.v.mask": tensors[dev].mask[obj].expand(T, -1),
+            "part_ids": tensors[dev].parts_ids[obj].expand(T, -1),
+            "diameter": (tensors[dev].diameter[obj] / 1000.0).expand(T)}
+    host = [{k: v.cpu() for k, v in d.items()} for d in (pred, tgt, meta)]
+    for fn in mo.object_eval_fn_dict.values():
+        got, ref = fn(pred, tgt, meta), fn(*host)
+        for k in ref:
+            hold_metric(k, got[k], ref[k])
+
+
+def visualisation_phase(rows, dev, tag) -> None:
+    """Phase 18c: ``Trainer.visualize`` on one validation batch, ``cli.demo``
+    on VIS_IMAGES images with and without overlays, ``cli.sample_data`` on
+    the miniature sample tree; full-width WildHands (two ResNet-50s)."""
+    import glob
+    import os
+    import tempfile
+
+    import cv2
+
+    from hands_tpu_torch.cli import demo as cli_demo
+    from hands_tpu_torch.cli import sample_data
+    from hands_tpu_torch.config import default_config
+    from hands_tpu_torch.data.datasets import (SyntheticRecordDataset,
+                                               _read_image)
+    from hands_tpu_torch.data.device_pipeline import DeviceDataLoader
+    from hands_tpu_torch.models.registry import fetch_model
+    from hands_tpu_torch.train.trainer import Trainer
+    from hands_tpu_torch.utils.experiment import Experiment
+
+    print(f"phase 18c: Trainer.visualize, cli.demo overlays, "
+          f"cli.sample_data; WildHands {WH_BACKBONE} x 2 {tag}")
+    over = {"backbone": WH_BACKBONE}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = default_config("hands_light", logger="none", mute=True, **over)
+        val = DeviceDataLoader(SyntheticRecordDataset(cfg, "val", VIS_IMAGES),
+                               cfg, VIS_IMAGES, is_train=False, device=dev,
+                               num_workers=0)
+        trainer = Trainer(cfg, fetch_model(cfg, device=dev, seed=SEED),
+                          Experiment(cfg, root=tmp))
+        pushed = []
+        trainer.exp.push_images = lambda images, step: pushed.append(images)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        images = trainer.visualize(None, val, 0)
+        vis_s = time.perf_counter() - t0
+        # GT FK of both hands, the eval forward with its render
+        check_launches("Trainer.visualize", launch_counts(),
+                       {"lbs_apply": 4, "splat_fwd": 2}, 1)
+        note_launches(rows, "Trainer.visualize", launch_counts())
+        require(len(pushed) == 1 and pushed[0] and len(images) == 3
+                and all(im.dtype == np.uint8 and im.ndim == 3
+                        for _, im in images),
+                f"Trainer.visualize pushed {[n for n, _ in images]}")
+        print(f"  Trainer.visualize: pushed {[n for n, _ in images]} in "
+              f"{vis_s:.2f} s {tag}")
+        del trainer
+
+        imgs = os.path.join(tmp, "imgs")
+        os.makedirs(imgs)
+        rng = np.random.RandomState(SEED)
+        for i in range(VIS_IMAGES):
+            cv2.imwrite(os.path.join(imgs, f"im{i}.png"), rng.randint(
+                0, 256, (480 - 16 * i, 640, 3), np.uint8))
+        runs = {}
+        for flag, out in (([], "vis"), (["--no_vis"], "novis")):
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            require(cli_demo.main(
+                ["--dir", imgs, "--batch_size", str(VIS_IMAGES), "--device",
+                 str(dev), "--out", os.path.join(tmp, out)] + flag, over) == 0,
+                " ".join(["cli.demo"] + flag))
+            torch.cuda.synchronize()
+            runs[out] = time.perf_counter() - t0
+            path = " ".join(["cli.demo"] + flag)
+            check_launches(path, launch_counts(), {"lbs_apply": 2}, 1)
+            note_launches(rows, path, launch_counts())
+        npz = {os.path.basename(p) for p in
+               glob.glob(os.path.join(tmp, "novis", "*"))}
+        require(npz == {f"im{i}_pred.npz" for i in range(VIS_IMAGES)},
+                f"cli.demo --no_vis wrote {sorted(npz)}")
+        pngs = {os.path.basename(p) for p in
+                glob.glob(os.path.join(tmp, "vis", "*.png"))}
+        for i in range(VIS_IMAGES):
+            mine = {p for p in pngs if p.startswith(f"im{i}_{i}__")}
+            require(f"im{i}_{i}__pred_kps.png" in mine and any(
+                "__rend_" in p for p in mine), f"im{i}: overlays {mine}")
+        require(npz <= {os.path.basename(p) for p in glob.glob(
+            os.path.join(tmp, "vis", "*"))}, "cli.demo: npz with overlays")
+        # a request's time, the model built and the images decoded
+        scfg = cli_demo.serving_config("hands_light").replace(**over)
+        model = fetch_model(scfg, device=dev, seed=SEED)
+        recs = [cli_demo.make_record(p, _read_image(p)[0]) for p in
+                sorted(glob.glob(os.path.join(imgs, "*.png")))]
+        cli_demo.pad_to_common_size(recs)
+
+        def request(vis):
+            out, targets = cli_demo.serve_with_targets(recs, scfg, model, dev)
+            torch.cuda.synchronize()
+            if vis:
+                require(len(cli_demo.save_overlays(
+                    out, targets, scfg, recs, len(recs),
+                    os.path.join(tmp, "again"))) >= 2 * len(recs),
+                    "save_overlays")
+        os.makedirs(os.path.join(tmp, "again"))
+        request(False)
+        ms = {}
+        for vis in (False, True, False):
+            t0 = time.perf_counter()
+            request(vis)
+            ms.setdefault(vis, []).append((time.perf_counter() - t0) * 1e3)
+        print(f"  cli.demo, {VIS_IMAGES} images a request: "
+              f"{min(ms[False]):.1f} ms a request without overlays, "
+              f"{ms[True][0]:.1f} ms with ({len(pngs)} PNGs); whole CLI runs "
+              f"{runs['vis']:.2f} s / {runs['novis']:.2f} s with / without "
+              f"{tag}")
+        del model
+
+        trees = load_trees()
+        data = os.path.join(tmp, "data")
+        trees.build_sample_tree(data)
+        errs = {}
+        with mock.patch.dict(os.environ, {"DATA_DIR": data}), \
+                contextlib.chdir(tmp):
+            for device in (dev, "cpu"):
+                reset_launch_counts()
+                errs[str(device)] = sample_data.main(["--device",
+                                                      str(device)])
+                if device == dev:
+                    torch.cuda.synchronize()
+                    check_launches("cli.sample_data", launch_counts(),
+                                   {"lbs_apply": 1}, 1)
+                    note_launches(rows, "cli.sample_data", launch_counts())
+        got, ref = np.asarray(errs[str(dev)]), np.asarray(errs["cpu"])
+        files = glob.glob(os.path.join(tmp, "logs", "sample_data", "*.png"))
+        require(len(got) == len(ref) == len(files) > 0
+                and np.abs(got - ref).max() <= PX_TOL,
+                f"cli.sample_data: {got} against the CPU's {ref}")
+        print(f"  cli.sample_data: {len(files)} overlays, mean reprojection "
+              f"errors {np.round(got, 3).tolist()} px, the CPU's within "
+              f"{np.abs(got - ref).max():.2e} px")
+
+
+def arctic_phase(rows, dev, tag) -> None:
+    """Phase 18: ARCTIC's ground-truth build at its size on the card against
+    the CPU (``process_seq`` of two sequences, ``build_split``), the object
+    templates, FK, interaction fields and metrics, and the visualisation."""
+    import os
+    import tempfile
+
+    from hands_tpu_torch.data import arctic_processing as ap
+
+    t_phase = time.time()
+    print(f"phase 18a: ARCTIC's ground-truth build, {ARCTIC_T} frames x "
+          f"{ARCTIC_VIEWS} views of {ARCTIC_SIZE[0]} x {ARCTIC_SIZE[1]}, "
+          f"MANO (K1), the object and SMPL-X {tag}")
+    with tempfile.TemporaryDirectory() as tmp:
+        names = ["box_grab_01", "box_use_02"]
+        seqs = [raw_arctic_sequence(tmp, n, SEED + i)
+                for i, n in enumerate(names)]
+        secs = {"card": [], "cpu": []}
+        for seq in seqs:
+            for label, device in (("card", dev), ("cpu", "cpu")):
+                if label == "card":
+                    reset_launch_counts()
+                t0 = time.perf_counter()
+                ap.process_seq(seq, os.path.join(tmp, label),
+                               export_verts=True, device=device)
+                if label == "card":
+                    torch.cuda.synchronize()
+                    # one launch a hand at T samples each
+                    check_launches("process_seq", launch_counts(),
+                                   {"lbs_apply": 2}, 1)
+                    note_launches(rows, f"process_seq T={ARCTIC_T}",
+                                  launch_counts())
+                secs[label].append(time.perf_counter() - t0)
+        print(f"  process_seq (export_verts, SMPL-X): card "
+              f"{', '.join(f'{s:.2f}' for s in secs['card'])} s, CPU "
+              f"{', '.join(f'{s:.2f}' for s in secs['cpu'])} s a sequence "
+              f"(the first card call builds the models) {tag}")
+        split = {}
+        for label in ("card", "cpu"):
+            d = os.path.join(tmp, label)
+            p = ap.build_split(d, [f"s01_{n}" for n in names], "p1", "train",
+                               os.path.join(d, "splits"))
+            split[label] = np.load(p, allow_pickle=True).item()
+            for n in names:  # the sequences' files go once merged
+                os.remove(os.path.join(d, f"s01_{n}.npy"))
+        got, ref = split["card"], split["cpu"]
+        require(got["2d"]["joints.right"].shape == (
+            2 * ARCTIC_T, ARCTIC_VIEWS, 21, 2) and got["2d"][
+            "verts.smplx"].shape[2] == 10475, "build_split's shapes")
+        hold_payload(f"build_split of 2 x {ARCTIC_T} frames", got, ref)
+        del split, got, ref
+
+        # the world-frame FK of the first sequence feeds phase 18b
+        mano = np.load(os.path.join(seqs[0], "mano.npy"),
+                       allow_pickle=True).item()
+        obj = torch.from_numpy(np.load(os.path.join(seqs[0], "obj.npy")))
+        params = {"obj_arti": obj[:, 0], "obj_rot": obj[:, 1:4],
+                  "obj_trans": obj[:, 4:7]}
+        for s, name in (("r", "right"), ("l", "left")):
+            for k in ("rot", "pose", "trans"):
+                params[f"{k}_{s}"] = torch.from_numpy(mano[name][k])
+            params[f"shape_{s}"] = torch.from_numpy(
+                mano[name]["shape"]).reshape(1, 10).expand(ARCTIC_T, 10)
+        world = ap.forward_gt_world({k: v.to(dev) for k, v in
+                                     params.items()}, "box")
+    object_phase(rows, dev, tag, world)
+    visualisation_phase(rows, dev, tag)
+    print(f"phase 18 took {time.time() - t_phase:.1f} s")
+
+
+def arctic_alone() -> int:
+    """Phase 18 alone: builds K1 and K2 (the visualisation's evaluation
+    forward renders its mask) and runs :func:`arctic_phase`::
+
+        python3 -c "import sys, chip_smoke as cs; sys.exit(cs.arctic_alone())"
+    """
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from hands_tpu_torch.ops import mano_lbs
+    from hands_tpu_torch.ops import rasterizer as ras
+    from hands_tpu_torch.ops.cuda_build import build_all
+
+    card = card_line()
+    print_ptxas(build_all([mano_lbs.LIBRARY, ras.LIBRARY]))
+    rows = {k: {"name": k} for k in ("lbs_apply", "splat_fwd")}
+    arctic_phase(rows, DEV, f"[{card}]")
+    print(card)
+    print(json.dumps({"launches_on": {k: r.get("launches_on", {})
+                                      for k, r in rows.items()}}))
+    return 0
+
+
 def kernel_name(mangled: str) -> str:
     """The names inside an Itanium-mangled symbol and its integer template
     arguments: enough to tell the kernels of one library apart."""
@@ -5811,6 +6324,7 @@ def main() -> int:
     learning_phase(dev, tag)
     int8_drift_phase(dev, tag)
     families_phase(rows, dev, tag)
+    arctic_phase(rows, dev, tag)
 
     print(card)
     print(json.dumps({"kernels": list(rows.values())}))

@@ -19,7 +19,10 @@ of its ResNets. The static-calibrated variant is served from Python:
 Flow: decoded images -> ``Record`` -> ``stack_records`` -> on-device
 ``DevicePreprocessor`` -> ``fetch_model`` -> ``inference_pose``; writes
 ``<stem>_pred.npz`` per image (MANO pose/betas, 3D joints and vertices,
-camera). :func:`serve` is the same flow on in-memory records, without files.
+camera) and, unless ``--no_vis``, the overlay figures of
+``utils/vis.visualize_all`` as ``<stem>_<figure>.png`` (the keypoint grids
+and the [input | render] strip). :func:`serve` is the same flow on
+in-memory records, without files.
 Weights are random from ``--seed``, or ``--ckpt <dir>/last`` (or
 ``<dir>/epoch_%04d``) serves a checkpoint that ``cli.train`` wrote; it must
 hold every entry of the served model at its shape
@@ -27,8 +30,6 @@ hold every entry of the served model at its shape
 
     python -m hands_tpu_torch.cli.demo --dir photos/ \\
         --ckpt logs/<key>/checkpoints/last
-
-Visualisation is not ported yet (ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -87,16 +88,57 @@ def pad_to_common_size(records: List[Record]) -> None:
             r.image = canvas
 
 
-def serve(records: List[Record], cfg: Config, model, device):
-    """One batch of same-shape records -> the ``{inputs.*, pred.*,
-    meta_info.*}`` XDict of ``inference_pose``, tensors on ``device``."""
+def serve_with_targets(records: List[Record], cfg: Config, model, device):
+    """One batch of same-shape records -> (the ``{inputs.*, pred.*,
+    meta_info.*}`` XDict of ``inference_pose``, the preprocessor's targets),
+    tensors on ``device``."""
     from hands_tpu_torch.data.device_pipeline import (DevicePreprocessor,
                                                       stack_records)
     from hands_tpu_torch.models.registry import inference_pose
 
     pre = DevicePreprocessor(cfg, is_train=False, device=device)
-    inputs, _, meta = pre(stack_records(records))
-    return inference_pose(model, inputs, meta)
+    inputs, targets, meta = pre(stack_records(records))
+    return inference_pose(model, inputs, meta), targets
+
+
+def serve(records: List[Record], cfg: Config, model, device):
+    """One batch of same-shape records -> the ``{inputs.*, pred.*,
+    meta_info.*}`` XDict of ``inference_pose``, tensors on ``device``."""
+    return serve_with_targets(records, cfg, model, device)[0]
+
+
+def save_png(img, path: str) -> None:
+    """An HWC image (uint8, or float in [0, 1] or [0, 255]) -> a PNG."""
+    from PIL import Image
+
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        img = np.clip(img * (255.0 if img.max() <= 1.001 else 1.0),
+                      0, 255).astype(np.uint8)
+    Image.fromarray(img).save(path)
+
+
+def save_overlays(out, targets, cfg: Config, chunk: List[Record], n_real: int,
+                  out_dir: str) -> List[str]:
+    """The figures of the first ``n_real`` requests of a served chunk as
+    ``<out_dir>/<stem>_<figure>.png``; returns the paths. Drawing failures
+    are reported, not raised: the overlays must not stop the serving."""
+    from hands_tpu_torch.core.xdict import XDict
+    from hands_tpu_torch.utils.vis import visualize_all
+
+    vis_dict = XDict(out)
+    vis_dict.merge(XDict(targets).prefix("targets."))
+    paths = []
+    try:
+        for name, im in visualize_all(vis_dict, cfg, max_examples=n_real):
+            idx = int(name.split("__")[0] or 0)
+            stem = os.path.splitext(os.path.basename(chunk[idx].imgname))[0]
+            paths.append(os.path.join(
+                out_dir, f"{stem}_{name.replace('/', '_')}.png"))
+            save_png(im, paths[-1])
+    except Exception as e:  # vis must not kill the demo
+        print(f"visualization failed (non-fatal): {e}")
+    return paths
 
 
 def run_demo(argv=None, overrides=None) -> int:
@@ -133,6 +175,8 @@ def run_demo(argv=None, overrides=None) -> int:
     p.add_argument("--r_bbox", default=None, help="x0,y0,x1,y1")
     p.add_argument("--l_bbox", default=None, help="x0,y0,x1,y1")
     p.add_argument("--focal", type=float, default=None)
+    p.add_argument("--no_vis", action="store_true",
+                   help="skip the overlay PNGs (predictions npz only)")
     args = p.parse_args(argv)
 
     def box(s):
@@ -180,13 +224,16 @@ def run_demo(argv=None, overrides=None) -> int:
             pad.right_valid = 0.0
             pad.left_valid = 0.0
             chunk.append(pad)
-        out = serve(chunk, cfg, model, args.device).to_np()
-        keep = [k for k in out if k.startswith("pred.mano.")
+        out, targets = serve_with_targets(chunk, cfg, model, args.device)
+        out_np = out.to_np()
+        keep = [k for k in out_np if k.startswith("pred.mano.")
                 or k == "pred.feat_vec"]
         for i in range(n_real):
             stem = os.path.splitext(os.path.basename(chunk[i].imgname))[0]
             np.savez(os.path.join(args.out, f"{stem}_pred.npz"),
-                     **{k: out[k][i] for k in keep})
+                     **{k: out_np[k][i] for k in keep})
+        if not args.no_vis:
+            save_overlays(out, targets, cfg, chunk, n_real, args.out)
     print(f"wrote predictions for {len(records)} image(s) -> {args.out}")
     return 0
 

@@ -1,10 +1,9 @@
-"""Rotation conversions (port of ``hands_tpu/core/rot.py``, what the serving
-and evaluation forwards run).
+"""Rotation conversions (port of ``hands_tpu/core/rot.py``).
 
 Same conventions as the JAX module: quaternions real-part first, pytorch3d's
 four-branch matrix -> quaternion construction, the pytorch3d row-major 6D
-layout and HaMeR's column layout. Shape polymorphic over leading batch dims;
-float32 with TF32 off.
+layout, SPIN's interleaved column layout and HaMeR's column layout. Shape
+polymorphic over leading batch dims; float32 with TF32 off.
 """
 
 from __future__ import annotations
@@ -150,9 +149,71 @@ def rot6d_to_matrix_hamer(d6: torch.Tensor) -> torch.Tensor:
     return torch.swapaxes(rot6d_to_matrix(d6), -1, -2)
 
 
+def rot6d_to_matrix_spin(d6: torch.Tensor) -> torch.Tensor:
+    """SPIN/HMR 6D (..., 6) -> rotation matrix: the 6 values are a (3, 2)
+    block whose *columns* are the two encoded vectors, and the decoded
+    frame forms the matrix *columns*. Identity encodes as
+    ``[1, 0, 0, 1, 0, 0]``."""
+    block = d6.reshape(d6.shape[:-1] + (3, 2))
+    a1, a2 = block[..., 0], block[..., 1]
+    b1 = a1 / torch.clamp(_safe_norm(a1), min=_EPS)
+    a2_proj = a2 - torch.sum(b1 * a2, dim=-1, keepdim=True) * b1
+    b2 = a2_proj / torch.clamp(_safe_norm(a2_proj), min=_EPS)
+    b3 = torch.linalg.cross(b1, b2, dim=-1)
+    return torch.stack([b1, b2, b3], dim=-1)
+
+
+def matrix_to_rot6d_spin(matrix: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) -> SPIN 6D (..., 6): the first two
+    *columns*, flattened row-major."""
+    return matrix[..., :, :2].reshape(matrix.shape[:-2] + (6,))
+
+
+def matrix_to_rot6d_hamer(matrix: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`rot6d_to_matrix_hamer`: the first two columns as
+    the contiguous halves."""
+    return torch.swapaxes(matrix, -1, -2)[..., :2, :].reshape(
+        matrix.shape[:-2] + (6,))
+
+
 def standardize_quaternion(quat: torch.Tensor) -> torch.Tensor:
     """Flip sign so the real part is non-negative."""
     return torch.where(quat[..., :1] < 0, -quat, quat)
+
+
+def quaternion_raw_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product of two [w, x, y, z] quaternions."""
+    aw, ax, ay, az = torch.unbind(a, -1)
+    bw, bx, by, bz = torch.unbind(b, -1)
+    return torch.stack(
+        [
+            aw * bw - ax * bx - ay * by - az * bz,
+            aw * bx + ax * bw + ay * bz - az * by,
+            aw * by - ax * bz + ay * bw + az * bx,
+            aw * bz + ax * by - ay * bx + az * bw,
+        ],
+        dim=-1,
+    )
+
+
+def quaternion_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product, standardised to a non-negative real part."""
+    return standardize_quaternion(quaternion_raw_multiply(a, b))
+
+
+def quaternion_invert(quat: torch.Tensor) -> torch.Tensor:
+    """Inverse of a unit quaternion: its conjugate."""
+    sign = torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=quat.dtype,
+                        device=quat.device)
+    return quat * sign
+
+
+def quaternion_apply(quat: torch.Tensor, point: torch.Tensor) -> torch.Tensor:
+    """Rotate points (..., 3) by unit quaternions (..., 4): q (0, p) q^-1."""
+    p_quat = torch.cat([torch.zeros_like(point[..., :1]), point], dim=-1)
+    out = quaternion_raw_multiply(
+        quaternion_raw_multiply(quat, p_quat), quaternion_invert(quat))
+    return out[..., 1:]
 
 
 @f32_matmuls

@@ -9,7 +9,8 @@ loss check under ``--debug``; ``save_every_steps``; validation every
 checkpoint selection on the lowest ``loss__val`` (top 3 plus ``last``); one
 sanity validation batch before training; resume (``resume_ckpt``: optimiser,
 step and epoch), warm start (``load_ckpt``: parameters only) and pretrained
-backbones (``load_backbone``: a ``cli.convert_ckpt`` file); ``profile_steps``.
+backbones (``load_backbone``: a ``cli.convert_ckpt`` file); ``profile_steps``;
+the overlays of one validation batch after each validation (``visualize``).
 
 Different by construction: the model is an ``nn.Module`` that holds its
 weights, so ``fit`` initialises nothing; the steps switch the module between
@@ -17,7 +18,7 @@ train and eval mode themselves; the loss terms of a window stay on the card
 and are read back once per window (one host synchronisation per ``log_every``
 steps, not one per term and step); dropout draws from a generator seeded from
 ``cfg.seed``. The mesh, FSDP and multi-process branches are ROADMAP queue 1
-item 11; ``visualize`` needs ``utils/vis.py`` (item 8).
+item 11.
 """
 
 from __future__ import annotations
@@ -31,9 +32,11 @@ import numpy as np
 import torch
 
 from hands_tpu_torch.config import Config
-from hands_tpu_torch.core.xdict import device_view
+from hands_tpu_torch.core.precision import f32_exact
+from hands_tpu_torch.core.xdict import XDict, device_view
 from hands_tpu_torch.train.checkpoint import (CheckpointManager,
                                               graft_backbone_variables)
+from hands_tpu_torch.train.process import process_data_light
 from hands_tpu_torch.train.state import create_train_state
 from hands_tpu_torch.train.step import make_eval_step, make_train_step
 from hands_tpu_torch.utils.experiment import Experiment
@@ -64,7 +67,6 @@ class Trainer:
         # host seconds of the last fit: the whole loop, and the part of it
         # spent waiting for the loader's next batch
         self.timing = {"steps": 0, "loop_s": 0.0, "data_s": 0.0}
-        self._vis_skipped = False
 
     # ------------------------------------------------------------------ fit
     def fit(self, train_loader, val_loader=None,
@@ -150,7 +152,7 @@ class Trainer:
                 self.exp.log_dict(val_metrics, global_step, postfix="__val")
                 self.ckpt.save_top_k(state, epoch, val_metrics["loss"])
                 if not cfg.no_vis:
-                    self._visualize_or_skip(state, val_loader, global_step)
+                    self.visualize(state, val_loader, global_step)
             self.ckpt.save_last(state, epoch + 1)
         if tracer is not None:
             tracer.close()
@@ -167,20 +169,34 @@ class Trainer:
 
     # ------------------------------------------------------------ visualise
     def visualize(self, state, loader, step: int, max_examples: int = 1):
-        """Keypoint and mesh overlays of one batch, pushed to the
-        experiment."""
-        raise NotImplementedError(
-            "visualize needs utils/vis.py (renderer and overlays): ROADMAP "
-            "queue 1 item 8; pass --no_vis")
+        """Keypoint and mesh overlays of one batch, pushed to the experiment;
+        returns the [(name, image)] list ([] if drawing failed). The ground
+        truth's FK keys come from ``process_data_light`` and the prediction
+        from the eval forward (both launch kernels on the card); only the
+        drawing is allowed to fail."""
+        from hands_tpu_torch.utils.vis import visualize_all
 
-    def _visualize_or_skip(self, state, loader, step: int) -> None:
-        # as in the JAX loop, visualisation never ends a training run
+        inputs, targets, meta = next(iter(loader))
+        meta_dev = device_view(meta)
+        # the GT render panel needs the GT's v3d/j3d.cam keys
+        inputs, targets, meta_dev = process_data_light(
+            self.model.mano_r.model, self.model.mano_l.model, inputs,
+            targets, meta_dev, self.cfg.img_res)
+        self.model.eval()
+        with torch.no_grad(), f32_exact():
+            pred = self.model(inputs, meta_dev)
+        vis_dict = XDict()
+        vis_dict.merge(XDict(inputs).prefix("inputs."))
+        vis_dict.merge(XDict(pred).prefix("pred."))
+        vis_dict.merge(XDict(targets).prefix("targets."))
+        vis_dict.merge(XDict(meta_dev).prefix("meta_info."))
         try:
-            self.visualize(state, loader, step)
-        except NotImplementedError as exc:
-            if not self._vis_skipped:
-                print(f"visualization skipped: {exc}")
-                self._vis_skipped = True
+            images = visualize_all(vis_dict, self.cfg, max_examples)
+            self.exp.push_images(images, step)
+        except Exception as e:  # vis must never kill a training run
+            print(f"visualization failed (non-fatal): {e}")
+            images = []
+        return images
 
     # ------------------------------------------------------------- validate
     def _sanity_val(self, state, val_loader):

@@ -9,7 +9,9 @@ with each model family on a synthetic batch (K4's Function, BatchNorm in
 train mode, dropout from a generator, the optimiser, the metrics), time the
 nine modes of the int8 block ablation on a small probe, run a ``--debug``
 epoch through ``cli.train`` (train-mode preprocessing, the prefetching loader,
-the trainer, checkpoints, the experiment log), pack synthetic records through
+the trainer, checkpoints, the experiment log), draw the overlays of a served
+batch (without matplotlib, which the card's machine lacks), pack synthetic
+records through
 ``cli.pack_records`` and load them with ``pcl`` preprocessing, time two rows
 of ``cli.train_decompose``, and check that neither ``jax``, ``flax``,
 ``optax`` nor ``hands_tpu`` was imported
@@ -63,6 +65,10 @@ outw = serve(recs, cfgw, fetch_model(cfgw, "cpu", seed=0), "cpu")
 assert outw["pred.render.r"].shape == (2, 224, 224)
 assert outw["pred.grasp.l"].shape == (2, 9)
 assert torch.isfinite(outw["pred.mano.vertices.r"]).all()
+from hands_tpu_torch.utils.vis import visualize_all
+figures = visualize_all(outw, cfgw, max_examples=1)
+assert [n for n, _ in figures] == ["0__pred_kps",
+                                   "0__rend_rvalid=1, lvalid=1"]
 cfgq = serving_config("hands_light", "float32", quant_int8=True).replace(
     backbone="resnet18")
 outq = serve(recs, cfgq, fetch_model(cfgq, "cpu", seed=0), "cpu")
@@ -132,10 +138,16 @@ for name in ("ops.vit_block_ablation", "cli.int8_ablation", "cli.train",
              "data.dataset_utils", "utils.native", "cli.numerics_check",
              "cli.int8_accuracy"):
     assert f"hands_tpu_torch.{name}" in sys.modules, name
+for name in ("utils.vis", "render.software", "core.object_tensors",
+             "data.arctic_processing", "ops.smplx_body", "ops.knn",
+             "train.metrics_object", "cli.sample_data", "cli.verify_setup"):
+    assert f"hands_tpu_torch.{name}" in sys.modules, name
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                     "hands_tpu"))
 assert not bad, bad
+# the card's machine has no matplotlib: the figures are drawn with PIL
+assert "matplotlib" not in sys.modules
 print("NOJAX_OK")
 """
 
@@ -177,7 +189,18 @@ def test_port_sources_name_no_jax_import():
             "hands_tpu_torch/data/dataset_utils.py",
             "hands_tpu_torch/utils/native.py",
             "hands_tpu_torch/cli/numerics_check.py",
-            "hands_tpu_torch/cli/int8_accuracy.py"} <= names
+            "hands_tpu_torch/cli/int8_accuracy.py",
+            "hands_tpu_torch/utils/vis.py", "hands_tpu_torch/utils/viewer.py",
+            "hands_tpu_torch/render/software.py",
+            "hands_tpu_torch/core/object_tensors.py",
+            "hands_tpu_torch/core/tree_utils.py",
+            "hands_tpu_torch/core/mesh.py", "hands_tpu_torch/ops/knn.py",
+            "hands_tpu_torch/ops/smplx_body.py",
+            "hands_tpu_torch/train/process_object.py",
+            "hands_tpu_torch/train/metrics_object.py",
+            "hands_tpu_torch/data/arctic_processing.py",
+            "hands_tpu_torch/cli/sample_data.py",
+            "hands_tpu_torch/cli/verify_setup.py"} <= names
     bad = [f"{f.relative_to(REPO)}:{n}: {line.strip()}"
            for f in files
            for n, line in enumerate(f.read_text().splitlines(), 1)
