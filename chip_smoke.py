@@ -4,8 +4,9 @@ their knock-out variants, the fused attention, the fused skinning and its
 gradient, the splat silhouette forward and backward), holds each
 against its plain PyTorch twin at the shapes its path gives it, serves
 requests through HaMeR at full ViT-H width and depth in its bf16,
-dynamic-int8 and calibrated static-int8 configurations (and one backbone
-forward with the fused attention), serves and evaluates WildHands at full
+dynamic-int8 and calibrated static-int8 configurations (and two backbone
+forwards with the fused attention: bf16, and f32 on the 3xTF32 route with
+TF32 off for the other products), serves and evaluates WildHands at full
 width (two ResNet-50s, 224^2 crops, requests of 8 and 64 images; f32, bf16
 and int8-convolution serving; the evaluation forward with the silhouette
 render and the grasp classifier on, without and with gradients), holds the
@@ -183,7 +184,9 @@ GRAD_ATOL, GRAD_RTOL, GRAD_F64_REL = 1e-6, 1e-3, 2e-3
 HBM_BYTES_S = 3.35e12
 # "sfu": results of the special-function units (exp, log, reciprocal): 16 a
 # clock on each SM against 128 f32 FMAs, 1/16 of the f32 FLOP rate
-PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12,
+# "tf32": the TF32 tensor cores (K7's f32 route counts its three TF32
+# products a product)
+PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12, "tf32": 495e12,
               "sfu": 67e12 / 16}
 # redesigned kernels: the design each replaced and that design's time on an
 # H100 at 700 W (PERF.md), printed beside the new time and kept out of the
@@ -194,6 +197,7 @@ ROW_BLOCK = "a 256-thread block per row"
 ATTN_BEFORE, GEMM_BF16_BEFORE, GEMM_I8_BEFORE = (
     "the f32 CUDA-core attention loop", "wmma 16x16x16 + cp.async ring",
     "mma.sync m16n8k32 + cp.async ring")
+F32_BEFORE = "PR 2's CUDA-core loop, a warp per query row"
 EARLIER_MS = {"lbs_apply": ("a thread per (sample, vertex), A staged per "
                             "block", 0.0031),
               "splat_fwd": ("dense loop", 1.3606),
@@ -212,6 +216,7 @@ EARLIER_MS = {"lbs_apply": ("a thread per (sample, vertex), A staged per "
               "qkv_attention_dynamic": (ATTN_BEFORE, 0.4360),
               "qkv_attention_static": (ATTN_BEFORE, 0.4027),
               "mha_fused": (ATTN_BEFORE, 0.4042),
+              "mha_fused_f32": (F32_BEFORE, 0.7890),
               "attention_cast": (ATTN_BEFORE, 6.0831),
               "attention_no_softmax": (ATTN_BEFORE, 6.0036),
               "attention_heads": (ATTN_BEFORE, 6.2191),
@@ -221,10 +226,18 @@ EARLIER_MS = {"lbs_apply": ("a thread per (sample, vertex), A staged per "
               "gemm_i8_gelu_cast": (GEMM_I8_BEFORE, 2.0725),
               "gemm_i8_ident_quant": (GEMM_I8_BEFORE, 1.8498),
               "gemm_i8_cast": (GEMM_I8_BEFORE, 1.2089)}
-# every attention kernel: the bf16 ones on attention_kernel.cuh's MMA route
-# and K8's int8 one
+# every attention kernel: the bf16 ones on attention_kernel.cuh's MMA route,
+# K8's int8 one and K7's f32 route
 ATTENTION_KERNELS = tuple(k for k, (d, _) in EARLIER_MS.items()
-                          if d == ATTN_BEFORE) + ("attention_i8",)
+                          if d == ATTN_BEFORE) + ("attention_i8",
+                                                  "mha_fused_f32")
+SRC_ATTN_F32 = "hands_tpu_torch/csrc/attention_f32.cuh"
+# the f32 fused_attn ViT-H backbone against itself with mha_plain: the f32
+# route's error is ~1e-6 of an output (3xTF32, tests/test_torch_attention_f32
+# .py's emulation) against the bf16 route's flips of 2^-8, so the bf16
+# backbone's 0.25 / 2e-2 over 32 blocks scale to ~1e-3 / 1e-4 here, still
+# far below the order-1 differences of a wrong kernel
+F32_BACKBONE_REL, F32_BACKBONE_MEAN = 1e-3, 1e-4
 # the wrappers of csrc/gemm_sm90.cuh's two main loops
 GEMM_KERNELS = ("vit_gemm", "gemm_i8_dynamic", "gemm_i8_static",
                 "gemm_i8_gelu_cast", "gemm_i8_ident_quant", "gemm_i8_cast")
@@ -240,6 +253,13 @@ ATTN_SWEEP = ((1, 50, 64), (1, 50, 80), (1, 145, 64), (1, 145, 80),
               (1, 256, 64), (1, 145, 128), (2, 24, 16))
 # the int8 attention also takes a head dim that is a multiple of 4 only
 ATTN_I8_SWEEP = ATTN_SWEEP + ((1, 50, 20), (2, 193, 36))
+# f32 mha_fused off ATTN_SWEEP (two heads): head dims padded to 8 (20, 36),
+# not a multiple of 4 (18, and 9, odd: 4-byte copies and stores), 193 keys
+# (32 key tiles), and 300 keys past the tensor-core route, on the CUDA-core
+# loop; with the launch count each must move
+F32_RAGGED = ((1, 50, 20, "mha_fused_f32"), (2, 193, 36, "mha_fused_f32"),
+              (1, 33, 18, "mha_fused_f32"), (1, 17, 9, "mha_fused_f32"),
+              (1, 300, 64, "mha_fused_f32_cores"))
 # LayerNorm off its rows a thread block: (rows, widths)
 LN_RAGGED = ((1, 13, 3077), (128, 160, 768, 1280))
 # the passes that give a row to a warp (csrc/common.cuh), graph-timed at
@@ -813,9 +833,11 @@ def kernel_cases(x, p, p32):
         gemm_ops(HIDDEN, C), "int8", int_mm(sq2, s["w1_q"]),
         compare_gelu_gemm), v8.gemm_i8, v8.gemm_i8_plain))
 
-    # ---- K7: fused attention on the slices of a fused qkv, bf16 and f32
+    # ---- K7: fused attention on the slices of a fused qkv, bf16 and f32;
+    # the f32 qkv of an f32 projection (f32 values, not bf16 ones widened)
     q5 = qkv.view(batch, N_TOK, 3, HEADS, HEAD_DIM)
-    q5f = q5.float()
+    q5f = F.linear(x32, p32["wqkv"], p32["bqkv"]).view(
+        batch, N_TOK, 3, HEADS, HEAD_DIM)
     scale = HEAD_DIM**-0.5
 
     def mha(t5):
@@ -825,16 +847,19 @@ def kernel_cases(x, p, p32):
         t = t5.permute(2, 0, 3, 1, 4)
         return lambda: F.scaled_dot_product_attention(t[0], t[1], t[2])
 
-    # the backbone's path is bf16; f32 is the JAX test's type (atol 2e-5)
+    # bf16 is the serving backbone's path; f32 the JAX test's type and the
+    # f32 backbone's (2e-5 / 2e-6), three TF32 products a product, beside
+    # the CUDA-core loop it replaced
     k7 = {
         "mha_fused": (at.mha_fused, at.mha_plain, [
             Case("mha_fused bf16", mha(q5), [q5], attn_ops, "bf16",
                  sdpa5(q5))]),
+        "mha_fused_f32": (at.mha_fused, at.mha_plain, [
+            Case("mha_fused f32 (3xTF32)", mha(q5f), [q5f], 3 * attn_ops,
+                 "tf32", sdpa5(q5f),
+                 lambda n, g, r: compare(n, g, r, rel=2e-5, mean=2e-6),
+                 replaced=(F32_BEFORE, lambda: mha(q5f)(at.mha_f32_cores)))]),
     }
-    extra.append((Case(
-        "mha_fused f32", mha(q5f), [q5f], attn_ops, "f32", sdpa5(q5f),
-        lambda n, g, r: compare(n, g, r, rel=2e-5, mean=2e-6)),
-        at.mha_fused, at.mha_plain))
     groups = [(K3, SRC_K3, k3), (K5, SRC_I8, k5), (K6, SRC_I8, k6),
               (K7, SRC_ATTN, k7)]
     # at 3072 rows a launch takes 5-90 us on the card and its wrapper 20-45
@@ -848,7 +873,8 @@ def kernel_cases(x, p, p32):
         case.timer = short_ms
     # the int8 blocks' attention lives in the attention library
     sources = {"qkv_attention_dynamic": SRC_ATTN,
-               "qkv_attention_static": SRC_ATTN}
+               "qkv_attention_static": SRC_ATTN,
+               "mha_fused_f32": SRC_ATTN_F32}
     operands = {"dynamic": d, "static": s}
     return groups, sources, extra, operands
 
@@ -1865,8 +1891,10 @@ def f32p_attention(qkv, heads, bf16_logits, p_bf16=False,
 
 def attention_phase(dev, qkv_k3, qkv_dyn) -> None:
     """The tensor-core attention beyond the ViT-H shapes of phase 2: every
-    mode against its twin at the ragged shapes of ``ATTN_SWEEP``; the split
-    of the f32 probabilities into bf16 parts in effect (K3, K5 at ViT-H)."""
+    mode against its twin at the ragged shapes of ``ATTN_SWEEP``, f32
+    ``mha_fused`` also at :data:`F32_RAGGED`, from a 4-byte aligned qkv, on
+    the CUDA-core loop at ViT-H, and refused at N 256, D 128; the split of
+    the f32 probabilities into bf16 parts in effect (K3, K5 at ViT-H)."""
     from hands_tpu_torch.ops import attention as at
     from hands_tpu_torch.ops import vit_block as vb
     from hands_tpu_torch.ops import vit_block_ablation as abl
@@ -1874,6 +1902,7 @@ def attention_phase(dev, qkv_k3, qkv_dyn) -> None:
     bf, heads = torch.bfloat16, 2
     print(f"phase 2b: attention, every mode at ragged shapes ({heads} heads)")
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    gen32 = torch.Generator(device=dev).manual_seed(SEED + 7)
     for b, n, d in ATTN_SWEEP:
         c = heads * d
         qkv = torch.randn((b, n, 3 * c), generator=gen, device=dev).to(bf)
@@ -1896,13 +1925,13 @@ def attention_phase(dev, qkv_k3, qkv_dyn) -> None:
         compare_int8(f"attention_i8 {at_}", abl.attention_i8(qkv, heads, inv),
                      abl.attention_i8_plain(qkv, heads, inv))
         t5 = qkv.view(b, n, 3, heads, d)
-        for dtype, rel, mean in ((bf, MAX_REL, MAX_MEAN),
-                                 (torch.float32, 2e-5, 2e-6)):
-            t = t5.to(dtype)
-            q, k, v = t[:, :, 0], t[:, :, 1], t[:, :, 2]
-            compare(f"mha_fused {str(dtype)[6:]} {at_}",
-                    at.mha_fused(q, k, v, d**-0.5),
-                    at.mha_plain(q, k, v, d**-0.5), rel=rel, mean=mean)
+        q, k, v = t5[:, :, 0], t5[:, :, 1], t5[:, :, 2]
+        compare(f"mha_fused bfloat16 {at_}", at.mha_fused(q, k, v, d**-0.5),
+                at.mha_plain(q, k, v, d**-0.5))
+        # f32 values (not bf16 ones widened, which tf32 holds exactly)
+        f32_route_check(f"mha_fused float32 {at_}",
+                        torch.randn(t5.shape, generator=gen32, device=dev),
+                        "mha_fused_f32")
     for b, n, d in ATTN_I8_SWEEP[len(ATTN_SWEEP):]:
         c = heads * d
         qkv = torch.randn((b, n, 3 * c), generator=gen, device=dev).to(bf)
@@ -1910,11 +1939,32 @@ def attention_phase(dev, qkv_k3, qkv_dyn) -> None:
         compare_int8(f"attention_i8 B {b} N {n} D {d}",
                      abl.attention_i8(qkv, heads, inv),
                      abl.attention_i8_plain(qkv, heads, inv))
+    for b, n, d, route in F32_RAGGED:
+        f32_route_check(f"mha_fused float32 B {b} N {n} D {d}",
+                        torch.randn((b, n, 3, heads, d), generator=gen32,
+                                    device=dev), route)
+    # a 4-byte aligned qkv: the tensor-core route's 4-byte copies
+    flat = torch.randn(145 * 3 * heads * 64 + 1, generator=gen32, device=dev)
+    f32_route_check("mha_fused float32 N 145 D 64 +4 B",
+                    flat[1:].view(1, 145, 3, heads, 64), "mha_fused_f32")
+    # the CUDA-core loop at ViT-H, the route the tensor cores replaced there
+    t = torch.randn((BATCH, N_TOK, 3, HEADS, HEAD_DIM), generator=gen32,
+                    device=dev)
+    compare("mha_f32_cores (ViT-H, 3072 rows)",
+            at.mha_f32_cores(t[:, :, 0], t[:, :, 1], t[:, :, 2],
+                             HEAD_DIM**-0.5),
+            at.mha_plain(t[:, :, 0], t[:, :, 1], t[:, :, 2], HEAD_DIM**-0.5),
+            rel=2e-5, mean=2e-6)
+    del t
     torch.cuda.synchronize()
     qkv = torch.zeros((1, 257, 3 * heads * 64), dtype=bf, device=dev)
     inv = torch.ones(heads * 64, device=dev)
     require_refused("attention_i8 N 257",
                     lambda: abl.attention_i8(qkv, heads, inv))
+    t = torch.zeros((1, 256, 3, heads, 128), device=dev)
+    require_refused("mha_fused float32 N 256 D 128",
+                    lambda: at.mha_fused(t[:, :, 0], t[:, :, 1], t[:, :, 2],
+                                         1.0))
 
     # the split of f32 probabilities: nearer the f32-probability twin than p
     # in bf16 is
@@ -1942,6 +1992,76 @@ def attention_phase(dev, qkv_k3, qkv_dyn) -> None:
               f"{k_off:.3e}, twin {t_off:.3e} (kernel <= 2x twin)  "
               f"{'ok' if ok else 'FAIL'}")
         require(ok, f"{name}: the kernel's sums fall behind the twin's f32")
+
+
+def f32_route_check(name, t5, route) -> None:
+    """f32 ``mha_fused`` on the slices of a (B, N, 3, H, D) qkv against
+    ``mha_plain`` at 2e-5 / 2e-6, launched once on ``route`` (the name of its
+    launch count)."""
+    from hands_tpu_torch.ops import attention as at
+
+    q, k, v = t5[:, :, 0], t5[:, :, 1], t5[:, :, 2]
+    scale = t5.shape[-1]**-0.5
+    before = dict(at.launches)
+    got = at.mha_fused(q, k, v, scale)
+    moved = {key: n - before[key] for key, n in at.launches.items()
+             if n != before[key]}
+    require(moved == {route: 1}, f"{name}: launches {moved}, want {route}")
+    compare(name, got, at.mha_plain(q, k, v, scale), rel=2e-5, mean=2e-6)
+
+
+def f32_backbone_phase(rows, dev, tag) -> None:
+    """K7's f32 route on its path: one full-width f32 ViT-H backbone
+    forward with ``fused_attn`` at 16 crops (3072 rows), TF32 off for the
+    other products as is the card's default for matrix products (and here
+    for cuDNN's patch embedding too): ``mha_fused_f32`` once a block, nothing
+    else; the features against the same backbone with ``mha_plain`` patched
+    in (:data:`F32_BACKBONE_REL`); both forwards timed by events."""
+    from hands_tpu_torch.models.backbones import vit as vit_mod
+    from hands_tpu_torch.models.registry import init_weights_
+    from hands_tpu_torch.ops import attention as at
+
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        bb = vit_mod.ViTBackbone(VIT, dtype=torch.float32, fused_attn=True,
+                                 device=dev)
+        init_weights_(bb, torch.Generator(device=dev).manual_seed(SEED))
+        imgs = torch.randn((BATCH, 256, 192, 3), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(
+                               SEED + 8))
+        depth = len(bb.blocks)
+
+        def twin():
+            with mock.patch.object(vit_mod, "mha_fused", at.mha_plain):
+                return bb(imgs)
+
+        with torch.inference_mode():
+            bb(imgs)
+            reset_launch_counts()
+            feat = bb(imgs)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            check_launches("f32 fused_attn backbone (K7 f32)", counts,
+                           {"mha_fused_f32": depth}, 1)
+            rows["mha_fused_f32"]["launches"] = counts["mha_fused_f32"]
+            require(feat.shape == (BATCH, 16, 12, C)
+                    and bool(torch.isfinite(feat).all()),
+                    "K7 f32 backbone output")
+            compare("f32 fused_attn backbone vs twin", feat, twin(),
+                    rel=F32_BACKBONE_REL, mean=F32_BACKBONE_MEAN)
+            t = [cuda_ms(twin, iters=3), cuda_ms(lambda: bb(imgs), iters=3),
+                 cuda_ms(lambda: bb(imgs), iters=3), cuda_ms(twin, iters=3)]
+        print(f"  f32 fused_attn ViT-H backbone forward, {BATCH} crops: "
+              f"kernel {min(t[1], t[2]):.3f} ms, twin {min(t[0], t[3]):.3f} "
+              f"ms {tag}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flags[0]
+        torch.backends.cudnn.allow_tf32 = flags[1]
+    del bb
+    torch.cuda.empty_cache()
 
 
 def share_check(name, got, ref, mean) -> None:
@@ -5337,7 +5457,9 @@ def attention_inputs(groups):
 
 def attention_alone() -> int:
     """The attention kernels alone: phase 2's checks at ViT-H, phase 2b, their
-    times, and K8's three attention modes at 256 crops::
+    times (K7's f32 route beside the CUDA-core loop it replaced), the f32
+    ``fused_attn`` ViT-H backbone forward (:func:`f32_backbone_phase`), and
+    K8's three attention modes at 256 crops::
 
         python3 -c "import chip_smoke as cs; cs.attention_alone()"
     """
@@ -5364,6 +5486,7 @@ def attention_alone() -> int:
     attention_phase(DEV, *attention_inputs(groups))
     time_groups(only(groups, ATTENTION_KERNELS), rows, tag)
     del groups, x, p, p32
+    f32_backbone_phase(rows, DEV, tag)
     xa, op = cli.make_probe(ABL_BATCH, DEV, c=C, hidden=HIDDEN, n_tok=N_TOK)
     groups = only(ablation_cases(xa, op), ATTENTION_KERNELS)
     check_groups(groups, {}, rows)
@@ -5373,10 +5496,11 @@ def attention_alone() -> int:
 
 
 def kernels_alone() -> int:
-    """The kernels of the three HaMeR serving blocks and of K7 at ViT-H, 3072
-    rows: each against its twin, the LayerNorm at ragged shapes, and every
-    launch timed through a CUDA graph beside its twin, its library call and
-    its events reading::
+    """The kernels of the three HaMeR serving blocks and of K7 (bf16 and f32)
+    at ViT-H, 3072 rows: each against its twin, the LayerNorm at ragged
+    shapes, and every launch timed through a CUDA graph beside its twin, its
+    library call and its events reading; then the f32 ``fused_attn`` ViT-H
+    backbone forward (:func:`f32_backbone_phase`)::
 
         python3 -c "import sys, chip_smoke as cs; sys.exit(cs.kernels_alone())"
     """
@@ -5401,6 +5525,7 @@ def kernels_alone() -> int:
     layernorm_ragged_check(gen, DEV)
     time_groups(groups, rows, tag)
     del groups, x, p, p32
+    f32_backbone_phase(rows, DEV, tag)
     gemm_serving_phase(gen, DEV, tag, ("vit_layernorm",))
     print(json.dumps({"kernels": list(rows.values())}))
     return 0
@@ -6226,6 +6351,7 @@ def main() -> int:
         # the mean, where a wrong kernel gives differences of order 1
         compare("fused_attn backbone vs twin", feat, ref, rel=0.25, mean=2e-2)
     del bb
+    f32_backbone_phase(rows, dev, tag)
 
     # the same paths at a small size against the CPU twins
     small_req = make_requests(1, 2, SEED + 1)[0]

@@ -27,15 +27,21 @@
 // What the design does about it: q, k and v are read once from device
 // memory, both products run on the tensor cores (mma.sync m16n8k16 with
 // ldmatrix operands) and the logits never leave the registers; see
-// attention_kernel.cuh. The f32 MODE_MHA keeps the per-row loop on the f32
-// CUDA cores.
+// attention_kernel.cuh. The f32 MODE_MHA runs that geometry as 3xTF32 on the
+// TF32 tensor cores (attention_f32.cuh); MODE_MHA_CORES is PR 2's CUDA-core
+// loop, which the wrapper picks for the f32 shapes past that route's limits
+// (more than 256 tokens, a head dim past 128).
 
+#include "attention_f32.cuh"
 #include "attention_kernel.cuh"
+
+constexpr int MODE_MHA_CORES = 7;  // f32 only
 
 // --------------------------------------------------------- C interface
 extern "C" {
 
-// is_f32: element type of q, k, v (and of out in MODE_MHA).
+// is_f32: element type of q, k, v (and of out in MODE_MHA and, f32 only,
+// MODE_MHA_CORES).
 // Returns the launch's cudaGetLastError() (0 = success),
 // cudaErrorInvalidValue for a combination the kernel does not have; never
 // synchronises.
@@ -47,11 +53,17 @@ int attn_fused(int device, const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
   const float* inv = (const float*)inv_out;
-  if (mode == MODE_MHA && is_f32)
-    return launch_f32((const float*)q, (const float*)k, (const float*)v,
-                      (float*)out, B, N, H, D, batch_stride, row_stride,
-                      scale, s);
-  if (is_f32) return (int)cudaErrorInvalidValue;
+  if (is_f32) {
+    const float *qf = (const float*)q, *kf = (const float*)k,
+                *vf = (const float*)v;
+    if (mode == MODE_MHA)
+      return launch_tf32(qf, kf, vf, (float*)out, B, N, H, D, batch_stride,
+                         row_stride, scale, s);
+    if (mode == MODE_MHA_CORES)
+      return launch_f32_cores(qf, kf, vf, (float*)out, B, N, H, D,
+                              batch_stride, row_stride, scale, s);
+    return (int)cudaErrorInvalidValue;
+  }
   if (mode == MODE_MHA)
     return launch<MODE_MHA>(q, k, v, out, inv, B, N, H, D, batch_stride,
                             row_stride, scale, s);

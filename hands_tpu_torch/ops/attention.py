@@ -14,16 +14,16 @@ bf16, the static block rounds the probabilities to bf16 and returns the
 output times ``inv_out`` quantised to int8.
 
 CUDA tensors launch the kernel of ``csrc/attention.cu`` (one launch, counted
-in :data:`launches`): bf16 on the tensor cores, f32 (``mha_fused`` only) on
-the CUDA cores; the int8 blocks' modes are also the op
-``hands_tpu_torch::qkv_attention`` (``cuda_build.KernelOp``), which a
+in :data:`launches`): bf16 on the bf16 tensor cores; f32 (``mha_fused``
+only) as 3xTF32 on the TF32 tensor cores where a head has at most 256 tokens
+and head dim 128 and its K and V fit in shared memory, else on the CUDA-core
+loop where that fits (:func:`f32_route`); the int8 blocks' modes are also the
+op ``hands_tpu_torch::qkv_attention`` (``cuda_build.KernelOp``), which a
 ``torch.export`` of those blocks records; CPU tensors run the ``*_plain``
 twin; anything else raises, and so does a shape past the limits of the bf16
-route
-(:func:`~hands_tpu_torch.ops.vit_block.check_attention_shape`) or past the
-shared memory of the f32 route. q, k and v
-are read in place through their strides, so the slices of a fused qkv
-tensor are not copied.
+route (:func:`~hands_tpu_torch.ops.vit_block.check_attention_shape`) or past
+the shared memory of both f32 routes. q, k and v are read in place through
+their strides, so the slices of a fused qkv tensor are not copied.
 """
 
 from __future__ import annotations
@@ -38,12 +38,18 @@ from hands_tpu_torch.ops.cuda_build import (CudaLibrary, KernelOp, check,
 from hands_tpu_torch.ops.vit_block import bf16_const, check_attention_shape
 
 _BF16 = torch.bfloat16
-_MODE_MHA, _MODE_DYNAMIC, _MODE_STATIC = 0, 1, 2
+_MODE_MHA, _MODE_DYNAMIC, _MODE_STATIC, _MODE_MHA_CORES = 0, 1, 2, 7
 _SMEM_MAX = 232448  # bytes of shared memory a Hopper thread block can have
+_TF32_MAX_N, _TF32_MAX_D = 256, 128  # a row of logits in registers
 
-# kernel launches per wrapper since the last reset (CPU twin runs not counted)
-launches: Dict[str, int] = {"mha_fused": 0, "qkv_attention_dynamic": 0,
+# kernel launches per wrapper since the last reset (CPU twin runs not
+# counted); f32 mha_fused by route: the tensor cores, the CUDA-core loop
+launches: Dict[str, int] = {"mha_fused": 0, "mha_fused_f32": 0,
+                            "mha_fused_f32_cores": 0,
+                            "qkv_attention_dynamic": 0,
                             "qkv_attention_static": 0}
+_F32_COUNT = {_MODE_MHA: "mha_fused_f32",
+              _MODE_MHA_CORES: "mha_fused_f32_cores"}
 
 
 def reset_launches() -> None:
@@ -122,20 +128,52 @@ def _launch(q, k, v, out, inv_out, B, N, H, D, scale, mode) -> None:
             raise ValueError("bf16 attention kernel needs 16-byte aligned q, "
                              "k, v and strides that are multiples of 8 "
                              "elements")
-    # the f32 route's shared memory: K rows of D + 1 floats, V, and the q and
-    # p rows of its 8 warps
-    if (q.dtype == torch.float32
-            and 4 * (N * (2 * D + 1) + 8 * (D + N)) > _SMEM_MAX):
-        raise ValueError(
-            f"the f32 attention route holds K and V of a head in shared "
-            f"memory: N (2D + 1) + 8 (D + N) floats must fit in {_SMEM_MAX} "
-            f"bytes, got N={N}, D={D}")
     if any(t.data_ptr() % 4 for t in (q, k, v)):
         raise ValueError("attention kernel needs 4-byte aligned q, k, v")
     LIBRARY.launch(
         "attn_fused", dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), None if inv_out is None else inv_out.data_ptr(),
         B, N, H, D, qs[0], qs[1], scale, int(q.dtype == torch.float32), mode)
+
+
+def _tf32_smem(N: int, D: int) -> int:
+    """Bytes of shared memory of the tensor-core f32 route: K and V of a
+    head, keys padded to 8, channels to 8, rows to 8 mod 16 (K) and 4 mod 8
+    (V) floats (``csrc/attention_f32.cuh:tf32_smem``)."""
+    npad, dp = -(-N // 8) * 8, -(-D // 8) * 8
+    return 4 * npad * ((dp if dp % 16 else dp + 8) + dp + 4)
+
+
+def _cores_smem(N: int, D: int) -> int:
+    """Bytes of shared memory of the CUDA-core f32 route: K rows of D + 1
+    floats, V, and the q and p rows of its 8 warps."""
+    return 4 * (N * (2 * D + 1) + 8 * (D + N))
+
+
+def f32_route(N: int, D: int) -> int:
+    """The kernel mode of f32 ``mha_fused`` for heads of N tokens, dim D:
+    the tensor cores (3xTF32) up to 256 tokens and head dim 128 where K and V
+    fit in shared memory, else the CUDA-core loop where its buffers fit;
+    raises past both."""
+    if (N <= _TF32_MAX_N and D <= _TF32_MAX_D
+            and _tf32_smem(N, D) <= _SMEM_MAX):
+        return _MODE_MHA
+    if _cores_smem(N, D) <= _SMEM_MAX:
+        return _MODE_MHA_CORES
+    raise ValueError(
+        f"the f32 attention routes hold K and V of a head in shared memory: "
+        f"the tensor-core route takes N <= {_TF32_MAX_N}, D <= "
+        f"{_TF32_MAX_D} within {_SMEM_MAX} bytes, the CUDA-core route N (2D "
+        f"+ 1) + 8 (D + N) floats within them; got N={N}, D={D}")
+
+
+def _mha(q, k, v, scale, mode) -> torch.Tensor:
+    B, N, H, D = q.shape
+    out = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
+    _launch(q, k, v, out, None, B, N, H, D, float(scale), mode)
+    launches[_F32_COUNT[mode] if q.dtype == torch.float32
+             else "mha_fused"] += 1
+    return out
 
 
 def mha_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -146,11 +184,22 @@ def mha_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return mha_plain(q, k, v, scale)
     if q.dtype not in (_BF16, torch.float32):
         raise ValueError(f"mha_fused takes bf16 or f32, got {q.dtype}")
-    B, N, H, D = q.shape
-    out = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
-    _launch(q, k, v, out, None, B, N, H, D, float(scale), _MODE_MHA)
-    launches["mha_fused"] += 1
-    return out
+    _, N, _, D = q.shape
+    return _mha(q, k, v, scale,
+                f32_route(N, D) if q.dtype == torch.float32 else _MODE_MHA)
+
+
+def mha_f32_cores(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  scale: float) -> torch.Tensor:
+    """f32 ``mha_fused`` on the CUDA-core loop whatever the shape (CUDA
+    tensors only): the route that the tensor-core one replaced where both
+    take a shape, for holding the two side by side."""
+    if q.device.type != "cuda" or q.dtype != torch.float32:
+        raise ValueError("mha_f32_cores takes f32 CUDA tensors")
+    _, N, _, D = q.shape
+    if _cores_smem(N, D) > _SMEM_MAX:
+        raise ValueError(f"the CUDA-core route's shared memory: N={N}, D={D}")
+    return _mha(q, k, v, scale, _MODE_MHA_CORES)
 
 
 def launch_qkv_attention(qkv: torch.Tensor, num_heads: int,

@@ -221,8 +221,10 @@ def test_wrappers_refuse_shapes_past_the_kernel_limits(wrapper, N, D, limit):
 
 
 def test_f32_route_refuses_a_head_past_shared_memory():
-    """f32 ``mha_fused`` keeps the CUDA-core route, which holds K and V of a
-    head in shared memory: 256 tokens of head dim 128 do not fit."""
+    """Both f32 routes of ``mha_fused`` hold K and V of a head in shared
+    memory: 256 tokens of head dim 128 fit neither (the tensor-core route's
+    padded K and V take 274,432 bytes, the CUDA-core loop's buffers 275,456,
+    of 232,448)."""
     with mock.patch.object(tat, "on_cpu", lambda t: False), \
             pytest.raises(ValueError, match="shared memory"):
         _meta_calls(256, 128, torch.float32)["mha_fused"]()
@@ -230,9 +232,10 @@ def test_f32_route_refuses_a_head_past_shared_memory():
 
 @pytest.mark.parametrize("N,D", [(192, 72), (300, 64)])
 def test_f32_route_takes_shapes_past_the_tensor_core_limits(N, D):
-    """The tensor-core limits (D a multiple of 16, up to 256 tokens) do not
-    bind f32 ``mha_fused``: its CUDA-core route takes any head that fits in
-    shared memory, and the wrapper reaches the launch."""
+    """The bf16 route's limits (D a multiple of 16, up to 256 tokens) do not
+    bind f32 ``mha_fused``: (192, 72) takes the f32 tensor-core route (D
+    padded to a multiple of 8), (300, 64) the CUDA-core loop, and the
+    wrapper reaches the launch."""
     with mock.patch.object(tat, "on_cpu", lambda t: False), \
             mock.patch.object(tat.LIBRARY, "launch") as launch:
         _meta_calls(N, D, torch.float32)["mha_fused"]()
