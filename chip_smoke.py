@@ -41,7 +41,11 @@ for two 700-frame sequences on the card against the CPU and merges them
 (``build_split``), holds the object templates, the objects' FK, the
 interaction fields, the contact windows and every object metric against
 the CPU, draws the overlays (``Trainer.visualize``, ``cli.demo`` with and
-without ``--no_vis``, ``cli.sample_data``), checks
+without ``--no_vis``, ``cli.sample_data``), trains data-parallel on two
+ranks that share the card through gloo (HaMeR ViT-H under DDP and FSDP and
+WildHands under DDP, each held against the one-process step; ``cli.train
+--num_processes 2`` and a one-process ``cli.demo --ckpt`` of rank 0's
+checkpoint), checks
 the launch counts of each path, and times kernels, blocks, forwards,
 serving, train steps and the training loop with CUDA events or the host
 clock around a synchronise. An early line names the
@@ -49,7 +53,8 @@ image decoder the machine has (the native libjpeg/libpng build or cv2).
 
     python3 chip_smoke.py
 
-Needs a CUDA card, ``nvcc`` (PATH or $CUDA_HOME/bin) and this repository;
+(``python3 chip_smoke.py --dp-train-rank ...`` is one rank of the phase's
+``cli.train`` run, started by the script itself.) Needs a CUDA card, ``nvcc`` (PATH or $CUDA_HOME/bin) and this repository;
 never imports JAX. Exits non-zero on any failed phase, without a card, and
 outside the repository. The last line of its output is
 ``{"ok": true, "device": {...}}``; the line before it lists every kernel
@@ -61,9 +66,11 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import glob
 import hashlib
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -6155,6 +6162,358 @@ def hamer_configs(dev):
     return configs
 
 
+# ---- phase 19: data-parallel training, two ranks sharing the card
+DP_RANKS = 2  # ranks on the one card (gloo: NCCL refuses two on a device)
+DP_VIT_BATCH = 32  # global images of a HaMeR step: 16 a rank
+DP_WH_BATCH = 32  # global images of a WildHands step
+DP_STEPS = 2  # held steps; one more runs under the profiler
+DP_TIMEOUT = 600.0  # seconds a launch of ranks may take
+# loss and grad_norm against the one-process step at steps 1 and 2 (as the
+# JAX package holds its two-process step, tests/test_multihost.py)
+DP_LOSS_REL = (1e-5, 1e-4)
+# HaMeR is held to the one-process step that takes the global batch in two
+# row blocks (cli.parallel_check.split_step): in bf16 the kernels' products
+# round per block size, so the step on the whole batch of 32 is another
+# bf16 draw (2.6e-4 on the loss on an H100 at 700 W): read against it at
+# tests/test_torch_train_step.py's bf16 bound on loss terms
+DP_BF16_REL = 2e-2
+# WildHands (f32) against the one-process step: its gradient crosses ReLU
+# zeros and max-pool ties that a rounding of BatchNorm's global moments moves
+# (1.5e-5 / 3.0e-5 on grad_norm on an H100; the same gradient is held at
+# 1e-9 in f64 by tests/test_torch_multiprocess.py)
+DP_WH_NORM_REL = 1e-4
+# the two-rank ViT-H runs (global and split one-process steps, DDP, FSDP)
+# took 184 s at depth 32 on an H100: past the ~120 s aimed at, so the
+# phase cuts the depth; widths stay full
+DP_VIT_DEPTH = 8
+# FSDP's parameters after the held steps against DDP's: the share of entries
+# whose updates went more than half a learning rate apart (Adam moves each
+# entry by about lr, so only near-zero gradients may flip its direction; an
+# update that missed its shard moves every entry)
+DP_PARAMS_APART = 1e-3
+DP_TRAIN_BATCH = 16  # cli.train --num_processes 2 --debug: 8 images a rank
+DP_DEMO_IMAGES = 4
+DP_DEVICE = "cuda"  # the ranks' device flag (a CPU rehearsal sets "cpu")
+DP_OVERRIDES: dict = {}  # Config fields of the cli.train run and its demo
+
+
+def dp_launch(spec: dict, out_dir: str, name: str) -> list:
+    """``cli.parallel_check`` on DP_RANKS ranks of this card; returns their
+    summaries (a rank that fails or outlives DP_TIMEOUT raises)."""
+    from hands_tpu_torch.cli import parallel_check as pc
+
+    path = os.path.join(out_dir, f"{name}.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    t0 = time.time()
+    out = pc.launch(path, os.path.join(out_dir, name), DP_RANKS,
+                    ["--device", DP_DEVICE], DP_TIMEOUT)
+    print(f"  {name}: {DP_RANKS} ranks ran in {time.time() - t0:.1f} s")
+    return out
+
+
+def dp_report(name, summaries, per_step, tag) -> dict:
+    """Print each rank's step ms (host, the last held step) and the part
+    of it inside collectives, the card's busy ms a step, and the memory held
+    after the steps and their peak, mode by mode; require each rank's
+    launches of the last held step to be ``per_step``. Returns {mode:
+    launches per rank per step}."""
+    launches = {}
+    for mode in summaries[0]["modes"]:
+        for s in summaries:
+            m = s["modes"].get(mode)
+            if m is None:
+                continue
+            def read(v, unit):
+                return "not measured" if v is None else f"{v:.2f} {unit}"
+
+            print(f"  {name} {mode} rank {s['rank']}/{s['world']}: step "
+                  f"{m['step_ms']:.1f} ms host, {m['collective_ms']:.1f} of "
+                  f"them in collectives; device "
+                  f"{read(m['device_ms'], 'ms')} a step; held "
+                  f"{read(m['held_gb'], 'GB')}, peak "
+                  f"{read(m['peak_gb'], 'GB')}; parameters held "
+                  f"{m['shard_bytes'] / 1e9:.3f} of "
+                  f"{m['total_bytes'] / 1e9:.3f} GB {tag}")
+            # the split step runs the step's kernels once a row block
+            want = {k: v * (DP_RANKS if mode == "split" else 1)
+                    for k, v in per_step.items()}
+            require(m["launches"] == want,
+                    f"{name} {mode} rank {s['rank']}: launches a step "
+                    f"{m['launches']}, want {want}")
+        if mode in ("ddp", "fsdp"):
+            launches[mode] = dict(per_step)
+    print(f"  {name}: launches a step on every rank {per_step}")
+    print("  (two ranks share one card: these numbers show correctness and "
+          "memory, not scaling)")
+    return launches
+
+
+def dp_check_steps(name, compare, pair, loss_rel=DP_LOSS_REL,
+                   norm_rel=DP_LOSS_REL) -> None:
+    c = compare[pair]
+    for i, (lr, gr) in enumerate(zip(c["loss_rel"], c["grad_norm_rel"])):
+        lim, nlim = loss_rel[i], norm_rel[i]
+        print(f"  {name} {pair} step {i + 1}: loss {lr:.2e} (<= {lim:g}), "
+              f"grad_norm {gr:.2e} (<= {nlim:g}) relative")
+        require(lr <= lim and gr <= nlim,
+                f"{name} {pair}: step {i + 1} off the one-process step")
+    leaf, mx, mean = c["grads"]
+    print(f"  {name} {pair}: step-1 gradient, worst leaf {leaf}: "
+          f"{mx:.2e} max / {mean:.2e} mean of its largest entry")
+
+
+def multiprocess_phase(rows, dev, tag, vit_depth=DP_VIT_DEPTH) -> None:
+    """Phase 19: the port's data-parallel training path, two ranks of
+    ``cli.parallel_check`` on this card with the gloo backend (the rule of
+    ``parallel/distributed.py``): each rank brings the group up through
+    ``cli.train``'s parser, places the model and steps through ``Trainer``
+    and reads its rows of every global batch through the sharded loader.
+    HaMeR ViT-H (K4, K1) under DDP and FSDP and full-width WildHands (K1,
+    K2, BatchNorm over the global batch) under DDP, each held against the
+    one-process step on the same global batch; then ``cli.train
+    --num_processes 2 --debug`` and a one-process ``cli.demo --ckpt`` of
+    rank 0's checkpoint, bit-equal to serving the state rank 0 held."""
+    import tempfile
+
+    from hands_tpu_torch.config import default_config
+    from hands_tpu_torch.cli.parallel_check import save_batch
+    from hands_tpu_torch.data.synthetic import make_batch
+
+    print(f"phase 19: data-parallel training, {DP_RANKS} ranks on one card "
+          f"(gloo) {tag}")
+    # K4's forward and backward in every block and K1, as phase 7
+    depth = vit_depth
+    vit_step = {k: depth * (K4_FWD_LAUNCHES.get(k, 0) + n)
+                for k, n in K4_BWD_LAUNCHES.items()}
+    vit_step.update(K1_STEP_LAUNCHES)
+    wh_step = dict(K1_STEP_LAUNCHES, splat_fwd=2, splat_bwd=2)
+    with tempfile.TemporaryDirectory() as tmp:
+        over = dict(compute_dtype="bfloat16", fused_block=True,
+                    use_render_seg_loss=False, lr=1e-6,
+                    batch_size=DP_VIT_BATCH, num_workers=0)
+        spec = {"method": "hamer_light", "vit_variant": VIT,
+                "vit_depth": depth, "overrides": over,
+                "records": DP_VIT_BATCH, "steps": DP_STEPS,
+                "modes": ["ddp", "fsdp"], "reference": ["reference", "split"]}
+        print(f"  HaMeR ViT-{VIT} at full width, depth cut to {depth} "
+              f"blocks, {DP_VIT_BATCH} images a global step "
+              f"({DP_VIT_BATCH // DP_RANKS} a rank), bf16, fused_block, "
+              f"lr 1e-6, synthetic records through the sharded loader")
+        vit = dp_launch(spec, tmp, "hamer_vit")
+        launches = dp_report("HaMeR", vit, vit_step, tag)
+        compare = vit[0]["compare"]
+        bf16 = (DP_BF16_REL,) * DP_STEPS
+        for mode in ("ddp", "fsdp"):
+            dp_check_steps("HaMeR", compare, f"{mode}_vs_split")
+            dp_check_steps("HaMeR", compare, f"{mode}_vs_reference", bf16,
+                           bf16)
+        c = compare["fsdp_vs_ddp"]
+        leaf, mx, mean = c["grads"]
+        print(f"  HaMeR FSDP against DDP, step-1 gradients (K4 under "
+              f"fully_shard), worst leaf {leaf}: {mx:.2e} max / {mean:.2e} "
+              f"mean of its largest entry (<= {K4_GRAD_MAX:g} / "
+              f"{K4_GRAD_MEAN:g})")
+        require(mx <= K4_GRAD_MAX and mean <= K4_GRAD_MEAN,
+                "HaMeR FSDP gradients off DDP's")
+        leaf, mx, mean = c["params"]
+        print(f"  HaMeR FSDP against DDP, parameters after step {DP_STEPS}: "
+              f"{c['params_apart']:.2e} of the entries more than lr/2 apart "
+              f"(<= {DP_PARAMS_APART:g}); worst leaf {leaf} {mx:.2e} of its "
+              f"largest entry")
+        require(c["params_apart"] <= DP_PARAMS_APART,
+                "HaMeR FSDP parameters off DDP's")
+        for s in vit:
+            f = s["modes"]["fsdp"]
+            require(f["shard_bytes"] < f["total_bytes"],
+                    f"FSDP rank {s['rank']} holds no strict shard")
+        mem = {(m, k): max(s["modes"][m][k] or 0.0 for s in vit)
+               for m in ("ddp", "fsdp") for k in ("held_gb", "peak_gb")}
+        print(f"  HaMeR ViT-{VIT} ({depth} blocks) memory a rank, held after "
+              f"the steps / peak: DDP {mem['ddp', 'held_gb']:.2f} / "
+              f"{mem['ddp', 'peak_gb']:.2f} GB, FSDP "
+              f"{mem['fsdp', 'held_gb']:.2f} / {mem['fsdp', 'peak_gb']:.2f} "
+              f"GB {tag}")
+        for k in ("vit_layernorm", "vit_gemm", "vit_attention"):
+            for mode, n in launches.items():
+                row = rows.setdefault("vit_block_fused_trainable", {})
+                per = row.setdefault("launches_per_rank_step", {})
+                per[mode] = per.get(mode, 0) + n[k]
+        for k in BWD_KERNELS + ("lbs_apply", "lbs_apply_bwd"):
+            rows.setdefault(k, {})["launches_per_rank_step"] = {
+                mode: n[k] for mode, n in launches.items()}
+
+        wover = dict(backbone=WH_BACKBONE, compute_dtype="float32",
+                     batch_size=DP_WH_BATCH, lr=1e-6, num_workers=0)
+        batch_path = os.path.join(tmp, "wildhands_batch.npz")
+        save_batch(batch_path, make_batch(
+            default_config("hands_light", **wover), DP_WH_BATCH, seed=SEED,
+            np_arrays=True))
+        spec = {"method": "hands_light", "overrides": wover,
+                "batch": batch_path, "steps": DP_STEPS, "modes": ["ddp"],
+                "reference": True}
+        print(f"  WildHands ({WH_BACKBONE} x 2, f32, mask render on), "
+              f"{DP_WH_BATCH} images a global step, one make_batch batch "
+              f"(noise images: synthetic records crop into constant "
+              f"padding, where max-pool ties make every rounding a kink)")
+        wh = dp_launch(spec, tmp, "wildhands")
+        launches = dp_report("WildHands", wh, wh_step, tag)
+        dp_check_steps("WildHands", wh[0]["compare"], "ddp_vs_reference",
+                       norm_rel=(DP_WH_NORM_REL,) * DP_STEPS)
+        spread = max(s["modes"]["ddp"]["bn_spread"] for s in wh)
+        leaf, mx, _ = wh[0]["compare"]["ddp_vs_reference"]["buffers"]
+        print(f"  WildHands BatchNorm running statistics: ranks apart by "
+              f"{spread:.1e} (must be 0); against the one-process run after "
+              f"step {DP_STEPS}, worst {leaf} {mx:.2e} of its largest entry")
+        require(spread == 0.0, "the ranks' running statistics differ")
+        for k in ("splat_fwd", "splat_bwd"):
+            rows.setdefault(k, {})["launches_per_rank_step"] = {
+                mode: n[k] for mode, n in launches.items()}
+        dp_train_phase(dev, tmp, tag)
+
+
+def dp_images(out_dir: str, n: int) -> str:
+    """``n`` seeded noise photos (PNG, lossless) for the demo."""
+    from PIL import Image
+
+    rng = np.random.RandomState(SEED)
+    os.makedirs(out_dir, exist_ok=True)
+    for i in range(n):
+        Image.fromarray(rng.randint(0, 256, (240, 320, 3), np.uint8)).save(
+            os.path.join(out_dir, f"photo{i}.png"))
+    return out_dir
+
+
+def dp_train_rank(argv) -> int:
+    """A rank of phase 19's ``cli.train`` run: ``--log_root ROOT --serve
+    DIR --serve_out OUT --overrides JSON`` and then ``cli.train``'s flags.
+    ``--debug`` makes the batch 1 and the split ``minitrain``; the
+    overrides make them DP_TRAIN_BATCH (two ranks need an even batch) and
+    ``smalltrain`` (32 records: two steps). After training, rank 0 serves
+    the photos of DIR in the demo's configuration with the state it holds
+    and writes the predictions to OUT (``.npz``)."""
+    from hands_tpu_torch.cli import demo as cli_demo
+    from hands_tpu_torch.cli import train as cli_train
+    from hands_tpu_torch.data.datasets import _read_image
+    from hands_tpu_torch.models.registry import fetch_model
+    from hands_tpu_torch.parallel import fsdp
+    from hands_tpu_torch.parallel.distributed import process_index, shutdown
+
+    argv = list(argv)
+    opts = {}
+    for flag in ("--log_root", "--serve", "--serve_out", "--overrides"):
+        i = argv.index(flag)
+        opts[flag] = argv[i + 1]
+        del argv[i:i + 2]
+    over = json.loads(opts["--overrides"])
+    state = cli_train.main(argv, log_root=opts["--log_root"], overrides=over)
+    held = {k: fsdp.full(fsdp.local(v), v)
+            for k, v in state.model.state_dict().items()}
+    if process_index() == 0:
+        dev = state.params[0].device
+        scfg = cli_demo.serving_config("hands_light", "bfloat16").replace(
+            **{k: v for k, v in over.items() if k == "backbone"})
+        model = fetch_model(scfg, device=dev, seed=SEED)
+        own = model.state_dict()
+        model.load_state_dict({k: v for k, v in held.items() if k in own})
+        paths = sorted(glob.glob(os.path.join(opts["--serve"], "*.png")))
+        recs = [cli_demo.make_record(p, _read_image(p)[0]) for p in paths]
+        out = cli_demo.serve(recs, scfg, model, dev).to_np()
+        np.savez(opts["--serve_out"], **{
+            k: out[k] for k in out
+            if k.startswith("pred.mano.") or k == "pred.feat_vec"})
+    shutdown()
+    return 0
+
+
+def dp_train_phase(dev, tmp, tag) -> None:
+    """``cli.train --num_processes 2 --debug`` (WildHands at full width, one
+    epoch of synthetic records, 8 images a rank a step), each rank a process
+    of this script; then ``cli.demo --ckpt`` in this one process on rank 0's
+    checkpoint, bit-equal to what rank 0 served with the state it held."""
+    from hands_tpu_torch.cli import demo as cli_demo
+    from hands_tpu_torch.parallel.launch import free_port, run_ranks
+
+    photos = dp_images(os.path.join(tmp, "photos"), DP_DEMO_IMAGES)
+    root = os.path.join(tmp, "dp_logs")
+    served = os.path.join(tmp, "rank0_served.npz")
+    address = f"localhost:{free_port()}"
+    over = dict(DP_OVERRIDES, batch_size=DP_TRAIN_BATCH,
+                test_batch_size=DP_TRAIN_BATCH, trainsplit="smalltrain")
+    cmds = [[sys.executable, os.path.abspath(__file__), "--dp-train-rank",
+             "--log_root", root, "--serve", photos, "--serve_out", served,
+             "--overrides", json.dumps(over),
+             "--debug", "--eval_every_epoch", "1", "--no_vis", "--mute",
+             "--device", DP_DEVICE,
+             "--num_processes", str(DP_RANKS), "--process_id", str(r),
+             "--coordinator_address", address] for r in range(DP_RANKS)]
+    t0 = time.time()
+    outs = run_ranks(cmds, DP_TIMEOUT,
+                     cwd=os.path.dirname(os.path.abspath(__file__)))
+    print(f"  cli.train --num_processes {DP_RANKS} --debug: one epoch in "
+          f"{time.time() - t0:.1f} s of processes {tag}")
+    for r, out in enumerate(outs):
+        line = [ln for ln in out.splitlines()
+                if ln.startswith("multi-process:")]
+        device = "cuda:0" if DP_DEVICE == "cuda" else DP_DEVICE
+        require(len(line) == 1 and "backend gloo" in line[0]
+                and f"device {device}" in line[0], f"rank {r} startup: {line}")
+        print(f"  rank {r}: {line[0]}")
+    keys = os.listdir(root)
+    require(len(keys) == 1, f"the ranks wrote {keys}, want one experiment")
+    ckpts = os.path.join(root, keys[0], "checkpoints")
+    require(sorted(f for f in os.listdir(ckpts) if not f.endswith(".json"))
+            == ["epoch_0000", "last"], f"checkpoints {os.listdir(ckpts)}")
+    demo_out = os.path.join(tmp, "demo")
+    require(cli_demo.main(["--dir", photos, "--dtype", "bfloat16",
+                           "--batch_size", str(DP_DEMO_IMAGES),
+                           "--device", DP_DEVICE, "--no_vis", "--out",
+                           demo_out, "--ckpt",
+                           os.path.join(ckpts, "last")],
+                          {k: v for k, v in over.items()
+                           if k == "backbone"}) == 0,
+            "cli.demo --ckpt")
+    want = np.load(served)
+    n_equal = n_keys = 0
+    for i, p in enumerate(sorted(glob.glob(os.path.join(photos, "*.png")))):
+        stem = os.path.splitext(os.path.basename(p))[0]
+        got = np.load(os.path.join(demo_out, f"{stem}_pred.npz"))
+        for k in got.files:
+            n_keys += 1
+            n_equal += int(np.array_equal(got[k], want[k][i]))
+    print(f"  one-process cli.demo --ckpt of rank 0's checkpoint: {n_equal} "
+          f"of {n_keys} prediction arrays bit-equal to rank 0 serving the "
+          f"state it held")
+    require(n_keys > 0 and n_equal == n_keys,
+            "the checkpoint does not serve rank 0's state")
+
+
+def multiprocess_alone(vit_depth: int = DP_VIT_DEPTH) -> int:
+    """Phase 19 alone: builds K1, K2, K3 and K4's backward and runs
+    :func:`multiprocess_phase` (``vit_depth=32``: ViT-H whole, ~3 min
+    more)::
+
+        python3 -c "import sys, chip_smoke as cs; sys.exit(cs.multiprocess_alone())"
+    """
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from hands_tpu_torch.ops import mano_lbs
+    from hands_tpu_torch.ops import rasterizer as ras
+    from hands_tpu_torch.ops import vit_block as vb
+    from hands_tpu_torch.ops.cuda_build import build_all
+
+    card = card_line()
+    print_ptxas(build_all([vb.LIBRARY, vb.BWD_LIBRARY, mano_lbs.LIBRARY,
+                           ras.LIBRARY]))
+    rows = {}
+    multiprocess_phase(rows, DEV, f"[{card}]", vit_depth)
+    print(card)
+    print(json.dumps({"launches_per_rank_step": {
+        k: r["launches_per_rank_step"] for k, r in rows.items()}}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6451,6 +6810,7 @@ def main() -> int:
     int8_drift_phase(dev, tag)
     families_phase(rows, dev, tag)
     arctic_phase(rows, dev, tag)
+    multiprocess_phase(rows, dev, tag)
 
     print(card)
     print(json.dumps({"kernels": list(rows.values())}))
@@ -6461,4 +6821,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-train-rank"]:
+        sys.exit(dp_train_rank(sys.argv[2:]))
     sys.exit(main())

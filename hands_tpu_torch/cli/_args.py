@@ -10,6 +10,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from hands_tpu_torch.config import Config, construct_args
+from hands_tpu_torch.parallel.distributed import initialize_from_config
 
 
 def _pop(argv: List[str], flag: str, default):
@@ -32,14 +33,17 @@ def parse(argv: Optional[List[str]]) -> Tuple[Config, str]:
     ``--eval_on`` and ``--dataset``: the order of
     ``hands_tpu/cli/evaluate.py``, ``--eval_on`` first. (``hands_tpu``'s
     ``cli.train`` reads no ``--eval_on``; the port's does, so that a run on
-    ``--dataset synthetic`` can name its validation set.)"""
+    ``--dataset synthetic`` can name its validation set.)
+
+    ``--num_processes N`` (with ``--process_id`` and
+    ``--coordinator_address``) brings the process group up here, before any
+    device use, as the JAX CLIs do; the device returned is then this rank's
+    (``parallel/distributed.py``)."""
     argv = list(sys.argv[1:] if argv is None else argv)
     device = _pop(argv, "--device", "cuda")
     dataset = _pop(argv, "--dataset", None)
     cfg = construct_args(argv)
-    if cfg.num_processes > 1:
-        raise NotImplementedError(
-            "multi-process runs are not ported: ROADMAP queue 1 item 11")
+    cfg, device = initialize_from_config(cfg, device)
     if dataset:
         cfg = cfg.replace(dataset=dataset)
     if cfg.eval_on:

@@ -43,4 +43,7 @@ def main(argv=None, log_root: str = "logs", overrides=None):
 
 
 if __name__ == "__main__":
+    from hands_tpu_torch.parallel.distributed import shutdown
+
     main(sys.argv[1:])
+    shutdown()

@@ -14,6 +14,11 @@ the tree under ``$DATA_DIR`` (``data/datasets.py``):
 
     DATA_DIR=/data python -m hands_tpu_torch.cli.train \
         --dataset arctic+assembly+epic_seg --eval_on epic
+
+Data-parallel: one process a rank, each with ``--num_processes N
+--process_id r --coordinator_address host:port`` (``--fsdp`` shards the
+parameters and Adam moments); ``--batch_size`` is the global batch. See
+``parallel/distributed.py`` for the backend and device of a rank.
 """
 
 from __future__ import annotations
@@ -48,4 +53,7 @@ def main(argv=None, log_root: str = "logs", overrides=None):
 
 
 if __name__ == "__main__":
+    from hands_tpu_torch.parallel.distributed import shutdown
+
     main(sys.argv[1:])
+    shutdown()

@@ -18,9 +18,13 @@ class XDict(dict):
     """Collision-safe string-keyed container for batches and predictions."""
 
     def __init__(self, mydict: Mapping[str, Any] | None = None):
+        """From a mapping or, as ``dict`` takes it, an iterable of (key,
+        value) pairs (how ``torch.distributed`` rebuilds a dict subclass
+        after it moves an FSDP module's inputs)."""
         super().__init__()
         if mydict is not None:
-            for k, v in mydict.items():
+            pairs = mydict.items() if hasattr(mydict, "items") else mydict
+            for k, v in pairs:
                 super().__setitem__(k, v)
 
     def __setitem__(self, key: str, value: Any) -> None:

@@ -482,6 +482,15 @@ class DeviceDataLoader:
     A tail batch is padded to ``batch_size`` with copies of its last row
     whose ``is_valid`` / ``right_valid`` / ``left_valid`` are 0 (the metrics
     give NaN there); ``meta["num_valid"]`` counts the real rows.
+
+    ``shard=(r, n)``: rank r of n processes (the JAX loader's multi-host
+    path). ``batch_size`` stays the global batch, which n must divide; every
+    rank derives the same global order, pads the global tail with repeats of
+    its last index, and fetches only rows [r B/n, (r+1) B/n) of each global
+    batch; rows past the global count are invalidated, and ``num_valid``
+    counts this rank's real rows. The augmentation draws differ between
+    ranks (each rank's generator is seeded with its rank as well), as the
+    JAX loader folds the shard into its key.
     """
 
     def __init__(self, dataset, cfg: Config, batch_size: int, is_train: bool,
@@ -489,10 +498,10 @@ class DeviceDataLoader:
                  num_workers: Optional[int] = None,
                  lookahead_batches: int = 4, shard: tuple = (0, 1),
                  device="cuda"):
-        if tuple(shard) != (0, 1):
-            raise NotImplementedError(
-                "the sharded (multi-process) loader path is not ported: "
-                "ROADMAP queue 1 item 11")
+        self.shard = tuple(shard)
+        if self.shard[1] > 1 and batch_size % self.shard[1]:
+            raise ValueError(f"batch_size {batch_size} not divisible by "
+                             f"num_processes {self.shard[1]}")
         self.dataset = dataset
         self.cfg = cfg
         self.batch_size = batch_size
@@ -535,13 +544,16 @@ class DeviceDataLoader:
         if self.is_train:
             np.random.RandomState(self.seed * 100003 + epoch).shuffle(order)
         gen = torch.Generator(device=self.device)
-        gen.manual_seed(self.seed * 100003 + epoch)
+        seed = self.seed * 100003 + epoch
+        if self.shard[1] > 1:  # other draws on every rank
+            seed = seed * 1000003 + self.shard[0] + 1
+        gen.manual_seed(seed)
         return order, gen
 
-    def _iter_record_batches(self, order):
+    def _iter_record_batches(self, order, step: Optional[int] = None):
         """Yield the list of Records of each index batch, fetched by a thread
         pool with bounded lookahead (``num_workers`` <= 0: sequentially)."""
-        n, step = len(order), self.batch_size
+        n, step = len(order), step or self.batch_size
         starts = range(0, n - (step - 1 if self.drop_last else 0), step)
         if self.num_workers <= 0:
             for s in starts:
@@ -580,10 +592,10 @@ class DeviceDataLoader:
                 records.append(pad)
             yield stack_records(records), n_real
 
-    def _iter_stacked_batches(self, order):
+    def _iter_stacked_batches(self, order, step: Optional[int] = None):
         """The packed path: the dataset stacks each batch itself; the tail
         repeats its last row, invalidated. Yields (stacked, real rows)."""
-        n, step = len(order), self.batch_size
+        n, step = len(order), step or self.batch_size
         for s in range(0, n - (step - 1 if self.drop_last else 0), step):
             idxs = order[s:s + step]
             stacked = self.dataset.stacked_batch(idxs)
@@ -600,12 +612,41 @@ class DeviceDataLoader:
                     stacked[key][n_real:] = 0.0
             yield stacked, n_real
 
+    def _iter_sharded(self, order):
+        """This rank's rows of every global batch (``shard``): yields
+        (stacked, real rows of this rank)."""
+        pid, nprocs = self.shard
+        B = self.batch_size
+        bl = B // nprocs
+        n = len(order)
+        nb = n // B if self.drop_last else -(-n // B)
+        g = order[:nb * B]
+        if nb * B > n:
+            g = np.concatenate([order, np.repeat(order[-1:], nb * B - n)])
+        local = g.reshape(nb, B)[:, pid * bl:(pid + 1) * bl].reshape(-1)
+        if hasattr(self.dataset, "stacked_batch"):
+            batches = self._iter_stacked_batches(local, step=bl)
+        else:
+            batches = ((stack_records(recs), len(recs)) for recs in
+                       self._iter_record_batches(local, step=bl))
+        for bi, (stacked, _) in enumerate(batches):
+            n_real = int(np.clip(min(n - bi * B, B) - pid * bl, 0, bl))
+            if n_real < bl:
+                for key in ("is_valid", "right_valid", "left_valid"):
+                    v = np.array(stacked[key])
+                    v[n_real:] = 0.0
+                    stacked[key] = v
+            yield stacked, n_real
+
     def host_batches(self, order):
         """The host half: yields (stacked batch, number of real rows); arrays
         are pinned tensors when the loader's device is a card."""
-        batches = (self._iter_stacked_batches(order)
-                   if hasattr(self.dataset, "stacked_batch")
-                   else self._iter_record_stacks(order))
+        if self.shard[1] > 1:
+            batches = self._iter_sharded(order)
+        elif hasattr(self.dataset, "stacked_batch"):
+            batches = self._iter_stacked_batches(order)
+        else:
+            batches = self._iter_record_stacks(order)
         for stacked, n_real in batches:
             if self.device.type == "cuda":
                 stacked = pin_batch(stacked)

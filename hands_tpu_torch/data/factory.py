@@ -9,6 +9,7 @@ from hands_tpu_torch.config import Config
 from hands_tpu_torch.data.datasets import fetch_dataset
 from hands_tpu_torch.data.device_pipeline import (DeviceDataLoader,
                                                   PrefetchLoader)
+from hands_tpu_torch.parallel.distributed import process_count, process_index
 
 # meta keys carried as python lists, not arrays
 _LIST_KEYS = ("imgname", "query_names")
@@ -40,17 +41,19 @@ def collate_windowed(data_list):
 def fetch_dataloader(cfg: Config, mode: str, device="cuda"):
     """The loader of ``mode`` (``train``; ``val``, ``eval`` or ``test``) with
     its batches preprocessed on ``device``. The train loader prefetches on a
-    background thread when ``cfg.num_workers > 0``."""
+    background thread when ``cfg.num_workers > 0``. Over several processes
+    each rank's loader yields its rows of every global batch."""
+    shard = (process_index(), process_count())
     if mode == "train":
         dataset = fetch_dataset(cfg, cfg.dataset, cfg.trainsplit)
         loader = DeviceDataLoader(
             dataset, cfg, cfg.batch_size, is_train=True, seed=cfg.seed,
-            device=device)
+            shard=shard, device=device)
         return PrefetchLoader(loader) if cfg.num_workers > 0 else loader
     if mode in ("val", "eval", "test"):
         split = cfg.valsplit if mode == "val" else "test"
         dataset = fetch_dataset(cfg, cfg.val_dataset, split)
         return DeviceDataLoader(
             dataset, cfg, cfg.test_batch_size, is_train=False, seed=cfg.seed,
-            drop_last=False, device=device)
+            drop_last=False, shard=shard, device=device)
     raise ValueError(f"unknown mode '{mode}'")

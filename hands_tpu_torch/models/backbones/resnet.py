@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from hands_tpu_torch.ops.quant import serving_conv_cls
+from hands_tpu_torch.parallel import mesh
 
 
 class Conv(nn.Module):
@@ -51,7 +52,14 @@ class BatchNorm(nn.Module):
     biased variance and moves the running statistics by Flax's rule,
     ``new = 0.99 old + 0.01 batch``, with the biased variance
     (``nn.BatchNorm2d`` would store the unbiased one). A new module is in
-    eval mode, the Flax module's ``train=False`` default."""
+    eval mode, the Flax module's ``train=False`` default.
+
+    Inside a data-parallel step (``parallel.mesh.data_parallel``) train mode
+    takes the moments of the global batch, as the JAX step does on its
+    batch-sharded array: every rank's mean and sum of squared deviations
+    reach every rank by one all-reduce (with its gradient) before it
+    normalises and moves the running statistics, so every rank normalises
+    alike and keeps the same running statistics."""
 
     momentum = 0.99  # Flax's default: the share of the old statistics kept
 
@@ -70,6 +78,9 @@ class BatchNorm(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
+        dp = mesh.active()
+        if dp is not None:
+            return self._global_batch(x, dp)
         # one pass over x: the op hands back the mean and 1/sqrt(var + eps)
         # it normalised with, and the running update is made from those
         y, mean, invstd = torch.native_batch_norm(
@@ -80,6 +91,34 @@ class BatchNorm(nn.Module):
             self.running_mean.mul_(keep).add_(mean, alpha=1.0 - keep)
             self.running_var.mul_(keep).add_(var, alpha=1.0 - keep)
         return y
+
+    def _global_batch(self, x, dp):
+        """Train mode over the ranks of ``dp`` (every rank holds as many
+        rows): the mean and biased variance of the global batch, combined
+        from each rank's mean and sum of squared deviations (Chan et al.'s
+        pairwise update, which does not cancel as E[x^2] - E[x]^2 does)."""
+        wide = torch.promote_types(x.dtype, torch.float32)
+        xf = x.to(wide)
+        dims = [0] + list(range(2, x.ndim))
+        n = x.numel() // x.shape[1]  # rows of a channel on each rank
+        mean_r = xf.mean(dims)
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        m2_r = (xf - mean_r.view(shape)).square().sum(dims)
+        # every rank's (mean, m2) by one differentiable all-reduce of slots
+        slots = torch.stack([mean_r, m2_r])[None] * torch.eye(
+            dp.world, dtype=wide, device=x.device)[dp.rank].view(-1, 1, 1)
+        means, m2s = mesh.all_reduce_sum(slots, dp).unbind(1)
+        mean = means.mean(0)
+        var = (m2s.sum(0) + n * (means - mean).square().sum(0)) \
+            / (n * dp.world)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean.view(shape)) * scale.view(shape) \
+            + self.bias.view(shape)
+        with torch.no_grad():
+            keep = self.momentum
+            self.running_mean.mul_(keep).add_(mean, alpha=1.0 - keep)
+            self.running_var.mul_(keep).add_(var, alpha=1.0 - keep)
+        return y.to(self.dtype)
 
 
 class BasicBlock(nn.Module):

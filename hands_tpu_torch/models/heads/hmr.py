@@ -19,6 +19,7 @@ from torch import nn
 
 from hands_tpu_torch.core import rot as rotlib
 from hands_tpu_torch.models.backbones.vit import Dense
+from hands_tpu_torch.parallel import mesh
 
 HAND_SPECS: Dict[str, int] = {"pose_6d": 6 * 16, "cam_t_wp": 3, "shape": 10}
 _N_PARAMS = sum(HAND_SPECS.values())  # 109
@@ -28,11 +29,18 @@ def dropout(x: torch.Tensor, rate: float,
             generator: Optional[torch.Generator]) -> torch.Tensor:
     """Flax ``nn.Dropout``: keep each entry with probability ``1 - rate``
     and scale it by ``1 / (1 - rate)``; the mask is drawn from ``generator``
-    on ``x``'s device."""
+    on ``x``'s device. Inside a data-parallel step the mask of the global
+    batch is drawn on every rank (the generators stay in step) and each rank
+    takes its rows, so the ranks together drop what one process would."""
     if generator is None:
         raise ValueError("dropout in train mode needs a torch.Generator")
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    dp = mesh.active()
+    n = x.shape[0]
+    shape = (n * (dp.world if dp else 1),) + tuple(x.shape[1:])
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    if dp is not None:
+        mask = mask[dp.rank * n:(dp.rank + 1) * n]
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

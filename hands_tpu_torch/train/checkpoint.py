@@ -15,6 +15,13 @@ schedule reads ``count`` and the accumulation ``mini_step``.
 
 :func:`graft_backbone_variables` warm-starts backbones from a file that
 ``cli.convert_ckpt`` wrote (``--load_backbone``).
+
+Over several processes rank 0 alone writes, in the same format: under FSDP
+the sharded parameters and moments are first gathered whole (a collective,
+so every rank builds the payload), and a barrier follows the write. Every
+rank restores from the file, taking its shard of what FSDP shards. So a
+one-process ``cli.demo --ckpt`` or ``restore_params`` reads a multi-process
+run's checkpoint as it reads any other.
 """
 
 from __future__ import annotations
@@ -25,6 +32,8 @@ from typing import Dict, List
 
 import torch
 
+from hands_tpu_torch.parallel import fsdp
+from hands_tpu_torch.parallel.distributed import barrier, process_index
 from hands_tpu_torch.train.state import TrainState
 
 
@@ -43,20 +52,29 @@ class CheckpointManager:
     @staticmethod
     def _state_payload(state: TrainState, epoch: int) -> dict:
         tx = state.tx
+
+        def whole(tensors):
+            return [fsdp.full(t, p) for t, p in zip(tensors, tx.model_params)]
+
         return {
             "step": int(state.step),
-            "model": state.model.state_dict(),
-            "opt": {"mu": list(tx.mu), "nu": list(tx.nu),
-                    "acc": None if tx.acc is None else list(tx.acc),
+            "model": {k: fsdp.full(fsdp.local(v), v)
+                      for k, v in state.model.state_dict().items()},
+            "opt": {"mu": whole(tx.mu), "nu": whole(tx.nu),
+                    "acc": None if tx.acc is None else whole(tx.acc),
                     "count": int(tx.count), "mini_step": int(tx.mini_step)},
             "epoch": int(epoch),
         }
 
     def _save(self, name: str, state: TrainState, epoch: int) -> None:
-        path = os.path.join(self.ckpt_dir, name)
-        tmp = f"{path}.{os.getpid()}.tmp"
-        torch.save(self._state_payload(state, epoch), tmp)
-        os.replace(tmp, path)  # a reader never sees half a file
+        payload = self._state_payload(state, epoch)
+        if process_index() == 0:
+            path = os.path.join(self.ckpt_dir, name)
+            tmp = f"{path}.{os.getpid()}.tmp"
+            torch.save(payload, tmp)
+            os.replace(tmp, path)  # a reader never sees half a file
+        del payload
+        barrier()
 
     def save_last(self, state: TrainState, epoch: int) -> None:
         self._save("last", state, epoch)
@@ -72,10 +90,11 @@ class CheckpointManager:
         for stale in [k for k in self._scores if k not in keep]:
             del self._scores[stale]
             stale_p = os.path.join(self.ckpt_dir, stale)
-            if os.path.exists(stale_p):
+            if process_index() == 0 and os.path.exists(stale_p):
                 os.remove(stale_p)
-        with open(self._scores_path, "w") as f:
-            json.dump(self._scores, f)
+        if process_index() == 0:
+            with open(self._scores_path, "w") as f:
+                json.dump(self._scores, f)
 
     # --------------------------------------------------------------- restore
     def _load(self, name: str, device) -> dict:
@@ -87,7 +106,15 @@ class CheckpointManager:
         Returns (state, epoch)."""
         device = state.params[0].device
         saved = self._load(name, device)
-        state.model.load_state_dict(saved["model"], strict=True)
+        live = state.model.state_dict()
+        if any(fsdp.is_sharded(v) for v in live.values()):
+            if set(live) != set(saved["model"]):
+                raise ValueError("checkpoint and model have other entries")
+            with torch.no_grad():  # this rank's shard of each entry
+                for k, v in live.items():
+                    fsdp.local(v).copy_(fsdp.shard_of(saved["model"][k], v))
+        else:
+            state.model.load_state_dict(saved["model"], strict=True)
         tx, opt = state.tx, saved["opt"]
         if (opt["acc"] is None) != (tx.acc is None):
             raise ValueError(
@@ -97,11 +124,11 @@ class CheckpointManager:
             pairs = [(tx.mu, opt["mu"]), (tx.nu, opt["nu"])]
             if tx.acc is not None:
                 pairs.append((tx.acc, opt["acc"]))
-            for live, kept in pairs:
-                if len(live) != len(kept):
+            for held, kept in pairs:
+                if len(held) != len(kept):
                     raise ValueError("checkpoint has another parameter list")
-                for dst, src in zip(live, kept):
-                    dst.copy_(src)
+                for dst, src, p in zip(held, kept, tx.model_params):
+                    dst.copy_(fsdp.shard_of(src, p))
         tx.count, tx.mini_step = int(opt["count"]), int(opt["mini_step"])
         state.step = int(saved["step"])
         return state, int(saved["epoch"])

@@ -17,8 +17,21 @@ weights, so ``fit`` initialises nothing; the steps switch the module between
 train and eval mode themselves; the loss terms of a window stay on the card
 and are read back once per window (one host synchronisation per ``log_every``
 steps, not one per term and step); dropout draws from a generator seeded from
-``cfg.seed``. The mesh, FSDP and multi-process branches are ROADMAP queue 1
-item 11.
+``cfg.seed``.
+
+Over several processes (``cli.train --num_processes``, the group brought up
+by ``parallel.distributed.initialize_from_config``) each rank's loader hands
+it its rows of every global batch (``shard``), the steps reduce over the
+ranks (``train/step.py``), and the step equals the one-process step on the
+global batch. Before the state is made the model is placed once
+(:meth:`place_model`): rank 0's values go to every rank, and with ``fsdp``
+the model is sharded (``parallel/fsdp.py``); otherwise its parameters stay
+replicated, as DDP keeps them. With one process ``fsdp`` changes nothing, as
+in JAX on one device. Rank 0 alone logs and writes checkpoints; validation
+gathers the metric rows of every rank, so each means the same arrays; the
+overlays are drawn by one-process runs only, as in JAX. Only the data axis is
+ported: a ``mesh_axis_names`` with another axis raises (ROADMAP queue 1 item
+11).
 """
 
 from __future__ import annotations
@@ -34,6 +47,11 @@ import torch
 from hands_tpu_torch.config import Config
 from hands_tpu_torch.core.precision import f32_exact
 from hands_tpu_torch.core.xdict import XDict, device_view
+from hands_tpu_torch.parallel import mesh as mesh_lib
+from hands_tpu_torch.parallel.distributed import (data_group, gather_to_host,
+                                                  process_index)
+from hands_tpu_torch.parallel.fsdp import shard_model
+from hands_tpu_torch.parallel.mesh import check_data_axes, make_mesh
 from hands_tpu_torch.train.checkpoint import (CheckpointManager,
                                               graft_backbone_variables)
 from hands_tpu_torch.train.process import process_data_light
@@ -50,29 +68,53 @@ def _sync(device: torch.device) -> None:
 class Trainer:
     def __init__(self, cfg: Config, model,
                  experiment: Optional[Experiment] = None):
-        if cfg.get("fsdp", False) or cfg.num_processes > 1:
-            raise NotImplementedError(
-                "the mesh, FSDP and multi-process trainer branches are not "
-                "ported: ROADMAP queue 1 item 11")
+        check_data_axes(cfg.mesh_shape, cfg.mesh_axis_names)
         self.cfg = cfg
         self.model = model
         self.device = next(model.parameters()).device
         self.exp = experiment or Experiment(cfg)
         self.ckpt = CheckpointManager(self.exp.ckpt_dir)
-        self.train_step = make_train_step(model, cfg)
+        # the data ranks (None for one process) and, with fsdp, their mesh
+        self.dp = data_group()
+        self.fsdp = bool(cfg.get("fsdp", False)) and self.dp is not None
+        self.mesh = (make_mesh(cfg.mesh_shape, cfg.mesh_axis_names,
+                               self.device.type)
+                     if self.dp is not None else None)
+        self._placed = False
+        self.train_step = make_train_step(model, cfg, self.dp)
         metric_specs = (
             ["pix_err"] if cfg.val_dataset == "epic"
             else ["mrrpe.rl", "mpjpe.ra", "mpjpe.pa.ra", "pix_err"])
-        self.eval_step = make_eval_step(model, cfg, metric_specs)
+        self.eval_step = make_eval_step(model, cfg, metric_specs, self.dp)
         # host seconds of the last fit: the whole loop, and the part of it
         # spent waiting for the loader's next batch
         self.timing = {"steps": 0, "loop_s": 0.0, "data_s": 0.0}
 
-    # ------------------------------------------------------------------ fit
-    def fit(self, train_loader, val_loader=None,
-            num_epochs: Optional[int] = None):
+    # ---------------------------------------------------------- placement
+    def place_model(self) -> None:
+        """Once, before the train state is made: rank 0's parameters and
+        buffers to every rank, then FSDP's sharding under ``fsdp``. Nothing
+        for one process."""
+        if self.dp is None or self._placed:
+            return
+        mesh_lib.broadcast_(list(self.model.parameters())
+                            + list(self.model.buffers()), self.dp)
+        if self.fsdp:
+            shard_model(self.model, self.mesh)
+        self._placed = True
+
+    def _check_loader(self, loader) -> None:
+        want = (0, 1) if self.dp is None else (self.dp.rank, self.dp.world)
+        have = tuple(getattr(loader, "shard", want))
+        if have != want:
+            raise ValueError(f"loader shard {have}, but this is rank "
+                             f"{want[0]} of {want[1]}")
+
+    def init_state(self, steps_per_epoch: int = 1000):
+        """The train state of ``fit``: backbone graft or warm start, the
+        model's placement, the state, and the resume. Returns (state, the
+        epoch to start from)."""
         cfg = self.cfg
-        num_epochs = num_epochs or cfg.num_epoch
         if cfg.get("load_backbone", ""):
             # pretrained backbones from a cli.convert_ckpt file (the
             # reference's load_state_dict of released weights)
@@ -81,16 +123,29 @@ class Trainer:
                 weights_only=True))
             print(f"grafted pretrained backbone from {cfg.load_backbone} "
                   f"into {', '.join(grafted)}")
-        state = create_train_state(cfg, self.model,
-                                   steps_per_epoch=len(train_loader))
-
-        start_epoch = 0
-        if cfg.resume_ckpt and self.ckpt.has_checkpoint("last"):
-            state, start_epoch = self.ckpt.restore(state, "last")
-            print(f"resumed from epoch {start_epoch}")
-        elif cfg.load_ckpt:
+        resume = bool(cfg.resume_ckpt) and self.ckpt.has_checkpoint("last")
+        if cfg.load_ckpt and not resume:
             warm = CheckpointManager(os.path.dirname(cfg.load_ckpt))
             warm.restore_params(self.model, os.path.basename(cfg.load_ckpt))
+        self.place_model()
+        state = create_train_state(cfg, self.model,
+                                   steps_per_epoch=steps_per_epoch,
+                                   dp=self.dp)
+        start_epoch = 0
+        if resume:
+            state, start_epoch = self.ckpt.restore(state, "last")
+            print(f"resumed from epoch {start_epoch}")
+        return state, start_epoch
+
+    # ------------------------------------------------------------------ fit
+    def fit(self, train_loader, val_loader=None,
+            num_epochs: Optional[int] = None):
+        cfg = self.cfg
+        num_epochs = num_epochs or cfg.num_epoch
+        for loader in (train_loader, val_loader):
+            if loader is not None:
+                self._check_loader(loader)
+        state, start_epoch = self.init_state(len(train_loader))
 
         # one sanity val batch before training
         if val_loader is not None:
@@ -100,7 +155,7 @@ class Trainer:
         global_step = int(state.step)
         window = defaultdict(list)  # loss terms of this window, on the card
         tracer = None
-        if cfg.get("profile_steps", 0):
+        if cfg.get("profile_steps", 0) and process_index() == 0:
             from hands_tpu_torch.utils.profiling import StepTrace
 
             tracer = StepTrace(os.path.join(self.exp.dir, "trace"),
@@ -151,7 +206,7 @@ class Trainer:
                 val_metrics = self.validate(state, val_loader)
                 self.exp.log_dict(val_metrics, global_step, postfix="__val")
                 self.ckpt.save_top_k(state, epoch, val_metrics["loss"])
-                if not cfg.no_vis:
+                if not cfg.no_vis and self.dp is None:
                     self.visualize(state, val_loader, global_step)
             self.ckpt.save_last(state, epoch + 1)
         if tracer is not None:
@@ -206,12 +261,15 @@ class Trainer:
     def validate(self, state, val_loader) -> dict:
         """Eval epoch: ``nanmean`` of the concatenated per-image metric
         arrays and the mean of the per-batch losses. The model runs in eval
-        mode (running statistics, no dropout) and is left there."""
+        mode (running statistics, no dropout) and is left there. Over
+        several ranks every rank gathers the metric rows of all, so each
+        means the same arrays (the losses are global already)."""
         metric_arrays = defaultdict(list)
         losses = defaultdict(list)
         for inputs, targets, meta in val_loader:
             metrics, logs = self.eval_step(
                 state, (inputs, targets, device_view(meta)))
+            metrics = gather_to_host(dict(metrics))
             for k, v in metrics.items():
                 metric_arrays[k].append(v)
             for k, v in logs.items():

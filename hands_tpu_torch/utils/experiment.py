@@ -3,7 +3,8 @@
 ``logs/<exp_key>`` (a random 9-hex key), an ``args.json`` dump, resume reusing
 the key embedded in a checkpoint path, and two logging backends: JSONL metrics
 (always) plus TensorBoard when ``cfg.logger == "tensorboard"`` and the package
-is installed. One process writes (the port runs on one card)."""
+is installed. Over several processes every rank shares rank 0's key and
+directories, and rank 0 alone writes (Lightning's rank-zero logging)."""
 
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import time
 from typing import Dict, Optional
 
 from hands_tpu_torch.config import Config
+from hands_tpu_torch.parallel.distributed import process_index
 
 
 def generate_exp_key() -> str:
@@ -40,10 +42,13 @@ class Experiment:
         self.ckpt_dir = os.path.join(self.dir, "checkpoints")
         os.makedirs(self.ckpt_dir, exist_ok=True)
         self.cfg = cfg
-        self._save_args(cfg)
-        self._metrics_f = open(os.path.join(self.dir, "metrics.jsonl"), "a")
+        self._rank0 = process_index() == 0
+        if self._rank0:
+            self._save_args(cfg)
+        self._metrics_f = (open(os.path.join(self.dir, "metrics.jsonl"), "a")
+                           if self._rank0 else None)
         self._tb = None
-        if cfg.logger == "tensorboard" and not cfg.mute:
+        if cfg.logger == "tensorboard" and not cfg.mute and self._rank0:
             try:
                 from torch.utils.tensorboard import SummaryWriter
             except ImportError:  # optional backend: the JSONL log remains
@@ -57,6 +62,8 @@ class Experiment:
 
     def log_dict(self, metrics: Dict[str, float], step: int,
                  postfix: str = ""):
+        if self._metrics_f is None:  # a rank other than 0
+            return
         payload = {(k + postfix): float(v) for k, v in metrics.items()}
         payload["step"] = int(step)
         payload["time"] = time.time()
@@ -77,6 +84,7 @@ class Experiment:
                                    dataformats="HWC")
 
     def close(self):
-        self._metrics_f.close()
+        if self._metrics_f is not None:
+            self._metrics_f.close()
         if self._tb is not None:
             self._tb.close()

@@ -26,6 +26,18 @@ from hands_tpu.data import arctic_processing as jap
 from hands_tpu_torch.data import arctic_processing as tap
 from test_arctic_processing import _add_smplx, _fake_seq
 
+
+@pytest.fixture(autouse=True, scope="module")
+def few_threads():
+    """Two intra-op threads for the module, its module-scoped fixtures
+    included: the suite runs six workers side by side, and eight threads
+    each stall one another at every barrier."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 M_TOL, PX_TOL = 1e-5, 1e-2
 
 

@@ -26,6 +26,18 @@ from hands_tpu_torch.cli import calibrate as tcli
 from hands_tpu_torch.models.backbones.vit import ViTBackbone
 from hands_tpu_torch.ops import calibration as tcal
 
+
+@pytest.fixture(autouse=True, scope="module")
+def few_threads():
+    """Two intra-op threads for the module, its module-scoped fixtures
+    included: the suite runs six workers side by side, and eight threads
+    each stall one another at every barrier."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 POINTS = ("qkv", "proj", "mlp1", "mlp2")
 
 

@@ -48,6 +48,17 @@ from hands_tpu_torch.ops import vit_block
 from hands_tpu_torch.utils.from_jax import state_dict_from_jax
 
 
+@pytest.fixture(autouse=True, scope="module")
+def few_threads():
+    """Two intra-op threads for the module, its module-scoped fixtures
+    included: the suite runs six workers side by side, and eight threads
+    each stall one another at every barrier."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _records():
     rng = np.random.RandomState(0)
     recs = []

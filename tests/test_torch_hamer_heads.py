@@ -11,6 +11,7 @@ test_torch_rasterizer.py).
 """
 
 import numpy as np
+import pytest
 import torch
 
 import jax
@@ -24,6 +25,17 @@ from hands_tpu_torch.models.hamer_light import HamerLightModel
 from hands_tpu_torch.ops import rasterizer
 from hands_tpu_torch.utils.from_jax import state_dict_from_jax
 from test_torch_hamer import _max_rel, _np, jax_side  # noqa: F401
+
+
+@pytest.fixture(autouse=True, scope="module")
+def few_threads():
+    """Two intra-op threads for the module, its module-scoped fixtures
+    included: the suite runs six workers side by side, and eight threads
+    each stall one another at every barrier."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 def test_hamer_grasp_and_render_match_jax(jax_side):  # noqa: F811

@@ -38,7 +38,7 @@ BF16_RTOL = 2e-2
 NO_EXCESS = {"xla_allow_excess_precision": False}
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def few_threads():
     n = torch.get_num_threads()
     torch.set_num_threads(2)

@@ -63,7 +63,7 @@ SHIFT_INVARIANT = (".encode_key.bias", "regressor.score.bias")
 F64_LEAF, F32_LEAF, F32_MEDIAN = 1e-10, 1e-3, 5e-5
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def few_threads():
     n = torch.get_num_threads()
     torch.set_num_threads(2)

@@ -32,6 +32,18 @@ from hands_tpu_torch.models import kpe as tkpe
 from hands_tpu.models import kpe as jkpe
 from test_torch_hands_light import RTOL, max_rel, records, run_pair
 
+
+@pytest.fixture(autouse=True, scope="module")
+def few_threads():
+    """Two intra-op threads for the module, its module-scoped fixtures
+    included: the suite runs six workers side by side, and eight threads
+    each stall one another at every barrier."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 MODES = [None, "center", "corner", "center+corner", "dense",
          "center+corner_latent", "sinusoidal_cc", "dense_latent", "cam_conv",
          "pcl", "perspective_correction"]

@@ -174,8 +174,12 @@ def test_factory_and_what_is_left_out():
     with pytest.raises(KeyError):
         fetch_dataset(cfg, "no_such_set", "train")
     ds = fetch_dataset(cfg, "synthetic", "minitrain")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        DeviceDataLoader(ds, cfg, 2, False, shard=(0, 2), device="cpu")
+    # the sharded loader: each rank's rows (tests/test_torch_parallel.py),
+    # a global batch the ranks divide
+    assert len(DeviceDataLoader(ds, cfg, 2, False, shard=(1, 2),
+                                device="cpu")) == len(ds) // 2
+    with pytest.raises(ValueError, match="not divisible"):
+        DeviceDataLoader(ds, cfg, 3, False, shard=(0, 2), device="cpu")
     # a dataset that stacks its own batches takes the stacked path
     asked = []
 

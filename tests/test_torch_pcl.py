@@ -35,6 +35,18 @@ from test_torch_hands_light import RTOL, max_rel, records, run_pair
 from test_torch_preprocess_train import _augm_draws
 from test_torch_preprocess_train import _records as train_records
 
+
+@pytest.fixture(autouse=True, scope="module")
+def few_threads():
+    """Two intra-op threads for the module, its module-scoped fixtures
+    included: the suite runs six workers side by side, and eight threads
+    each stall one another at every barrier."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 GEOM = 1e-5
 CROP = 2e-4  # on the [0, 1] scale
 CROP_KEYS = ("r_img", "l_img")

@@ -40,6 +40,18 @@ from hands_tpu_torch.data.device_pipeline import (DevicePreprocessor,
                                                   stack_records)
 from hands_tpu_torch.ops import preprocess as tpp
 
+
+@pytest.fixture(autouse=True, scope="module")
+def few_threads():
+    """Two intra-op threads for the module, its module-scoped fixtures
+    included: the suite runs six workers side by side, and eight threads
+    each stall one another at every barrier."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 IMAGE_KEYS = ("img", "r_img", "l_img")
 NEAREST_KEYS = ("render.r", "render.l", "depth.r", "depth.l")
 

@@ -32,6 +32,18 @@ from hands_tpu.models.backbones import resnet as jres
 from hands_tpu_torch.models.backbones import resnet as tres
 from hands_tpu_torch.utils import from_jax
 
+
+@pytest.fixture(autouse=True, scope="module")
+def few_threads():
+    """Two intra-op threads for the module, its module-scoped fixtures
+    included: the suite runs six workers side by side, and eight threads
+    each stall one another at every barrier."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 NO_EXCESS = {"xla_allow_excess_precision": False}
 
 

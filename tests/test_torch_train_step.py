@@ -74,6 +74,18 @@ from hands_tpu_torch.utils.from_jax import (_flatten, _resnet,
                                             state_dict_from_jax)
 from test_torch_hands_light import fill_variables
 
+
+@pytest.fixture(autouse=True, scope="module")
+def few_threads():
+    """Two intra-op threads for the module, its module-scoped fixtures
+    included: the suite runs six workers side by side, and eight threads
+    each stall one another at every barrier."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 NO_EXCESS = {"xla_allow_excess_precision": False}
 RES = 160
 SIZE = dict(img_res=RES, img_res_ds=RES)

@@ -71,7 +71,7 @@ def free_checkpoints(tmp_path):
     shutil.rmtree(tmp_path, ignore_errors=True)
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def few_threads():
     """Two intra-op threads: the suite runs six workers side by side, and
     eight threads each stall one another at every barrier."""
@@ -269,10 +269,13 @@ def test_debug_stops_on_a_non_finite_loss_and_what_is_left_out(tmp_path):
             ref["layer2.0.downsample.0.weight"], rtol=0, atol=0)
         torch.testing.assert_close(seen[f"net.{scope}.bn_stem.running_var"],
                                    ref["bn1.running_var"], rtol=0, atol=0)
+    # one process and no group: fsdp changes nothing (JAX on one device);
+    # the multi-process runs are tests/test_torch_multiprocess.py's
+    alone = Trainer(tiny_cfg(fsdp=True), model, trainer.exp)
+    assert alone.dp is None and not alone.fsdp and alone.mesh is None
     with pytest.raises(NotImplementedError, match="item 11"):
-        Trainer(tiny_cfg(fsdp=True), model, trainer.exp)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        cli_train.main(["--num_processes", "2", "--device", "cpu"])
+        Trainer(tiny_cfg(mesh_shape=(1, 2), mesh_axis_names=("data", "model")),
+                model, trainer.exp)
 
 
 # ------------------------------------------------------------------- parity
@@ -397,34 +400,26 @@ def _queue1_titles():
             re.finditer(r"^(\d+)\. \*\*(.+?)\*\*", queue, re.M | re.S)}
 
 
-def _left_out(what):
+def _left_out(what, where):
     """Call what the port has not ported yet; return its message."""
-    from hands_tpu_torch.data.datasets import fetch_dataset
-
     cfg = tiny_cfg()
     calls = {
-        "shard_mix": lambda: DeviceDataLoader(
-            fetch_dataset(cfg, "synthetic+synthetic", "minival"), cfg, 2,
-            False, shard=(0, 2), device="cpu"),
-        "shard": lambda: DeviceDataLoader(
-            SyntheticRecordDataset(cfg, "val", 2), cfg, 2, False,
-            shard=(0, 2), device="cpu"),
-        "processes": lambda: cli_train.main(["--num_processes", "2",
-                                             "--device", "cpu"]),
+        "tp_mesh": lambda: Trainer(
+            cfg.replace(mesh_shape=(1, 2), mesh_axis_names=("data", "model")),
+            fetch_model(cfg, "cpu"), Experiment(cfg, root=str(where))),
     }
     with pytest.raises(NotImplementedError) as err:
         calls[what]()
     return str(err.value)
 
 
-@pytest.mark.parametrize("what,title", [
-    ("shard_mix", "Parallel axes"), ("shard", "Parallel axes"),
-    ("processes", "Parallel axes")])
-def test_what_is_left_out_names_its_roadmap_item(what, title):
+@pytest.mark.parametrize("what,title", [("tp_mesh", "Parallel axes")])
+def test_what_is_left_out_names_its_roadmap_item(what, title, tmp_path):
     """ROADMAP queue 3, fault 3: every ``NotImplementedError`` of the port
     points at the ``ROADMAP.md`` queue 1 item that ports it."""
     titles = _queue1_titles()
-    cited = [int(n) for n in re.findall(r"item (\d+)", _left_out(what))]
+    cited = [int(n) for n in re.findall(r"item (\d+)",
+                                        _left_out(what, tmp_path))]
     assert cited and all(n in titles for n in cited), (cited, titles)
     assert any(title in titles[n] for n in cited), [titles[n] for n in cited]
 

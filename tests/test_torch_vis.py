@@ -56,7 +56,7 @@ TINY = dict(backbone="resnet18", compute_dtype="float32", use_glb_feat=False,
             img_res_ds=160)
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def few_threads():
     n = torch.get_num_threads()
     torch.set_num_threads(2)
