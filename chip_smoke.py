@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: builds the port's CUDA
 kernels (the bf16 ViT block and its backward, the two W8A8 ViT blocks and
 their knock-out variants, the fused attention, the fused skinning and its
-gradient, the splat silhouette forward and backward), holds each
+gradient, the splat silhouette forward and backward) and the serving
+kernels' C++ op registration, holds each
 against its plain PyTorch twin at the shapes its path gives it, serves
 requests through HaMeR at full ViT-H width and depth in its bf16,
 dynamic-int8 and calibrated static-int8 configurations (and two backbone
@@ -35,7 +36,12 @@ check (``cli.numerics_check``) and the int8 drift tool
 (``cli.int8_accuracy``), exports the serving program of HaMeR (K3, K5,
 K6) and WildHands through ``torch.export`` (``cli.export``), loads and runs
 it beside live serving, once in a fresh process that imports only the
-kernel ops, and runs ``cli.extract`` and ``cli.build_feat_split``, builds
+kernel ops, and runs ``cli.extract`` and ``cli.build_feat_split``; compiles
+HaMeR K3 and WildHands into AOTInductor packages (``cli.export --aoti``,
+from the build on, beside the other phases) that call the kernels' ops
+registered from C++ (``csrc/torch_ops.cpp``, held bit-equal to the Python
+ops), and loads and runs them in a fresh process that imports torch alone
+and beside live serving and the artifact (phase 17b); builds
 ARCTIC's ground truth (``process_seq``: MANO, the object, SMPL-X, 9 views)
 for two 700-frame sequences on the card against the CPU and merges them
 (``build_split``), holds the object templates, the objects' FK, the
@@ -54,7 +60,7 @@ image decoder the machine has (the native libjpeg/libpng build or cv2).
     python3 chip_smoke.py
 
 (``python3 chip_smoke.py --dp-train-rank ...`` is one rank of the phase's
-``cli.train`` run, started by the script itself.) Needs a CUDA card, ``nvcc`` (PATH or $CUDA_HOME/bin) and this repository;
+``cli.train`` run, started by the script itself.) Needs a CUDA card, ``nvcc`` (PATH or $CUDA_HOME/bin), a C++ compiler that links OpenMP (AOTInductor's) and this repository;
 never imports JAX. Exits non-zero on any failed phase, without a card, and
 outside the repository. The last line of its output is
 ``{"ok": true, "device": {...}}``; the line before it lists every kernel
@@ -101,6 +107,7 @@ SERVE_REL = 2e-2  # vertices, kernel path vs twin path, / max(|ref|, 1)
 INT8_SERVE_REL = 5e-2  # the same through 32 int8 blocks
 VIT = "h"  # full ViT-H width and depth
 DEV = torch.device("cuda", 0)
+T_START = time.time()  # the script's start, for the phases' offsets
 K3 = "hands_tpu/ops/vit_block_pallas.py:382"
 K5 = "hands_tpu/ops/vit_block_pallas.py:501"
 K6 = "hands_tpu/ops/vit_block_pallas.py:627"
@@ -118,6 +125,7 @@ ABL_BATCH = 256  # crops of the ablation probe: 49,152 token rows
 ABL_ITERS = 10
 LOOP_STEPS = 6  # train steps an epoch of the cli.train phase
 SRC_SPLAT = "hands_tpu_torch/csrc/splat.cu"
+SRC_OPS = "hands_tpu_torch/csrc/torch_ops.cpp"  # the kernels' C++ ops
 WH_BACKBONE = "resnet50"  # the shipped WildHands width
 WH_BATCHES = ((8, 3), (64, 2))  # (images per request, requests)
 WH_GRAD_BATCH = 8  # images of the forward that is differentiated
@@ -4613,10 +4621,15 @@ def requests_ms(fn, requests, dev) -> float:
 
 
 def artifact_check(name, path, cfg, model, per_forward, requests, dev, rel,
-                   tag):
+                   tag, package=None):
     """Load the artifact at ``path``; hold its ops, launches and outputs
     against live serving (``cli.demo.serve``) of ``model`` on the same
-    requests; time both (live, artifact, artifact, live)."""
+    requests; time both (live, artifact, artifact, live). With
+    ``package`` (``{path, out}``: its outputs on the first request from the
+    fresh process) also hold those outputs against live serving and time
+    the package loaded here: live, artifact, package, package, artifact,
+    live."""
+    from hands_tpu_torch.cli import export as ex
     from hands_tpu_torch.cli.demo import serve
     from hands_tpu_torch.core.precision import f32_exact
     from hands_tpu_torch.ops.library import graph_ops
@@ -4662,16 +4675,55 @@ def artifact_check(name, path, cfg, model, per_forward, requests, dev, rel,
     def live_serve(recs):
         serve(recs, cfg, model, dev)
 
+    crops = 2 * len(requests[0])
+    if package is None:
+        t = [requests_ms(live_serve, requests, dev),
+             requests_ms(artifact, requests, dev),
+             requests_ms(artifact, requests, dev),
+             requests_ms(live_serve, requests, dev)]
+        lv, ar = min(t[0], t[3]), min(t[1], t[2])
+        print(f"  {name}: serve bs{len(requests[0])} ({crops} "
+              f"crops/request): live {lv:.2f} ms/request "
+              f"{crops / lv * 1e3:.1f} crops/s, artifact {ar:.2f} ms/request "
+              f"{crops / ar * 1e3:.1f} crops/s (readings "
+              f"{', '.join(f'{v:.2f}' for v in t)}) {tag}")
+        return
+    out = package["out"]
+    bits = all(torch.equal(out[k], live[f"pred.{k}"]) for k in out)
+    worst = max(float(((out[k].float() - live[f"pred.{k}"].float()).abs()
+                       / live[f"pred.{k}"].float().abs().clamp(min=1.0)
+                       ).max()) for k in out)
+    print(f"  {name}: package (fresh process) vs live serving over "
+          f"{len(out)} outputs: bit-equal {bits}, max |d|/max(|live|,1) "
+          f"{worst:.3e}")
+    for side in ("r", "l"):
+        key = f"mano.vertices.{side}"
+        compare(f"{label} package {key[5:]}", out[key], live[f"pred.{key}"],
+                rel=rel, mean=rel)
+    check_outputs([{f"pred.{k}": v for k, v in out.items()}],
+                  len(requests[0]))
+    t0 = time.time()
+    run_p, _ = ex.load_artifact(package["path"])
+    load_s = time.time() - t0
+
+    def packaged(recs):
+        with torch.no_grad(), f32_exact():
+            return run_p(export_input(recs, sidecar["input_spec"], dev))
+
     t = [requests_ms(live_serve, requests, dev),
          requests_ms(artifact, requests, dev),
+         requests_ms(packaged, requests, dev),
+         requests_ms(packaged, requests, dev),
          requests_ms(artifact, requests, dev),
          requests_ms(live_serve, requests, dev)]
-    crops = 2 * len(requests[0])
-    lv, ar = min(t[0], t[3]), min(t[1], t[2])
+    lv, ar, pk = min(t[0], t[5]), min(t[1], t[4]), min(t[2], t[3])
     print(f"  {name}: serve bs{len(requests[0])} ({crops} crops/request): "
           f"live {lv:.2f} ms/request {crops / lv * 1e3:.1f} crops/s, "
-          f"artifact {ar:.2f} ms/request {crops / ar * 1e3:.1f} crops/s "
-          f"(readings {', '.join(f'{v:.2f}' for v in t)}) {tag}")
+          f"artifact {ar:.2f} ms/request {crops / ar * 1e3:.1f} crops/s, "
+          f"package {pk:.2f} ms/request {crops / pk * 1e3:.1f} crops/s "
+          f"(readings live, artifact, package, package, artifact, live: "
+          f"{', '.join(f'{v:.2f}' for v in t)}; the package loaded here in "
+          f"{load_s:.1f} s) {tag}")
 
 
 def start_fresh_process(path, raw, want, tmp):
@@ -4818,28 +4870,366 @@ def extract_check(dev, tag) -> None:
           f"{time.time() - t0:.1f} s {tag}")
 
 
-def export_phase(configs, dev, tag) -> None:
+# the package (cli.export --aoti): the port's serving kernels as the
+# profiler names them (substrings of their __global__ names)
+AOTI_KERNELS = {"vit_layernorm": "layernorm_kernel",
+                "vit_gemm": "BlockEpilogue",
+                "vit_attention": "attention_mma_kernel",
+                "lbs_apply": "lbs_kernel"}
+AOTI_TIMEOUT = 600  # seconds of the fresh process that loads the packages
+# what a fresh interpreter runs: the C++ ops against the Python ops' outputs,
+# their refusals, a CUDA package without its ops library, then each package
+# once under torch.profiler; it imports torch alone and prints a JSON report
+AOTI_FRESH = r"""
+import json, sys, time, torch
+from torch.profiler import ProfilerActivity, profile
+spec = json.load(open(sys.argv[1]))
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+report = {"without_ops": ""}
+try:
+    run = torch._inductor.aoti_load_package(spec["without_ops"]["path"])
+    report["without_ops"] = "loaded; "
+    run(torch.load(spec["without_ops"]["raw"], weights_only=True))
+    torch.cuda.synchronize()
+except Exception as e:
+    report["without_ops"] += f"{type(e).__name__}: {str(e)[:200]}"
+else:
+    report["without_ops"] = ""
+torch.ops.load_library(spec["ops_library"])
+ops = torch.ops.hands_tpu_torch_aoti
+report["ops"] = []
+for label, name, args, want in torch.load(spec["cases"], weights_only=True):
+    got = getattr(ops, name)(*args)
+    got = list(got) if isinstance(got, (tuple, list)) else [got]
+    report["ops"].append([label, len(got) == len(want) and all(
+        torch.equal(g, w) for g, w in zip(got, want)), max(float(
+        (g.float() - w.float()).abs().max()) for g, w in zip(got, want))])
+report["refusals"] = []
+for label, name, args in torch.load(spec["refusals"], weights_only=True):
+    msg = ""
+    try:
+        getattr(ops, name)(*args)
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        msg = str(e).splitlines()[0][:160]
+    report["refusals"].append([label, msg])
+report["packages"] = {}
+for name, p in spec["packages"].items():
+    t0 = time.time()
+    run = torch._inductor.aoti_load_package(p["path"])
+    load_s = time.time() - t0
+    raw = torch.load(p["raw"], weights_only=True)
+    with torch.no_grad():
+        run(raw)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = run(raw)
+            torch.cuda.synchronize()
+    torch.save(out, p["out"])
+    report["packages"][name] = {"load_s": load_s, "kernels": [
+        [e.key, e.count, e.self_device_time_total]
+        for e in prof.key_averages() if e.self_device_time_total > 0]}
+report["modules"] = sorted(m for m in sys.modules
+                           if m.startswith("hands_tpu"))
+print(json.dumps(report))
+"""
+
+
+def aoti_op_cases(dev):
+    """The nine ops' calls at phase 17's serving shapes (3072 token rows, C
+    1280, 16 heads of 80, 64 hands), every epilogue and mode, and one
+    ragged case an op: ([(label, op name, args)], [refused calls])."""
+    from hands_tpu_torch.ops import vit_block as vb
+    from hands_tpu_torch.ops import vit_block_int8 as v8
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def u(*shape, dtype=bf, lo=-1.0, hi=1.0):
+        t = lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev)
+        return t.to(dtype)
+
+    def i8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    x, x32, h = u(ROWS, C), u(ROWS, C, dtype=f32), u(ROWS, HIDDEN)
+    sc, bi = u(C, dtype=f32, lo=0.5, hi=1.5), u(C, dtype=f32)
+    rx, rs, rb = u(77, 168), u(168, dtype=f32, lo=0.5, hi=1.5), u(168,
+                                                                   dtype=f32)
+    qkv, rqkv = u(BATCH, N_TOK, 3 * C), u(3, 50, 480)
+    inv = u(C, dtype=f32, lo=10, hi=20)
+    eps = 1e-6
+    cases = [("LN", "vit_layernorm", (x, sc, bi, eps)),
+             ("LN ragged 77 x 168", "vit_layernorm", (rx, rs, rb, eps)),
+             ("attention", "vit_attention", (qkv, HEADS)),
+             ("attention ragged (3, 50, 2 x 80)", "vit_attention",
+              (rqkv, 2)),
+             ("LN+quant bf16", "i8_ln_quant_dynamic", (x, sc, bi, eps)),
+             ("LN+quant f32", "i8_ln_quant_dynamic", (x32, sc, bi, eps)),
+             ("LN+quant ragged", "i8_ln_quant_dynamic", (rx, rs, rb, eps)),
+             ("LN+quant static", "i8_ln_quant_static", (x, sc, bi, eps)),
+             ("LN+quant static ragged", "i8_ln_quant_static",
+              (rx, rs, rb, eps)),
+             ("row quant bf16", "i8_quant_rows", (x,)),
+             ("row quant f32 hidden", "i8_quant_rows",
+              (u(ROWS, HIDDEN, dtype=f32),)),
+             ("row quant ragged 77 x 40", "i8_quant_rows", (u(77, 40),)),
+             ("attention dynamic", "qkv_attention", (qkv, HEADS, None)),
+             ("attention static", "qkv_attention", (qkv, HEADS, inv)),
+             ("attention dynamic ragged", "qkv_attention", (rqkv, 2, None))]
+    res = u(ROWS, C)
+    for label, a, n, k, resid, epi in (
+            ("qkv", x, 3 * C, C, None, None),
+            ("proj", x, C, C, res, "residual"),
+            ("MLP1", x, HIDDEN, C, None, "gelu"),
+            ("MLP1 tanh", x, HIDDEN, C, None, "gelu_tanh"),
+            ("MLP2", h, C, HIDDEN, res, "residual")):
+        cases.append((f"GEMM {label}", "vit_gemm",
+                       (a, u(n, k, lo=-0.05, hi=0.05), u(n), resid,
+                        vb._EPILOGUES[epi])))
+    m, n, k, k8 = RAGGED_GEMM
+    cases.append(("GEMM ragged", "vit_gemm",
+                  (u(m, k), u(n, k, lo=-0.05, hi=0.05), u(n), u(m, n),
+                   vb._EPILOGUES["residual"])))
+    aq, hq = i8(ROWS, C), i8(ROWS, HIDDEN)
+    rows_s = u(ROWS, 1, dtype=f32, lo=0.01, hi=0.02)
+    for (dynamic, epi, dtype), mode in sorted(v8._GEMM_MODES.items(),
+                                              key=lambda kv: kv[1]):
+        cols, a = ((3 * C, aq) if epi == "bias" else (HIDDEN, aq)
+                   if epi == "gelu" else (C, hq))
+        resid = (u(ROWS, cols, dtype=f32 if dynamic else bf)
+                 if epi == "residual" else None)
+        for fast in ((False, True) if epi == "gelu" else (False,)):
+            cases.append((f"int8 GEMM mode {mode}{' fast' if fast else ''}",
+                          "i8_gemm",
+                          (a, i8(cols, a.shape[1]),
+                           u(cols, dtype=f32, lo=1e-3, hi=2e-3),
+                           u(cols, dtype=f32), rows_s if dynamic else None,
+                           resid,
+                           u(cols, dtype=f32, lo=10, hi=20) if mode == 6
+                           else None, mode, fast)))
+    cases.append(("int8 GEMM ragged", "i8_gemm",
+                  (i8(m, k8), i8(n, k8), u(n, dtype=f32, lo=1e-3, hi=2e-3),
+                   u(n, dtype=f32), u(m, 1, dtype=f32, lo=0.01, hi=0.02),
+                   u(m, n, dtype=f32), None, 1, False)))
+    weights = lbs_weights(dev)
+    for label, b in (("skinning 64 hands", 64), ("skinning ragged 3", 3)):
+        cases.append((label, "lbs_apply",
+                      (u(b, N_VERTS, 3, dtype=f32), weights,
+                       u(b, 16, 4, 4, dtype=f32))))
+    refusals = [("LN C 1284 (a check)", "vit_layernorm",
+                 (u(13, 1284), u(1284, dtype=f32), u(1284, dtype=f32), eps)),
+                ("GEMM epilogue 9 (the C entry)", "vit_gemm",
+                 (x, u(C, C), u(C), None, 9))]
+    return cases, refusals
+
+
+def aoti_fresh_process(tmp, ops_library, packages, without_ops, dev):
+    """Run :data:`AOTI_FRESH` on phase 17's op cases and on ``packages``
+    ({name: {path, raw}}, each run's outputs written to a file; the one
+    named ``without_ops`` is first loaded and run before the ops library
+    is, which must raise); hold the
+    nine C++ ops bit-equal to the Python ops (the same kernels) and both
+    refusals raised on both routes. Returns the report with each package's
+    outputs under ``out``."""
+    cases, refusals = aoti_op_cases(dev)
+    with torch.no_grad():
+        want = []
+        for label, name, args in cases:
+            got = getattr(torch.ops.hands_tpu_torch, name)(*args)
+            want.append((label, name, args, list(got) if isinstance(
+                got, (tuple, list)) else [got]))
+        for label, name, args in refusals:
+            try:
+                getattr(torch.ops.hands_tpu_torch, name)(*args)
+                torch.cuda.synchronize()
+            except (RuntimeError, ValueError) as err:
+                print(f"  Python op {label}: refused ({str(err)[:90]})")
+                continue
+            raise AssertionError(f"the Python op took {label}")
+    torch.cuda.synchronize()
+    spec = {"ops_library": ops_library,
+            "cases": os.path.join(tmp, "cases.pt"),
+            "refusals": os.path.join(tmp, "refusals.pt"), "packages": {}}
+    torch.save(want, spec["cases"])
+    torch.save(refusals, spec["refusals"])
+    del want
+    for name, p in packages.items():
+        raw_p = os.path.join(tmp, f"{name}_raw.pt")
+        torch.save(p["raw"], raw_p)
+        spec["packages"][name] = {"path": p["path"], "raw": raw_p,
+                                  "out": os.path.join(tmp, f"{name}_out.pt")}
+    spec["without_ops"] = spec["packages"][without_ops]
+    spec_p = os.path.join(tmp, "aoti_spec.json")
+    with open(spec_p, "w") as f:
+        json.dump(spec, f)
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-c", AOTI_FRESH, spec_p],
+                          capture_output=True, text=True, cwd=tmp,
+                          timeout=AOTI_TIMEOUT)
+    require(proc.returncode == 0,
+            f"the package process failed:\n{proc.stderr[-3000:]}")
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    require(report["modules"] == [],
+            f"the package process imported {report['modules']}")
+    require(bool(report["without_ops"]),
+            "a CUDA package loaded without its ops library")
+    print(f"  fresh `python3 -c` process (no hands_tpu* module; done in "
+          f"{time.time() - t0:.1f} s): a package without its ops library "
+          f"refused: {report['without_ops'][:120]}")
+    bad = [(label, d) for label, ok, d in report["ops"] if not ok]
+    print(f"  C++ ops vs Python ops, {len(report['ops'])} calls of "
+          f"{len(set(n for _, n, _ in cases))} ops (serving shapes and one "
+          f"ragged case an op): bit-equal {len(report['ops']) - len(bad)} of "
+          f"{len(report['ops'])}" + (f"; differ: {bad}" if bad else ""))
+    require(not bad, "a C++ op differs from its Python op")
+    for label, msg in report["refusals"]:
+        print(f"  C++ op {label}: refused ({msg[:100]})")
+        require(bool(msg), f"the C++ op took {label}")
+    for name, p in report["packages"].items():
+        p["out"] = torch.load(spec["packages"][name]["out"],
+                              map_location=dev, weights_only=True)
+    return report
+
+
+def package_launches(name, kernels, per_forward) -> dict:
+    """The port's launches in a package's profiled run (:data:`AOTI_KERNELS`)
+    held equal to live serving's ``per_forward``; prints every other kernel
+    (Inductor's Triton kernels, cuBLAS, cuDNN) with its launches."""
+    got = {k: sum(n for key, n, _ in kernels if sub in key)
+           for k, sub in AOTI_KERNELS.items()}
+    want = {k: per_forward.get(k, 0) for k in AOTI_KERNELS}
+    print(f"  {name} package, launches by the profiler: {got}")
+    require(got == want, f"{name} package: launches {got}, live serving "
+            f"launches {want} a forward")
+    others = sorted((key, n, t) for key, n, t in kernels
+                    if not any(sub in key for sub in AOTI_KERNELS.values()))
+    for label, group in (
+            ("Inductor's (Triton)", [o for o in others
+                                     if o[0].startswith("triton")]),
+            ("the libraries'", [o for o in others
+                                if not o[0].startswith("triton")])):
+        print(f"  {name} package, {label} kernels: {len(group)}, "
+              f"{sum(n for _, n, _ in group)} launches, "
+              f"{sum(t for *_, t in group) / 1e3:.3f} ms of device time")
+    for key, n, t in others:
+        print(f"    {n:4d} x {t / max(n, 1):9.1f} us  {key[:110]}")
+    return got
+
+
+# runs cli.export once for each argument list of argv[1] (JSON), in turn
+EXPORT_CLI = r"""
+import json, sys, time
+t_start = time.time()
+from hands_tpu_torch.cli import export as ex
+for argv in json.loads(sys.argv[1]):
+    t0 = time.time()
+    if ex.main(argv) != 0:
+        sys.exit(1)
+    print(f"  cli.export {' '.join(argv[:2])}{' --aoti' * ('--aoti' in argv)}"
+          f": {time.time() - t0:.1f} s with the model build and the export",
+          flush=True)
+print(f"  cli.export process: done {time.time() - t_start:.1f} s after its "
+      f"start", flush=True)
+"""
+EXPORT_CLI_TIMEOUT = 1200  # seconds of a process of EXPORT_CLI
+
+
+def start_packages(dev) -> dict:
+    """Start phase 17's compiles in a new process (:data:`EXPORT_CLI`, its
+    output to a file): the AOTInductor package of HaMeR K3 (the K3 serving
+    model's configuration and seed), the WildHands artifact and package,
+    in a temporary directory with Inductor's and Triton's caches inside.
+    The compile is mostly one host thread, so ``main`` starts it after the
+    build, it runs beside the phases up to 17, and phase 17b collects it;
+    an exit kills it and removes the directory."""
+    import atexit
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp()
+    bs, wbs = EXPORT_BATCHES["hamer"][0], EXPORT_BATCHES["wildhands"][0]
+    raw_hw = f"{EXPORT_HW[0]}x{EXPORT_HW[1]}"
+    job = {"tmp": tmp, "hamer": os.path.join(tmp, "hamer_k3_aoti.pt2"),
+           "k3_artifact": os.path.join(tmp, "hamer_k3.pt2"),  # phase 17
+           "artifact": os.path.join(tmp, "wildhands.pt2"),
+           "wildhands": os.path.join(tmp, "wildhands_aoti.pt2"),
+           "log": os.path.join(tmp, "export_cli.log"), "t0": time.time()}
+    wargs = ["--method", "hands_light", "--backbone", WH_BACKBONE,
+             "--dtype", "bfloat16", "--batch_size", str(wbs), "--raw_hw",
+             raw_hw, "--device", dev.type]
+    argvs = [["--method", "hamer_light", "--fused_block", "--batch_size",
+              str(bs), "--raw_hw", raw_hw, "--device", dev.type, "--aoti",
+              "-o", job["hamer"]], wargs + ["-o", job["artifact"]],
+             wargs + ["--aoti", "-o", job["wildhands"]]]
+    env = {**os.environ,
+           "TORCHINDUCTOR_CACHE_DIR": os.path.join(tmp, "inductor"),
+           "TRITON_CACHE_DIR": os.path.join(tmp, "triton")}
+    with open(job["log"], "w") as log:
+        job["proc"] = subprocess.Popen(
+            [sys.executable, "-c", EXPORT_CLI, json.dumps(argvs)],
+            stdout=log, stderr=subprocess.STDOUT, text=True, env=env,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+
+    def stop():
+        if job["proc"].poll() is None:
+            job["proc"].kill()
+            job["proc"].wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    job["stop"] = stop
+    atexit.register(stop)
+    return job
+
+
+def finish_packages(job) -> None:
+    """Wait for :func:`start_packages`' process; print its lines."""
+    proc = job["proc"]
+    try:
+        proc.wait(timeout=EXPORT_CLI_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    with open(job["log"]) as f:
+        out = f.read()
+    require(proc.returncode == 0, f"cli.export failed:\n{out[-3000:]}")
+    for line in out.splitlines():
+        if line.startswith(("  cli.export", "exported")):
+            print(line if line.startswith("  ") else f"  {line}")
+    print(f"  the cli.export process started {job['t0'] - T_START:.1f} s "
+          f"into the script, collected {time.time() - job['t0']:.1f} s after "
+          f"its start: WildHands artifact "
+          f"{os.path.getsize(job['artifact']) / 1e9:.3f} GB; packages HaMeR "
+          f"K3 {os.path.getsize(job['hamer']) / 1e9:.3f} GB, WildHands "
+          f"{os.path.getsize(job['wildhands']) / 1e9:.3f} GB")
+
+
+def export_phase(configs, dev, tag, job) -> None:
     """Phase 17: the serving program exported, saved, loaded and run
     (``cli/export.py``): HaMeR ViT-H in its three serving configurations of
     phase 3 (``configs``: K3 bf16, K5 ``quant_int8``, K6 static +
-    ``fast_gelu``) at bs8 and WildHands bf16 at bs64 through the CLI.
-    Each artifact's ops, launches and outputs against live serving, and
-    both rates; one artifact in a fresh process that imports only the ops;
-    the op layer's cost; ``cli.extract`` and ``cli.build_feat_split``."""
-    import os
+    ``fast_gelu``) at bs8. The K3 artifact in a fresh process that imports
+    only the ops, while K5 and K6 export; the K5 and K6 artifacts' ops,
+    launches and outputs against live serving, and both rates; the op
+    layer's cost; ``cli.extract`` and ``cli.build_feat_split``. The K3
+    artifact stays in ``job``'s directory (:func:`start_packages`, whose
+    process writes the WildHands artifact and both packages) for
+    :func:`package_phase`, which checks and times it beside its package."""
     import shutil
     import tempfile
 
     from hands_tpu_torch.cli import export as ex
-    from hands_tpu_torch.cli.demo import serve, serving_config
-    from hands_tpu_torch.models.registry import fetch_model
+    from hands_tpu_torch.cli.demo import serve
 
     t_phase = time.time()
     bs, n = EXPORT_BATCHES["hamer"]
-    print(f"phase 17: the serving export (torch.export), HaMeR ViT-{VIT} bs"
-          f"{bs} in three configurations, WildHands {WH_BACKBONE} bf16 bs"
-          f"{EXPORT_BATCHES['wildhands'][0]}, raw {EXPORT_HW[0]}x"
-          f"{EXPORT_HW[1]} {tag}")
+    print(f"phase 17: the serving export (torch.export), HaMeR ViT-{VIT} "
+          f"bs{bs} in three configurations, raw {EXPORT_HW[0]}x"
+          f"{EXPORT_HW[1]}, {t_phase - T_START:.0f} s into the script {tag}")
     tmp = tempfile.mkdtemp()
     fresh = None
     try:
@@ -4850,7 +5240,8 @@ def export_phase(configs, dev, tag) -> None:
             hook = model.register_forward_pre_hook(
                 lambda *_: seen.append((torch.compiler.is_exporting(),
                                         torch.compiler.is_compiling())))
-            path = os.path.join(tmp, f"hamer_{len(saved)}.pt2")
+            path = (job["k3_artifact"] if name == K3_SERVING
+                    else os.path.join(tmp, f"hamer_{len(saved)}.pt2"))
             t0 = time.time()
             program, raw, operands = ex.export_serving(cfg, model, bs,
                                                        EXPORT_HW)
@@ -4880,31 +5271,11 @@ def export_phase(configs, dev, tag) -> None:
                      if k.startswith("pred.")}, tmp), per_forward)
         finish_fresh_process(*fresh)
         for name, path, cfg, model, per_forward in saved:
-            rel = SERVE_REL if "K3" in name else INT8_SERVE_REL
-            artifact_check(name, path, cfg, model, per_forward, requests,
-                           dev, rel, tag)
-            if "K3" in name:
+            if name == K3_SERVING:  # beside its package, phase 17b
                 op_layer_cost(cfg, model, requests, dev, tag, per_forward)
-
-        wbs, wn = EXPORT_BATCHES["wildhands"]
-        path = os.path.join(tmp, "wildhands.pt2")
-        t0 = time.time()
-        require(ex.main(["--method", "hands_light", "--backbone", WH_BACKBONE,
-                         "--dtype", "bfloat16", "--batch_size", str(wbs),
-                         "--raw_hw", f"{EXPORT_HW[0]}x{EXPORT_HW[1]}",
-                         "--device", dev.type, "-o", path]) == 0,
-                "cli.export hands_light")
-        print(f"  WildHands bf16: cli.export (model build, export, save) in "
-              f"{time.time() - t0:.1f} s: {os.path.getsize(path) / 1e9:.3f}"
-              f" GB")
-        cfg = serving_config("hands_light", "bfloat16").replace(
-            backbone=WH_BACKBONE)
-        model = fetch_model(cfg, device=dev, seed=0)
-        artifact_check("WildHands bf16", path, cfg, model,
-                       {"lbs_apply": 2},
-                       padded_requests(wn, wbs, SEED + 170), dev, SERVE_REL,
-                       tag)
-        del model
+            else:
+                artifact_check(name, path, cfg, model, per_forward,
+                               requests, dev, INT8_SERVE_REL, tag)
         extract_check(dev, tag)
     finally:
         if fresh is not None and fresh[0][0].poll() is None:
@@ -4912,6 +5283,75 @@ def export_phase(configs, dev, tag) -> None:
             fresh[0][0].wait()
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"phase 17 took {time.time() - t_phase:.1f} s")
+
+
+def package_phase(dev, tag, job) -> None:
+    """Phase 17b: the serving program's AOTInductor packages
+    (``cli.export --aoti``) of HaMeR K3 and of WildHands bf16, compiled by
+    ``job``'s process (:func:`start_packages`) since the build. A fresh
+    process that imports no ``hands_tpu*`` module holds the nine C++ ops
+    bit-equal to the Python ops, refuses a package without its ops library,
+    and runs each package under the profiler: launches by kernel name equal
+    to live serving's; outputs within the whole-forward limits of live
+    serving (rebuilt: the K3 model of phase 3, the CLI's WildHands); then
+    ms a request of live serving, the ``torch.export`` artifact (its ops,
+    launches and bit-equal outputs held) and the package, in turns."""
+    from hands_tpu_torch.cli.demo import serving_config
+    from hands_tpu_torch.models.registry import fetch_model
+
+    t_phase = time.time()
+    bs, n = EXPORT_BATCHES["hamer"]
+    wbs, wn = EXPORT_BATCHES["wildhands"]
+    print(f"phase 17b: the serving export's AOTInductor packages, HaMeR "
+          f"ViT-{VIT} K3 bs{bs}, WildHands {WH_BACKBONE} bf16 bs{wbs}, "
+          f"{t_phase - T_START:.0f} s into the script {tag}")
+    try:
+        finish_packages(job)
+        cfg, model, k3_forward = k3_serving(dev)
+        requests = padded_requests(n, bs, SEED + 17)
+        wrequests = padded_requests(wn, wbs, SEED + 170)
+        packages = {}
+        for name, recs, per_forward in (
+                ("hamer", requests[0], k3_forward),
+                ("wildhands", wrequests[0], {"lbs_apply": 2})):
+            with open(job[name] + ".json") as f:
+                side = json.load(f)
+            require(side["format"] == "aoti" and sum(side["kernels"].values())
+                    == sum(per_forward.values()) and side["ops_library"],
+                    f"{name} package: sidecar {side['kernels']}")
+            print(f"  {name} package: kernel ops {side['kernels']}, ops "
+                  f"library {side['ops_library']} with "
+                  f"{side['ops_library_files'][1:]}")
+            packages[name] = {"path": job[name], "raw": export_input(
+                recs, side["input_spec"], dev)}
+        report = aoti_fresh_process(
+            job["tmp"], os.path.join(job["tmp"], side["ops_library"]),
+            packages, "wildhands", dev)
+        del packages
+
+        got = report["packages"]["hamer"]
+        print(f"  {K3_SERVING} package: loaded in the fresh process in "
+              f"{got['load_s']:.1f} s")
+        package_launches("HaMeR K3", got["kernels"], k3_forward)
+        artifact_check(K3_SERVING, job["k3_artifact"], cfg, model,
+                       k3_forward, requests, dev, SERVE_REL, tag,
+                       {"path": job["hamer"], "out": got["out"]})
+        del model
+
+        cfg = serving_config("hands_light", "bfloat16").replace(
+            backbone=WH_BACKBONE)
+        model = fetch_model(cfg, device=dev, seed=0)  # the CLI's weights
+        got = report["packages"]["wildhands"]
+        print(f"  WildHands bf16 package: loaded in the fresh process in "
+              f"{got['load_s']:.1f} s")
+        package_launches("WildHands", got["kernels"], {"lbs_apply": 2})
+        artifact_check("WildHands bf16", job["artifact"], cfg, model,
+                       {"lbs_apply": 2}, wrequests, dev, SERVE_REL, tag,
+                       {"path": job["wildhands"], "out": got["out"]})
+        del model, report
+    finally:
+        job["stop"]()
+    print(f"phase 17b took {time.time() - t_phase:.1f} s")
 
 
 # ---- phase 18: objects, ARCTIC's ground-truth build, the object metrics and
@@ -6094,21 +6534,47 @@ def families_alone() -> int:
 
 
 def export_alone() -> int:
-    """Phase 17 alone: builds the libraries of K1, K3, K5 and K6 (the
-    attention's too), the three HaMeR serving models of phase 3, and runs
-    :func:`export_phase`."""
+    """Phases 17 and 17b alone: builds the libraries of K1, K3, K5 and K6
+    (the attention's too) and the C++ ops that link them, starts the
+    packages' compiles, builds the three HaMeR serving models of phase 3,
+    and runs :func:`export_phase` and :func:`package_phase`."""
     from hands_tpu_torch.ops import attention as at
     from hands_tpu_torch.ops import mano_lbs
     from hands_tpu_torch.ops import vit_block as vb
     from hands_tpu_torch.ops import vit_block_int8 as v8
     from hands_tpu_torch.ops.cuda_build import build_all
+    from hands_tpu_torch.ops.library import OPS_LIBRARY
 
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     card = card_line()
-    build_all([vb.LIBRARY, v8.LIBRARY, at.LIBRARY, mano_lbs.LIBRARY])
-    export_phase(hamer_configs(DEV), DEV, f"[{card}]")
+    t0 = time.time()
+    build_all([vb.LIBRARY, v8.LIBRARY, at.LIBRARY, mano_lbs.LIBRARY,
+               OPS_LIBRARY])
+    print(f"built K1, K3, K5, K6, the attention and {SRC_OPS} in "
+          f"{time.time() - t0:.1f} s")
+    job = start_packages(DEV)
+    export_phase(hamer_configs(DEV), DEV, f"[{card}]", job)
+    package_phase(DEV, f"[{card}]", job)
     print(card)
     return 0
+
+
+K3_SERVING = "bf16 fused_block (K3)"
+
+
+def k3_serving(dev):
+    """Phase 3's bf16 ``fused_block`` HaMeR (K3) serving model, random
+    weights from :data:`SEED`: (cfg, model, kernel launches per forward)."""
+    from hands_tpu_torch.cli.demo import serving_config
+    from hands_tpu_torch.models.registry import fetch_model
+
+    cfg = serving_config("hamer_light", "bfloat16", fused_block=True)
+    model = fetch_model(cfg, device=dev, seed=SEED, vit_variant=VIT)
+    depth = len(model.net.backbone.blocks)
+    # per block: LN1, LN2; qkv, proj, MLP1, MLP2; attention (224 for ViT-H);
+    # per forward: the skinning of the right and of the left hand
+    return cfg, model, {"vit_layernorm": 2 * depth, "vit_gemm": 4 * depth,
+                        "vit_attention": depth, "lbs_apply": 2}
 
 
 def hamer_configs(dev):
@@ -6122,14 +6588,8 @@ def hamer_configs(dev):
 
     configs = {}  # name -> (cfg, model, launches per forward)
     t0 = time.time()
-    cfg = serving_config("hamer_light", "bfloat16", fused_block=True)
-    model = fetch_model(cfg, device=dev, seed=SEED, vit_variant=VIT)
-    depth = len(model.net.backbone.blocks)
-    # per block: LN1, LN2; qkv, proj, MLP1, MLP2; attention (224 for ViT-H);
-    # per forward: the skinning of the right and of the left hand
-    configs["bf16 fused_block (K3)"] = (cfg, model, {
-        "vit_layernorm": 2 * depth, "vit_gemm": 4 * depth,
-        "vit_attention": depth, "lbs_apply": 2})
+    configs[K3_SERVING] = k3_serving(dev)
+    depth = len(configs[K3_SERVING][1].net.backbone.blocks)
     cfg8 = serving_config("hamer_light", "bfloat16", quant_int8=True)
     require(cfg8.fused_block and cfg8.quant_int8, "quant_int8 implies fused")
     model8 = fetch_model(cfg8, device=dev, seed=SEED, vit_variant=VIT)
@@ -6542,15 +7002,18 @@ def main() -> int:
     # ---- 1. build: one nvcc per source, all started together
     t0 = time.time()
     from hands_tpu_torch.ops import vit_block_ablation as abl
+    from hands_tpu_torch.ops.library import OPS_LIBRARY
     libraries = [vb.LIBRARY, v8.LIBRARY, at.LIBRARY, mano_lbs.LIBRARY,
                  rasterizer.LIBRARY, abl.LIBRARY, vb.BWD_LIBRARY]
-    reports = build_all(libraries)
+    # the C++ ops (g++ on PyTorch's headers) link the first four: last
+    reports = build_all(libraries + [OPS_LIBRARY])
     for lib in libraries:
         lib.lib()
     print(f"phase 1: built {SRC_K3}, {SRC_I8}, {SRC_ATTN}, {SRC_LBS}, "
-          f"{SRC_SPLAT}, {SRC_ABL}, {SRC_BWD} side by side in "
+          f"{SRC_SPLAT}, {SRC_ABL}, {SRC_BWD} and {SRC_OPS} side by side in "
           f"{time.time() - t0:.1f} s")
     print_ptxas(reports)
+    packages = start_packages(dev)  # phase 17b's compiles, beside 2-18
 
     # ---- 2. each kernel against its twin at ViT-H shapes
     print(f"phase 2: kernels vs twins, rows={ROWS} C={C} hidden={HIDDEN} "
@@ -6793,7 +7256,7 @@ def main() -> int:
                   f"({min(k_ms, k_ms2):.2f} ms/request), twin {t_rate:.1f} "
                   f"crops/s ({t_ms:.2f} ms/request) {tag}")
 
-    export_phase(configs, dev, tag)
+    export_phase(configs, dev, tag, packages)
     wildhands_phases(rows, dev, tag)
     # the serving models go before the train steps read the memory they add
     del configs, served, c, m
@@ -6810,6 +7273,7 @@ def main() -> int:
     int8_drift_phase(dev, tag)
     families_phase(rows, dev, tag)
     arctic_phase(rows, dev, tag)
+    package_phase(dev, tag, packages)
     multiprocess_phase(rows, dev, tag)
 
     print(card)

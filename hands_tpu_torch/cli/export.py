@@ -9,6 +9,8 @@ Shapes are static (the batch size and ``raw_hw``), as in the JAX artifact.
     python -m hands_tpu_torch.cli.export --method hands_light \\
         --batch_size 64 [--ckpt logs/<key>/checkpoints/last] [--device cpu] \\
         [--raw_hw 840x600] [--int8 --fast_gelu --fused_block] -o serving.pt2
+    python -m hands_tpu_torch.cli.export --method hamer_light --fused_block \\
+        --batch_size 8 --raw_hw 512x640 --aoti -o serving.pt2  # a package
     python -m hands_tpu_torch.cli.export --run serving.pt2   # smoke-execute
 
 Input contract (written to the ``.json`` sidecar): the dict of
@@ -26,12 +28,34 @@ the names ``kernel_operands`` lists; the f32 parameters they were prepared
 from are not in the artifact. A CPU artifact (``--device cpu``) holds the
 plain PyTorch twins and no kernel op: its ``kernels`` is empty.
 
-Unlike the JAX artifact, which needs nothing but ``jax``, loading one needs
-``torch`` and, for a CUDA artifact, the op registrations: one import of
-``hands_tpu_torch.ops.library``, which brings the kernel modules and no model
-code. A CUDA artifact runs its f32 products as live serving does only with
-TF32 off (``core.precision.f32_exact``); :func:`run_artifact` turns it
-off.
+``--aoti`` writes ``<out>`` as an AOTInductor package instead
+(``torch._inductor.aoti_compile_and_package`` of the same program, its
+weights inside): compiled code that loads, like the JAX artifact, with
+nothing but the framework: ``torch`` and, for a CUDA package, the kernels'
+ops library that the sidecar names (``ops_library``), copied beside the
+package with the per-source kernel libraries it links
+(``ops_library_files``). That library registers the kernels' ops from C++
+(``csrc/torch_ops.cpp``, ``hands_tpu_torch_aoti::*``; the program's
+``hands_tpu_torch::*`` nodes are pointed at them before the compile,
+``ops/library.py:retarget``), so no ``hands_tpu_torch`` module is imported:
+
+    import json, os, torch
+    side = json.load(open("serving.pt2.json"))
+    if side["ops_library"]:  # a CUDA package: register the kernels' ops
+        torch.ops.load_library(os.path.join(".", side["ops_library"]))
+    run = torch._inductor.aoti_load_package("serving.pt2")
+    torch.backends.cuda.matmul.allow_tf32 = False  # as live serving
+    torch.backends.cudnn.allow_tf32 = False
+    out = run(raw)  # raw: input_spec's tensors on the package's device
+
+Without the ops library a CUDA package does not load (its kernel ops have
+no schema); a failed launch inside an op raises. ``--device cpu --aoti``
+compiles the twins' program, which calls no kernel op. A ``torch.export``
+artifact (no ``--aoti``) needs ``torch`` and the Python op registrations:
+one import of ``hands_tpu_torch.ops.library``, which brings the kernel
+modules and no model code. Either runs its f32 products as live serving
+does only with TF32 off (``core.precision.f32_exact``); :func:`run_artifact`
+turns it off and reads the sidecar's ``format`` to pick the loader.
 
 ``--params_args`` exports ``serve(state, raw)``: the state (parameters,
 buffers, prepared operands) goes in as an argument and is written to
@@ -47,7 +71,11 @@ import argparse
 import contextlib
 import json
 import os
+import shutil
+import subprocess
 import sys
+import tempfile
+import time
 
 import torch
 from torch import nn
@@ -181,12 +209,16 @@ def export_serving(cfg, model: nn.Module, batch_size: int,
 
 
 def load_artifact(path: str):
-    """(callable raw -> predictions, sidecar) of an artifact; needs only
-    ``torch`` and the op registrations (``ops/library.py``)."""
-    import hands_tpu_torch.ops.library  # noqa: F401  (the kernel ops)
-
+    """(callable raw -> predictions, sidecar) of an artifact or a package,
+    by the sidecar's ``format``: a package needs only ``torch`` and its ops
+    library, a ``torch.export`` artifact the op registrations
+    (``ops/library.py``)."""
     with open(path + ".json") as f:
         sidecar = json.load(f)
+    if sidecar.get("format") == "aoti":
+        return load_package(path, sidecar), sidecar
+    import hands_tpu_torch.ops.library  # noqa: F401  (the kernel ops)
+
     program = torch.export.load(path).module()
     if not sidecar.get("weights_file"):
         return program, sidecar
@@ -194,6 +226,17 @@ def load_artifact(path: str):
                       sidecar["weights_file"])
     state = torch.load(wf, map_location=sidecar["device"], weights_only=True)
     return (lambda raw: program(state, raw)), sidecar
+
+
+def load_package(path: str, sidecar: dict):
+    """The AOTInductor package at ``path``, loaded after its ops library
+    (unless this process registered the C++ ops already)."""
+    if sidecar["ops_library"]:
+        from hands_tpu_torch.ops.library import load_ops_library
+
+        load_ops_library(os.path.join(os.path.dirname(os.path.abspath(path)),
+                                      sidecar["ops_library"]))
+    return torch._inductor.aoti_load_package(path)
 
 
 def run_artifact(path: str) -> dict:
@@ -219,6 +262,29 @@ def run_artifact(path: str) -> dict:
     return out
 
 
+def _sidecar(program, raw: dict, operands, meta: dict) -> dict:
+    """The sidecar's fields shared by an artifact and a package."""
+    return {
+        **meta,
+        "batch_size": int(raw["image"].shape[0]),
+        "raw_hw": list(raw["image"].shape[1:3]),
+        "device": str(next(iter(raw.values())).device.type),
+        "input_spec": {k: {"shape": list(v.shape), "dtype": str(v.dtype)[6:]}
+                       for k, v in raw.items()},
+        "output_keys": sorted(program.call_spec.out_spec.context or []),
+        "kernel_operands": list(operands),
+    }
+
+
+def _write_sidecar(out: str, sidecar: dict) -> dict:
+    if sidecar["device"] == "cpu":
+        sidecar["kernels_note"] = ("a CPU artifact holds the plain PyTorch "
+                                   "twins of the kernels, no kernel op")
+    with open(out + ".json", "w") as f:
+        json.dump(sidecar, f, indent=1)
+    return sidecar
+
+
 def write_artifact(out: str, program, raw: dict, operands, meta: dict,
                    state=None) -> dict:
     """Save ``program`` to ``out``, ``state`` (if given) to
@@ -232,26 +298,68 @@ def write_artifact(out: str, program, raw: dict, operands, meta: dict,
         weights_file = os.path.basename(out) + ".weights.pt"
         torch.save(state, os.path.join(
             os.path.dirname(os.path.abspath(out)), weights_file))
-    kernels = graph_ops(program.graph)
-    device = str(next(iter(raw.values())).device.type)
-    sidecar = {
-        **meta,
-        "batch_size": int(raw["image"].shape[0]),
-        "raw_hw": list(raw["image"].shape[1:3]),
-        "device": device,
-        "weights_file": weights_file,
-        "input_spec": {k: {"shape": list(v.shape), "dtype": str(v.dtype)[6:]}
-                       for k, v in raw.items()},
-        "output_keys": sorted(program.call_spec.out_spec.context or []),
-        "kernels": kernels,
-        "kernel_operands": list(operands),
-    }
-    if device == "cpu":
-        sidecar["kernels_note"] = ("a CPU artifact holds the plain PyTorch "
-                                   "twins of the kernels, no kernel op")
-    with open(out + ".json", "w") as f:
-        json.dump(sidecar, f, indent=1)
-    return sidecar
+    sidecar = _sidecar(program, raw, operands, meta)
+    sidecar.update(weights_file=weights_file, kernels=graph_ops(program.graph))
+    return _write_sidecar(out, sidecar)
+
+
+def openmp_cxx() -> str:
+    """The first C++ compiler (``$CXX``, then ``g++``, ``c++``,
+    ``clang++`` along ``PATH``) that links an OpenMP program: AOTInductor
+    links its C++ wrapper with ``-fopenmp``, which a compiler without
+    OpenMP's spec file refuses."""
+    names = [os.environ["CXX"]] if os.environ.get("CXX") else []
+    for name in ("g++", "c++", "clang++"):
+        names += [os.path.join(d, name)
+                  for d in os.environ.get("PATH", "").split(os.pathsep) if d]
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "omp.cpp")
+        with open(src, "w") as f:
+            f.write("int main() { return 0; }\n")
+        for cxx in dict.fromkeys(names):
+            if shutil.which(cxx) and subprocess.run(
+                    [cxx, "-fopenmp", src, "-o", os.path.join(tmp, "a")],
+                    capture_output=True).returncode == 0:
+                return cxx
+    raise RuntimeError("no C++ compiler on PATH links -fopenmp, which "
+                       "AOTInductor's build needs (set CXX)")
+
+
+def write_package(out: str, program, raw: dict, operands, meta: dict
+                  ) -> dict:
+    """Compile ``program`` with AOTInductor into the package ``out`` (a
+    ``.pt2`` path), its weights inside. On the card the program's kernel
+    ops are first pointed at their C++ registration (``retarget``: the
+    graph changes in place) and the ops library is copied beside ``out``.
+    Writes the sidecar (``format: "aoti"``) to ``<out>.json`` and returns
+    it, with the compile's seconds under ``compile_s``."""
+    from hands_tpu_torch.core.precision import f32_exact
+    from hands_tpu_torch.ops import library
+
+    sidecar = _sidecar(program, raw, operands, meta)
+    files, kernels = [], {}
+    if sidecar["device"] == "cuda":
+        library.load_ops_library()
+        kernels = library.retarget(program)
+        files = library.OPS_LIBRARY.files()
+    program.example_inputs = ((raw,), {})
+    t0 = time.time()
+    try:
+        with torch.no_grad(), f32_exact():
+            torch._inductor.aoti_compile_and_package(
+                program, package_path=out,
+                inductor_configs={"cpp.cxx": (None, openmp_cxx())})
+    finally:
+        program.example_inputs = None
+    compile_s = time.time() - t0
+    where = os.path.dirname(os.path.abspath(out))
+    for f in files:
+        shutil.copy2(f, os.path.join(where, f.name))
+    sidecar.update(format="aoti", weights_file="", kernels=kernels,
+                   ops_library=files[0].name if files else "",
+                   ops_library_files=[f.name for f in files])
+    _write_sidecar(out, sidecar)
+    return {**sidecar, "compile_s": compile_s}
 
 
 def main(argv=None) -> int:
@@ -277,6 +385,9 @@ def main(argv=None) -> int:
     p.add_argument("--params_args", action="store_true",
                    help="take the state as an argument, written to "
                         "<out>.weights.pt, instead of inside the program")
+    p.add_argument("--aoti", action="store_true",
+                   help="write <out> as an AOTInductor package (and, on the "
+                        "card, the kernels' ops library beside it)")
     p.add_argument("-o", "--out", default="serving.pt2")
     p.add_argument("--run", default="",
                    help="instead of exporting: load and execute the given "
@@ -289,6 +400,9 @@ def main(argv=None) -> int:
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda needs a CUDA card; export a CPU "
                            "artifact with --device cpu")
+    if args.aoti and (args.params_args or not args.out.endswith(".pt2")):
+        raise ValueError("--aoti writes a .pt2 package with its weights "
+                         "inside (no --params_args)")
 
     from hands_tpu_torch.config import default_config
     from hands_tpu_torch.models.registry import fetch_model
@@ -315,11 +429,17 @@ def main(argv=None) -> int:
     meta = {"method": args.method, "dtype": args.dtype,
             "fused_block": cfg.fused_block, "quant_int8": cfg.quant_int8,
             "fast_gelu": args.fast_gelu, "ckpt": args.ckpt}
-    sidecar = write_artifact(args.out, program, raw, operands, meta, state)
+    if args.aoti:
+        sidecar = write_package(args.out, program, raw, operands, meta)
+    else:
+        sidecar = write_artifact(args.out, program, raw, operands, meta,
+                                 state)
     size = os.path.getsize(args.out) / 1e6
+    compiled = (f"; compiled in {sidecar['compile_s']:.1f} s"
+                if args.aoti else "")
     print(f"exported {args.method} bs={args.batch_size} "
           f"device={sidecar['device']} kernels={sidecar['kernels']} -> "
-          f"{args.out} ({size:.1f} MB + sidecar)")
+          f"{args.out} ({size:.1f} MB + sidecar{compiled})")
     return 0
 
 

@@ -13,7 +13,9 @@ and returns the launch's ``cudaGetLastError()``.
 ``hands_tpu_torch::<name>`` with a shape function, so that ``torch.export``
 records the kernel as one graph node and a loaded program launches it
 through the same function. Eager calls skip the dispatcher and call the
-launch function itself.
+launch function itself. :class:`TorchOpsLibrary` builds the same ops'
+registration in C++ (``csrc/torch_ops.cpp``), which an AOTInductor package
+calls with no Python.
 """
 
 from __future__ import annotations
@@ -113,6 +115,99 @@ class CudaLibrary:
         if err != 0:
             msg = getattr(lib, self._error_string)(err).decode()
             raise RuntimeError(f"{entry} launch failed: {msg} ({err})")
+
+
+def _torch_lib_dir() -> Path:
+    return Path(torch.__file__).resolve().parent / "lib"
+
+
+def _cxx() -> str:
+    return shutil.which("g++") or "g++"
+
+
+class TorchOpsLibrary:
+    """``csrc/<name>.cpp`` -> one shared library that registers the kernels'
+    ops from C++ (``TORCH_LIBRARY``; ``csrc/torch_ops.cpp``). Compiled with
+    ``g++`` against PyTorch's headers and libraries, with PyTorch's C++ ABI
+    flag and no Python: no ``ninja``, no ``torch.utils.cpp_extension``. It
+    calls the C entries of ``deps`` (their libraries link into it and are
+    found beside it, ``$ORIGIN``), so :meth:`files` is what a package that
+    calls the ops ships. Keyed by a hash of the source, the flags, the
+    PyTorch version and the dependencies' keys; :meth:`start_build` starts
+    the compile (which needs no dependency) and :meth:`build` links once the
+    dependencies are built."""
+
+    CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-w")
+
+    def __init__(self, name: str, deps: Sequence[CudaLibrary]):
+        self.name = name
+        self.source = CSRC / f"{name}.cpp"
+        self.deps = tuple(deps)
+        self._proc: Optional[subprocess.Popen] = None
+        self._tmp: Optional[Path] = None
+
+    def _flags(self) -> tuple:
+        abi = int(torch._C._GLIBCXX_USE_CXX11_ABI)
+        inc = _torch_lib_dir().parent / "include"
+        return (*self.CXX_FLAGS, f"-D_GLIBCXX_USE_CXX11_ABI={abi}",
+                f"-I{inc}")
+
+    def so_path(self) -> Path:
+        key = hashlib.sha256(self.source.read_bytes())
+        key.update(" ".join(self._flags()).encode())
+        key.update(torch.__version__.encode())
+        for dep in self.deps:
+            key.update(dep.so_path().name.encode())
+        return BUILD_DIR / f"{self.name}_{key.hexdigest()[:16]}.so"
+
+    def _object(self) -> Path:
+        return self.so_path().with_suffix(".o")
+
+    def start_build(self) -> None:
+        """Start compiling unless the library (or its object) exists or a
+        compile is already running."""
+        so = self.so_path()
+        if so.exists() or self._object().exists() or self._proc is not None:
+            return
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        self._tmp = so.with_name(f"{so.stem}.{os.getpid()}.o")
+        self._proc = subprocess.Popen(
+            [_cxx(), *self._flags(), "-c", str(self.source), "-o",
+             str(self._tmp)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def build(self) -> str:
+        """Compile and link if needed; returns the compiler's report."""
+        so = self.so_path()
+        if so.exists():
+            return ""
+        self.start_build()
+        err = ""
+        if self._proc is not None:
+            proc, self._proc = self._proc, None
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"g++ failed on {self.source}:\n{err}")
+            os.replace(self._tmp, self._object())
+        for dep in self.deps:
+            dep.build()
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        link = subprocess.run(
+            [_cxx(), "-shared", str(self._object()),
+             "-o", str(tmp), f"-L{BUILD_DIR}",
+             *(f"-l:{dep.so_path().name}" for dep in self.deps),
+             f"-L{_torch_lib_dir()}", "-ltorch_cpu", "-lc10",
+             "-Wl,-rpath,$ORIGIN"],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"linking {so.name} failed:\n{link.stderr}")
+        os.replace(tmp, so)
+        return err + link.stderr
+
+    def files(self) -> list:
+        """The library and the per-source libraries it links, built."""
+        self.build()
+        return [self.so_path()] + [dep.so_path() for dep in self.deps]
 
 
 def build_all(libraries: Iterable[CudaLibrary]) -> dict:

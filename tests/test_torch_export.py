@@ -160,6 +160,17 @@ def test_cuda_export_without_a_card_raises(tmp_path):
     assert not (tmp_path / "x.pt2").exists()
 
 
+def test_cuda_package_without_a_card_raises(tmp_path):
+    """``--aoti --device cuda`` raises before it builds or writes
+    anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the export would run")
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        ex.main(CLI[:-2] + ["--device", "cuda", "--aoti", "-o",
+                            str(tmp_path / "x.pt2")])
+    assert list(tmp_path.iterdir()) == []
+
+
 # ----------------------------------------------------------- op shapes
 def _draw(seed=0):
     g = torch.Generator().manual_seed(seed)
