@@ -51,7 +51,12 @@ without ``--no_vis``, ``cli.sample_data``), trains data-parallel on two
 ranks that share the card through gloo (HaMeR ViT-H under DDP and FSDP and
 WildHands under DDP, each held against the one-process step; ``cli.train
 --num_processes 2`` and a one-process ``cli.demo --ckpt`` of rank 0's
-checkpoint), checks
+checkpoint), trains full ViT-H HaMeR on fresh synthetic draws through the
+trainable block and serves the trained weights through the bf16, dynamic
+int8, int8 + tanh GELU and calibrated static int8 blocks beside the
+untrained weights (``cli.trained_accuracy``), sweeps 5,000 packed
+EPIC-shaped records and a smaller set of records through full-width
+WildHands' ``Trainer.validate`` (``cli.eval_sweep``), checks
 the launch counts of each path, and times kernels, blocks, forwards,
 serving, train steps and the training loop with CUDA events or the host
 clock around a synchronise. An early line names the
@@ -6974,6 +6979,287 @@ def multiprocess_alone(vit_depth: int = DP_VIT_DEPTH) -> int:
     return 0
 
 
+# ---- phase 20: the serving ladder on weights trained here (cli.trained_accuracy)
+TA_STEPS = 300  # train steps of phase 20 on the fresh-draw stream
+TA_LONG_STEPS = 1500  # the long ladder of trained_accuracy_alone
+TA_BATCH = 16  # images a step: 32 crops
+TA_PREDRAWN = 10  # timed steps on batches drawn beforehand
+
+
+def counting_hook(seen: dict):
+    """A ``hook(name)`` for the parts of phases 20 and 21: the launch counts
+    set to 0 as a part starts, read into ``seen[name]`` as it ends."""
+
+    @contextlib.contextmanager
+    def hook(name):
+        reset_launch_counts()
+        yield
+        torch.cuda.synchronize()
+        seen[name] = launch_counts()
+
+    return hook
+
+
+def predrawn_steps(ta, cfg, model, state, dev, n: int = TA_PREDRAWN):
+    """The train step of the stream on ``n`` + 1 of its batches drawn and
+    copied to the card beforehand, so that no draw thread runs beside the
+    steps: (ms a step, the step's call in ms a step) over the last ``n``,
+    host clock ending in a synchronise."""
+    from hands_tpu_torch.train.step import make_train_step
+
+    draws = ta.FreshDraws(cfg, n + 1, TA_BATCH, dev)
+    batches = [draws.device_batch(b, None, None)
+               for b, _ in draws.host_batches(None)]
+    step = make_train_step(model, cfg)
+    state, _ = step(state, batches[0])
+    torch.cuda.synchronize()
+    t0, call = time.perf_counter(), 0.0
+    for batch in batches[1:]:
+        t = time.perf_counter()
+        state, _ = step(state, batch)
+        call += time.perf_counter() - t
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3, call / n * 1e3
+
+
+def trained_accuracy_phase(rows, dev, tag, steps: int = TA_STEPS,
+                           min_descent: float = 1.0) -> dict:
+    """Phase 20: ``cli.trained_accuracy``'s parts, each with its launches
+    counted. HaMeR ViT-H at full width and depth: the untrained weights on
+    the held-out batches, ``steps`` steps of ``TA_BATCH`` images on fresh
+    synthetic draws through K4 (bf16, lr 5e-5, clip 1.0), the same step on
+    batches drawn beforehand (no draw thread), then
+    the four rungs (K3, K5, K5 + tanh GELU, K6 calibrated on the eval
+    batches) on the two held-out batches of 32. Each part's launches are
+    exact; the loss is finite and its descent (the first loss over the last
+    window's mean) above ``min_descent``; every ladder row is finite."""
+    from hands_tpu_torch.cli import trained_accuracy as ta
+    from hands_tpu_torch.models.registry import fetch_model
+
+    t_phase = time.time()
+    print(f"phase 20: cli.trained_accuracy, ViT-{VIT} HaMeR, {steps} steps "
+          f"of {TA_BATCH} fresh images, then the serving ladder on 2 x "
+          f"{ta.EVAL_BATCH} held-out images, {t_phase - T_START:.0f} s into "
+          f"the script {tag}")
+    seen = {}
+    hook = counting_hook(seen)
+    cfg = ta.train_cfg(fused_block=True)
+    eval_batches = ta.eval_batches_for(cfg, dev)
+    model = fetch_model(cfg, device=dev, seed=ta.INIT_SEED, vit_variant=VIT,
+                        param_dtype=torch.float32)
+    with hook("untrained"):
+        untrained, _ = ta.eval_rung("untrained (seed 0), bf16", cfg, model,
+                                    eval_batches)
+    try:
+        with hook("train"):
+            state, trained = ta.train(cfg, model, steps, TA_BATCH, dev)
+    except FloatingPointError as err:
+        require(False, f"trained_accuracy: {err}")
+    state_dict = {k: v.detach().clone()
+                  for k, v in model.state_dict().items()}
+    with hook("predrawn"):
+        pre_ms, pre_call_ms = predrawn_steps(ta, cfg, model, state, dev)
+    del state, model
+    torch.cuda.empty_cache()
+    ladder, ref = [], None
+    for name, kw in ta.LADDER:
+        rcfg, rmodel = ta.rung_model(kw, state_dict, eval_batches, VIT, dev)
+        with hook(name):
+            rung_rows, outs = ta.eval_rung(name, rcfg, rmodel, eval_batches,
+                                           ref)
+        ref = outs if ref is None else ref
+        ladder.append({"rung": name, "rows": rung_rows})
+        del rmodel
+        torch.cuda.empty_cache()
+
+    depth = 32 if VIT == "h" else 2
+    per_step = {k: depth * (K4_FWD_LAUNCHES.get(k, 0) + n)
+                for k, n in K4_BWD_LAUNCHES.items()}
+    per_step.update(K1_STEP_LAUNCHES)
+    check_launches("trained_accuracy train", seen["train"], per_step, steps)
+    check_launches("trained_accuracy predrawn steps", seen["predrawn"],
+                   per_step, TA_PREDRAWN + 1)
+    note_launches(rows, "cli.trained_accuracy train", seen["train"])
+    # a batch: the eval step (GT and forward skin twice each) and the
+    # forward of the drift (twice more): two block forwards, 6 skinnings
+    forwards = 2 * len(ta.EVAL_SEEDS)
+    k3 = {"vit_layernorm": 2 * depth, "vit_gemm": 4 * depth,
+          "vit_attention": depth, "lbs_apply": 3}
+    k5 = {"ln_quant_dynamic": 2 * depth, "quant_rows": 2 * depth,
+          "gemm_i8_dynamic": 4 * depth, "qkv_attention_dynamic": depth,
+          "lbs_apply": 3}
+    k6 = {"ln_quant_static": 2 * depth, "gemm_i8_static": 4 * depth,
+          "qkv_attention_static": depth, "lbs_apply": 3}
+    check_launches("trained_accuracy untrained", seen["untrained"], k3,
+                   forwards)
+    for name, kw in ta.LADDER:
+        per = (k6 if kw.get("quant_int8_static") else
+               k5 if kw.get("quant_int8") else k3)
+        check_launches(f"trained_accuracy {name}", seen[name], per, forwards)
+        note_launches(rows, f"cli.trained_accuracy {name}", seen[name])
+
+    losses, curve = trained["losses"], trained["loss_curve"]
+    require(all(math.isfinite(v) for v in losses) and curve
+            and trained["descent"] > min_descent,
+            f"trained_accuracy: the loss fell {trained['descent']:.2f}x, "
+            f"not above {min_descent:g}x ({losses[0]:.3f} at the first "
+            f"step, windows {curve})")
+    for rung in ladder:
+        require(len(rung["rows"]) == len(ta.EVAL_SEEDS) and all(
+            math.isfinite(v) for r in rung["rows"] for v in r.values()),
+            f"trained_accuracy: ladder rows of {rung['rung']}")
+    # an int8 rung that quantised nothing would read the bf16 rung's joints
+    require(all(r["drift_mean_mm"] > 0 for rung in ladder[1:]
+                for r in rung["rows"]),
+            "trained_accuracy: an int8 rung with no drift against bf16")
+    print(f"  loss {losses[0]:.3f} at step 1, means of each "
+          f"{ta.LOG_EVERY} steps " + ", ".join(f"{m:.3f}" for _, m in curve)
+          + f"; descent {trained['descent']:.2f}x (the JAX tool asks for "
+          f"{ta.DESCENT:g}x; below it the ladder runs on weights that "
+          f"barely trained); {trained['ms_per_step']:.2f} ms a step (host "
+          f"clock; the step's call {trained['call_ms_per_step']:.2f}, the "
+          f"wait for the batch {trained['wait_ms_per_step']:.2f}), device "
+          f"{trained['device_ms_per_step']:.2f} ms a step over the last "
+          f"{trained['busy_steps']} (profiler; "
+          f"{1 - trained['device_ms_per_step'] / trained['ms_per_step']:.1%}"
+          f" idle) {tag}")
+    print(f"  the same step on {TA_PREDRAWN} batches drawn beforehand (no "
+          f"draw thread): {pre_ms:.2f} ms a step, the step's call "
+          f"{pre_call_ms:.2f} {tag}")
+
+    def pix(rows_):
+        return ", ".join(f"{r['pix_err/h']:.2f}" for r in rows_)
+
+    print(f"  held-out pix_err/h (px, batches A, B): untrained "
+          f"{pix(untrained)}, trained (bf16 rung) {pix(ladder[0]['rows'])} "
+          f"{tag}")
+    for rung in ladder[1:]:
+        print(f"  {rung['rung']}: j3d drift against bf16 (mm, mean / max) "
+              + ", ".join(f"{r['drift_mean_mm']:.3f} / "
+                          f"{r['drift_max_mm']:.3f}" for r in rung["rows"])
+              + f" {tag}")
+    print(f"phase 20 took {time.time() - t_phase:.1f} s")
+    trained.update(predrawn_ms_per_step=pre_ms,
+                   predrawn_call_ms_per_step=pre_call_ms)
+    return {"metric": "trained_accuracy", "vit": VIT, "steps": steps,
+            "batch": TA_BATCH, "untrained": untrained, "trained": trained,
+            "ladder": ladder}
+
+
+def trained_accuracy_alone(steps: int = TA_LONG_STEPS,
+                           min_descent: float | None = None) -> int:
+    """Phase 20 alone, by default the long ladder, which holds the loss's
+    descent to the JAX tool's 5x (``min_descent``; None: ``DESCENT``):
+    builds K1, K3 with K4's backward, K5 and K6, and runs
+    :func:`trained_accuracy_phase`::
+
+        python3 -c "import sys, chip_smoke as cs;
+            sys.exit(cs.trained_accuracy_alone())"
+    """
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from hands_tpu_torch.cli import trained_accuracy as ta
+    from hands_tpu_torch.ops import attention as at
+    from hands_tpu_torch.ops import mano_lbs
+    from hands_tpu_torch.ops import vit_block as vb
+    from hands_tpu_torch.ops import vit_block_int8 as v8
+    from hands_tpu_torch.ops.cuda_build import build_all
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    card = card_line()
+    print_ptxas(build_all([vb.LIBRARY, vb.BWD_LIBRARY, v8.LIBRARY,
+                           at.LIBRARY, mano_lbs.LIBRARY]))
+    rows = {k: {"name": k} for k in launch_counts()}
+    out = trained_accuracy_phase(
+        rows, DEV, f"[{card}]", steps,
+        ta.DESCENT if min_descent is None else min_descent)
+    print(card)
+    out["trained"].pop("losses")
+    print(json.dumps(out))
+    return 0
+
+
+# ---- phase 21: the EPIC-scale evaluation sweep (cli.eval_sweep)
+SWEEP_N = 5000  # packed records: EPIC-HandKps' 5,000 images
+SWEEP_RECORDS_N = 512  # records of the record route (images made per fetch)
+SWEEP_BS = 128  # the reference's test batch
+
+
+def eval_sweep_phase(rows, dev, tag, n: int = SWEEP_N,
+                     n_records: int = SWEEP_RECORDS_N) -> dict:
+    """Phase 21: ``cli.eval_sweep``, full-width WildHands (two ResNet-50s,
+    224^2 crops, bf16) through ``DeviceDataLoader`` (``drop_last=False``)
+    and ``Trainer.validate``: ``n`` packed records and ``n_records``
+    records, batches of ``SWEEP_BS``. Every eval step launches K1 four
+    times (the forward and the GT processing skin both hands), the loader
+    alone none; the epochs agree, the padded tail is NaN."""
+    from hands_tpu_torch.cli import eval_sweep
+
+    t_phase = time.time()
+    print(f"phase 21: cli.eval_sweep, WildHands ({WH_BACKBONE}, bf16), {n} "
+          f"packed records and {n_records} records in batches of "
+          f"{SWEEP_BS}, {t_phase - T_START:.0f} s into the script {tag}")
+    outs = {}
+    for packed, count in ((True, n), (False, n_records)):
+        route = "packed" if packed else "records"
+        seen = {}
+        try:
+            out = eval_sweep.sweep(count, SWEEP_BS, "hands_light", packed,
+                                   dev, hook=counting_hook(seen),
+                                   backbone=WH_BACKBONE)
+        except RuntimeError as err:
+            require(False, f"eval_sweep {route}: {err}")
+        for name in ("epoch 1", "epoch 2", "epoch 3"):
+            check_launches(f"eval_sweep {route} {name}", seen[name],
+                           {"lbs_apply": 4}, out["batches"])
+        check_launches(f"eval_sweep {route} loader alone", seen["loader"],
+                       {}, 1)
+        note_launches(rows, f"cli.eval_sweep {route} epoch",
+                      seen["epoch 2"])
+        pad = SWEEP_BS - out["tail_rows"]
+        rows_ = out["tail"]
+        require(all(np.isnan(v[out["tail_rows"]:]).all()
+                    for v in rows_.values()) and
+                np.isfinite(rows_["pix_err/h"][:out["tail_rows"]]).all(),
+                f"eval_sweep {route}: the padded tail")
+        device = ("not measured" if out["device_ms"] is None else
+                  f"{out['device_ms']:.1f} ms of device time an epoch ("
+                  f"{1 - out['device_ms'] / 1e3 / out['epoch2_s']:.1%} idle)")
+        print(f"  {route}, {count} records ({out['batches']} batches, the "
+              f"last {pad} rows padded, NaN in every metric): build "
+              f"{out['build_s']:.2f} s, epoch 1 {out['epoch1_s']:.2f} s, "
+              f"epoch 2 {out['epoch2_s']:.2f} s = {out['value']:.1f} "
+              f"samples/s, {device}, loader alone {out['loader_s']:.2f} s; "
+              f"pix_err/h {out['metrics']['metric.pix_err/h']:.3f} px {tag}")
+        outs[route] = out
+    print(f"phase 21 took {time.time() - t_phase:.1f} s")
+    return outs
+
+
+def eval_sweep_alone(n: int = SWEEP_N, n_records: int = SWEEP_RECORDS_N
+                     ) -> int:
+    """Phase 21 alone: builds K1 and runs :func:`eval_sweep_phase`::
+
+        python3 -c "import sys, chip_smoke as cs; sys.exit(cs.eval_sweep_alone())"
+    """
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from hands_tpu_torch.ops import mano_lbs
+    from hands_tpu_torch.ops.cuda_build import build_all
+
+    card = card_line()
+    print_ptxas(build_all([mano_lbs.LIBRARY]))
+    rows = {"lbs_apply": {"name": "lbs_apply"}}
+    outs = eval_sweep_phase(rows, DEV, f"[{card}]", n, n_records)
+    print(card)
+    print(json.dumps({route: {k: v for k, v in out.items()
+                              if k not in ("epochs", "tail")}
+                      for route, out in outs.items()}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7275,6 +7561,8 @@ def main() -> int:
     arctic_phase(rows, dev, tag)
     package_phase(dev, tag, packages)
     multiprocess_phase(rows, dev, tag)
+    trained_accuracy_phase(rows, dev, tag)
+    eval_sweep_phase(rows, dev, tag)
 
     print(card)
     print(json.dumps({"kernels": list(rows.values())}))

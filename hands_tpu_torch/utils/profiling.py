@@ -112,16 +112,18 @@ class StepTimer:
         }
 
 
-def device_busy_ms(fn, names=()):
+def device_busy_ms(fn, names=(), warmup: bool = True):
     """(ms, {name: ms}): the card's time in the kernels that one call of
-    ``fn`` launches (``torch.profiler`` over CUPTI, after a warm-up call),
-    and the part of it in kernels whose name holds each of ``names``;
-    (None, {}) where the profiler saw no device time (on the CPU)."""
+    ``fn`` launches (``torch.profiler`` over CUPTI, after a warm-up call
+    unless ``warmup`` is false), and the part of it in kernels whose name
+    holds each of ``names``; (None, {}) where the profiler saw no device
+    time (on the CPU, where ``fn`` is not called)."""
     from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         return None, {}
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()

@@ -39,6 +39,15 @@ from test_torch_export import CLI, ROUTES, arctic, close  # noqa: F401
 from test_torch_hands_light import RTOL, max_rel
 
 PACKAGE_TOL = 1e-5
+# The module's CPU package compiles with Inductor's C++ kernels scalar
+# (no vector ISA: its probes and the tiling analysis of the vector loops took
+# ~30 of the ~85 s of a cold compile) and the wrapper at -O0 (~6 s of its
+# C++ compile), and both processes that load it skip the ISA probes (~16 s
+# each on a cold cache; the package records no vector ISA to match). None
+# of it changes the model, what is compared or a tolerance; the package's
+# outputs on the example batch were bit-equal to a vectorised -O1 build's.
+FAST_COMPILE = {"cpp.vec_isa_ok": False,
+                "aot_inductor.compile_wrapper_opt_level": "O0"}
 
 
 @pytest.fixture(autouse=True)
@@ -54,9 +63,10 @@ def package(arctic, tmp_path_factory):  # noqa: F811
     """The CLI's CPU package of ``arctic``'s checkpoint, loaded and run on
     its example batch."""
     path = str(tmp_path_factory.mktemp("aoti") / "serving.pt2")
-    assert ex.main(CLI + ["--ckpt", arctic["ckpt"], "--aoti", "-o",
-                          path]) == 0
-    run, sidecar = ex.load_artifact(path)
+    with torch._inductor.config.patch(FAST_COMPILE):
+        assert ex.main(CLI + ["--ckpt", arctic["ckpt"], "--aoti", "-o",
+                              path]) == 0
+        run, sidecar = ex.load_artifact(path)
     with torch.no_grad():
         out = run(arctic["raw"])
     return dict(path=path, sidecar=sidecar, out=out)
@@ -92,7 +102,8 @@ def test_package_loads_without_the_port(arctic, package, tmp_path):  # noqa: F81
     kernel op, so no ops library either)."""
     raw_p, out_p = str(tmp_path / "raw.pt"), str(tmp_path / "out.pt")
     torch.save(arctic["raw"], raw_p)
-    env = {**os.environ, "OMP_NUM_THREADS": "2"}
+    env = {**os.environ, "OMP_NUM_THREADS": "2",
+           "TORCHINDUCTOR_VEC_ISA_OK": "0"}  # FAST_COMPILE's, at load
     env.pop("PYTHONPATH", None)
     proc = subprocess.run(
         [sys.executable, "-c", FRESH, package["path"], raw_p, out_p],
