@@ -56,7 +56,12 @@ trainable block and serves the trained weights through the bf16, dynamic
 int8, int8 + tanh GELU and calibrated static int8 blocks beside the
 untrained weights (``cli.trained_accuracy``), sweeps 5,000 packed
 EPIC-shaped records and a smaller set of records through full-width
-WildHands' ``Trainer.validate`` (``cli.eval_sweep``), checks
+WildHands' ``Trainer.validate`` (``cli.eval_sweep``), runs the
+model-parallel axes on two ranks that share the card through gloo (HaMeR
+ViT-H serving and train steps under Megatron tensor parallelism, K3 and K4
+on each rank's heads with the GEMM's f32 partial-product form; the ringed
+backbone and both sequence-parallel attentions; a two-stage GPipe pipeline
+of K3 blocks; each held against its one-process counterpart), checks
 the launch counts of each path, and times kernels, blocks, forwards,
 serving, train steps and the training loop with CUDA events or the host
 clock around a synchronise. An early line names the
@@ -1326,6 +1331,71 @@ def geometry_cases(gen, dev, batch):
     for b, n_verts, res, sigma, layout in SPLAT_CASES:
         f64_check(min(b, 8), n_verts, res, sigma, layout)
     return groups, extra, grads
+
+
+TP_RANKS = 2  # model ranks of phase 22 (two ranks sharing the card: gloo)
+
+
+def tp_kernel_cases(x, p, heads=HEADS, ranks=TP_RANKS):
+    """K3's kernels at the shapes one of ``ranks`` tensor-parallel ranks
+    launches on ``x`` (B, N, C), its shard taken as ``shard_vit_tp`` takes
+    rank 0's (qkv's rows {q, k, v} x the first heads / ranks heads): the
+    GEMM's f32 partial-product form (``vit_gemm_f32``) at the row-parallel
+    shapes a block launches (proj and MLP2, K C / ranks and hidden / ranks;
+    its line of the kernels JSON, per block), and as extra cases that form
+    at the column-parallel shapes and at 4x the rows, ``vit_gemm`` at the
+    local qkv and MLP1, and the attention on heads / ranks heads. The
+    library call of the f32 form is ``torch.mm`` with an f32 output."""
+    from hands_tpu_torch.ops import vit_block as vb
+
+    batch, n_tok, c = x.shape
+    rows = batch * n_tok
+    x2 = x.reshape(rows, c)
+    hidden = p["w1"].shape[0]
+    hl, cl, hid = heads // ranks, c // ranks, hidden // ranks
+    d = c // heads
+    wqkv = p["wqkv"].view(3, heads, d, c)[:, :hl].reshape(3 * cl, c)
+    bqkv = p["bqkv"].view(3, heads, d)[:, :hl].reshape(-1).contiguous()
+    wproj = p["wproj"][:, :cl].contiguous()
+    w1, b1 = p["w1"][:hid].contiguous(), p["b1"][:hid].contiguous()
+    w2 = p["w2"][:, :hid].contiguous()
+    y = vb.layernorm_plain(x2, p["ln1_scale"], p["ln1_bias"])
+    qkv3 = vb.gemm_plain(y, wqkv, bqkv).view(batch, n_tok, 3 * cl)
+    o = vb.attention_plain(qkv3, hl).view(rows, cl)
+    h = vb.gemm_plain(y, w1, b1, "gelu")
+    o4, h4 = o.repeat(4, 1), h.repeat(4, 1)
+
+    def partial(label, a, w):
+        return Case(f"gemm_f32 {label} (N {w.shape[0]}, K {w.shape[1]})",
+                    lambda f: f(a, w), [a, w],
+                    2 * a.shape[0] * w.shape[0] * w.shape[1], "bf16",
+                    lambda: torch.mm(a, w.t(), out_dtype=torch.float32))
+
+    t = qkv3.view(batch, n_tok, 3, hl, d).permute(2, 0, 3, 1, 4)
+    group = {"vit_gemm_f32": (vb.gemm_partial, vb.gemm_partial_plain, [
+        partial("proj", o, wproj), partial("mlp2", h, w2)])}
+    extra = [(partial("qkv shape", y, wqkv), vb.gemm_partial,
+              vb.gemm_partial_plain),
+             (partial("mlp1 shape", y, w1), vb.gemm_partial,
+              vb.gemm_partial_plain),
+             (partial(f"proj {4 * rows} rows", o4, wproj), vb.gemm_partial,
+              vb.gemm_partial_plain),
+             (partial(f"mlp2 {4 * rows} rows", h4, w2), vb.gemm_partial,
+              vb.gemm_partial_plain),
+             (Case(f"gemm qkv {hl} heads", lambda f: f(y, wqkv, bqkv),
+                   [y, wqkv, bqkv], 2 * rows * 3 * cl * c, "bf16",
+                   lambda: F.linear(y, wqkv, bqkv)), vb.gemm, vb.gemm_plain),
+             (Case(f"gemm mlp1+gelu {hid} cols", lambda f: f(y, w1, b1, "gelu"),
+                   [y, w1, b1], 2 * rows * hid * c, "bf16",
+                   lambda: F.linear(y, w1, b1)), vb.gemm, vb.gemm_plain),
+             (Case(f"attention {hl} heads", lambda f: f(qkv3, hl), [qkv3],
+                   4 * batch * hl * n_tok * n_tok * d, "bf16",
+                   lambda: F.scaled_dot_product_attention(t[0], t[1], t[2])),
+              vb.attention, vb.attention_plain)]
+    for case in group["vit_gemm_f32"][2] + [e[0] for e in extra]:
+        if case.inputs[0].shape[0] <= rows:
+            case.timer = short_ms
+    return [(K3, SRC_K3, group)], extra
 
 
 def check_extra(extra) -> None:
@@ -3416,7 +3486,7 @@ def packed_loop_phase(cfg, model, record_loader, root, expected, phase10,
 
 PCL_GEOM = 1e-5  # rotations and angles, as tests/test_torch_pcl.py
 PCL_CROP = 2e-4  # the crops on their [0, 1] scale, as there
-DECOMPOSE_ITERS = 3  # timed calls a row of the decompositions
+DECOMPOSE_ITERS = 2  # timed calls a row of the decompositions (were 3)
 
 
 def pcl_phase(dev, tag) -> None:
@@ -3509,7 +3579,10 @@ def decomposition_phase(dev, tag, iters: int = DECOMPOSE_ITERS) -> None:
 
 TREES = "tests/test_torch_datasets.py"  # the miniature dataset trees
 REAL_BATCH = 8  # images a step of the real-layout cli.train run
-LEARN_STEPS = 300  # steps of the learning check
+# steps of the learning check in the whole script: the CLI's 300 before
+# (the loss fell 68.3x there on an H100 against the check's 10x); cut for
+# the script's time (`python -m hands_tpu_torch.cli.numerics_check` runs 300)
+LEARN_STEPS = 150
 
 
 def load_trees():
@@ -4189,8 +4262,8 @@ def tiny_grad_check(method, cfg_kw, dev, rel, free=None):
 
 def family_phase(rows, dev, tag, method, overrides) -> None:
     """One model family at full width through its entry points: serving
-    (``cli.demo.serve``) in f32, bf16 and bf16 + ``quant_int8`` at requests
-    of 8 and 32 images, K1 against its twin; the evaluation forward with the
+    (``cli.demo.serve``) in bf16 at requests of 8 and 32 images, in f32 and
+    bf16 + ``quant_int8`` at 32, K1 against its twin; the evaluation forward with the
     render and the grasp classifier on; three train steps of the method's
     default config at 32 images; the train step at a small size against the
     CPU."""
@@ -4213,7 +4286,8 @@ def family_phase(rows, dev, tag, method, overrides) -> None:
                                                quant_int8=True))):
         cfg = serving_config(method, **kw).replace(**overrides)
         model = fetch_model(cfg, device=dev, seed=SEED)
-        for bs, n in FAM_SERVE:
+        # every size in bf16, the serving default; the largest in the others
+        for bs, n in FAM_SERVE if label == "bf16" else FAM_SERVE[-1:]:
             batches = requests[bs]
             serve(batches[0], cfg, model, dev)  # warm-up
             reset_launch_counts()
@@ -4233,6 +4307,7 @@ def family_phase(rows, dev, tag, method, overrides) -> None:
             serve_readings(f"{name} {label} serve bs{bs} ({2 * bs} crops)",
                            batches, cfg, model, dev, tag)
         del model
+        part(f"{name} serving {label}")
 
     # ---- the evaluation forward: the config's defaults, render and grasp
     cfg = default_config(method, **overrides)
@@ -4271,6 +4346,7 @@ def family_phase(rows, dev, tag, method, overrides) -> None:
               lambda: inference_pose(model, inputs, meta),
               min(m for m, _ in f_ms), tag)
     del model, out, ref
+    part(f"{name} evaluation forward")
 
     # ---- train steps: K1 forward and gradient, K2 forward and gradient
     bs = FAM_TRAIN_BATCH
@@ -4553,20 +4629,27 @@ def families_phase(rows, dev, tag) -> None:
     print(f"phase 16a: HandOccNet (leaky ResNet-50 FPN at 256^2, FIT/SET, "
           f"the hourglass regressor) {tag}")
     family_phase(rows, dev, tag, "handoccnet_light", {})
+    part("16a HandOccNet")
     free = None
     for dtype, rel in (("float32", 1e-3), ("bfloat16", SERVE_REL)):
         free = tiny_grad_check("handoccnet_light", dict(
             compute_dtype=dtype, use_render_seg_loss=False), dev, rel, free)
+    part("16a HandOccNet's gradient at two crops against f64")
     print(f"phase 16b: ArcticSF ({WH_BACKBONE} on the whole image, no "
           f"crops) {tag}")
     family_phase(rows, dev, tag, "arctic_sf_light",
                  {"backbone": WH_BACKBONE})
+    part("16b ArcticSF")
     tiny_train_check("arctic_sf_light",
                      dict(backbone="resnet18", compute_dtype="float32"), {},
                      dev, rel=1e-3, steps=1)
+    part("16b ArcticSF's step at a small size against the CPU")
     vit_b16_phase(rows, dev, tag)
+    part("16c vit_b_16")
     dense_latent_phase(rows, dev, tag)
+    part("16d dense_latent")
     checkpoint_phase(dev, tag)
+    part("16e the converter and --load_backbone")
     print(f"phase 16 took {time.time() - t0:.1f} s")
 
 
@@ -4574,6 +4657,23 @@ def families_phase(rows, dev, tag) -> None:
 EXPORT_HW = (512, 640)  # raw image of an exported request: make_requests' largest
 EXPORT_BATCHES = {"hamer": (8, 3), "wildhands": (64, 2)}  # (images, requests)
 EXPORT_ITERS = 5  # passes over the requests a timed reading
+# blocks of the HaMeR exports and of the K3 package in the whole script (32
+# before): the save and every load of a program, and the package's compile,
+# scale with its blocks; export_alone() keeps 32
+EXPORT_DEPTH = 8
+
+
+def cut_serving_depth(model, per_forward, depth):
+    """``model``'s ViT cut to its first ``depth`` blocks in place (widths
+    stay); returns its kernel launches a forward to match ``per_forward``
+    (the skinning's stay)."""
+    bb = model.net.backbone
+    full = len(bb.blocks)
+    if depth >= full:
+        return per_forward
+    bb.blocks = bb.blocks[:depth]
+    return {k: v if k == "lbs_apply" else v // full * depth
+            for k, v in per_forward.items()}
 
 
 def padded_requests(n, batch, seed):
@@ -5143,10 +5243,11 @@ print(f"  cli.export process: done {time.time() - t_start:.1f} s after its "
 EXPORT_CLI_TIMEOUT = 1200  # seconds of a process of EXPORT_CLI
 
 
-def start_packages(dev) -> dict:
+def start_packages(dev, depth: int = EXPORT_DEPTH) -> dict:
     """Start phase 17's compiles in a new process (:data:`EXPORT_CLI`, its
     output to a file): the AOTInductor package of HaMeR K3 (the K3 serving
-    model's configuration and seed), the WildHands artifact and package,
+    model's configuration and seed, its first ``depth`` blocks), the
+    WildHands artifact and package,
     in a temporary directory with Inductor's and Triton's caches inside.
     The compile is mostly one host thread, so ``main`` starts it after the
     build, it runs beside the phases up to 17, and phase 17b collects it;
@@ -5168,7 +5269,8 @@ def start_packages(dev) -> dict:
              raw_hw, "--device", dev.type]
     argvs = [["--method", "hamer_light", "--fused_block", "--batch_size",
               str(bs), "--raw_hw", raw_hw, "--device", dev.type, "--aoti",
-              "-o", job["hamer"]], wargs + ["-o", job["artifact"]],
+              "--vit_depth", str(depth), "-o", job["hamer"]],
+             wargs + ["-o", job["artifact"]],
              wargs + ["--aoti", "-o", job["wildhands"]]]
     env = {**os.environ,
            "TORCHINDUCTOR_CACHE_DIR": os.path.join(tmp, "inductor"),
@@ -5213,12 +5315,14 @@ def finish_packages(job) -> None:
           f"{os.path.getsize(job['wildhands']) / 1e9:.3f} GB")
 
 
-def export_phase(configs, dev, tag, job) -> None:
+def export_phase(configs, dev, tag, job, depth: int = EXPORT_DEPTH) -> None:
     """Phase 17: the serving program exported, saved, loaded and run
     (``cli/export.py``): HaMeR ViT-H in its three serving configurations of
     phase 3 (``configs``: K3 bf16, K5 ``quant_int8``, K6 static +
-    ``fast_gelu``) at bs8. The K3 artifact in a fresh process that imports
-    only the ops, while K5 and K6 export; the K5 and K6 artifacts' ops,
+    ``fast_gelu``) at bs8, each cut to its first ``depth`` blocks (those
+    models are not served again; :func:`start_packages` cuts the K3
+    package alike). The K3 artifact in a fresh
+    process that imports only the ops, while K5 and K6 export; their ops,
     launches and outputs against live serving, and both rates; the op
     layer's cost; ``cli.extract`` and ``cli.build_feat_split``. The K3
     artifact stays in ``job``'s directory (:func:`start_packages`, whose
@@ -5233,7 +5337,8 @@ def export_phase(configs, dev, tag, job) -> None:
     t_phase = time.time()
     bs, n = EXPORT_BATCHES["hamer"]
     print(f"phase 17: the serving export (torch.export), HaMeR ViT-{VIT} "
-          f"bs{bs} in three configurations, raw {EXPORT_HW[0]}x"
+          f"bs{bs} in three configurations (the first {depth} blocks), "
+          f"raw {EXPORT_HW[0]}x"
           f"{EXPORT_HW[1]}, {t_phase - T_START:.0f} s into the script {tag}")
     tmp = tempfile.mkdtemp()
     fresh = None
@@ -5241,6 +5346,8 @@ def export_phase(configs, dev, tag, job) -> None:
         requests = padded_requests(n, bs, SEED + 17)
         saved = []
         for name, (cfg, model, per_forward) in configs.items():
+            # the models are not served after this
+            per_forward = cut_serving_depth(model, per_forward, depth)
             seen = []
             hook = model.register_forward_pre_hook(
                 lambda *_: seen.append((torch.compiler.is_exporting(),
@@ -5267,6 +5374,7 @@ def export_phase(configs, dev, tag, job) -> None:
                     "neither torch.compiler flag is set under export")
             require(sidecar["device"] == "cuda", "a CUDA artifact")
             saved.append((name, path, cfg, model, per_forward))
+            part(f"17 {name}: export and save")
             if fresh is None:  # K3, loaded while the others export
                 recs = requests[0]
                 live = serve(recs, cfg, model, dev)
@@ -5275,12 +5383,14 @@ def export_phase(configs, dev, tag, job) -> None:
                     {k[5:]: v for k, v in live.items()
                      if k.startswith("pred.")}, tmp), per_forward)
         finish_fresh_process(*fresh)
+        part("17 the K3 artifact's fresh process")
         for name, path, cfg, model, per_forward in saved:
             if name == K3_SERVING:  # beside its package, phase 17b
                 op_layer_cost(cfg, model, requests, dev, tag, per_forward)
             else:
                 artifact_check(name, path, cfg, model, per_forward,
                                requests, dev, INT8_SERVE_REL, tag)
+            part(f"17 {name}: checks and times")
         extract_check(dev, tag)
     finally:
         if fresh is not None and fresh[0][0].poll() is None:
@@ -5290,7 +5400,7 @@ def export_phase(configs, dev, tag, job) -> None:
     print(f"phase 17 took {time.time() - t_phase:.1f} s")
 
 
-def package_phase(dev, tag, job) -> None:
+def package_phase(dev, tag, job, depth: int = EXPORT_DEPTH) -> None:
     """Phase 17b: the serving program's AOTInductor packages
     (``cli.export --aoti``) of HaMeR K3 and of WildHands bf16, compiled by
     ``job``'s process (:func:`start_packages`) since the build. A fresh
@@ -5300,7 +5410,8 @@ def package_phase(dev, tag, job) -> None:
     to live serving's; outputs within the whole-forward limits of live
     serving (rebuilt: the K3 model of phase 3, the CLI's WildHands); then
     ms a request of live serving, the ``torch.export`` artifact (its ops,
-    launches and bit-equal outputs held) and the package, in turns."""
+    launches and bit-equal outputs held) and the package, in turns. HaMeR's
+    at its first ``depth`` blocks, as :func:`start_packages` compiled it."""
     from hands_tpu_torch.cli.demo import serving_config
     from hands_tpu_torch.models.registry import fetch_model
 
@@ -5308,11 +5419,12 @@ def package_phase(dev, tag, job) -> None:
     bs, n = EXPORT_BATCHES["hamer"]
     wbs, wn = EXPORT_BATCHES["wildhands"]
     print(f"phase 17b: the serving export's AOTInductor packages, HaMeR "
-          f"ViT-{VIT} K3 bs{bs}, WildHands {WH_BACKBONE} bf16 bs{wbs}, "
+          f"ViT-{VIT} K3 bs{bs} (the first {depth} blocks), WildHands {WH_BACKBONE} bf16 bs{wbs}, "
           f"{t_phase - T_START:.0f} s into the script {tag}")
     try:
         finish_packages(job)
         cfg, model, k3_forward = k3_serving(dev)
+        k3_forward = cut_serving_depth(model, k3_forward, depth)
         requests = padded_requests(n, bs, SEED + 17)
         wrequests = padded_requests(wn, wbs, SEED + 170)
         packages = {}
@@ -5329,10 +5441,12 @@ def package_phase(dev, tag, job) -> None:
                   f"{side['ops_library_files'][1:]}")
             packages[name] = {"path": job[name], "raw": export_input(
                 recs, side["input_spec"], dev)}
+        part("17b the compile's wait, the K3 model")
         report = aoti_fresh_process(
             job["tmp"], os.path.join(job["tmp"], side["ops_library"]),
             packages, "wildhands", dev)
         del packages
+        part("17b the packages' fresh process")
 
         got = report["packages"]["hamer"]
         print(f"  {K3_SERVING} package: loaded in the fresh process in "
@@ -5342,6 +5456,7 @@ def package_phase(dev, tag, job) -> None:
                        k3_forward, requests, dev, SERVE_REL, tag,
                        {"path": job["hamer"], "out": got["out"]})
         del model
+        part("17b HaMeR: artifact and package against live serving")
 
         cfg = serving_config("hands_light", "bfloat16").replace(
             backbone=WH_BACKBONE)
@@ -5365,8 +5480,11 @@ ARCTIC_T = 700  # frames a sequence: ARCTIC's ~2.1 M images / 9 views / 339
 ARCTIC_VIEWS = 9  # 1 egocentric + 8 fixed cameras
 ARCTIC_SIZE = (2800, 2000)  # (w, h) of every view
 OBJ_BATCH = 64  # templates and interaction fields a call
-CPU_FIELD_FRAMES = 128  # frames of the sequence's fields also run on the CPU
-VIS_IMAGES = 8  # images of the demo's request
+# frames of the sequence's fields also run on the CPU (128 before: the
+# CPU's fields took 16 s)
+CPU_FIELD_FRAMES = 64
+VIS_IMAGES = 4  # images of the demo's request (8 before: overlays are host
+# numpy, ~0.35 s a PNG)
 M_TOL, PX_TOL, METRIC_REL = 1e-5, 1e-2, 1e-5
 # the object metrics are differences of positions ~1 m out (roots that sum
 # ~3,800 vertices in each device's order): each is held to METRIC_REL plus
@@ -5838,7 +5956,9 @@ def arctic_phase(rows, dev, tag) -> None:
                 mano[name]["shape"]).reshape(1, 10).expand(ARCTIC_T, 10)
         world = ap.forward_gt_world({k: v.to(dev) for k, v in
                                      params.items()}, "box")
+    part("18a the ground-truth build")
     object_phase(rows, dev, tag, world)
+    part("18b objects")
     visualisation_phase(rows, dev, tag)
     print(f"phase 18 took {time.time() - t_phase:.1f} s")
 
@@ -6542,7 +6662,8 @@ def export_alone() -> int:
     """Phases 17 and 17b alone: builds the libraries of K1, K3, K5 and K6
     (the attention's too) and the C++ ops that link them, starts the
     packages' compiles, builds the three HaMeR serving models of phase 3,
-    and runs :func:`export_phase` and :func:`package_phase`."""
+    and runs :func:`export_phase` and :func:`package_phase` at ViT-H's whole
+    depth."""
     from hands_tpu_torch.ops import attention as at
     from hands_tpu_torch.ops import mano_lbs
     from hands_tpu_torch.ops import vit_block as vb
@@ -6557,9 +6678,9 @@ def export_alone() -> int:
                OPS_LIBRARY])
     print(f"built K1, K3, K5, K6, the attention and {SRC_OPS} in "
           f"{time.time() - t0:.1f} s")
-    job = start_packages(DEV)
-    export_phase(hamer_configs(DEV), DEV, f"[{card}]", job)
-    package_phase(DEV, f"[{card}]", job)
+    job = start_packages(DEV, depth=32)
+    export_phase(hamer_configs(DEV), DEV, f"[{card}]", job, depth=32)
+    package_phase(DEV, f"[{card}]", job, depth=32)
     print(card)
     return 0
 
@@ -6649,7 +6770,9 @@ DP_BF16_REL = 2e-2
 DP_WH_NORM_REL = 1e-4
 # the two-rank ViT-H runs (global and split one-process steps, DDP, FSDP)
 # took 184 s at depth 32 on an H100: past the ~120 s aimed at, so the
-# phase cuts the depth; widths stay full
+# phase cuts the depth; widths stay full (multiprocess_alone(32) is whole).
+# 4 blocks saved nothing against 8 (the ranks' start and the steps' gloo
+# copies weigh more than the blocks): 8
 DP_VIT_DEPTH = 8
 # FSDP's parameters after the held steps against DDP's: the share of entries
 # whose updates went more than half a learning rate apart (Adam moves each
@@ -6979,8 +7102,262 @@ def multiprocess_alone(vit_depth: int = DP_VIT_DEPTH) -> int:
     return 0
 
 
+# ---- phase 22: the model-parallel axes, two ranks sharing the card
+TP_REQUESTS, TP_IMAGES = 3, 4  # TP serving: three requests of 8 crops
+TP_TRAIN_DEPTH = 8  # the TP train steps' ViT-H depth (phase 19's)
+TP_TRAIN_BATCH = 16  # images of a TP train step, every rank all of them
+SP_IMAGES = 8  # crops of the SP backbone: 96 tokens a rank
+SP_ATTENTION = (8, N_TOK, HEADS, HEAD_DIM)  # the ring's and SP's f32 check
+SP_ATTN_ABS = 2e-5  # against mha_reference, the JAX tests' f32 limit
+# the ringed backbone's features (after the last LayerNorm, unit scale)
+# against the one-rank ring: the f32 sums of the online softmax differ in
+# the last bits, which flip bf16 roundings of the projections' inputs, and 32
+# plain bf16 blocks with random weights amplify the flips. The largest entry
+# is held at about twice the largest of ring_witness_alone()'s bf16 readings
+# at depth 32 (an H100, four seeds; f32 and depth 2 there show the gap is
+# rounding), the mean at SERVE_REL
+SP_BACKBONE_MAX = 5e-2
+PP_MICROBATCHES, PP_CROPS = 4, 8  # M microbatches of 8 crops, 2 stages
+# a TP step's launches a block on each rank: K4's forward with proj and MLP2
+# as the f32 partial GEMM, the recompute (its proj likewise), the backward
+# kernels; the model axis' all-reduces (2 forward, 1 recompute, 2 input
+# gradients)
+TP_BLOCK_STEP = {"vit_layernorm": 4, "vit_gemm": 4, "vit_gemm_f32": 3,
+                 "vit_attention": 2, "attention_bwd": 1, "layernorm_bwd": 2,
+                 "layernorm_bwd_sums": 2, "gelu_bwd": 1,
+                 "model_all_reduce": 5}
+
+
+def mp_report(part, summaries, want, tag) -> None:
+    """Print each rank's readings of ``part`` (a mode of
+    ``cli.parallel_check``) and require its launches of a call or step to
+    be ``want``."""
+    def read(v, unit):
+        return "not measured" if v is None else f"{v:.2f} {unit}"
+
+    for sm in summaries:
+        m = sm["modes"].get(part)
+        if m is None:
+            continue
+        print(f"  {part} rank {sm['rank']}/{sm['world']}: "
+              f"{m['step_ms']:.1f} ms a call, {m['collective_ms']:.1f} of "
+              f"them in collectives; device {read(m['device_ms'], 'ms')} a "
+              f"call; held {read(m['held_gb'], 'GB')}, peak "
+              f"{read(m['peak_gb'], 'GB')}; parameters "
+              f"{m['shard_bytes'] / 1e9:.3f} of {m['total_bytes'] / 1e9:.3f} "
+              f"GB {tag}")
+        require(m["launches"] == want, f"{part} rank {sm['rank']}: launches "
+                f"{m['launches']}, want {want}")
+    print(f"  {part}: launches a call on every rank {want}")
+
+
+def model_parallel_phase(rows, dev, tag) -> None:
+    """Phase 22: the model-parallel axes on two ranks of ``cli.parallel_check``
+    sharing this card through gloo, each held against its one-process
+    counterpart: (a) HaMeR ViT-H at full depth, bf16 ``fused_block``, under
+    ``shard_vit_tp`` (K3 on each rank's 8 heads, proj and MLP2 as the f32
+    partial GEMM summed over the ranks), serving three requests; (b) its
+    train steps at phase 19's depth through ``make_train_step`` (K4's
+    backward with the column-parallel input gradients summed); (c) the plain
+    bf16 backbone with ``ring`` (each rank 96 of the 192 tokens), and
+    ``sp_attention`` / ``ring_attention`` at ViT-H's shape in f32; (d)
+    ``pipeline_apply`` over two stages of 16 K3 blocks."""
+    import tempfile
+
+    t_phase = time.time()
+    depth = 32 if VIT == "h" else 2
+    print(f"phase 22: model-parallel axes, {TP_RANKS} ranks on one card "
+          f"(gloo), {t_phase - T_START:.0f} s into the script {tag}")
+    print("  (two ranks share one card: correctness and memory, not "
+          "scaling)")
+    over = dict(compute_dtype="bfloat16", fused_block=True,
+                use_render_seg_loss=False, lr=1e-6,
+                batch_size=TP_TRAIN_BATCH, num_workers=0)
+    spec = {"method": "hamer_light", "vit_variant": VIT, "overrides": over,
+            "records": TP_TRAIN_BATCH, "steps": DP_STEPS,
+            "mode_depth": {"tp": TP_TRAIN_DEPTH,
+                           "reference": TP_TRAIN_DEPTH},
+            "images": TP_IMAGES, "requests": TP_REQUESTS,
+            "sp_images": SP_IMAGES, "attention": SP_ATTENTION,
+            "pp_crops": PP_CROPS, "microbatches": PP_MICROBATCHES,
+            "modes": ["tp_serve", "tp", "sp", "pp"],
+            "reference": ["serve", "reference", "backbone", "serial"]}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = dp_launch(spec, tmp, "model_parallel")
+    compare = out[0]["compare"]
+
+    # (a) TP serving
+    per = {"vit_layernorm": 2 * depth, "vit_gemm": 2 * depth,
+           "vit_gemm_f32": 2 * depth, "vit_attention": depth,
+           "lbs_apply": 2, "model_all_reduce": 2 * depth}
+    print(f"  (a) HaMeR ViT-{VIT} (depth {depth}), bf16 fused_block, "
+          f"{TP_REQUESTS} requests of {2 * TP_IMAGES} crops, tensor "
+          f"parallel: each rank {HEADS // TP_RANKS} heads and "
+          f"{HIDDEN // TP_RANKS} hidden columns")
+    mp_report("tp_serve", out, per, tag)
+    one = {"vit_layernorm": 2 * depth, "vit_gemm": 4 * depth,
+           "vit_attention": depth, "lbs_apply": 2}
+    mp_report("serve", out, one, tag)
+    print(f"  the model axis' all-reduces a forward: {2 * depth} (proj and "
+          f"MLP2 of each block, f32); K3's launches a rank: vit_gemm "
+          f"{2 * depth} + vit_gemm_f32 {2 * depth} = one process's "
+          f"{4 * depth}")
+    c = compare["tp_serve_vs_serve"]
+    print(f"  TP serving against the one-process K3 serve: worst "
+          f"{c['worst']} {c['max']:.2e} max / {c['mean']:.2e} mean of "
+          f"max(|ref|, 1) (<= {SERVE_REL:g})")
+    require(c["max"] <= SERVE_REL and c["mean"] <= SERVE_REL,
+            "TP serving off the one-process serve")
+    held = out[0]["modes"]["tp_serve"]["launches_held"]
+    rows["vit_gemm_f32"]["launches"] = held.get("vit_gemm_f32", 0)
+    for k in ("vit_layernorm", "vit_gemm", "vit_attention", "vit_gemm_f32"):
+        rows[k].setdefault("launches_per_rank", {})[
+            "tp_serve (a forward)"] = per[k]
+
+    # (b) TP train steps
+    step = {k: TP_TRAIN_DEPTH * n for k, n in TP_BLOCK_STEP.items()}
+    step.update(K1_STEP_LAUNCHES)
+    print(f"  (b) HaMeR ViT-{VIT} at depth {TP_TRAIN_DEPTH}, "
+          f"{TP_TRAIN_BATCH} images a step on every rank, K4 tensor "
+          f"parallel, lr 1e-6")
+    mp_report("tp", out, step, tag)
+    bf16 = (DP_BF16_REL,) * DP_STEPS
+    dp_check_steps("HaMeR", compare, "tp_vs_reference", bf16, bf16)
+    label = f"tp step (depth {TP_TRAIN_DEPTH})"
+    for k in ("vit_layernorm", "vit_gemm", "vit_attention",
+              "vit_gemm_f32") + BWD_KERNELS:
+        rows[k].setdefault("launches_per_rank", {})[label] = step[k]
+
+    # (c) SP
+    print(f"  (c) the plain bf16 ViT-{VIT} backbone (depth {depth}), "
+          f"{SP_IMAGES} crops, ring over {TP_RANKS} ranks: "
+          f"{N_TOK // TP_RANKS} tokens a rank, the ring's attention in f32")
+    mp_report("sp", out, {}, tag)  # plain modules: no kernel of the port
+    hops = 2 * depth * (TP_RANKS - 1)  # K and V, each block's ring
+    hop_mb = SP_IMAGES * (N_TOK // TP_RANKS) * C * 4 / 1e6  # an f32 block
+    sp_ms = max(sm["modes"]["sp"]["collective_ms"] for sm in out)
+    print(f"  the ring's hop (ppermute) is an all_gather of which a rank "
+          f"keeps its source's block, not a gloo send/recv: {hops} hops a "
+          f"forward of {hop_mb:.2f} MB each ({TP_RANKS}x that gathered), and "
+          f"the final token all_gather; {sp_ms:.1f} ms of collectives a "
+          f"forward, {sp_ms / (hops + 1):.2f} ms a collective {tag}")
+    c = compare["sp_vs_backbone"]
+    print(f"  ringed backbone against the one-process backbone (a ring of "
+          f"one rank: the same f32 attention unsharded): {c['max']:.2e} max "
+          f"(<= {SP_BACKBONE_MAX:g}) / {c['mean']:.2e} mean (<= "
+          f"{SERVE_REL:g}) of max(|ref|, 1)")
+    require(c["max"] <= SP_BACKBONE_MAX and c["mean"] <= SERVE_REL,
+            "the ringed backbone off the one-process backbone")
+    for sm in out:
+        m = sm["modes"]["sp"]
+        print(f"  rank {sm['rank']}: sp_attention {m['sp_attention']:.2e}, "
+              f"ring_attention {m['ring_attention']:.2e} max abs against "
+              f"mha_reference at {SP_ATTENTION} f32 (<= {SP_ATTN_ABS:g})")
+        require(m["sp_attention"] <= SP_ATTN_ABS
+                and m["ring_attention"] <= SP_ATTN_ABS,
+                f"rank {sm['rank']}: sequence-parallel attention")
+
+    # (d) PP
+    stage = depth // TP_RANKS
+    pp = {"vit_layernorm": 2 * stage * PP_MICROBATCHES,
+          "vit_gemm": 4 * stage * PP_MICROBATCHES,
+          "vit_attention": stage * PP_MICROBATCHES}
+    print(f"  (d) {depth} K3 blocks in {TP_RANKS} stages of {stage}, "
+          f"{PP_MICROBATCHES} microbatches of {PP_CROPS} crops (bubble ticks "
+          f"skipped: each stage runs its blocks once a microbatch)")
+    mp_report("pp", out, pp, tag)
+    mp_report("serial", out, {k: v * TP_RANKS for k, v in pp.items()}, tag)
+    c = compare["pp_vs_serial"]
+    print(f"  pipeline against the blocks applied serially: "
+          f"{'bit-equal' if c['equal'] else 'NOT bit-equal'} (max "
+          f"{c['max']:.2e})")
+    require(c["equal"], "the pipeline is not bit-equal to the serial blocks")
+    for k in pp:
+        rows[k]["launches_per_rank"][
+            f"pp ({TP_RANKS} stages, M {PP_MICROBATCHES})"] = pp[k]
+    print(f"phase 22 took {time.time() - t_phase:.1f} s")
+
+
+# the ringed backbone against the one-rank ring, by ring_witness_alone():
+# (seed, dtype, depth) of the backbone; the f32 and shallow runs show the
+# bf16 reading's gap is rounding
+RING_WITNESS = ((0, "bfloat16", 32), (1, "bfloat16", 32),
+                (2, "bfloat16", 32), (3, "bfloat16", 32),
+                (0, "float32", 32), (0, "bfloat16", 2))
+
+
+def ring_witness_alone() -> int:
+    """Phase 22(c)'s ringed backbone against the one-rank ring on
+    :data:`RING_WITNESS`' seeds, dtypes and depths, one launch of two ranks
+    each::
+
+        python3 -c "import sys, chip_smoke as cs; sys.exit(cs.ring_witness_alone())"
+    """
+    import tempfile
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    card = card_line()
+    readings = []
+    for seed, dtype, depth in RING_WITNESS:
+        spec = {"method": "hamer_light", "vit_variant": VIT,
+                "overrides": {"seed": seed}, "vit_depth": depth,
+                "sp_images": SP_IMAGES, "sp_dtype": dtype,
+                "modes": ["sp"], "reference": ["backbone"], "profile": False}
+        with tempfile.TemporaryDirectory() as tmp:
+            c = dp_launch(spec, tmp, f"ring_{dtype}_{depth}_{seed}")[0][
+                "compare"]["sp_vs_backbone"]
+        print(f"  ringed backbone, seed {seed}, {dtype}, depth {depth}: "
+              f"{c['max']:.3e} max / {c['mean']:.3e} mean of max(|ref|, 1) "
+              f"[{card}]")
+        readings.append({"seed": seed, "dtype": dtype, "depth": depth,
+                         "max": c["max"], "mean": c["mean"]})
+    print(card)
+    print(json.dumps({"ring_witness": readings}))
+    return 0
+
+
+def tp_alone() -> int:
+    """Phase 22 alone, with phase 2's checks and times of the kernels at the
+    tensor-parallel local shapes: builds K1, K3 and K4's backward::
+
+        python3 -c "import sys, chip_smoke as cs; sys.exit(cs.tp_alone())"
+    """
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from hands_tpu_torch.ops import mano_lbs
+    from hands_tpu_torch.ops import vit_block as vb
+    from hands_tpu_torch.ops.cuda_build import build_all
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    card = card_line()
+    tag = f"[{card}]"
+    print_ptxas(build_all([vb.LIBRARY, vb.BWD_LIBRARY, mano_lbs.LIBRARY]))
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    x, p, _ = block_inputs(gen, DEV, BATCH, N_TOK, C, HIDDEN)
+    k3, _, _ = k3_cases(x, p, HEADS)
+    groups, extra = tp_kernel_cases(x, p)
+    groups = [(K3, SRC_K3, k3)] + groups
+    rows = {}
+    check_groups(groups, {}, rows)
+    check_extra(extra)
+    time_groups(groups, rows, tag)
+    time_extra(extra, tag)
+    for k in BWD_KERNELS:
+        rows[k] = {"name": k}
+    model_parallel_phase(rows, DEV, tag)
+    print(card)
+    print(json.dumps({"kernels": list(rows.values())}))
+    return 0
+
+
 # ---- phase 20: the serving ladder on weights trained here (cli.trained_accuracy)
-TA_STEPS = 300  # train steps of phase 20 on the fresh-draw stream
+# train steps of phase 20 on the fresh-draw stream: 300 before; cut for
+# phase 22's time, where the descent still reads 2.01x (an H100: windows of
+# 50 steps at 1.47e5, 2.0e3, 621; 3.5x at 300)
+TA_STEPS = 150
 TA_LONG_STEPS = 1500  # the long ladder of trained_accuracy_alone
 TA_BATCH = 16  # images a step: 32 crops
 TA_PREDRAWN = 10  # timed steps on batches drawn beforehand
@@ -7055,12 +7432,14 @@ def trained_accuracy_phase(rows, dev, tag, steps: int = TA_STEPS,
             state, trained = ta.train(cfg, model, steps, TA_BATCH, dev)
     except FloatingPointError as err:
         require(False, f"trained_accuracy: {err}")
+    part(f"20 the untrained rung, {steps} steps")
     state_dict = {k: v.detach().clone()
                   for k, v in model.state_dict().items()}
     with hook("predrawn"):
         pre_ms, pre_call_ms = predrawn_steps(ta, cfg, model, state, dev)
     del state, model
     torch.cuda.empty_cache()
+    part("20 the steps on batches drawn beforehand")
     ladder, ref = [], None
     for name, kw in ta.LADDER:
         rcfg, rmodel = ta.rung_model(kw, state_dict, eval_batches, VIT, dev)
@@ -7183,6 +7562,10 @@ def trained_accuracy_alone(steps: int = TA_LONG_STEPS,
 # ---- phase 21: the EPIC-scale evaluation sweep (cli.eval_sweep)
 SWEEP_N = 5000  # packed records: EPIC-HandKps' 5,000 images
 SWEEP_RECORDS_N = 512  # records of the record route (images made per fetch)
+# the sweep in the whole script (5,000 and 512 records, then 1,000, before;
+# eval_sweep_alone keeps EPIC-5000): 4 batches of 128, the last one padded
+# (116 real rows)
+SWEEP_MAIN_N, SWEEP_MAIN_RECORDS_N = 500, 256
 SWEEP_BS = 128  # the reference's test batch
 
 
@@ -7260,6 +7643,27 @@ def eval_sweep_alone(n: int = SWEEP_N, n_records: int = SWEEP_RECORDS_N
     return 0
 
 
+PHASE_S: dict = {}  # seconds of each part of main, in order
+_LAP = [T_START]
+_PART = [T_START]
+
+
+def lap(name: str) -> None:
+    """Note the seconds since the previous lap (the script's start) as part
+    ``name`` of :data:`PHASE_S`."""
+    now = time.time()
+    PHASE_S[name] = round(now - _LAP[0], 1)
+    _LAP[0] = _PART[0] = now
+
+
+def part(label: str) -> None:
+    """Print the seconds since the previous :func:`part` or :func:`lap`:
+    where a phase's time goes."""
+    now = time.time()
+    print(f"  [{label}: {now - _PART[0]:.1f} s]")
+    _PART[0] = now
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7300,6 +7704,7 @@ def main() -> int:
           f"{time.time() - t0:.1f} s")
     print_ptxas(reports)
     packages = start_packages(dev)  # phase 17b's compiles, beside 2-18
+    lap("1 build")
 
     # ---- 2. each kernel against its twin at ViT-H shapes
     print(f"phase 2: kernels vs twins, rows={ROWS} C={C} hidden={HIDDEN} "
@@ -7307,6 +7712,9 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     x, p, p32 = block_inputs(gen, dev, BATCH, N_TOK, C, HIDDEN)
     groups, sources, extra, operands = kernel_cases(x, p, p32)
+    tp_groups, tp_extra = tp_kernel_cases(x, p)  # phase 22's local shapes
+    groups += tp_groups
+    extra += tp_extra
     wh_batch = WH_BATCHES[-1][0]  # hands per MANO decode and per render
     print(f"  K1 and K2 at {wh_batch} hands, {N_VERTS} vertices, render "
           f"{RENDER_RES}^2, sigma {RENDER_SIGMA} px")
@@ -7319,6 +7727,7 @@ def main() -> int:
     for grad in splat_grads:
         grad.release()  # the twin's graph holds the (B, P, V) pair tensors
     splat_exactness(*splat_blob(groups))
+    part("2 the kernels against their twins")
 
     blocks = {}  # name -> (kernel path, twin path) closures, for phase 4
     for fast in (False, True):
@@ -7385,6 +7794,7 @@ def main() -> int:
     heads_split_check(gen, dev)
     k8_vector_check(gen, dev)
     gemm_ragged_check(gen, dev)
+    lap("2 kernels vs twins")
 
     # ---- 3. serve requests through full-width ViT-H, kernels on
     requests = make_requests(3, 8, SEED)
@@ -7490,11 +7900,13 @@ def main() -> int:
         got = copy.deepcopy(small_bb).to(dev)(small_img.to(dev))
     compare("tiny fused_attn backbone GPU vs CPU", got.cpu(), want,
             rel=BLOCK_REL, mean=1e-2)
+    lap("3 serving")
 
     # ---- 4. timing
     print(f"phase 4: CUDA-event times {tag}")
     time_groups(groups, rows, tag)
     time_extra(extra, tag)
+    part("4 the kernels' times")
     lbs_floor(gen, tag)
     # what the twin of K2 costs in memory: it stores the (B, P, V) tensors
     from hands_tpu_torch.ops import rasterizer as ras
@@ -7514,7 +7926,9 @@ def main() -> int:
         t = [cuda_ms(twin), cuda_ms(kern), cuda_ms(kern), cuda_ms(twin)]
         print(f"  whole {name} (rows {ROWS}): kernels {min(t[1], t[2]):.4f} "
               f"ms, twin {min(t[0], t[3]):.4f} ms {tag}")
+    part("4 K1's floor, K2's memory, the whole blocks")
     gemm_serving_phase(gen, dev, tag)
+    part("4 the GEMMs at serving shapes")
 
     # the model forward alone (preprocessed batch of 8 already on the card)
     for name, (c, m, _) in configs.items():
@@ -7529,6 +7943,7 @@ def main() -> int:
         print(f"  {name}: model forward bs8 (16 crops): kernels "
               f"{min(fwd[0], fwd[3]):.3f} ms, twin {min(fwd[1], fwd[2]):.3f} "
               f"ms {tag}")
+    part("4 the model forwards")
 
     for bs, nb in ((8, 4), (64, 2)):
         batches = make_requests(nb, bs, SEED + bs)
@@ -7542,28 +7957,51 @@ def main() -> int:
                   f"({min(k_ms, k_ms2):.2f} ms/request), twin {t_rate:.1f} "
                   f"crops/s ({t_ms:.2f} ms/request) {tag}")
 
+    lap("4 timing")
     export_phase(configs, dev, tag, packages)
+    lap("17 export")
     wildhands_phases(rows, dev, tag)
+    lap("5 WildHands")
     # the serving models go before the train steps read the memory they add
     del configs, served, c, m
     torch.cuda.empty_cache()
     trainable_block_phase(rows, x, p32, tag)
+    lap("6 K4")
     hamer_train_phase(rows, dev, tag)
+    lap("7 HaMeR steps")
     wildhands_train_phase(rows, dev, tag)
+    lap("8 WildHands steps")
     ablation_phase(rows, dev, tag)
+    lap("9 K8 ablation")
     training_runtime_phase(rows, dev, tag)
+    lap("10 cli.train")
     pcl_phase(dev, tag)
+    lap("11 pcl")
     decomposition_phase(dev, tag)
+    lap("12 decompositions")
     real_layout_phase(dev, tag, decoder)
+    lap("13 real layouts")
     learning_phase(dev, tag)
+    lap("14 learning")
     int8_drift_phase(dev, tag)
+    lap("15 int8 drift")
     families_phase(rows, dev, tag)
+    lap("16 families")
     arctic_phase(rows, dev, tag)
+    lap("18 ARCTIC")
     package_phase(dev, tag, packages)
+    lap("17b packages")
     multiprocess_phase(rows, dev, tag)
+    lap("19 data parallel")
     trained_accuracy_phase(rows, dev, tag)
-    eval_sweep_phase(rows, dev, tag)
+    lap("20 trained ladder")
+    eval_sweep_phase(rows, dev, tag, SWEEP_MAIN_N, SWEEP_MAIN_RECORDS_N)
+    lap("21 eval sweep")
+    model_parallel_phase(rows, dev, tag)
+    lap("22 model parallel")
 
+    print(f"seconds by part: {json.dumps(PHASE_S)}; the whole "
+          f"{time.time() - T_START:.1f} s {tag}")
     print(card)
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {

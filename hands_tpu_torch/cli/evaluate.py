@@ -29,14 +29,16 @@ def main(argv=None, log_root: str = "logs", overrides=None):
     if overrides:
         cfg = cfg.replace(**overrides)
     model = build_model(cfg, device)
-    val_loader = fetch_dataloader(cfg, "val", device=device)
+    exp = Experiment(cfg, root=log_root)
+    trainer = Trainer(cfg, model, exp)
+    val_loader = fetch_dataloader(cfg, "val", device=device,
+                                  shard=trainer.data_shard)
     state = create_train_state(cfg, model)
     if cfg.infer_ckpt:
         ckpt = CheckpointManager(os.path.dirname(cfg.infer_ckpt))
         ckpt.restore_params(model, os.path.basename(cfg.infer_ckpt))
 
-    exp = Experiment(cfg, root=log_root)
-    metrics = Trainer(cfg, model, exp).validate(state, val_loader)
+    metrics = trainer.validate(state, val_loader)
     exp.close()
     print(json.dumps(metrics, indent=2))
     return metrics

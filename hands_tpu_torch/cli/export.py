@@ -382,6 +382,9 @@ def main(argv=None) -> int:
     p.add_argument("--fused_block", action="store_true")
     p.add_argument("--int8", action="store_true")
     p.add_argument("--fast_gelu", action="store_true")
+    p.add_argument("--vit_depth", type=int, default=0,
+                   help="keep the ViT's first N blocks, widths whole (a "
+                        "shallow program for a quick check; 0: all)")
     p.add_argument("--params_args", action="store_true",
                    help="take the state as an argument, written to "
                         "<out>.weights.pt, instead of inside the program")
@@ -418,6 +421,11 @@ def main(argv=None) -> int:
         from hands_tpu_torch.train.checkpoint import load_serving_checkpoint
 
         load_serving_checkpoint(model, args.ckpt)
+    if args.vit_depth:
+        bb = getattr(model.net, "backbone", None)
+        if not hasattr(bb, "blocks"):
+            raise ValueError(f"--vit_depth: {args.method} has no ViT")
+        bb.blocks = bb.blocks[:args.vit_depth]
 
     raw_hw = tuple(int(v) for v in args.raw_hw.split("x"))
     program, raw, operands = export_serving(
@@ -428,7 +436,8 @@ def main(argv=None) -> int:
             state = {k: v.detach() for k, v in serving_state(model).items()}
     meta = {"method": args.method, "dtype": args.dtype,
             "fused_block": cfg.fused_block, "quant_int8": cfg.quant_int8,
-            "fast_gelu": args.fast_gelu, "ckpt": args.ckpt}
+            "fast_gelu": args.fast_gelu, "ckpt": args.ckpt,
+            "vit_depth": args.vit_depth}
     if args.aoti:
         sidecar = write_package(args.out, program, raw, operands, meta)
     else:

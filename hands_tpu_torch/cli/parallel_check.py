@@ -1,4 +1,4 @@
-"""Data-parallel training steps held against the one-process step.
+"""The parallel axes' runs held against their one-process counterparts.
 
     python -m hands_tpu_torch.cli.parallel_check --spec spec.json --out DIR \\
         --ranks 2 [--device cpu] [--timeout 900]
@@ -25,13 +25,35 @@ global batch. ``spec.json`` says what a rank runs:
   batch and every rounding in f64 (``utils/exact.py``; the optimiser keeps
   f32 masters, so nothing is updated): kinks (ReLU zeros, max-pool ties)
   that f32 rounding moves between two runs stay put there;
+- the model axis (every rank one ``"model"`` coordinate of a (1, ranks)
+  ``("data", "model")`` mesh): ``"tp"``, the train steps of ``make_train_step``
+  on the model after ``parallel/sharding.py:shard_vit_tp``, every rank on the
+  global batch (held to ``"reference"``); and three forward modes, each held
+  to the one-process run named after it (``FORWARD``): ``"tp_serve"``
+  (``cli.demo.serve`` of ``requests`` synthetic requests of ``images``
+  images through the sharded bf16 ``fused_block`` model; ``"serve"``),
+  ``"sp"`` (the plain ``ViTBackbone``, bf16 or ``sp_dtype``, with ``ring``
+  on ``images`` random images, and ``sp_attention`` and ``ring_attention``
+  in f32 at ``attention`` (B, N, H, D) against ``mha_reference``;
+  ``"backbone"``, the same backbone on a ring of this process alone,
+  ``Mesh.alone``: the ring's attention is f32 where the plain bf16 block
+  rounds its logits to bf16, so the counterpart takes the same arithmetic
+  unsharded),
+  ``"pp"`` (``pipeline_apply`` over the ranks' equal groups of the bf16
+  ``fused_block`` blocks, ``microbatches`` of ``images`` crops of tokens;
+  ``"serial"``, every block in turn on each microbatch);
 - ``reference``: rank 0 then runs the one-process step
-  (``make_train_step`` without ranks) on the global batches; a list may
-  add ``"split"``, the one-process step that takes the global batch in as
+  (``make_train_step`` without ranks) on the global batches; a list names
+  the one-process runs (``"reference"``, a forward mode's counterpart) and
+  may add ``"split"``, the one-process step that takes the global batch in as
   many row blocks as there are ranks and averages their gradients
   (:func:`split_step`: the ranks' arithmetic without ranks, for models
   without BatchNorm);
-- ``vit_depth``: the ViT's first blocks only (widths stay);
+- ``vit_depth``: the ViT's first blocks only (widths stay); ``mode_depth``
+  {mode: depth} the same for one mode;
+- ``images`` (each request of ``"tp_serve"``), ``sp_images``, ``pp_crops``
+  (a microbatch), ``requests``, ``microbatches``, ``attention``: the
+  forward modes' sizes;
 - ``save``: rank 0 writes each mode's tensors there (``torch.save``),
   the first Adam moment included.
 
@@ -51,9 +73,13 @@ the learning rate whatever its gradient, so where a gradient is near zero
 the two runs may step apart by that much: read against its largest entry,
 a bias that starts at zero shows such an entry as a distance of order one;
 a shard whose update went astray moves every entry); and the largest
-distance between the ranks' BatchNorm running statistics. The numbers are reported, not
-judged: ``chip_smoke.py`` and ``tests/test_torch_multiprocess.py`` hold
-them to their limits.
+distance between the ranks' BatchNorm running statistics. A forward mode
+reports its ms a call (the last held one), the host ms in collectives, the
+device ms of a call, the all-reduces of the model axis a call and the
+memory, and rank 0 compares its outputs with the one-process run's (the
+largest and the mean distance over max(|ref|, 1), and whether they are
+bit-equal). The numbers are reported, not judged: ``chip_smoke.py`` and
+``tests/test_torch_multiprocess.py`` hold them to their limits.
 """
 
 from __future__ import annotations
@@ -70,6 +96,8 @@ import numpy as np
 import torch
 
 PARTS = ("inputs", "targets", "meta")
+# a forward mode -> the one-process run it is held to
+FORWARD = {"tp_serve": "serve", "sp": "backbone", "pp": "serial"}
 
 
 def save_batch(path: str, batch) -> None:
@@ -100,10 +128,13 @@ def launch_counts() -> Dict[str, int]:
     from hands_tpu_torch.ops import attention, mano_lbs, rasterizer
     from hands_tpu_torch.ops import vit_block as vb
 
+    from hands_tpu_torch.parallel import sharding
+
     out = {f"vit_{k}": v for k, v in vb.launches.items()}
     out.update(vb.bwd_launches)
     for mod in (attention, mano_lbs, rasterizer):
         out.update(mod.launches)
+    out["model_all_reduce"] = sharding.all_reduces["n"]
     return out
 
 
@@ -227,6 +258,24 @@ def _rel(a: float, b: float) -> float:
     return abs(a - b) / max(abs(b), 1e-12)
 
 
+def _out_distance(got: Dict[str, torch.Tensor],
+                  ref: Dict[str, torch.Tensor]) -> dict:
+    """A forward mode's outputs against the one-process run's: the worst
+    output's largest and mean distance over max(|ref|, 1), and whether all
+    are bit-equal."""
+    worst, equal = ("", 0.0, 0.0), True
+    for name, r in ref.items():
+        g = got[name]
+        equal = equal and torch.equal(g, r)
+        d = (g.double() - r.double()).abs()
+        scale = max(float(r.double().abs().max()), 1.0)
+        mx, mean = float(d.max()) / scale, float(d.mean()) / scale
+        if not np.isfinite(mx) or mx > worst[1]:
+            worst = (name, mx, mean)
+    return {"worst": worst[0], "max": worst[1], "mean": worst[2],
+            "equal": equal}
+
+
 class _Rank:
     def __init__(self, argv: List[str], spec: dict, out_dir: str):
         from hands_tpu_torch.cli._args import parse
@@ -240,22 +289,40 @@ class _Rank:
         self.rank = 0 if self.dp is None else self.dp.rank
         self.world = 1 if self.dp is None else self.dp.world
         self.steps = int(spec.get("steps", 2))
+        self._mesh = None
+
+    def model_axis(self):
+        """This rank's line of the ``"model"`` axis of a (1, ranks)
+        ``("data", "model")`` mesh (made once: every rank calls)."""
+        from hands_tpu_torch.parallel.mesh import make_mesh
+
+        if self._mesh is None:
+            self._mesh = make_mesh((1, self.world), ("data", "model"),
+                                   torch.device(self.device).type)
+        return self._mesh.axis("model")
 
     # ------------------------------------------------------------ inputs
-    def model(self):
+    def model(self, mode: str = ""):
         from hands_tpu_torch.models.registry import fetch_model
 
         model = fetch_model(self.cfg, self.device, seed=self.cfg.seed,
                             vit_variant=self.spec.get("vit_variant", "h"),
                             param_dtype=torch.float32)
-        if self.spec.get("vit_depth"):
-            blocks = model.net.backbone.blocks
-            model.net.backbone.blocks = blocks[:int(self.spec["vit_depth"])]
+        self.cut_depth(model, mode)
         if self.spec.get("weights"):
             model.load_state_dict(torch.load(
                 self.spec["weights"], map_location=self.device,
                 weights_only=True))
         return model
+
+    def cut_depth(self, model, mode: str) -> None:
+        """The ViT's first ``vit_depth`` (or ``mode_depth[mode]``) blocks
+        only (widths stay); ``model`` a ViT backbone or a HaMeR model."""
+        depth = self.spec.get("mode_depth", {}).get(
+            mode, self.spec.get("vit_depth"))
+        if depth:
+            bb = getattr(getattr(model, "net", None), "backbone", model)
+            bb.blocks = bb.blocks[:int(depth)]
 
     def batches(self, sharded: bool) -> list:
         """The batches of the held steps and the two profiled ones: this
@@ -290,11 +357,22 @@ class _Rank:
         from hands_tpu_torch.utils.experiment import Experiment
         from hands_tpu_torch.utils.profiling import device_busy_ms
 
+        from hands_tpu_torch.parallel import sharding
+
         print(f"rank {self.rank}: {mode}", flush=True)
         if mode.endswith("_f64"):
             return self.run_f64(mode[:-len("_f64")])
-        model = self.model()
-        if mode in ("reference", "split"):  # one process, the global batch
+        if mode in FORWARD or mode in FORWARD.values():
+            return self.run_forward(mode)
+        model = self.model(mode)
+        total_bytes = sum(p.numel() * p.element_size()
+                          for p in model.parameters())
+        if mode == "tp":  # the model ranks' shards, every rank all rows
+            sharding.shard_vit_tp(model, self.model_axis())
+            state = create_train_state(self.cfg, model)
+            step = make_train_step(model, self.cfg)
+            batches = self.batches(sharded=False)
+        elif mode in ("reference", "split"):  # one process, the global batch
             state = create_train_state(self.cfg, model)
             step = (make_train_step(model, self.cfg) if mode == "reference"
                     else split_step(model, self.cfg, self.world))
@@ -346,7 +424,8 @@ class _Rank:
         keep = self.rank == 0 or mode in ("reference", "split")
 
         def whole(tensors):  # every rank takes part; rank 0 keeps
-            out = {n: fsdp.full(t, params[n]) for n, t in tensors}
+            out = {n: fsdp.full(sharding.full_tp(t, params[n]), params[n])
+                   for n, t in tensors}
             return {n: t.detach().to("cpu", copy=True)
                     for n, t in out.items()} if keep else {}
 
@@ -375,8 +454,7 @@ class _Rank:
                         if cuda else None),
             "launches": launches,
             "shard_bytes": fsdp.shard_bytes(state.tx.model_params),
-            "total_bytes": sum(p.numel() * p.element_size()
-                               for p in state.tx.model_params),
+            "total_bytes": total_bytes,
         }
         # the spy closes a cycle through the state: collect it, so that the
         # next mode's peak does not count this one's tensors
@@ -385,6 +463,158 @@ class _Rank:
         if cuda:
             torch.cuda.empty_cache()
         return summary, tensors
+
+    def forward_calls(self, mode: str):
+        """A forward mode's (or its counterpart's) model and its calls: (the
+        module whose parameters it holds, [a closure a held call, each
+        returning {name: tensor}], extra numbers for the summary)."""
+        from hands_tpu_torch.cli.demo import serve, serving_config
+        from hands_tpu_torch.core.precision import f32_exact
+        from hands_tpu_torch.data.datasets import SyntheticRecordDataset
+        from hands_tpu_torch.models.backbones.vit import IMG_HW, ViTBackbone
+        from hands_tpu_torch.models.registry import fetch_model, init_weights_
+        from hands_tpu_torch.parallel import sequence, sharding
+        from hands_tpu_torch.parallel.mesh import Mesh
+        from hands_tpu_torch.parallel.pipeline import pipeline_apply
+
+        spec, dev = self.spec, torch.device(self.device)
+        variant = spec.get("vit_variant", "h")
+        images = int(spec.get("images", 4))
+        gen = torch.Generator(device=dev).manual_seed(self.cfg.seed)
+        extra = {}
+        if mode in ("tp_serve", "serve"):
+            cfg = serving_config(spec["method"], "bfloat16", fused_block=True)
+            model = fetch_model(cfg, dev, seed=self.cfg.seed,
+                                vit_variant=variant)
+            self.cut_depth(model, mode)
+            if mode == "tp_serve":
+                sharding.shard_vit_tp(model, self.model_axis())
+            ds = SyntheticRecordDataset(cfg, "val", length=images * int(
+                spec.get("requests", 3)))
+            reqs = [[ds[i] for i in range(r, r + images)]
+                    for r in range(0, len(ds), images)]
+            keys = ("pred.mano.vertices.r", "pred.mano.vertices.l")
+
+            def call(recs, i):
+                out = serve(recs, cfg, model, dev)
+                return {f"request{i}/{k}": out[k] for k in keys}
+
+            return model, [lambda r=r, i=i: call(r, i)
+                           for i, r in enumerate(reqs)], extra
+        if mode in ("sp", "backbone"):
+            if mode == "sp":
+                self.model_axis()
+                mesh = self._mesh
+            else:
+                mesh = Mesh.alone(("data", "model"), dev.type)
+            bb = ViTBackbone(variant, device=dev, ring=mesh, ring_axis="model",
+                             dtype=getattr(torch, spec.get("sp_dtype",
+                                                           "bfloat16")))
+            init_weights_(bb, gen)
+            self.cut_depth(bb, mode)
+            imgs = torch.randn((int(spec.get("sp_images", images)),)
+                               + IMG_HW + (3,), generator=gen,
+                               device=dev)
+            if mode == "sp":
+                shape = tuple(spec.get("attention", (2, 16, 2, 16)))
+                q, k, v = (torch.randn(shape, generator=gen, device=dev)
+                           for _ in range(3))
+                ax = self.model_axis()
+                with torch.inference_mode(), f32_exact():
+                    ref = sequence.mha_reference(q, k, v)
+                    sl = slice(ax.rank * shape[1] // ax.world,
+                               (ax.rank + 1) * shape[1] // ax.world)
+                    for fn in (sequence.sp_attention,
+                               sequence.ring_attention):
+                        got = fn(q[:, sl], k[:, sl], v[:, sl], ax)
+                        extra[fn.__name__] = float(
+                            (got - ref[:, sl]).abs().max())
+            return bb, [lambda: {"features": bb(imgs)}], extra
+        # "pp", "serial": the bf16 fused_block blocks
+        bb = ViTBackbone(variant, dtype=torch.bfloat16, fused_block=True,
+                         device=dev)
+        init_weights_(bb, gen)
+        self.cut_depth(bb, mode)
+        n_tok = bb.grid_hw[0] * bb.grid_hw[1]
+        xs = torch.randn((int(spec.get("microbatches", 4)),
+                          int(spec.get("pp_crops", images)), n_tok,
+                          bb.embed_dim), generator=gen, device=dev).to(
+                              torch.bfloat16)
+
+        def run(blocks, x):
+            for b in blocks:
+                x = b(x)
+            return x
+
+        blocks = list(bb.blocks)
+        if mode == "serial":
+            return bb, [lambda: {"out": torch.stack([run(blocks, x)
+                                                     for x in xs])}], extra
+        ax = self.model_axis()
+        per = len(blocks) // ax.world
+        mine = blocks[ax.rank * per:(ax.rank + 1) * per]
+        bb.blocks = torch.nn.ModuleList(mine)  # this stage's blocks only
+        return bb, [lambda: {"out": pipeline_apply(run, mine, xs, ax)}], extra
+
+    def run_forward(self, mode: str):
+        """A forward mode, or its one-process counterpart: a warm-up call,
+        the held calls (their outputs kept), one more under the profiler."""
+        from hands_tpu_torch.parallel import fsdp, sharding
+        from hands_tpu_torch.utils.profiling import device_busy_ms
+
+        cuda = torch.device(self.device).type == "cuda"
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            module, calls, extra = self.forward_calls(mode)
+            total = sum(p.numel() * p.element_size() * (
+                1 if sharding.tp_shard_of(p) is None
+                else sharding.tp_shard_of(p).tp.world)
+                for p in module.parameters())
+            calls[0]()  # warm-up
+            _sync(self.device)
+            outs, host_ms, launches = {}, 0.0, {}
+            clock = CommClock() if mode in FORWARD else None
+            first = launch_counts()
+            try:
+                for call in calls:
+                    before = launch_counts()
+                    if clock is not None:
+                        clock.seconds = 0.0
+                    t0 = time.perf_counter()
+                    out = call()
+                    _sync(self.device)
+                    host_ms = 1e3 * (time.perf_counter() - t0)
+                    launches = {k: v - before[k]
+                                for k, v in launch_counts().items()
+                                if v != before[k]}
+                    outs.update({k: v.detach().to("cpu", copy=True)
+                                 for k, v in out.items()})
+            finally:
+                if clock is not None:
+                    clock.close()
+            held = {k: v - first[k] for k, v in launch_counts().items()
+                    if v != first[k]}
+            device_ms = (device_busy_ms(calls[-1], warmup=False)[0]
+                         if self.spec.get("profile", True) else None)
+        summary = {
+            "logs": [], "step_ms": host_ms, "device_ms": device_ms,
+            "collective_ms": 0.0 if clock is None else 1e3 * clock.seconds,
+            "held_gb": torch.cuda.memory_allocated() / 2 ** 30
+            if cuda else None,
+            "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30
+            if cuda else None,
+            "launches": launches, "launches_held": held,
+            "calls": len(calls),
+            "shard_bytes": fsdp.shard_bytes(module), "total_bytes": total,
+            **extra}
+        keep = self.rank == 0 or mode in FORWARD.values()
+        del module, calls
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        return summary, {"outputs": outs if keep else {}, "buffers": {},
+                         "logs": []}
 
     def run_f64(self, mode: str):
         """The first step's global loss and gradients in f64, the ranks of
@@ -436,6 +666,12 @@ class _Rank:
     def compare(self, kept: dict) -> dict:
         """Rank 0's comparisons of the modes (see the module's text)."""
         out = {}
+        for got, ref in FORWARD.items():
+            if got in kept and ref in kept:
+                out[f"{got}_vs_{ref}"] = _out_distance(
+                    kept[got]["outputs"], kept[ref]["outputs"])
+        kept = {m: t for m, t in kept.items()
+                if m not in FORWARD and m not in FORWARD.values()}
         one = [m for m in ("reference", "split") if m in kept]
         pairs = [(m, r) for r in one for m in kept if m not in one]
         if "ddp" in kept and "fsdp" in kept:

@@ -41,10 +41,11 @@ def main(argv=None, log_root: str = "logs", overrides=None):
     exp = Experiment(cfg, root=log_root)
     print(f"experiment {exp.key} -> {exp.dir}")
     model = build_model(cfg, device)
-    train_loader = fetch_dataloader(cfg, "train", device=device)
-    val_loader = fetch_dataloader(cfg, "val", device=device)
-
     trainer = Trainer(cfg, model, exp)
+    train_loader = fetch_dataloader(cfg, "train", device=device,
+                                    shard=trainer.data_shard)
+    val_loader = fetch_dataloader(cfg, "val", device=device,
+                                  shard=trainer.data_shard)
     num_epochs = 1 if (cfg.debug or cfg.fast_dev_run) else None
     state = trainer.fit(train_loader, val_loader, num_epochs=num_epochs)
     exp.close()

@@ -11,6 +11,10 @@
 //   vit_gemm       x4   qkv, proj(+residual), MLP1(+GELU, exact or tanh),
 //                       MLP2(+residual)
 //   vit_attention  x1   attention_kernel.cuh's tensor-core kernel, MODE_BLOCK
+// Under tensor parallelism (each rank a share of the heads and of the MLP's
+// hidden columns) proj and MLP2 run as vit_gemm_f32, the same GEMM with an f32
+// output and no epilogue: the ranks sum those partial products, then add the
+// bias and the residual with the rounding points of the fused epilogue.
 // The rounding points are those of block_math / _vit_block_kernel: every
 // product is accumulated in f32 and rounded to bf16, the bias is added in
 // bf16 after that rounding, attention logits are rounded to bf16 before an
@@ -198,6 +202,28 @@ struct BlockEpilogue {
   }
 };
 
+// out[M, N] = A . W^T in f32, no bias: this rank's partial products of a
+// row-parallel GEMM under tensor parallelism (the attention projection and
+// the MLP's second GEMM on a rank's heads or hidden columns), which the ranks
+// sum before the bias and the residual are added once, as the fused epilogue
+// adds them: bf16(acc) + bias in bf16, then residual + y in bf16
+struct PartialEpilogue {
+  float* out;  // (M, N)
+  int N;
+
+  // an inner tile's pairs start at even elements of 8-byte aligned rows
+  __device__ __forceinline__ bool aligned_pairs() const { return N % 2 == 0; }
+
+  static constexpr int SCRATCH_BYTES = 0;  // no table
+  __device__ __forceinline__ void prepare(unsigned char*, int, int) {}
+
+  template <bool EDGE>
+  __device__ __forceinline__ void store2(float a0, float a1, int gm, int gn,
+                                         bool two) const {
+    pair_store<EDGE>(out + (size_t)gm * N + gn, a0, a1, two);
+  }
+};
+
 template <int EPI>
 int block_gemm(const void* a, const void* w, const void* bias,
                const void* residual, void* out, int M, int N, int K,
@@ -248,6 +274,16 @@ int vit_gemm(int device, const void* a, const void* w, const void* bias,
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// out (M, N) f32 = A (M, K) . W (N, K)^T, no epilogue (PartialEpilogue)
+int vit_gemm_f32(int device, const void* a, const void* w, void* out, int M,
+                 int N, int K, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const PartialEpilogue ep{(float*)out, N};
+  return launch_gemm((const bf16*)a, (const bf16*)w, ep, M, N, K,
+                     (cudaStream_t)stream);
 }
 
 // qkv (B*N, 3C) with column s*C + h*D + d (s = q, k, v) -> out (B*N, C)

@@ -9,7 +9,6 @@ from hands_tpu_torch.config import Config
 from hands_tpu_torch.data.datasets import fetch_dataset
 from hands_tpu_torch.data.device_pipeline import (DeviceDataLoader,
                                                   PrefetchLoader)
-from hands_tpu_torch.parallel.distributed import process_count, process_index
 
 # meta keys carried as python lists, not arrays
 _LIST_KEYS = ("imgname", "query_names")
@@ -38,12 +37,14 @@ def collate_windowed(data_list):
     return tuple(outs)
 
 
-def fetch_dataloader(cfg: Config, mode: str, device="cuda"):
+def fetch_dataloader(cfg: Config, mode: str, device="cuda", shard=(0, 1)):
     """The loader of ``mode`` (``train``; ``val``, ``eval`` or ``test``) with
     its batches preprocessed on ``device``. The train loader prefetches on a
-    background thread when ``cfg.num_workers > 0``. Over several processes
-    each rank's loader yields its rows of every global batch."""
-    shard = (process_index(), process_count())
+    background thread when ``cfg.num_workers > 0``. ``shard``: (this rank's
+    coordinate on the mesh's ``"data"`` axis, the axis' size), the
+    ``Trainer``'s ``data_shard``; the loader yields that coordinate's rows of
+    every global batch (all of them on a data axis of 1, replicated over the
+    other axes, as in JAX)."""
     if mode == "train":
         dataset = fetch_dataset(cfg, cfg.dataset, cfg.trainsplit)
         loader = DeviceDataLoader(

@@ -23,6 +23,16 @@ eval mode (the JAX modules' ``train=False`` default). In train mode
 (``module.train()``) the int8 and calibration sub-paths are off, as the JAX
 model turns them off under ``train=True``, and ``use_checkpoint`` recomputes
 each plain block in the backward pass.
+
+The model-parallel axes (``parallel/``): a block whose parameters
+``parallel/sharding.py:shard_vit_tp`` replaced by a rank's shard runs tensor
+parallel (the kernel route through ``ops/vit_block.py``'s ``reduce`` hook,
+the plain route with Megatron's f and g around its ``Dense``s); a backbone
+given ``ring`` (a ``parallel/mesh.py:Mesh``) and ``ring_axis`` (the JAX
+``ring_mesh``) runs its blocks on this rank's token block, with the plain
+attention as ``parallel/sequence.py:ring_attention`` in f32, and gathers the
+tokens after its last LayerNorm. As in JAX, the bf16 ``fused_block`` route
+wins over the ring (the tokens then stay whole).
 """
 
 from __future__ import annotations
@@ -36,6 +46,11 @@ from torch.utils.checkpoint import checkpoint
 
 from hands_tpu_torch.models.backbones.resnet import BatchNorm, Conv
 from hands_tpu_torch.ops import quant
+from hands_tpu_torch.parallel.mesh import all_gather, rows
+from hands_tpu_torch.parallel.sequence import ring_attention
+from hands_tpu_torch.parallel.sharding import (copy_to_model,
+                                               reduce_from_model,
+                                               reduce_hook)
 from hands_tpu_torch.ops.attention import mha_fused
 from hands_tpu_torch.ops.vit_block import (block_params, gelu, layernorm_f32,
                                            vit_block_fused_trainable)
@@ -121,6 +136,13 @@ def _dense(in_f, out_f, dtype, quant_int8: bool, device, param_dtype=None):
     return Dense(in_f, out_f, dtype, device=device, param_dtype=param_dtype)
 
 
+def _row_parallel(dense: Dense, x, tp):
+    """A row-parallel ``Dense`` on a rank's input columns: the products
+    summed over the model ranks ``tp``, then the bias, once."""
+    y = F.linear(x.to(dense.dtype), dense.weight.to(dense.dtype))
+    return reduce_from_model(y, tp) + dense.bias.to(dense.dtype)
+
+
 class MlpBlock(nn.Module):
     def __init__(self, dim: int, hidden: int, dtype, device=None,
                  fast_gelu: bool = False, quant_int8: bool = False,
@@ -129,33 +151,50 @@ class MlpBlock(nn.Module):
         self.fast_gelu = fast_gelu
         self.fc1 = _dense(dim, hidden, dtype, quant_int8, device, param_dtype)
         self.fc2 = _dense(hidden, dim, dtype, quant_int8, device, param_dtype)
+        self.tp = None  # the model ranks, once shard_vit_tp has run
 
     def forward(self, x, tap: Optional[Callable] = None):
+        if self.tp is not None:
+            x = copy_to_model(x, self.tp)
         x = gelu(self.fc1(x), self.fast_gelu)
         if tap is not None:  # calibration point: MLP second-dense input
             tap(x)
+        if self.tp is not None:
+            return _row_parallel(self.fc2, x, self.tp)
         return self.fc2(x)
 
 
 class Attention(nn.Module):
     def __init__(self, dim: int, num_heads: int, dtype, device=None,
                  quant_int8: bool = False, fused_attn: bool = False,
-                 param_dtype=None):
+                 param_dtype=None, ring=None, ring_axis: str = "model"):
         super().__init__()
-        self.num_heads = num_heads
+        self.num_heads = num_heads  # a rank's share under tensor parallelism
         self.fused_attn = fused_attn
+        self.ring, self.ring_axis = ring, ring_axis
         self.qkv = _dense(dim, 3 * dim, dtype, quant_int8, device, param_dtype)
         self.proj = _dense(dim, dim, dtype, quant_int8, device, param_dtype)
+        self.tp = None  # the model ranks, once shard_vit_tp has run
 
     def forward(self, x, tap: Optional[Callable] = None):
         # x: the f32 LayerNorm output. As in the Flax module, logits come
         # out of the product in the compute dtype, the softmax runs in f32
         # and the probabilities keep x's dtype, so p.v promotes v to f32.
-        B, N, C = x.shape
+        B, N, _ = x.shape
         H = self.num_heads
-        D = C // H
-        qkv = self.qkv(x).view(B, N, 3, H, D)
-        if self.fused_attn:
+        if self.tp is not None:
+            x = copy_to_model(x, self.tp)
+        qkv = self.qkv(x)
+        D = qkv.shape[-1] // (3 * H)
+        C = H * D
+        qkv = qkv.view(B, N, 3, H, D)
+        if self.ring is not None:
+            # f32 accumulation (the online softmax's exp/rescale chain),
+            # cast back to x's dtype, as the JAX module does
+            q, k, v = (t.float() for t in qkv.unbind(2))
+            out = ring_attention(q, k, v, self.ring.axis(self.ring_axis))
+            out = out.to(x.dtype).reshape(B, N, C)
+        elif self.fused_attn:
             # one kernel per forward: no (B, H, N, N) tensor in device memory
             out = mha_fused(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], D**-0.5)
             out = out.reshape(B, N, C)
@@ -168,6 +207,8 @@ class Attention(nn.Module):
             out = out.permute(0, 2, 1, 3).reshape(B, N, C)
         if tap is not None:  # calibration point: proj input
             tap(out)
+        if self.tp is not None:
+            return _row_parallel(self.proj, out, self.tp)
         return self.proj(out)
 
 
@@ -191,13 +232,18 @@ class Block(nn.Module):
     first forward and kept; :meth:`invalidate_prepared` drops them after the
     parameters change (``load_state_dict`` does so by itself).
     :meth:`hold_prepared` registers them as buffers for an export.
+
+    :meth:`set_tp` (from ``parallel/sharding.py:shard_vit_tp``) makes the
+    block tensor-parallel on its shard; ``ring`` and ``ring_axis`` route the
+    plain attention through the ring (see the module's text).
     """
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float, dtype,
                  fused_block: bool = False, device=None,
                  fast_gelu: bool = False, quant_int8: bool = False,
                  fused_attn: bool = False, quant_static: bool = False,
-                 quant_calibrate: bool = False, param_dtype=None):
+                 quant_calibrate: bool = False, param_dtype=None,
+                 ring=None, ring_axis: str = "model"):
         super().__init__()
         hidden = int(dim * mlp_ratio)
         self.num_heads = num_heads
@@ -216,7 +262,7 @@ class Block(nn.Module):
         self.norm1 = LayerNorm(dim, device=device)
         self.attn = Attention(dim, num_heads, dtype, device=device,
                               quant_int8=int8_dense, fused_attn=fused_attn,
-                              param_dtype=pd)
+                              param_dtype=pd, ring=ring, ring_axis=ring_axis)
         self.norm2 = LayerNorm(dim, device=device)
         self.mlp = MlpBlock(dim, hidden, dtype, device=device,
                             fast_gelu=fast_gelu, quant_int8=int8_dense,
@@ -231,9 +277,21 @@ class Block(nn.Module):
                                      torch.zeros(ch, device=device),
                                      persistent=False)
         self._prepared: Optional[Dict[str, torch.Tensor]] = None
+        self.tp = None  # the model ranks, once shard_vit_tp has run
         self.register_load_state_dict_post_hook(
             lambda module, _keys: module.invalidate_prepared())
         self.eval()
+
+    def set_tp(self, tp, local_heads: int) -> None:
+        """Run tensor parallel over the model ranks ``tp`` on the shard
+        ``shard_vit_tp`` put in place, ``local_heads`` of the heads."""
+        self.tp = self.attn.tp = self.mlp.tp = tp
+        self.num_heads = self.attn.num_heads = local_heads
+        self.invalidate_prepared()
+
+    def kernel_route(self) -> bool:
+        """Whether :meth:`forward` takes the hand-written kernels now."""
+        return self.fused_train if self.training else self.fused
 
     def invalidate_prepared(self) -> None:
         self._prepared = None
@@ -282,11 +340,13 @@ class Block(nn.Module):
 
     def forward(self, x):
         train = self.training
-        if self.fused_train if train else self.fused:
+        if self.kernel_route():
             if train or not self.quant_int8:
+                tp = ({} if self.tp is None
+                      else {"reduce": reduce_hook(self.tp)})
                 return vit_block_fused_trainable(
                     x, block_params(self), self.num_heads,
-                    self.fast_gelu).to(x.dtype)
+                    self.fast_gelu, **tp).to(x.dtype)
             if self.quant_static:
                 return vit_block_fused_int8_static(
                     x, self.prepared(), num_heads=self.num_heads,
@@ -311,7 +371,8 @@ class ViTBackbone(nn.Module):
 
     Input: (B, H, W, in_ch) NHWC with (H, W) = ``img_hw``, (256, 192) for
     HaMeR. Output: (B, H/16, W/16, C) f32. ``kpe_emb`` (B, N, C) is added to
-    the patch tokens when given.
+    the patch tokens when given. ``ring``, ``ring_axis``: sequence
+    parallelism (the module's text).
     """
 
     def __init__(self, variant: str = "h", dtype=torch.float32,
@@ -320,12 +381,13 @@ class ViTBackbone(nn.Module):
                  fused_attn: bool = False, quant_static: bool = False,
                  quant_calibrate: bool = False, param_dtype=None,
                  use_checkpoint: bool = False, img_hw=IMG_HW,
-                 in_ch: int = 3):
+                 in_ch: int = 3, ring=None, ring_axis: str = "model"):
         super().__init__()
         cfg = VIT_CONFIGS[variant]
         C = cfg["embed_dim"]
         self.dtype = dtype
         self.use_checkpoint = use_checkpoint
+        self.ring, self.ring_axis = ring, ring_axis
         pd = param_dtype or dtype
         self.embed_dim = C
         self.grid_hw = (img_hw[0] // PATCH, img_hw[1] // PATCH)
@@ -343,7 +405,8 @@ class ViTBackbone(nn.Module):
                   fused_block=fused_block, device=device,
                   fast_gelu=fast_gelu, quant_int8=quant_int8,
                   fused_attn=fused_attn, quant_static=quant_static,
-                  quant_calibrate=quant_calibrate, param_dtype=param_dtype)
+                  quant_calibrate=quant_calibrate, param_dtype=param_dtype,
+                  ring=ring, ring_axis=ring_axis)
             for _ in range(cfg["depth"])
         ])
         self.last_norm = LayerNorm(C, device=device)
@@ -360,6 +423,11 @@ class ViTBackbone(nn.Module):
         y = y + self.pos_embed.to(self.dtype)
         if kpe_emb is not None:
             y = y + kpe_emb.to(self.dtype)
+        ring = None
+        if self.ring is not None and not any(
+                b.kernel_route() for b in self.blocks):
+            ring = self.ring.axis(self.ring_axis)
+            y = y[:, rows(y.shape[1], ring.rank, ring.world)]
         for block in self.blocks:
             # a fused block keeps only its input already: no checkpoint on top
             if (self.use_checkpoint and self.training
@@ -368,6 +436,8 @@ class ViTBackbone(nn.Module):
             else:
                 y = block(y)
         y = self.last_norm(y)
+        if ring is not None:  # every rank's token block, in order
+            y = all_gather(y, ring, 1)
         return y.reshape(B, hp, wp, self.embed_dim)
 
 

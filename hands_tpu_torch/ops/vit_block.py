@@ -49,8 +49,10 @@ from hands_tpu_torch.ops.cuda_build import on_cpu as _on_cpu
 _EPILOGUES = {None: 0, "gelu": 1, "residual": 2, "gelu_tanh": 3}
 _BF16 = torch.bfloat16
 
-# kernel launches per wrapper since the last reset (CPU twin runs not counted)
-launches: Dict[str, int] = {"layernorm": 0, "gemm": 0, "attention": 0}
+# kernel launches per wrapper since the last reset (CPU twin runs not
+# counted); gemm_f32 is the GEMM's f32 partial-product form (gemm_partial)
+launches: Dict[str, int] = {"layernorm": 0, "gemm": 0, "gemm_f32": 0,
+                            "attention": 0}
 # the same for the backward's kernels; layernorm_bwd_sums is the second
 # launch of layernorm_bwd (the column sums of its blocks' partial sums)
 bwd_launches: Dict[str, int] = {"attention_bwd": 0, "layernorm_bwd": 0,
@@ -67,8 +69,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.vit_layernorm.argtypes = [i, p, p, p, p, i, i, f, p]
     lib.vit_gemm.argtypes = [i, p, p, p, p, p, i, i, i, i, p]
+    lib.vit_gemm_f32.argtypes = [i, p, p, p, i, i, i, p]
     lib.vit_attention.argtypes = [i, p, p, i, i, i, i, f, p]
-    for fn in (lib.vit_layernorm, lib.vit_gemm, lib.vit_attention):
+    for fn in (lib.vit_layernorm, lib.vit_gemm, lib.vit_gemm_f32,
+               lib.vit_attention):
         fn.restype = ctypes.c_int
 
 
@@ -179,6 +183,20 @@ def gemm_plain(a, w, bias, epilogue=None, residual=None) -> torch.Tensor:
     if epilogue == "residual":
         return residual + y
     return y
+
+
+def gemm_partial_plain(a, w) -> torch.Tensor:
+    """bf16 ``a (M, K) . w (N, K)^T`` in f32 (exact products of the bf16
+    values, f32 sums), no bias: a rank's partial products of a row-parallel
+    GEMM under tensor parallelism."""
+    return torch.matmul(a.float(), w.float().t())
+
+
+def finish_row_parallel(acc, bias, residual) -> torch.Tensor:
+    """The fused residual epilogue on the f32 products summed over the
+    ranks: ``bf16(acc) + bias`` in bf16, then ``residual + y`` in bf16, the
+    rounding points of :func:`gemm_plain` and of the kernel's epilogue."""
+    return residual + (acc.to(_BF16) + bias)
 
 
 def attention_plain(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -332,6 +350,20 @@ def launch_gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     return out
 
 
+def launch_gemm_partial(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    M, K = a.shape
+    N = w.shape[0]
+    dev = a.device
+    check_gemm_operands(a, w)
+    _check(a, "a", _BF16, (M, K), dev)
+    _check(w, "w", _BF16, (N, K), dev)
+    out = torch.empty((M, N), dtype=torch.float32, device=dev)
+    LIBRARY.launch("vit_gemm_f32", dev, a.data_ptr(), w.data_ptr(),
+                   out.data_ptr(), M, N, K)
+    launches["gemm_f32"] += 1
+    return out
+
+
 def _attention_shape(qkv: torch.Tensor, num_heads: int):
     """(B, N, C, D) of a fused (B, N, 3C) qkv; raises on what the attention
     kernels do not take."""
@@ -387,6 +419,14 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     if _on_cpu(a):
         return gemm_plain(a, w, bias, epilogue, residual)
     return GEMM(a, w, bias, residual, _EPILOGUES[epilogue])
+
+
+def gemm_partial(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """bf16 (M, K) x (N, K)^T -> (M, N) f32 products, no epilogue (the
+    GEMM kernel's f32 form; see :func:`gemm_partial_plain`)."""
+    if _on_cpu(a):
+        return gemm_partial_plain(a, w)
+    return launch_gemm_partial(a, w)
 
 
 def attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -475,6 +515,7 @@ class Pieces(NamedTuple):
     """The functions a block and its backward are assembled from."""
     ln: object
     mm: object
+    mm_partial: object
     attn: object
     ln_bwd: object
     gelu_bwd: object
@@ -482,47 +523,65 @@ class Pieces(NamedTuple):
 
 
 # the kernels' wrappers (their twins for CPU tensors), and the twins
-KERNELS = Pieces(layernorm, gemm, attention, layernorm_bwd, gelu_bwd,
-                 attention_bwd)
-PLAIN = Pieces(layernorm_plain, gemm_plain, attention_plain,
-               layernorm_bwd_plain, gelu_bwd_plain, attention_bwd_plain)
+KERNELS = Pieces(layernorm, gemm, gemm_partial, attention, layernorm_bwd,
+                 gelu_bwd, attention_bwd)
+PLAIN = Pieces(layernorm_plain, gemm_plain, gemm_partial_plain,
+               attention_plain, layernorm_bwd_plain, gelu_bwd_plain,
+               attention_bwd_plain)
 
 
-def _block_front(x2, p, B, N, num_heads, f: Pieces, epilogue):
+def _residual_mm(f: Pieces, a, w, b, residual, reduce):
+    """``residual + (a . w^T + b)``: the fused residual epilogue, or under
+    tensor parallelism (``reduce``: the sum of f32 (M, N) products over the
+    model ranks) the f32 partial products summed, then the bias and the
+    residual added once with the epilogue's roundings."""
+    if reduce is None:
+        return f.mm(a, w, b, "residual", residual)
+    return finish_row_parallel(reduce(f.mm_partial(a, w)), b, residual)
+
+
+def _block_front(x2, p, B, N, num_heads, f: Pieces, epilogue, reduce=None):
     """The block up to its MLP hidden layer on (B*N, C) rows ``x2``: (y1,
     qkv, o, x1, y2, MLP1 with ``epilogue``). The forward and the backward's
-    recompute share it."""
+    recompute share it. ``num_heads`` are the heads ``p`` holds (a rank's
+    share under tensor parallelism, with ``reduce`` its sum over the ranks;
+    see :func:`_residual_mm`)."""
     y1 = f.ln(x2, p["ln1_scale"], p["ln1_bias"])
     qkv = f.mm(y1, p["wqkv"], p["bqkv"])
-    o = f.attn(qkv.view(B, N, -1), num_heads).view(x2.shape)
-    x1 = f.mm(o, p["wproj"], p["bproj"], "residual", x2)
+    o = f.attn(qkv.view(B, N, -1), num_heads).view(B * N, -1)
+    x1 = _residual_mm(f, o, p["wproj"], p["bproj"], x2, reduce)
     y2 = f.ln(x1, p["ln2_scale"], p["ln2_bias"])
     return y1, qkv, o, x1, y2, f.mm(y2, p["w1"], p["b1"], epilogue)
 
 
-def _block(x, p, num_heads, fast_gelu, f: Pieces):
+def _block(x, p, num_heads, fast_gelu, f: Pieces, reduce=None):
     B, N, C = x.shape
     x2 = x.reshape(B * N, C)
     *_, x1, _, h = _block_front(x2, p, B, N, num_heads, f,
-                                "gelu_tanh" if fast_gelu else "gelu")
-    return f.mm(h, p["w2"], p["b2"], "residual", x1).view(B, N, C)
+                                "gelu_tanh" if fast_gelu else "gelu", reduce)
+    return _residual_mm(f, h, p["w2"], p["b2"], x1, reduce).view(B, N, C)
 
 
 def vit_block_plain(x: torch.Tensor, params: dict, num_heads: int,
-                    fast_gelu: bool = False) -> torch.Tensor:
+                    fast_gelu: bool = False, reduce=None) -> torch.Tensor:
     """The plain PyTorch twin of the whole block (port of ``block_math``
     with the kernel's rounding points)."""
-    return _block(x, params, num_heads, fast_gelu, PLAIN)
+    return _block(x, params, num_heads, fast_gelu, PLAIN, reduce)
 
 
 def vit_block_fused(x: torch.Tensor, params: dict, *, num_heads: int,
-                    fast_gelu: bool = False) -> torch.Tensor:
+                    fast_gelu: bool = False, reduce=None) -> torch.Tensor:
     """One ViT block: (B, N, C) bf16 tokens -> (B, N, C) bf16. ``params`` is
     the flat dict of :func:`block_params` (matmul weights bf16 in (out, in)
     layout, biases bf16, LayerNorm scale/bias f32). CUDA tensors run the
     kernels (7 launches), CPU tensors the twin. ``fast_gelu`` takes the
-    tanh-approximate GELU in the MLP epilogue."""
-    return _block(x.to(_BF16), params, num_heads, fast_gelu, KERNELS)
+    tanh-approximate GELU in the MLP epilogue.
+
+    Tensor parallelism: ``params`` holds a rank's shard (qkv by heads,
+    ``num_heads`` of them; MLP1 by hidden rows; proj and MLP2 by their
+    input columns) and ``reduce`` sums an f32 tensor over the model ranks;
+    proj and MLP2 then run :func:`gemm_partial`, still 7 launches."""
+    return _block(x.to(_BF16), params, num_heads, fast_gelu, KERNELS, reduce)
 
 
 PARAM_ORDER = ("ln1_scale", "ln1_bias", "wqkv", "bqkv", "wproj", "bproj",
@@ -539,7 +598,7 @@ def _cast_params(params: dict) -> dict:
 
 def vit_block_backward(x: torch.Tensor, params: dict, g: torch.Tensor,
                        num_heads: int, fast_gelu: bool = False, needs=None,
-                       f: Pieces = KERNELS) -> tuple:
+                       f: Pieces = KERNELS, reduce=None) -> tuple:
     """The gradients of :func:`vit_block_fused_trainable` from its input
     ``x`` and parameters ``params`` as given and the output's gradient
     ``g``: (dx, then one per :data:`PARAM_ORDER`), each in the dtype of what
@@ -550,7 +609,14 @@ def vit_block_backward(x: torch.Tensor, params: dict, g: torch.Tensor,
     ``torch.matmul`` (the operand order of autograd's ``mm`` backward),
     ``f.gelu_bwd``, ``f.ln_bwd`` twice (each adds the residual's gradient)
     and ``f.attn_bwd`` once. With :data:`PLAIN`, or on CPU tensors, this is
-    autograd of :func:`vit_block_plain` op by op."""
+    autograd of :func:`vit_block_plain` op by op.
+
+    Under tensor parallelism (``reduce``, as :func:`vit_block_fused`) the
+    recompute runs the sharded forward, and the input gradients of the
+    column-parallel products (qkv's, MLP1's), a rank's share, are taken in
+    f32 and summed over the ranks before each ``f.ln_bwd``; the parameters'
+    gradients are this rank's shards, the LayerNorms' and the row-parallel
+    biases' whole (equal on every rank)."""
     names = ("x",) + PARAM_ORDER
     want = dict(zip(names, needs if needs is not None else (True,) * 13))
     p = _cast_params(params)
@@ -570,7 +636,8 @@ def vit_block_backward(x: torch.Tensor, params: dict, g: torch.Tensor,
         flat = torch.empty(sum(sizes), dtype=dtype, device=x.device)
         for k, t in zip(group, flat.split(sizes)):
             slots[k] = t.view(params[k].shape)
-    y1, qkv, o, x1, y2, u = _block_front(x2, p, B, N, num_heads, f, None)
+    y1, qkv, o, x1, y2, u = _block_front(x2, p, B, N, num_heads, f, None,
+                                         reduce)
     out = {}
 
     def keep(name, grad):
@@ -578,12 +645,15 @@ def vit_block_backward(x: torch.Tensor, params: dict, g: torch.Tensor,
         if want[name]:
             out[name] = slots[name].copy_(grad)
 
-    def dense(name, dy, a):
-        """The gradients of ``a @ w.T + b`` for the gradient ``dy``."""
+    def dense(name, dy, a, column=False):
+        """The gradients of ``a @ w.T + b`` for the gradient ``dy``; a
+        column-parallel product's input gradient summed over the ranks."""
         if want["w" + name]:
             keep("w" + name, dy.t().mm(a))
         if want["b" + name]:
             keep("b" + name, _sum_rows(dy))
+        if column and reduce is not None:
+            return reduce(dy.float().mm(p["w" + name].float())).to(_BF16)
         return dy.mm(p["w" + name])
 
     du, h = f.gelu_bwd(u, g2.mm(p["w2"]), fast_gelu)
@@ -593,15 +663,18 @@ def vit_block_backward(x: torch.Tensor, params: dict, g: torch.Tensor,
     if want["b2"]:
         keep("b2", _sum_rows(g2))
     del h
-    dx1, dscale, dbias = f.ln_bwd(x1, dense("1", du, y2), p["ln2_scale"], g2)
+    dx1, dscale, dbias = f.ln_bwd(x1, dense("1", du, y2, True),
+                                  p["ln2_scale"], g2)
     keep("ln2_scale", dscale)
     keep("ln2_bias", dbias)
     del du, x1, y2
-    dqkv = f.attn_bwd(qkv.view(B, N, 3 * C),
-                      dense("proj", dx1, o).view(B, N, C), num_heads)
+    C3 = qkv.shape[-1]  # 3C, or a rank's 3C / s
+    dqkv = f.attn_bwd(qkv.view(B, N, C3),
+                      dense("proj", dx1, o).view(B, N, C3 // 3), num_heads)
     del qkv, o
     dx, dscale, dbias = f.ln_bwd(
-        x2, dense("qkv", dqkv.view(B * N, 3 * C), y1), p["ln1_scale"], dx1)
+        x2, dense("qkv", dqkv.view(B * N, C3), y1, True), p["ln1_scale"],
+        dx1)
     keep("ln1_scale", dscale)
     keep("ln1_bias", dbias)
     out["x"] = dx.view(x.shape).to(x.dtype)
@@ -615,22 +688,24 @@ class _VitBlockTrainable(torch.autograd.Function):
     parameters receive f32 gradients through the cast."""
 
     @staticmethod
-    def forward(ctx, num_heads, fast_gelu, x, *flat):
-        ctx.num_heads, ctx.fast_gelu = num_heads, fast_gelu
+    def forward(ctx, num_heads, fast_gelu, reduce, x, *flat):
+        ctx.num_heads, ctx.fast_gelu, ctx.reduce = num_heads, fast_gelu, reduce
         ctx.save_for_backward(x, *flat)
         return vit_block_fused(x, _cast_params(dict(zip(PARAM_ORDER, flat))),
-                               num_heads=num_heads, fast_gelu=fast_gelu)
+                               num_heads=num_heads, fast_gelu=fast_gelu,
+                               reduce=reduce)
 
     @staticmethod
     def backward(ctx, g):
         x, *flat = ctx.saved_tensors
-        return (None, None) + vit_block_backward(
+        return (None, None, None) + vit_block_backward(
             x, dict(zip(PARAM_ORDER, flat)), g, ctx.num_heads,
-            ctx.fast_gelu, ctx.needs_input_grad[2:])
+            ctx.fast_gelu, ctx.needs_input_grad[3:], reduce=ctx.reduce)
 
 
 def vit_block_fused_trainable(x: torch.Tensor, params: dict, num_heads: int,
-                              fast_gelu: bool = False) -> torch.Tensor:
+                              fast_gelu: bool = False,
+                              reduce=None) -> torch.Tensor:
     """:func:`vit_block_fused` with a backward: (B, N, C) tokens -> (B, N, C)
     bf16. ``params`` is the flat dict of :func:`block_params` in any float
     dtype (f32 masters are cast per call, as the JAX function casts them).
@@ -639,8 +714,8 @@ def vit_block_fused_trainable(x: torch.Tensor, params: dict, num_heads: int,
     residuals a per-block checkpoint would keep, so do not wrap it in
     ``torch.utils.checkpoint``: a training step costs the kernels' forward,
     then :func:`vit_block_backward` (a recompute and the backward
-    kernels)."""
-    return _VitBlockTrainable.apply(num_heads, fast_gelu, x,
+    kernels). ``reduce``: tensor parallelism, as :func:`vit_block_fused`."""
+    return _VitBlockTrainable.apply(num_heads, fast_gelu, reduce, x,
                                     *(params[k] for k in PARAM_ORDER))
 
 

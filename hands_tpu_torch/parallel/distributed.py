@@ -124,19 +124,20 @@ def host_shard_range(global_batch: int) -> Tuple[int, int]:
     return start, start + per_host
 
 
-def gather_to_host(tree: dict) -> dict:
-    """Every rank's rows of each tensor, concatenated in rank order, on every
-    rank: an all-gather of the metric rows (a collective: every rank calls
-    it). Non-tensor values pass through; nothing happens for one process."""
-    if not is_multiprocess():
+def gather_to_host(tree: dict, dp: Optional[DataGroup] = None) -> dict:
+    """Every data rank's rows of each tensor, concatenated in rank order, on
+    every rank: an all-gather of the metric rows over ``dp`` (a collective:
+    every rank of it calls it). Non-tensor values pass through; nothing
+    happens without ``dp``."""
+    if dp is None:
         return tree
     out = {}
     for k, v in tree.items():
         if not torch.is_tensor(v):
             out[k] = v
             continue
-        parts = [torch.empty_like(v) for _ in range(dist.get_world_size())]
-        dist.all_gather(parts, v.contiguous())
+        parts = [torch.empty_like(v) for _ in range(dp.world)]
+        dist.all_gather(parts, v.contiguous(), group=dp.group)
         out[k] = torch.cat(parts, dim=0)
     return out
 

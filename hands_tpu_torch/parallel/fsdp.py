@@ -86,10 +86,17 @@ def shard_units(model: nn.Module) -> List[object]:
 def shard_model(model: nn.Module, mesh) -> None:
     """``fully_shard`` the units of :func:`shard_units` and the root over
     ``mesh`` (one ``"data"`` axis) by the rule of :func:`shard_dim`. Every
-    rank must hold the same values first."""
+    rank must hold the same values first. A model that tensor parallelism
+    shards is refused (the FSDP x TP hybrid is ROADMAP item 11's)."""
     from torch.distributed.fsdp import fully_shard
     from torch.distributed.tensor import Shard
 
+    from hands_tpu_torch.parallel.sharding import tp_shard_of
+
+    if any(tp_shard_of(p) is not None for p in model.parameters()):
+        raise NotImplementedError(
+            "FSDP over a tensor-parallel model (the JAX fsdp_tp_shardings "
+            "hybrid) is not ported: ROADMAP queue 1 item 11 (Parallel axes)")
     dims, whole = {}, set()
     for name, p in model.named_parameters():
         d = shard_dim(name, p.shape, mesh.size())

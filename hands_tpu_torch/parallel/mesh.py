@@ -1,26 +1,42 @@
-"""The data-parallel mesh (port of ``hands_tpu/parallel/mesh.py``).
+"""Meshes of ranks and the collectives of the parallel axes (port of
+``hands_tpu/parallel/mesh.py``).
 
-The JAX package trains data-parallel by placing one batch-sharded global
-array on a ``("data",)`` mesh; XLA then takes BatchNorm's moments over the
-global batch and inserts the gradient ``psum``. Here each process is one rank
-of a ``torch.distributed`` group and holds its rows of every global batch
-(:func:`shard_batch`); the step reduces the gradients itself
-(``train/step.py``), and while it runs (:func:`data_parallel`) BatchNorm
-all-reduces its two moments (``models/backbones/resnet.py``) and dropout
-takes this rank's rows of the mask one process would draw for the global
-batch (``models/heads/hmr.py``). So a step over n ranks equals the
-one-process step on the global batch, up to the order of its sums.
+The JAX package places arrays on a ``jax.sharding.Mesh`` and lets XLA insert
+the collectives. Here each process is one rank of a ``torch.distributed``
+group. :func:`make_mesh` lays the ranks out as the JAX ``make_mesh`` lays out
+its devices (``-1`` resolved, row-major, as ``np.reshape``) and brings up one
+process group per line of each axis; :meth:`Mesh.axis` is this rank's
+:class:`AxisGroup` on an axis. On a ``("data", "model")`` mesh of (1, 2),
+ranks 0 and 1 form one ``model`` group and each is a ``data`` group alone.
 
-Only the data axis is ported: a mesh with another axis (the JAX trainer
-accepts ``("data", "model")`` and replicates over ``model``) is ROADMAP queue
-1 item 11's remainder, with tensor, sequence and pipeline parallelism.
+**The data axis.** The JAX package trains data-parallel by placing one
+batch-sharded global array on the ``"data"`` axis; XLA then takes BatchNorm's
+moments over the global batch and inserts the gradient ``psum``. Here each
+rank holds its rows of every global batch (:func:`shard_batch`); the step
+reduces the gradients itself (``train/step.py``), and while it runs
+(:func:`data_parallel`) BatchNorm all-reduces its two moments
+(``models/backbones/resnet.py``) and dropout takes this rank's rows of the
+mask one process would draw for the global batch (``models/heads/hmr.py``).
+So a step over n ranks equals the one-process step on the global batch, up
+to the order of its sums.
+
+**The model axes** (``parallel/{sharding,sequence,pipeline}.py``) move
+activations with two differentiable collectives: :func:`ppermute` (the
+JAX ``lax.ppermute`` by a shift) and :func:`all_gather` (``lax.all_gather``,
+tiled). gloo carries CUDA tensors through the host in its collectives, but
+point-to-point ``send``/``recv`` of CUDA tensors is not relied on: the hop
+of :func:`ppermute` is an all-gather of which each rank keeps its source's
+part (n times the bytes of a send on n ranks). A bf16 or f16 tensor crosses
+as its bytes, viewed as uint8, in a copy (:func:`gather_parts`; gloo gathers
+no int16) and as f32 in a sum (:func:`sum_over`), so no collective carries a
+16-bit float.
 """
 
 from __future__ import annotations
 
 import contextlib
 from dataclasses import dataclass
-from typing import Iterator, Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -37,30 +53,102 @@ def resolve_shape(mesh_shape: Sequence[int], world: int) -> list:
     return shape
 
 
-def check_data_axes(mesh_shape: Sequence[int],
-                    axis_names: Sequence[str]) -> None:
-    """Refuse what is not ported: any axis but one ``"data"`` axis."""
-    if tuple(axis_names) != ("data",) or len(tuple(mesh_shape)) != 1:
-        raise NotImplementedError(
-            f"mesh {tuple(mesh_shape)} over axes {tuple(axis_names)}: only "
-            f"the data axis is ported; tensor, sequence and pipeline axes are "
-            f"ROADMAP queue 1 item 11")
+def layout(mesh_shape: Sequence[int], world: int) -> np.ndarray:
+    """The ranks of a ``mesh_shape`` mesh over ``world`` ranks, laid out as
+    the JAX ``make_mesh`` lays out devices: ``-1`` resolved, a prefix of the
+    ranks, reshaped row-major."""
+    shape = resolve_shape(mesh_shape, world)
+    n = int(np.prod(shape))
+    if n > world or n < 1:
+        raise ValueError(f"mesh {tuple(shape)} over a world of {world}")
+    return np.arange(n).reshape(shape)
+
+
+def axis_lines(ranks: np.ndarray, index: int) -> list:
+    """The lines of ``ranks`` along axis ``index``: the rank lists that
+    share every other coordinate, in row-major order of those."""
+    moved = np.moveaxis(ranks, index, -1)
+    return [[int(r) for r in line]
+            for line in moved.reshape(-1, ranks.shape[index])]
+
+
+@dataclass(frozen=True)
+class AxisGroup:
+    """The ranks of one line of a mesh axis: their process group (``None``
+    for the default group), this rank's coordinate on the axis and the
+    axis' size."""
+    group: Optional[object]
+    rank: int
+    world: int
+
+
+DataGroup = AxisGroup  # the ranks a data-parallel step runs over
+
+
+class Mesh:
+    """A mesh of the ranks of the default group (see :func:`make_mesh`):
+    ``shape`` {axis: size}, ``ranks`` the layout, and one process group per
+    line of each axis (every rank takes part in creating each of them, as
+    ``torch.distributed.new_group`` asks)."""
+
+    def __init__(self, mesh_shape: Sequence[int], axis_names: Sequence[str],
+                 device_type: str = "cuda"):
+        world, rank = dist.get_world_size(), dist.get_rank()
+        self.ranks = layout(mesh_shape, world)
+        if self.ranks.size != world:
+            raise ValueError(f"mesh of {self.ranks.size} ranks over a world "
+                             f"of {world}")
+        if len(axis_names) != self.ranks.ndim:
+            raise ValueError(f"{len(axis_names)} names for a mesh of "
+                             f"{self.ranks.ndim} axes")
+        self.axis_names = tuple(axis_names)
+        self.shape = dict(zip(self.axis_names, self.ranks.shape))
+        self.device_type = device_type
+        self._axes: Dict[str, AxisGroup] = {}
+        for i, name in enumerate(self.axis_names):
+            for line in axis_lines(self.ranks, i):
+                group = None if len(line) == world else dist.new_group(line)
+                if rank in line:
+                    self._axes[name] = AxisGroup(group, line.index(rank),
+                                                 len(line))
+
+    @classmethod
+    def alone(cls, axis_names: Sequence[str],
+              device_type: str = "cuda") -> "Mesh":
+        """This process as a mesh of one rank (every axis of size 1, no
+        process group): the one-process counterpart of a mesh's path, whose
+        moves are then copies."""
+        mesh = cls.__new__(cls)
+        mesh.axis_names = tuple(axis_names)
+        mesh.ranks = np.zeros((1,) * len(mesh.axis_names), np.int64)
+        mesh.shape = {name: 1 for name in mesh.axis_names}
+        mesh.device_type = device_type
+        mesh._axes = {name: AxisGroup(None, 0, 1) for name in mesh.axis_names}
+        return mesh
+
+    def axis(self, name: str) -> AxisGroup:
+        """This rank's line of axis ``name``."""
+        return self._axes[name]
+
+    def device_mesh(self, name: str):
+        """A one-axis ``DeviceMesh`` of this rank's line of ``name`` (FSDP2's
+        mesh): over every rank when the line is the world."""
+        from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+        ax = self.axis(name)
+        if ax.group is None:
+            return init_device_mesh(self.device_type, (ax.world,),
+                                    mesh_dim_names=(name,))
+        return DeviceMesh.from_group(ax.group, self.device_type,
+                                     mesh_dim_names=(name,))
 
 
 def make_mesh(mesh_shape: Sequence[int] = (-1,),
               axis_names: Sequence[str] = ("data",),
-              device_type: str = "cuda"):
-    """A one-axis ``DeviceMesh`` over every rank of the default group (the
-    process group must be up). ``-1`` resolves to the world size."""
-    from torch.distributed.device_mesh import init_device_mesh
-
-    check_data_axes(mesh_shape, axis_names)
-    world = dist.get_world_size()
-    shape = resolve_shape(mesh_shape, world)
-    if shape[0] != world:
-        raise ValueError(f"mesh of {shape[0]} ranks over a world of {world}")
-    return init_device_mesh(device_type, tuple(shape),
-                            mesh_dim_names=tuple(axis_names))
+              device_type: str = "cuda") -> Mesh:
+    """A :class:`Mesh` over every rank of the default group (the process
+    group must be up), by the JAX ``make_mesh`` rules."""
+    return Mesh(mesh_shape, axis_names, device_type)
 
 
 def rows(n_global: int, rank: int, world: int) -> slice:
@@ -85,14 +173,6 @@ def shard_batch(batch, rank: int, world: int):
     if isinstance(batch, (torch.Tensor, np.ndarray)) and batch.ndim > 0:
         return batch[rows(batch.shape[0], rank, world)]
     return batch
-
-
-@dataclass(frozen=True)
-class DataGroup:
-    """The ranks a data-parallel step runs over."""
-    group: Optional[object]
-    rank: int
-    world: int
 
 
 _ACTIVE: Optional[DataGroup] = None
@@ -192,3 +272,72 @@ def _buckets(tensors, bucket_bytes):
         out.append(cur)
     return out
 
+
+# -------------------------------------------------- the model axes' moves
+_NARROW = (torch.bfloat16, torch.float16)
+
+
+def gather_parts(x: torch.Tensor, ax: AxisGroup) -> List[torch.Tensor]:
+    """Every rank's ``x`` on this rank, in rank order (one ``all_gather``;
+    a 16-bit float crosses as its bytes, viewed as uint8: gloo gathers no
+    int16)."""
+    if ax.world == 1:
+        return [x]
+    src = x.contiguous()
+    if x.dtype in _NARROW:
+        src = src.reshape(-1).view(torch.uint8)
+    parts = [torch.empty_like(src) for _ in range(ax.world)]
+    dist.all_gather(parts, src, group=ax.group)
+    return [p.view(x.dtype).view(x.shape) for p in parts]
+
+
+def sum_over(x: torch.Tensor, ax: AxisGroup) -> torch.Tensor:
+    """``x`` summed over the ranks of ``ax`` (a new tensor; a 16-bit float
+    is summed in f32 and rounded back once)."""
+    y = x.float() if x.dtype in _NARROW else x.clone()
+    if ax.world > 1:
+        dist.all_reduce(y, group=ax.group)
+    return y.to(x.dtype)
+
+
+def ppermute_raw(x: torch.Tensor, ax: AxisGroup, shift: int) -> torch.Tensor:
+    """Rank r receives rank (r - shift) mod n's ``x`` (every rank calls)."""
+    return gather_parts(x, ax)[(ax.rank - shift) % ax.world]
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, ax, shift, x):
+        ctx.ax, ctx.shift = ax, shift
+        return ppermute_raw(x, ax, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None, ppermute_raw(g, ctx.ax, -ctx.shift)
+
+
+def ppermute(x: torch.Tensor, ax: AxisGroup, shift: int = 1
+             ) -> torch.Tensor:
+    """``lax.ppermute`` with the pairs (i, i + shift mod n): rank r gets rank
+    r - shift's ``x``; its gradient travels back by the opposite shift."""
+    return _PPermute.apply(ax, shift, x)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, ax, dim, x):
+        ctx.ax, ctx.dim = ax, dim
+        return torch.cat(gather_parts(x, ax), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        total = sum_over(g, ctx.ax)
+        return None, None, total.chunk(ctx.ax.world, ctx.dim)[
+            ctx.ax.rank].contiguous()
+
+
+def all_gather(x: torch.Tensor, ax: AxisGroup, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in rank order
+    (``lax.all_gather(..., tiled=True)``); the gradient of this rank's ``x``
+    is its slice of the gradient summed over the ranks."""
+    return _AllGather.apply(ax, dim, x)

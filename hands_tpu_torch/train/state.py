@@ -22,7 +22,9 @@ Under FSDP (``parallel/fsdp.py``) the optimiser holds each rank's shard of a
 sharded parameter, and the moments and the accumulated gradient are made from
 it, so they are sharded alike; the clip's norm sums the shards' squares over
 the ranks (one all-reduce), so every rank clips by the norm of the whole
-gradient.
+gradient. A parameter that tensor parallelism shards over the model ranks
+(``parallel/sharding.py``) is held and updated as its shard likewise, and
+its squares are summed over its model group.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from torch import nn
 from hands_tpu_torch.config import Config
 from hands_tpu_torch.parallel import fsdp
 from hands_tpu_torch.parallel.mesh import DataGroup, all_reduce_sum
+from hands_tpu_torch.parallel.sharding import tp_shard_of
 
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8
 
@@ -73,8 +76,15 @@ class Optimizer:
         # the model's parameters, sharded ones as FSDP holds them; the update
         # reads and writes :attr:`params`
         self.model_params = params
+        # the gradients that are shards, and the group whose ranks hold the
+        # other shards: FSDP's over the data ranks, or tensor parallelism's
+        # over the model ranks (the two together are refused)
         self.sharded = [fsdp.is_sharded(p) for p in params]
         self.dp = dp
+        tp = [tp_shard_of(p) for p in params]
+        if any(t is not None for t in tp):
+            self.sharded = [t is not None for t in tp]
+            self.dp = next(t.tp for t in tp if t is not None)
         params = self.params
         self.mu = [torch.zeros_like(p) for p in params]
         self.nu = [torch.zeros_like(p) for p in params]

@@ -25,13 +25,21 @@ it its rows of every global batch (``shard``), the steps reduce over the
 ranks (``train/step.py``), and the step equals the one-process step on the
 global batch. Before the state is made the model is placed once
 (:meth:`place_model`): rank 0's values go to every rank, and with ``fsdp``
-the model is sharded (``parallel/fsdp.py``); otherwise its parameters stay
-replicated, as DDP keeps them. With one process ``fsdp`` changes nothing, as
-in JAX on one device. Rank 0 alone logs and writes checkpoints; validation
-gathers the metric rows of every rank, so each means the same arrays; the
-overlays are drawn by one-process runs only, as in JAX. Only the data axis is
-ported: a ``mesh_axis_names`` with another axis raises (ROADMAP queue 1 item
-11).
+the model is sharded over the data ranks (``parallel/fsdp.py``); otherwise
+its parameters stay replicated, as DDP keeps them. With one process ``fsdp``
+changes nothing, as in JAX on one device. Rank 0 alone logs and writes
+checkpoints; validation gathers the metric rows of every data rank, so each
+means the same arrays; the overlays are drawn by one-process runs only, as
+in JAX.
+
+A mesh of several axes (``mesh_shape`` (2, 2) over ``("data", "model")``)
+is taken as the JAX trainer takes it: batches are sharded over ``"data"``
+and replicated over the other axes, and so are the parameters. A rank loads
+the rows of its data coordinate (``data/factory.py``), the gradients are
+reduced over its data group only (``dp``; :attr:`Trainer.data_shard`
+is what its loaders take), and the ranks of one data
+coordinate take the same steps on the same rows: replicas. Tensor
+parallelism is ``parallel/sharding.py``'s, outside the trainer.
 """
 
 from __future__ import annotations
@@ -48,10 +56,11 @@ from hands_tpu_torch.config import Config
 from hands_tpu_torch.core.precision import f32_exact
 from hands_tpu_torch.core.xdict import XDict, device_view
 from hands_tpu_torch.parallel import mesh as mesh_lib
-from hands_tpu_torch.parallel.distributed import (data_group, gather_to_host,
+from hands_tpu_torch.parallel.distributed import (gather_to_host,
+                                                  is_multiprocess,
                                                   process_index)
 from hands_tpu_torch.parallel.fsdp import shard_model
-from hands_tpu_torch.parallel.mesh import check_data_axes, make_mesh
+from hands_tpu_torch.parallel.mesh import AxisGroup, make_mesh
 from hands_tpu_torch.train.checkpoint import (CheckpointManager,
                                               graft_backbone_variables)
 from hands_tpu_torch.train.process import process_data_light
@@ -68,18 +77,22 @@ def _sync(device: torch.device) -> None:
 class Trainer:
     def __init__(self, cfg: Config, model,
                  experiment: Optional[Experiment] = None):
-        check_data_axes(cfg.mesh_shape, cfg.mesh_axis_names)
         self.cfg = cfg
         self.model = model
         self.device = next(model.parameters()).device
         self.exp = experiment or Experiment(cfg)
         self.ckpt = CheckpointManager(self.exp.ckpt_dir)
-        # the data ranks (None for one process) and, with fsdp, their mesh
-        self.dp = data_group()
-        self.fsdp = bool(cfg.get("fsdp", False)) and self.dp is not None
+        # the mesh of the ranks (None for one process) and this rank's data
+        # group (None unless the data axis spans several ranks)
         self.mesh = (make_mesh(cfg.mesh_shape, cfg.mesh_axis_names,
                                self.device.type)
-                     if self.dp is not None else None)
+                     if is_multiprocess() else None)
+        if self.mesh is not None and "data" not in self.mesh.shape:
+            raise ValueError(f"mesh axes {self.mesh.axis_names}: the trainer "
+                             f"shards batches over a 'data' axis")
+        data = self.mesh.axis("data") if self.mesh is not None else None
+        self.dp = data if data is not None and data.world > 1 else None
+        self.fsdp = bool(cfg.get("fsdp", False)) and self.dp is not None
         self._placed = False
         self.train_step = make_train_step(model, cfg, self.dp)
         metric_specs = (
@@ -93,18 +106,26 @@ class Trainer:
     # ---------------------------------------------------------- placement
     def place_model(self) -> None:
         """Once, before the train state is made: rank 0's parameters and
-        buffers to every rank, then FSDP's sharding under ``fsdp``. Nothing
-        for one process."""
-        if self.dp is None or self._placed:
+        buffers to every rank, then FSDP's sharding over the data ranks under
+        ``fsdp``. Nothing for one process."""
+        if self.mesh is None or self._placed:
             return
+        world = AxisGroup(None, process_index(), self.mesh.ranks.size)
         mesh_lib.broadcast_(list(self.model.parameters())
-                            + list(self.model.buffers()), self.dp)
+                            + list(self.model.buffers()), world)
         if self.fsdp:
-            shard_model(self.model, self.mesh)
+            shard_model(self.model, self.mesh.device_mesh("data"))
         self._placed = True
 
+    @property
+    def data_shard(self) -> tuple:
+        """(this rank's coordinate on the mesh's ``"data"`` axis, the axis'
+        size): the rows of every global batch its loaders must yield
+        (``data/factory.py:fetch_dataloader``'s ``shard``)."""
+        return (0, 1) if self.dp is None else (self.dp.rank, self.dp.world)
+
     def _check_loader(self, loader) -> None:
-        want = (0, 1) if self.dp is None else (self.dp.rank, self.dp.world)
+        want = self.data_shard
         have = tuple(getattr(loader, "shard", want))
         if have != want:
             raise ValueError(f"loader shard {have}, but this is rank "
@@ -206,7 +227,7 @@ class Trainer:
                 val_metrics = self.validate(state, val_loader)
                 self.exp.log_dict(val_metrics, global_step, postfix="__val")
                 self.ckpt.save_top_k(state, epoch, val_metrics["loss"])
-                if not cfg.no_vis and self.dp is None:
+                if not cfg.no_vis and self.mesh is None:
                     self.visualize(state, val_loader, global_step)
             self.ckpt.save_last(state, epoch + 1)
         if tracer is not None:
@@ -262,14 +283,14 @@ class Trainer:
         """Eval epoch: ``nanmean`` of the concatenated per-image metric
         arrays and the mean of the per-batch losses. The model runs in eval
         mode (running statistics, no dropout) and is left there. Over
-        several ranks every rank gathers the metric rows of all, so each
-        means the same arrays (the losses are global already)."""
+        several data ranks every rank gathers the metric rows of all, so
+        each means the same arrays (the losses are global already)."""
         metric_arrays = defaultdict(list)
         losses = defaultdict(list)
         for inputs, targets, meta in val_loader:
             metrics, logs = self.eval_step(
                 state, (inputs, targets, device_view(meta)))
-            metrics = gather_to_host(dict(metrics))
+            metrics = gather_to_host(dict(metrics), self.dp)
             for k, v in metrics.items():
                 metric_arrays[k].append(v)
             for k, v in logs.items():

@@ -151,6 +151,14 @@ def test_export_params_args_round_trip(arctic, tmp_path):
         close(run(arctic["raw"]), arctic["live"], 1e-6)
 
 
+def test_vit_depth_needs_a_vit(tmp_path):
+    """``--vit_depth`` cuts a ViT's blocks; a model without one refuses it
+    before anything is exported."""
+    with pytest.raises(ValueError, match="has no ViT"):
+        ex.main(CLI + ["--vit_depth", "2", "-o", str(tmp_path / "x.pt2")])
+    assert not (tmp_path / "x.pt2").exists()
+
+
 def test_cuda_export_without_a_card_raises(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the export would run")

@@ -7,7 +7,10 @@ bf16 and one int8 request, run the WildHands evaluation forward (ResNet-18,
 render and grasp on) and its int8 serving, take a train step and an eval step
 with each model family on a synthetic batch (K4's Function, BatchNorm in
 train mode, dropout from a generator, the optimiser, the metrics), time the
-nine modes of the int8 block ablation on a small probe, run a ``--debug``
+nine modes of the int8 block ablation on a small probe, run the
+model-parallel axes on a mesh of this process alone (``Mesh.alone``: both
+sequence-parallel attentions, the pipeline, a tensor-parallel and a ringed
+tiny ViT against the plain one), run a ``--debug``
 epoch through ``cli.train`` (train-mode preprocessing, the prefetching loader,
 the trainer, checkpoints, the experiment log), draw the overlays of a served
 batch (without matplotlib, which the card's machine lacks), pack synthetic
@@ -142,6 +145,33 @@ for name in ("utils.vis", "render.software", "core.object_tensors",
              "data.arctic_processing", "ops.smplx_body", "ops.knn",
              "train.metrics_object", "cli.sample_data", "cli.verify_setup"):
     assert f"hands_tpu_torch.{name}" in sys.modules, name
+from hands_tpu_torch.models.backbones.vit import ViTBackbone
+from hands_tpu_torch.models.registry import init_weights_
+from hands_tpu_torch.parallel import pipeline, sequence, sharding
+from hands_tpu_torch.parallel.mesh import Mesh
+alone = Mesh.alone(("data", "model"), "cpu")  # the axes on one process
+one = alone.axis("model")
+q = torch.randn(1, 8, 2, 16, generator=torch.Generator().manual_seed(0))
+want = sequence.mha_reference(q, q, q)
+for fn in (sequence.sp_attention, sequence.ring_attention):
+    assert torch.allclose(fn(q, q, q, one), want, atol=1e-6), fn.__name__
+assert torch.equal(pipeline.pipeline_apply(lambda p, x: x * p, 2.0, q, one),
+                   q * 2.0)
+img = torch.rand(2, 64, 48, 3, generator=torch.Generator().manual_seed(1))
+for kw, tol in ((dict(dtype=torch.bfloat16, fused_block=True), 3e-2),
+                (dict(dtype=torch.float32, ring=alone), 1e-5)):
+    bb = ViTBackbone("tiny", img_hw=(64, 48), **kw)
+    init_weights_(bb, torch.Generator().manual_seed(2))
+    ref = ViTBackbone("tiny", img_hw=(64, 48), dtype=kw["dtype"],
+                      fused_block=kw.get("fused_block", False))
+    ref.load_state_dict(bb.state_dict())
+    if "ring" not in kw:
+        sharding.shard_vit_tp(bb, one)
+    with torch.no_grad():
+        assert torch.allclose(bb(img), ref(img), atol=tol), kw
+for name in ("parallel.mesh", "parallel.sharding", "parallel.sequence",
+             "parallel.pipeline", "cli.parallel_check"):
+    assert f"hands_tpu_torch.{name}" in sys.modules, name
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                     "hands_tpu"))
@@ -200,7 +230,10 @@ def test_port_sources_name_no_jax_import():
             "hands_tpu_torch/train/metrics_object.py",
             "hands_tpu_torch/data/arctic_processing.py",
             "hands_tpu_torch/cli/sample_data.py",
-            "hands_tpu_torch/cli/verify_setup.py"} <= names
+            "hands_tpu_torch/cli/verify_setup.py",
+            "hands_tpu_torch/parallel/sharding.py",
+            "hands_tpu_torch/parallel/sequence.py",
+            "hands_tpu_torch/parallel/pipeline.py"} <= names
     bad = [f"{f.relative_to(REPO)}:{n}: {line.strip()}"
            for f in files
            for n, line in enumerate(f.read_text().splitlines(), 1)

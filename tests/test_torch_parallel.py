@@ -7,9 +7,10 @@
   (``jax_order``), picks the dimension that the JAX rule picks on the JAX
   leaf (carried across by ``utils/from_jax`` as a marker array), at the
   default floor and with every leaf large enough.
-- ``host_shard_range`` and the mesh's ``-1`` equal the JAX ones; a mesh with
-  an axis other than ``"data"`` raises, naming ROADMAP item 11; the backend
-  rule (NCCL with a card per rank, else gloo).
+- ``host_shard_range`` and the mesh's ``-1`` equal the JAX ones; a mesh of
+  any axes lays its ranks out as the JAX ``make_mesh`` lays out devices, and
+  its process groups are the lines of that layout; the backend rule (NCCL
+  with a card per rank, else gloo).
 - Each rank's loader (``DeviceDataLoader(shard=(r, 2))``, eval mode) against
   the JAX loader of the same shard on records, on the packed set and on a
   ``synthetic+synthetic`` mix, with and without ``drop_last``: images to
@@ -169,7 +170,7 @@ def test_shard_units_are_blocks_and_stages():
 
 
 # ----------------------------------------------------------- mesh, ranks
-def test_host_shard_range_and_mesh_shape_equal_jax():
+def test_host_shard_range_and_mesh_shape_equal_jax(devices):
     for pid in range(4):
         with mock.patch.object(jax, "process_index", lambda: pid), \
                 mock.patch.object(jax, "process_count", lambda: 4), \
@@ -181,10 +182,16 @@ def test_host_shard_range_and_mesh_shape_equal_jax():
         assert mesh.resolve_shape(shape, world)[-1] == (
             world // (2 if len(shape) == 2 else 1)
             if -1 in shape else shape[-1])
-    mesh.check_data_axes((-1,), ("data",))
-    for shape, axes in (((1, 2), ("data", "model")), ((2,), ("model",))):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            mesh.check_data_axes(shape, axes)
+    for shape, axes in (((-1,), ("data",)), ((1, 2), ("data", "model")),
+                        ((2, -1), ("data", "model")), ((4,), ("model",)),
+                        ((2, 2, 2), ("data", "model", "pipe"))):
+        ids = np.vectorize(lambda d: d.id)(
+            jax_make_mesh(shape, axes, devices=devices).devices)
+        ranks = mesh.layout(shape, len(devices))
+        np.testing.assert_array_equal(ranks, ids - devices[0].id)
+        for i in range(len(axes)):  # a process group per line of an axis
+            want = np.moveaxis(ranks, i, -1).reshape(-1, ranks.shape[i])
+            assert mesh.axis_lines(ranks, i) == want.tolist()
 
 
 def test_backend_rule_and_addresses():

@@ -273,9 +273,25 @@ def test_debug_stops_on_a_non_finite_loss_and_what_is_left_out(tmp_path):
     # the multi-process runs are tests/test_torch_multiprocess.py's
     alone = Trainer(tiny_cfg(fsdp=True), model, trainer.exp)
     assert alone.dp is None and not alone.fsdp and alone.mesh is None
-    with pytest.raises(NotImplementedError, match="item 11"):
-        Trainer(tiny_cfg(mesh_shape=(1, 2), mesh_axis_names=("data", "model")),
-                model, trainer.exp)
+    # a ("data", "model") mesh in one process trains as the JAX trainer
+    # does there (it builds no mesh): the one-process step, unchanged; the
+    # mesh over ranks is tests/test_torch_sharding_tp.py's
+    from hands_tpu_torch.core.xdict import device_view
+    from hands_tpu_torch.train.state import create_train_state
+
+    mcfg = gcfg.replace(mesh_shape=(1, 2), mesh_axis_names=("data", "model"))
+    meshed = Trainer(mcfg, gmodel, trainer.exp)
+    assert meshed.dp is None and meshed.mesh is None
+    inputs, targets, meta = next(iter(train_loader))
+    before = {k: v.clone() for k, v in gmodel.state_dict().items()}
+    logs = []
+    for t in (Trainer(gcfg, gmodel, trainer.exp), meshed):
+        gmodel.load_state_dict(before)
+        logs.append({k: float(v) for k, v in t.train_step(
+            create_train_state(t.cfg, gmodel),
+            (inputs, targets, device_view(meta)),
+            torch.Generator().manual_seed(0))[1].items()})
+    assert logs[0] == logs[1] and np.isfinite(logs[0]["loss"])
 
 
 # ------------------------------------------------------------------- parity
@@ -402,18 +418,30 @@ def _queue1_titles():
 
 def _left_out(what, where):
     """Call what the port has not ported yet; return its message."""
-    cfg = tiny_cfg()
+    from hands_tpu_torch.parallel.fsdp import shard_model
+    from hands_tpu_torch.parallel.mesh import AxisGroup
+    from hands_tpu_torch.parallel.sharding import shard_vit_tp
+
+    two = AxisGroup(None, 0, 2)  # rank 0 of 2 model ranks: no collective
+
+    def hamer(**kw):
+        cfg = default_config("hamer_light", use_render_seg_loss=False, **kw)
+        return fetch_model(cfg, "cpu", vit_variant="tiny")
+
     calls = {
-        "tp_mesh": lambda: Trainer(
-            cfg.replace(mesh_shape=(1, 2), mesh_axis_names=("data", "model")),
-            fetch_model(cfg, "cpu"), Experiment(cfg, root=str(where))),
+        # tensor parallelism on the int8 blocks (K5, K6)
+        "tp_int8": lambda: shard_vit_tp(
+            hamer(compute_dtype="bfloat16", quant_int8=True), two),
+        # FSDP over a tensor-parallel model (fsdp_tp_shardings)
+        "fsdp_tp": lambda: shard_model(shard_vit_tp(hamer(), two), None),
     }
     with pytest.raises(NotImplementedError) as err:
         calls[what]()
     return str(err.value)
 
 
-@pytest.mark.parametrize("what,title", [("tp_mesh", "Parallel axes")])
+@pytest.mark.parametrize("what,title", [("tp_int8", "Parallel axes"),
+                                        ("fsdp_tp", "Parallel axes")])
 def test_what_is_left_out_names_its_roadmap_item(what, title, tmp_path):
     """ROADMAP queue 3, fault 3: every ``NotImplementedError`` of the port
     points at the ``ROADMAP.md`` queue 1 item that ports it."""
